@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of ``cilium_tpu``'s r2d2 L7 verdict path.
+"""PyTorch + CUDA port of ``cilium_tpu``'s r2d2 and HTTP L7 verdict paths.
 
 The JAX package stays the reference; this package imports neither JAX nor
 anything of ``cilium_tpu``.  Where it needs one of that package's jax-free
@@ -8,6 +8,11 @@ Path: NPDS ``NetworkPolicy`` -> ``proxylib.policy.compile_policy`` ->
 ``models.r2d2.build_r2d2_model`` (automaton tables on the card) ->
 ``models.r2d2.r2d2_verdicts`` (kernels K1 frame, K2/K3 automaton scan,
 K4 rule hits) -> ``runtime.batch.R2d2BatchEngine`` PASS/DROP/MORE ops.
+
+HTTP: NPDS ``http_rules`` -> ``models.http.build_http_model_for_port`` ->
+``models.http.http_verdicts`` (kernels K5 head framing, K6 literal tier,
+K2/K3 on the regex spans, K7 rule hits) ->
+``runtime.engines.HttpBatchEngine`` PASS/DROP ops with 403 injects.
 
 Entry points take ``device=None``, which means the CUDA card; they raise if
 there is none.  The CPU runs the kernels' plain PyTorch versions and is

@@ -1,0 +1,13 @@
+"""Access log records, copied from ``cilium_tpu/accesslog/record.py``
+(reference: pkg/proxy/accesslog/record.go).  The HTTP engine fills one
+``LogRecord`` per judged request; the log server and logger are not part
+of the port yet."""
+
+from .record import (
+    VERDICT_DENIED,
+    VERDICT_FORWARDED,
+    HttpLogEntry,
+    LogRecord,
+)
+
+__all__ = ["HttpLogEntry", "LogRecord", "VERDICT_DENIED", "VERDICT_FORWARDED"]

@@ -1,4 +1,4 @@
-"""Carry a JAX-built r2d2 model's tables over into the port.
+"""Carry a JAX-built r2d2 or HTTP model's tables over into the port.
 
 ``model_from_numpy`` takes the leaves of a ``cilium_tpu`` ``R2d2BatchModel``
 as numpy arrays — ``cmd_needle``, ``cmd_len``, ``cmd_any``, ``remote_ids``,
@@ -10,6 +10,10 @@ keeps a 256-entry classmap and one start id per pattern where the reference
 kept byte ranges and one-hot rows, so those are rebuilt here.  The leaves
 carry no rule rows, so ``match_kinds`` and ``invariant_rows`` are the
 caller's to pass; without rows the model makes no byte-invariance claim.
+
+``http_model_from_numpy`` does the same for the 20 leaves of a
+``cilium_tpu`` ``HttpBatchModel``, whose ``line_nfa`` and ``head_nfa`` are
+each a ``DeviceDfa``'s leaves, a ``DeviceNfa``'s leaves or None.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.http import HttpBatchModel
 from .models.r2d2 import R2d2BatchModel
 from .ops.dfa import DeviceDfa, dfa_from_arrays
 from .ops.nfa import DeviceNfa, nfa_from_dense
@@ -70,10 +75,7 @@ def model_from_numpy(
     from a JAX model's leaves, with the JAX model's ``match_kinds`` and
     ``invariant_rows`` where the caller has them."""
     device = resolve_device(device)
-    automaton = (
-        dfa_from_leaves(leaves, device) if "delta_id" in leaves
-        else nfa_from_leaves(leaves, device)
-    )
+    automaton = automaton_from_leaves(leaves, device)
 
     def up(name, dtype):
         return torch.from_numpy(np.array(leaves[name], dtype)).to(device)
@@ -87,4 +89,53 @@ def model_from_numpy(
         any_remote=up("any_remote", bool),
         match_kinds=tuple(match_kinds),
         invariant_rows=None if invariant_rows is None else tuple(invariant_rows),
+    )
+
+
+# The array leaves of a JAX HttpBatchModel, in its pytree order
+# (cilium_tpu/models/http.py:264-272), without the two automata.
+HTTP_TABLES = {
+    "m_needle": np.uint8, "m_len": np.int32, "m_prefix": bool,
+    "m_rule": np.int32, "m_live": bool,
+    "p_needle": np.uint8, "p_len": np.int32, "p_prefix": bool,
+    "p_rule": np.int32, "p_live": bool,
+    "method_any": bool, "path_any": bool,
+    "line_rule": np.int32, "line_slot": np.int32,
+    "head_rule": np.int32, "head_count": np.int32,
+    "remote_ids": np.int32, "any_remote": bool,
+}
+
+
+def automaton_from_leaves(leaves: dict | None, device):
+    """A ``DeviceDfa`` or ``DeviceNfa`` from the leaves of either, or None."""
+    if leaves is None:
+        return None
+    if "delta_id" in leaves:
+        return dfa_from_leaves(leaves, device)
+    return nfa_from_leaves(leaves, device)
+
+
+def http_model_from_numpy(
+    leaves: dict, device=None, *, n_rules: int, has_method_rx: bool,
+    has_path_rx: bool, match_kinds: tuple = (),
+) -> HttpBatchModel:
+    """The port's ``HttpBatchModel`` on ``device`` (None: the CUDA card)
+    from a JAX model's leaves: the arrays named in ``HTTP_TABLES`` and
+    ``line_nfa`` / ``head_nfa``, each a dict of automaton leaves or None.
+    The JAX model's static fields come as arguments; without its rule
+    rows the model makes no byte-invariance claim."""
+    device = resolve_device(device)
+
+    def up(name, dtype):
+        return torch.from_numpy(np.array(leaves[name], dtype)).to(device)
+
+    return HttpBatchModel(
+        **{name: up(name, dtype) for name, dtype in HTTP_TABLES.items()},
+        line_nfa=automaton_from_leaves(leaves["line_nfa"], device),
+        head_nfa=automaton_from_leaves(leaves["head_nfa"], device),
+        n_rules=n_rules,
+        has_method_rx=has_method_rx,
+        has_path_rx=has_path_rx,
+        match_kinds=tuple(match_kinds),
+        invariant_rows=None,
     )

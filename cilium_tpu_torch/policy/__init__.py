@@ -1,2 +1,2 @@
-"""Policy analysis copied from ``cilium_tpu/policy`` (the r2d2 half of
-``invariance.py``)."""
+"""Policy pieces copied from ``cilium_tpu/policy``: the HTTP rule of
+``api.py`` and the r2d2 and HTTP halves of ``invariance.py``."""

@@ -27,8 +27,8 @@ models/http.collect_http_rows in the JAX package, proxylib policy.matches_at):
   gate re-validates cached (verdict, rule, epoch) against a cold
   recompute.
 
-This is the r2d2 half of ``cilium_tpu/policy/invariance.py``; the DNS and
-HTTP row reductions wait for those models' slices.
+This is the r2d2 and HTTP half of ``cilium_tpu/policy/invariance.py``; the
+DNS row reduction waits for that model's slice.
 
 Rows are reduced to ``(remote_set_or_None, byte_free)`` pairs by the
 model builders (``invariant_rows`` on the batch models, host-side aux
@@ -59,6 +59,19 @@ def reduce_r2d2_rows(rows) -> tuple:
     return tuple(
         (remotes if remotes else None, not cmd and not file_rx)
         for remotes, cmd, file_rx in rows
+    )
+
+
+def reduce_http_rows(rows) -> tuple:
+    """(remote_set_or_None, byte_free) per flattened HTTP row.  A row is
+    byte-free iff the PortRuleHTTP carries no method/path/host/header
+    constraint — the pure-L3/L4 "allow these peers on this port" shape."""
+    return tuple(
+        (
+            remotes if remotes else None,
+            not (r.method or r.path or r.host or r.headers),
+        )
+        for remotes, r in rows
     )
 
 
@@ -96,7 +109,8 @@ MEMO_MAX = 1 << 16  # bound each engine's per-identity claim memo
 class InvariantClaimEngine:
     """Mixin: the engine half of the verdict-cache contract — THE one
     definition behind every engine's ``verdict_invariant``
-    (R2d2BatchEngine here; the JAX package's other engine tiers too).
+    (R2d2BatchEngine and BaseBatchEngine here; the JAX package's other
+    engine tiers too).
 
     ``verdict_invariant(remote_id)`` returns ``(allow, rule_row)``
     when every future frame's verdict (and attributed first-match

@@ -1,11 +1,12 @@
 """Host policy compile for the port: the NPDS wire model, the policy-match
-cascade and the r2d2 rule parser.
+cascade and the r2d2 and HTTP rule parsers.
 
-Copies of the jax-free ``cilium_tpu/proxylib`` modules the r2d2 slice
-needs (``types``, ``npds``, ``parser``, ``policy``, ``accesslog`` and the
-rule half of ``parsers/r2d2``).  ``PolicyInstance.matches_at`` is the host
-oracle the device verdicts are held against.  The streaming connection and
-instance layers are not part of this slice.
+Copies of the jax-free ``cilium_tpu/proxylib`` modules the r2d2 and HTTP
+slices need (``types``, ``npds``, ``parser``, ``policy``, ``accesslog``,
+the rule half of ``parsers/r2d2`` and ``parsers/http``).
+``PolicyInstance.matches_at`` is the host oracle the device verdicts are
+held against.  The streaming connection and instance layers are not part
+of the port yet.
 """
 
 from .types import (

@@ -2,7 +2,8 @@
 
 Like the reference's per-parser ``init()`` functions
 (reference: proxylib/r2d2/r2d2parser.go:133-137).  The port registers the
-r2d2 rule parser only.
+r2d2 and HTTP parsers.
 """
 
 from . import r2d2  # noqa: F401
+from . import http  # noqa: F401

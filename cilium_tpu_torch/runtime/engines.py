@@ -1,0 +1,264 @@
+"""Per-protocol runtime batch engines: the HTTP engine.
+
+Counterpart of ``cilium_tpu/runtime/engines.py`` (``EngineFlow``,
+``BaseBatchEngine`` and ``HttpBatchEngine``) with a port model inside: one
+stacked device-to-host copy per width bucket brings back every verdict
+array.  The runtime analog of the reference's proxy dispatch (reference:
+pkg/proxy/proxy.go:229-236 — HTTP to Envoy): the engine buffers flow
+bytes, frames complete requests, runs the batched verdict model, and
+converts verdicts into filter ops (PASS/DROP + inject), preserving the
+OnIO contract (reference: envoy/cilium_proxylib.cc:125).  The Kafka
+engine and the redirect -> engine factory are not part of the port yet.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..accesslog import (
+    HttpLogEntry,
+    LogRecord,
+    VERDICT_DENIED,
+    VERDICT_FORWARDED,
+)
+from ..models.base import ConstVerdict
+from ..policy.invariance import InvariantClaimEngine
+from ..proxylib.parsers.http import HTTP_403, head_and_body_len
+from ..proxylib.types import DROP, MORE, PASS, OpType
+from ..utils import flowdebug, metrics
+
+# Per-flow debug stream, flowdebug-gated (one boolean when disabled).
+_flow_log = logging.getLogger("cilium_tpu_torch.runtime.flow")
+
+
+@dataclass
+class EngineFlow:
+    flow_id: int
+    remote_id: int
+    dst_id: int = 0
+    ingress: bool = True
+    buffer: bytearray = field(default_factory=bytearray)
+    ops: list[tuple[OpType, int]] = field(default_factory=list)
+    reply_inject: bytearray = field(default_factory=bytearray)
+    inject_capacity: int = 4096
+
+
+class BaseBatchEngine(InvariantClaimEngine):
+    """Shared flow/buffer management (the OnIO byte accounting)."""
+
+    proto = ""
+
+    def __init__(self, capacity: int = 2048, logger=None, flowlog=None):
+        self.capacity = capacity
+        self.logger = logger
+        # Flow-record sink (flowlog/ring.py): subclasses emit ONE
+        # columnar round per _step — never per-request appends.
+        self.flowlog = flowlog
+        self.flows: dict[int, EngineFlow] = {}
+
+    def flow(self, flow_id: int, remote_id: int = 0, **kw) -> EngineFlow:
+        st = self.flows.get(flow_id)
+        if st is None:
+            st = EngineFlow(flow_id=flow_id, remote_id=remote_id, **kw)
+            self.flows[flow_id] = st
+        return st
+
+    def feed(self, flow_id: int, data: bytes, remote_id: int = 0, **kw) -> None:
+        self.flow(flow_id, remote_id, **kw).buffer += data
+
+    def close_flow(self, flow_id: int) -> None:
+        self.flows.pop(flow_id, None)
+
+    def take_ops(self, flow_id: int):
+        st = self.flows[flow_id]
+        ops, inject = st.ops, bytes(st.reply_inject)
+        st.ops = []
+        st.reply_inject = bytearray()
+        return ops, inject
+
+    def pump(self) -> None:
+        while self._step():
+            pass
+        for st in self.flows.values():
+            if st.buffer and (not st.ops or st.ops[-1][0] != MORE):
+                st.ops.append((MORE, 1))
+
+    def _step(self) -> bool:
+        raise NotImplementedError
+
+    def _record_round(self, entries: list, kinds: tuple = ()) -> None:
+        """One flow-record batch per engine step; ``entries`` is
+        [(flow_id, allow, rule)] built by the step's hot loop."""
+        if self.flowlog is None or not entries:
+            return
+        from ..flowlog import CODE_DENIED, CODE_FORWARDED, PATH_ENGINE
+
+        self.flowlog.add_entries(
+            PATH_ENGINE,
+            [
+                (fid, CODE_FORWARDED if allow else CODE_DENIED, rule)
+                for fid, allow, rule in entries
+            ],
+            kinds=kinds,
+        )
+
+    def _emit(self, st: EngineFlow, allow: bool, n: int,
+              inject: bytes = b"", record: LogRecord | None = None) -> None:
+        flowdebug.log(
+            _flow_log, "flow %d %s %s n=%d",
+            st.flow_id, self.proto or type(self).__name__,
+            "PASS" if allow else "DROP", n,
+        )
+        if allow:
+            st.ops.append((PASS, n))
+        else:
+            room = st.inject_capacity - len(st.reply_inject)
+            st.reply_inject += inject[: max(room, 0)]
+            st.ops.append((DROP, n))
+        del st.buffer[:n]
+        if record is not None and self.logger is not None:
+            record.verdict = VERDICT_FORWARDED if allow else VERDICT_DENIED
+            record.source.identity = st.remote_id
+            record.destination.identity = st.dst_id
+            self.logger.log(record)
+
+
+class HttpBatchEngine(BaseBatchEngine):
+    """HTTP request-head framing + device verdicts + 403 injection
+    (reference: envoy/cilium_l7policy.cc request path)."""
+
+    proto = "http"
+
+    # Fixed width/row buckets: padded shapes are drawn from these sets,
+    # so one oversized head does not widen the whole batch.
+    MIN_WIDTH = 512
+    MAX_WIDTH = 1 << 15  # heads beyond this are judged as DENY (absurd)
+    MIN_ROWS = 64
+
+    def __init__(self, model, cache_enabled: bool = False, **kw):
+        super().__init__(**kw)
+        self.model = model
+        # Verdict-cache offload tier (gated — cache-off is the true
+        # baseline): heads of an identity whose claim is byte-invariant
+        # are judged host-side with the claimed rule row, never encoded
+        # into the device batch.
+        self.cache_enabled = cache_enabled
+
+    def _width_bucket(self, head_len: int) -> int:
+        w = self.MIN_WIDTH
+        while w < head_len:
+            w *= 2
+        return w
+
+    def prewarm(self) -> None:
+        """Build and load the kernels and run one pass at the two smallest
+        bucket widths up front, so first requests never pay a build."""
+        if isinstance(self.model, ConstVerdict):
+            return
+        for w in (self.MIN_WIDTH, 2 * self.MIN_WIDTH):
+            out = self.model(
+                np.zeros((self.MIN_ROWS, w), np.uint8),
+                np.zeros((self.MIN_ROWS,), np.int32),
+                np.zeros((self.MIN_ROWS,), np.int32),
+            )
+            out[-1].cpu()
+
+    def _step(self) -> bool:
+        active: list[tuple[EngineFlow, int, int]] = []
+        for st in self.flows.values():
+            # One framing implementation for both HTTP paths (streaming
+            # parser + this engine) so fixes cannot diverge.
+            r = head_and_body_len(bytes(st.buffer))
+            if r is not None:
+                active.append((st, r[0], r[1]))
+        if not active:
+            return False
+        active = active[: self.capacity]
+
+        if isinstance(self.model, ConstVerdict):
+            for st, head_len, body_len in active:
+                self._emit_http(st, bool(self.model.allow), head_len, body_len)
+            self._record_round(
+                [(st.flow_id, bool(self.model.allow), -1)
+                 for st, _, _ in active]
+            )
+            return True
+
+        recs: list[tuple[int, bool, int]] = []
+        # Group flows into per-width buckets so one oversized head does
+        # not force a wide scan for everyone.
+        buckets: dict[int, list[tuple[EngineFlow, int, int]]] = {}
+        cache_hits = 0
+        for st, head_len, body_len in active:
+            if head_len > self.MAX_WIDTH:
+                # Pathological request head: deny without a device pass.
+                self._emit_http(st, False, head_len, body_len)
+                recs.append((st.flow_id, False, -1))
+                continue
+            if self.cache_enabled:
+                claim = self.verdict_invariant(st.remote_id)
+                if claim is not None and claim[0]:
+                    # Byte-invariant allow: the verdict AND the
+                    # first-match row are independent of the head's
+                    # bytes — judged host-side, no device row (deny
+                    # claims keep the normal path so per-frame 403
+                    # injection framing is never skipped).
+                    self._emit_http(st, True, head_len, body_len)
+                    recs.append((st.flow_id, True, claim[1]))
+                    cache_hits += 1
+                    continue
+            buckets.setdefault(
+                self._width_bucket(head_len), []
+            ).append((st, head_len, body_len))
+        for width, group in sorted(buckets.items()):
+            f_pad = self.MIN_ROWS
+            while f_pad < len(group):
+                f_pad *= 2
+            data = np.zeros((f_pad, width), np.uint8)
+            lengths = np.zeros((f_pad,), np.int32)
+            remotes = np.zeros((f_pad,), np.int32)
+            for i, (st, head_len, _) in enumerate(group):
+                data[i, :head_len] = np.frombuffer(
+                    bytes(st.buffer[:head_len]), np.uint8
+                )
+                lengths[i] = head_len
+                remotes[i] = st.remote_id
+            # Attribution only when a record sink is wired: without a
+            # flowlog the rule index would be computed, read back, and
+            # dropped.
+            if self.flowlog is not None:
+                outs = self.model.verdicts_attr(data, lengths, remotes)
+            else:
+                outs = self.model(data, lengths, remotes)
+            # One device-to-host copy for every verdict array of the bucket.
+            host = torch.stack([t.to(torch.int32) for t in outs]).cpu().numpy()
+            allow = host[2] != 0
+            rule = host[3] if self.flowlog is not None else None
+            for i, (st, head_len, body_len) in enumerate(group):
+                self._emit_http(st, bool(allow[i]), head_len, body_len)
+                recs.append((
+                    st.flow_id, bool(allow[i]),
+                    int(rule[i]) if rule is not None else -1,
+                ))
+        if cache_hits:  # one batched inc per step, never per entry
+            metrics.VerdictCacheHits.inc("engine", amount=cache_hits)
+        self._record_round(recs, getattr(self.model, "match_kinds", ()))
+        return True
+
+    def _emit_http(self, st: EngineFlow, allow: bool, head_len: int,
+                   body_len: int) -> None:
+        head = bytes(st.buffer[:head_len])
+        line = head.split(b"\r\n", 1)[0].decode("utf-8", "replace")
+        parts = line.split(" ")
+        method = parts[0] if parts else ""
+        url = parts[1] if len(parts) > 1 else ""
+        rec = LogRecord(
+            http=HttpLogEntry(
+                code=200 if allow else 403, method=method, url=url
+            )
+        )
+        self._emit(st, allow, head_len + body_len, HTTP_403, rec)

@@ -12,7 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from cilium_tpu_torch.models import http as http_mod
 from cilium_tpu_torch.models import r2d2 as r2d2_mod
+from cilium_tpu_torch.models.http import (
+    build_http_model,
+    http_frame,
+    http_frame_plain,
+    http_hits,
+    http_hits_plain,
+    http_lit,
+    http_lit_plain,
+)
 from cilium_tpu_torch.models.r2d2 import (
     build_r2d2_model_from_rows,
     r2d2_frame,
@@ -24,6 +34,8 @@ from cilium_tpu_torch.ops import dfa as dfa_mod
 from cilium_tpu_torch.ops import nfa as nfa_mod
 from cilium_tpu_torch.ops.dfa import device_dfa, dfa_scan_plain, dfa_search_spans
 from cilium_tpu_torch.ops.nfa import device_nfa, nfa_scan_plain, nfa_search_spans
+from cilium_tpu_torch.ops.rxsearch import automaton_search_spans
+from cilium_tpu_torch.policy.api import PortRuleHTTP
 from cilium_tpu_torch.regex import compile_patterns
 from cilium_tpu_torch.regex.dfa import compile_pattern_dfas
 
@@ -194,3 +206,116 @@ def test_wrappers_reject_bad_inputs(cuda):
         dfa_search_spans(dfa, data.cpu(), span.cpu(), span.cpu())
     with pytest.raises(ValueError):
         r2d2_frame(data, span[:3])
+
+
+# --- the HTTP kernels K5-K7 ----------------------------------------------------
+
+HTTP_RULES = [
+    (frozenset(), PortRuleHTTP(method="GET|HEAD", path="/pub(lic)?/.*")),
+    (frozenset({1}), PortRuleHTTP(path="/a/[0-9]+")),
+    (frozenset(), PortRuleHTTP(method="PUT")),
+    (frozenset({2, 3}), PortRuleHTTP(host=".*\\.internal")),
+    (frozenset(), PortRuleHTTP(method="GET", headers=("X-A: 1", "X-B: 2"))),
+    (frozenset({3}), PortRuleHTTP(path="/a\nb.*")),
+    (frozenset(), PortRuleHTTP(method="GET|POST", path="/api/v1/.*|/x")),
+]
+HTTP_ALPHABET = np.frombuffer(b"GET PUT /public/a/12\r\n\r\nHost: x.internal\nX-A: 1", np.uint8)
+
+
+def _http_batch(rng, f, l):
+    """Random heads over an HTTP alphabet, then well-formed heads in every
+    third row; lengths include 0, l and l - 1."""
+    data = rng.choice(HTTP_ALPHABET, size=(f, l)).astype(np.uint8)
+    lengths = rng.integers(0, l + 1, size=f).astype(np.int32)
+    lengths[:3] = [0, l, l - 1]
+    heads = [b"GET /public/x HTTP/1.1\r\nHost: a.internal\r\n\r\n",
+             b"GET /a/12 HTTP/1.1\r\nX-A: 1\r\nX-B: 2\r\n\r\n",
+             b"PUT /z HTTP/1.1\r\n\r\n", b"GET /a\nbX HTTP/1.1\r\n\r\n",
+             b"FOO\r\n\r\n", b"POST /api/v1/q HTTP/1.1\r\n\r\n"]
+    for i in range(3, f, 3):
+        h = heads[i % len(heads)][:l]
+        data[i, : len(h)] = np.frombuffer(h, np.uint8)
+        lengths[i] = len(h)
+    return data, lengths
+
+
+@pytest.mark.parametrize("l", [512, 67, 2048])
+def test_http_frame_kernel_matches_plain(cuda, l):
+    rng = np.random.default_rng(l)
+    data, lengths = _http_batch(rng, 4099, l)
+    data[1, l - 4 :] = np.frombuffer(b"\r\n\r\n", np.uint8)  # CRLFCRLF at the end
+    d, n = _to(cuda, data, lengths)
+    before = http_mod._HTTP_FRAME.launches
+    got = http_frame(d, n)
+    torch.cuda.synchronize()
+    assert http_mod._HTTP_FRAME.launches == before + 1
+    want = http_frame_plain(d, n)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+    assert bool(want.complete.any()) and not bool(want.complete.all())
+
+
+@pytest.mark.parametrize("backend", ["auto", "nfa"])
+def test_http_lit_and_hits_kernels_match_plain(cuda, backend):
+    model = build_http_model(HTTP_RULES, backend=backend, device=cuda)
+    rng = np.random.default_rng(9)
+    data, lengths = _http_batch(rng, 3001, 96)
+    remotes = rng.choice([1, 2, 3, 4], size=3001).astype(np.int32)
+    d, n, rm = _to(cuda, data, lengths, remotes)
+    frame = http_frame(d, n)
+    before = http_mod._HTTP_LIT.launches
+    lit = http_lit(model, d, frame)
+    torch.cuda.synchronize()
+    assert http_mod._HTTP_LIT.launches == before + 1
+    want = http_lit_plain(model, d, frame)
+    assert torch.equal(lit[0], want[0]) and torch.equal(lit[1], want[1])
+    assert bool(want[1].any()) and not bool(want[1].all())
+    zero = torch.zeros_like(frame.sp1)
+    rx_m = automaton_search_spans(model.line_nfa, d, zero, frame.sp1)
+    rx_p = automaton_search_spans(model.line_nfa, d, frame.p_start, frame.sp2)
+    head = automaton_search_spans(model.head_nfa, d, frame.line_end, frame.h_end)
+    for args in ((rx_m, rx_p, head), (None, rx_p, None), (rx_m, None, head)):
+        before = http_mod._HTTP_HITS.launches
+        got = http_hits(model, frame.complete, *lit, *args, rm)
+        torch.cuda.synchronize()
+        assert http_mod._HTTP_HITS.launches == before + 1
+        want = http_hits_plain(model, frame.complete, *lit, *args, rm)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(want[0].any()) and not bool(want[0].all())
+
+
+def test_http_model_card_matches_cpu(cuda):
+    data, lengths = _http_batch(np.random.default_rng(4), 1024, 128)
+    remotes = (np.arange(1024) % 4).astype(np.int32)
+    for backend in ("auto", "regex-only"):
+        card = build_http_model(HTTP_RULES, backend=backend, device=cuda)
+        cpu = build_http_model(HTTP_RULES, backend=backend, device="cpu")
+        got = card.verdicts_attr(data, lengths, remotes)
+        want = cpu.verdicts_attr(data, lengths, remotes)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.cpu(), w)
+
+
+def test_http_model_widest_bucket_matches_cpu(cuda):
+    """The engine's widest bucket: L = 32,768, F = MIN_ROWS, heads from a
+    few bytes to the whole row, complete and cut."""
+    f, l = 64, 1 << 15
+    rng = np.random.default_rng(12)
+    data = np.zeros((f, l), np.uint8)
+    lengths = np.zeros((f,), np.int32)
+    for i in range(f):
+        # every fifth head outgrows the row and is cut: incomplete
+        pad = "p" * (l if i % 5 == 0 else int(rng.integers(0, l - 100)))
+        head = (f"GET /pub/{'x' * (i % 7)} HTTP/1.1\r\nHost: a.internal\r\n"
+                f"X-Pad: {pad}\r\n\r\n").encode()[: l - (i % 3)]
+        data[i, : len(head)] = np.frombuffer(head, np.uint8)
+        lengths[i] = len(head)
+    remotes = (np.arange(f) % 4).astype(np.int32)
+    card = build_http_model(HTTP_RULES, device=cuda)
+    cpu = build_http_model(HTTP_RULES, device="cpu")
+    got = card.verdicts_attr(data, lengths, remotes)
+    want = cpu.verdicts_attr(data, lengths, remotes)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(want[2].any()) and not bool(want[0].all())
