@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's r2d2 and HTTP verdict paths on one CUDA card and check
-them.
+"""Drive the port's r2d2, HTTP, DNS, Cassandra and memcached verdict paths
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -31,7 +31,17 @@ which fails the run on any mismatch:
 6. times: CUDA events around each kernel, its plain version and each
    verdict pass, bounds from the run's own data, and the engines on the
    host clock and under the profiler, with the card's name and power
-   limit.
+   limit;
+7. the third slice, counted in a run of its own (every count set to 0
+   just before it, read just after): ``dns_verdicts(_attr)`` on bench_dns's
+   policy and bench_stress's DNS policy 0, ``cassandra_verdicts`` and
+   ``memcache_verdicts`` on bench_cassandra's and bench_memcached's (all
+   F = 65,536), then ``DnsBatchEngine``, ``CassandraBatchEngine``,
+   ``MemcacheBatchEngine`` and ``HttpSidecarEngine`` on 2,000-3,000 flows;
+   K8-K11 launch once per call and K2/K3 once per call on the name, table
+   and key spans; then phases 3-6 for these paths, the engines held
+   against the CPU engines and the streaming parsers driven through the
+   port's ``Connection``.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -430,6 +440,695 @@ def http_oracle(policy, reqs, remotes):
         parsed = parse_head(r[: end + 4]) if end >= 0 else None
         out.append(policy.matches_at(True, 80, remote, parsed) if parsed else (False, -1))
     return out
+
+
+# --- DNS, Cassandra and memcached: policies, batches and traffic ----------------
+
+
+def _l7_policy(name, port, proto, rules):
+    """An NPDS policy on ``port`` from (remote_policies, l7_rules) pairs."""
+    from cilium_tpu_torch.proxylib import (
+        NetworkPolicy,
+        PortNetworkPolicy,
+        PortNetworkPolicyRule,
+        compile_policy,
+    )
+
+    return compile_policy(NetworkPolicy(
+        name=name, policy=2,
+        ingress_per_port_policies=[PortNetworkPolicy(port=port, rules=[
+            PortNetworkPolicyRule(remote_policies=list(remotes), l7_proto=proto, l7_rules=list(r))
+            for remotes, r in rules
+        ])],
+    ))
+
+
+def dns_stress_case():
+    """bench.py:1179-1230 bench_stress's DNS policy 0: 16 exact names
+    s{j:02d}.p000.svc.local and 4 patterns *.w{j:02d}.svc.local, with that
+    mix for policy 0 (random.Random(23)): exact hits, upper-case exact
+    hits, wildcard hits and misses, unknown names and compression
+    pointers; 1,024 frames."""
+    from cilium_tpu_torch.proxylib.parsers.dns import DNS_QNAME_OFF, encode_dns_query
+
+    names = [f"s{j:02d}.p000.svc.local" for j in range(16)]
+    rules = [{"matchName": n} for n in names]
+    rules += [{"matchPattern": f"*.w{j:02d}.svc.local"} for j in range(4)]
+    rng = random.Random(23)
+    frames = []
+    for i in range(1024):
+        roll = rng.random()
+        if roll < 0.30:
+            frames.append(encode_dns_query(names[rng.randrange(16)]))
+        elif roll < 0.42:
+            frames.append(encode_dns_query(names[rng.randrange(16)].upper()))
+        elif roll < 0.62:
+            depth = "a.b." if rng.random() < 0.3 else f"h{i % 7}."
+            frames.append(encode_dns_query(f"{depth}w{rng.randrange(4):02d}.svc.local"))
+        elif roll < 0.72:
+            frames.append(encode_dns_query(f"w{rng.randrange(4):02d}.svc.local"))
+        elif roll < 0.92:
+            frames.append(encode_dns_query(f"x{rng.randrange(100)}.other.local"))
+        else:
+            bad = bytearray(encode_dns_query("bad.svc.local"))
+            bad[DNS_QNAME_OFF] = 0xC0
+            frames.append(bytes(bad))
+    return _l7_policy("dns-stress", 53, "dns", [([], rules)]), frames
+
+
+def dns_oracle(policy, frames, remotes):
+    """(allow, rule) per frame from the host oracle on the parsed question
+    (``parse_dns_query`` -> ``PolicyInstance.matches_at``)."""
+    from cilium_tpu_torch.proxylib.parsers.dns import DnsRequestData, parse_dns_query
+
+    out = []
+    for f, r in zip(frames, remotes):
+        q = parse_dns_query(f)
+        req = DnsRequestData(name=q if q is not None else "", valid=q is not None)
+        out.append(policy.matches_at(True, 53, int(r), req))
+    return out
+
+
+def _split(rng, stream):
+    """A stream cut into three round chunks at two random points."""
+    c1 = rng.randrange(0, len(stream) + 1)
+    c2 = rng.randrange(c1, len(stream) + 1)
+    return stream[:c1], stream[c1:c2], stream[c2:]
+
+
+def dns_engine_feeds(rng, n_flows):
+    """Three rounds of (flow, chunk, remote): 1-4 pipelined queries of
+    bench_dns's mix per flow (denied evil*.test among them), upper-case
+    names, a compression pointer every 23rd flow, cut across the length
+    prefix and mid-name."""
+    from cilium_tpu_torch.entry import dns_queries
+    from cilium_tpu_torch.proxylib.parsers.dns import DNS_QNAME_OFF
+
+    qs = dns_queries()
+    rounds = [[], [], []]
+    for fid in range(n_flows):
+        frames = [qs[rng.randrange(len(qs))] for _ in range(rng.randrange(1, 5))]
+        if fid % 23 == 0:
+            bad = bytearray(frames[0])
+            bad[DNS_QNAME_OFF] = 0xC0
+            frames.append(bytes(bad))
+        if fid % 11 == 0:
+            f = bytearray(frames[0])
+            f[DNS_QNAME_OFF + 1:] = bytes(f[DNS_QNAME_OFF + 1:]).upper()
+            frames.append(bytes(f))
+        for rnd, chunk in zip(rounds, _split(rng, b"".join(frames))):
+            rnd.append((fid, chunk, 1))
+    return rounds
+
+
+def _cass_query(cql, stream=0):
+    import struct
+
+    q = cql.encode()
+    body = struct.pack(">I", len(q)) + q + b"\x00\x01\x00"
+    return bytes([4, 0]) + struct.pack(">HB", stream, 0x07) + struct.pack(">I", len(body)) + body
+
+
+def cassandra_engine_feeds(rng, n_flows):
+    """Three rounds on bench_cassandra's policy: 1-4 queries per flow
+    (select/insert/update/delete on public.* and secret.*, USE, an
+    unqualified table after USE public), denials with the unauthorized
+    inject, and a table name over MAX_TABLE every 50th flow (overflow:
+    the host oracle judges it)."""
+    rounds = [[], [], []]
+    for fid in range(n_flows):
+        frames = []
+        for k in range(rng.randrange(1, 5)):
+            roll = rng.random()
+            ks = "public" if rng.random() < 0.5 else "secret"
+            if roll < 0.3:
+                frames.append(_cass_query(f"SELECT * FROM {ks}.t{rng.randrange(40)}", k))
+            elif roll < 0.55:
+                frames.append(_cass_query(f"INSERT INTO {ks}.t{rng.randrange(40)} (a) VALUES (1)", k))
+            elif roll < 0.7:
+                frames.append(_cass_query(f"UPDATE {ks}.z SET a=1", k))
+            elif roll < 0.8:
+                frames.append(_cass_query(f"DELETE FROM {ks}.z WHERE a=1", k))
+            else:
+                frames.append(_cass_query("USE public", k))
+                frames.append(_cass_query(f"SELECT * FROM t{rng.randrange(9)}", k + 1))
+        if fid % 50 == 0:
+            frames.append(_cass_query("SELECT * FROM public." + "t" * 120, 9))
+        for rnd, chunk in zip(rounds, _split(rng, b"".join(frames))):
+            rnd.append((fid, chunk, 1))
+    return rounds
+
+
+def _mc_bin(opcode, key=b"", extras=b"", value=b""):
+    import struct
+
+    body = extras + key + value
+    return (bytes([0x80, opcode]) + struct.pack(">H", len(key)) + bytes([len(extras), 0])
+            + b"\x00\x00" + struct.pack(">I", len(body)) + b"\x00" * 12 + body)
+
+
+def memcache_engine_feeds(rng, n_flows):
+    """Three rounds on bench_memcached's policy: text flows (get user:/
+    admin:, set sess:N and sess:xN with data blocks, delete the-key and
+    others, a two-key get every 40th flow: overflow, the host oracle
+    judges it) and binary flows (get/getq user:, set sess: with extras,
+    delete); a denied first frame injects inline."""
+    rounds = [[], [], []]
+    for fid in range(n_flows):
+        frames = []
+        binary = fid % 3 == 0
+        for _ in range(rng.randrange(1, 5)):
+            n = rng.randrange(99)
+            roll = rng.random()
+            if binary:
+                if roll < 0.4:
+                    frames.append(_mc_bin(rng.choice([0, 9]), key=b"user:%d" % n))
+                elif roll < 0.6:
+                    frames.append(_mc_bin(0, key=b"admin:%d" % n))
+                elif roll < 0.85:
+                    frames.append(_mc_bin(1, key=b"sess:%d" % n, extras=b"\x00" * 8, value=b"v"))
+                else:
+                    frames.append(_mc_bin(4, key=b"the-key" if roll < 0.93 else b"k"))
+            else:
+                if roll < 0.35:
+                    frames.append(b"get user:%d\r\n" % n)
+                elif roll < 0.5:
+                    frames.append(b"get admin:%d\r\n" % n)
+                elif roll < 0.7:
+                    frames.append(b"set sess:%d 0 0 2\r\nhi\r\n" % n)
+                elif roll < 0.8:
+                    frames.append(b"set sess:x%d 0 0 3\r\nabc\r\n" % n)
+                else:
+                    frames.append(b"delete the-key\r\n" if roll < 0.9 else b"delete k%d\r\n" % n)
+        if not binary and fid % 40 == 1:
+            frames.append(b"get user:1 user:2\r\n")
+        for rnd, chunk in zip(rounds, _split(rng, b"".join(frames))):
+            rnd.append((fid, chunk, 1))
+    return rounds
+
+
+def http_sidecar_feeds(rng, n_flows):
+    """Three rounds on the http-graft policy: 1-4 requests per flow,
+    Content-Length bodies, POST and /private/ denials (the 403 inject)."""
+    rounds = [[], [], []]
+    for fid in range(n_flows):
+        stream = b""
+        for _ in range(rng.randrange(1, 5)):
+            path = (f"/public/a{rng.randrange(1000)}" if rng.random() < 0.5
+                    else f"/private/b{rng.randrange(1000)}")
+            method = "GET" if rng.random() < 0.8 else "POST"
+            body = b""
+            headers = "Host: svc.local\r\nUser-Agent: bench\r\n"
+            if rng.random() < 0.2:
+                body = bytes(rng.randrange(97, 123) for _ in range(rng.randrange(64)))
+                headers += f"Content-Length: {len(body)}\r\n"
+            stream += f"{method} {path} HTTP/1.1\r\n{headers}\r\n".encode() + body
+        for rnd, chunk in zip(rounds, _split(rng, stream)):
+            rnd.append((fid, chunk, 1 if fid % 5 else 2))
+    return rounds
+
+
+def run_l7_engine(make, rounds):
+    """(per-flow-round (flow, ops, inject) list, engine) from feeding the
+    rounds to a fresh engine."""
+    eng = make()
+    out = []
+    for rnd in rounds:
+        for fid, chunk, remote in rnd:
+            eng.feed(fid, chunk, remote_id=remote)
+        eng.pump()
+        for fid, _, _ in rnd:
+            # (ops, reply inject) from the DNS engine, (ops, orig inject,
+            # reply inject) from the device-assisted ones
+            taken = eng.take_ops(fid)
+            out.append((fid, [(int(op), n) for op, n in taken[0]], taken[-1]))
+    return out, eng
+
+
+class _OracleInstance:
+    """The instance side the port's ``Connection`` calls back into: the
+    host oracle ``PolicyInstance.matches_at`` and a null access log."""
+
+    def __init__(self, policy):
+        self.policy = policy
+
+    def policy_matches_at(self, name, ingress, port, remote, l7):
+        return self.policy.matches_at(ingress, port, remote, l7)
+
+    def policy_matches(self, name, ingress, port, remote, l7):
+        return self.policy.matches(ingress, port, remote, l7)
+
+    def log(self, entry):
+        pass
+
+
+def run_l7_stream(policy, proto, port, rounds):
+    """The same rounds through the streaming parser on the port's own
+    ``Connection`` (one per flow), driven once per round where bytes are
+    buffered, in the engines' op shape."""
+    from cilium_tpu_torch.proxylib.connection import Connection, InjectBuf
+    from cilium_tpu_torch.proxylib.parser import get_parser_factory
+    from cilium_tpu_torch.proxylib.types import DROP, PASS
+
+    inst = _OracleInstance(policy)
+    flows = {}
+    out = []
+    for rnd in rounds:
+        for fid, chunk, remote in rnd:
+            if fid not in flows:
+                conn = Connection(
+                    instance=inst, conn_id=fid, ingress=True, src_id=remote, dst_id=0,
+                    src_addr="", dst_addr=f"0.0.0.0:{port}", policy_name="", port=port,
+                    parser_name=proto, orig_buf=InjectBuf(4096), reply_buf=InjectBuf(4096),
+                )
+                conn.parser = get_parser_factory(proto).create(conn)
+                flows[fid] = [bytearray(), 0, conn]
+            st = flows[fid]
+            take = min(st[1], len(chunk))
+            st[1] -= take
+            st[0].extend(chunk[take:])
+        for fid, _, _ in rnd:
+            buf, _, conn = flows[fid]
+            ops = []
+            if buf:
+                conn.on_data(False, False, [bytes(buf)], ops)
+                consumed = 0
+                for op, n in ops:
+                    if op in (PASS, DROP):
+                        t = min(n, len(buf) - consumed)
+                        consumed += t
+                        flows[fid][1] += n - t
+                del buf[:consumed]
+            out.append((fid, [(int(op), n) for op, n in ops], conn.reply_buf.take()))
+    return out
+
+
+def _first_diff(a, b):
+    return next((x, y) for x, y in zip(a, b) if x != y) if len(a) == len(b) else (len(a), len(b))
+
+
+def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
+    """The third slice's paths on the card: DNS (K8, K9), Cassandra (K10)
+    and memcached (K11) at F = 65,536, K2/K3 on their spans where the
+    model has pattern or regex rows, and the DNS, Cassandra, memcached and
+    HTTP-sidecar engines.  Every count is set to 0 just before the counted
+    run and read just after; then the card is held against the CPU path,
+    the host oracle, the CPU engines, the streaming parsers and each
+    kernel's plain version, and timed.  Returns (launches, runs, span_runs,
+    report, timed) for the kernels line."""
+    from cilium_tpu_torch.entry import (
+        cassandra_batch,
+        cassandra_bench_policy,
+        cassandra_requests,
+        dns_batch,
+        dns_bench_policy,
+        dns_queries,
+        http_bench_policy,
+        memcache_batch,
+        memcache_bench_policy,
+        memcache_frames,
+    )
+    from cilium_tpu_torch.models import cassandra as cass_mod
+    from cilium_tpu_torch.models import dns as dns_mod
+    from cilium_tpu_torch.models import memcached as mc_mod
+    from cilium_tpu_torch.models.cassandra import (
+        MAX_ACTION,
+        build_cassandra_model,
+        cassandra_hits,
+        cassandra_hits_plain,
+        cassandra_rule_hits_plain,
+        cassandra_verdicts,
+    )
+    from cilium_tpu_torch.models.dns import (
+        build_dns_model,
+        dns_hits,
+        dns_hits_plain,
+        dns_name,
+        dns_name_plain,
+        dns_verdicts,
+        dns_verdicts_attr,
+    )
+    from cilium_tpu_torch.models.http import build_http_model_for_port
+    from cilium_tpu_torch.models.memcached import (
+        KEY_MODE_EXACT,
+        KEY_MODE_PREFIX,
+        build_memcache_model,
+        memcache_hits,
+        memcache_hits_plain,
+        memcache_rule_hits_plain,
+        memcache_verdicts,
+    )
+    from cilium_tpu_torch.proxylib.parsers.memcached import MemcacheMeta
+    from cilium_tpu_torch.runtime.dnsengine import DnsBatchEngine
+    from cilium_tpu_torch.runtime.l7engine import (
+        CassandraBatchEngine,
+        HttpSidecarEngine,
+        MemcacheBatchEngine,
+    )
+
+    kerns = {**kerns, "dns_name": dns_mod._DNS_NAME, "dns_hits": dns_mod._DNS_HITS,
+             "cassandra_hits": cass_mod._CASSANDRA_HITS, "memcache_hits": mc_mod._MEMCACHE_HITS}
+    new = ("dns_name", "dns_hits", "cassandra_hits", "memcache_hits")
+
+    # the four shapes at F = 65,536 (entry.py's copies of bench.py's setups)
+    stress_policy, stress_frames = dns_stress_case()
+    cases = {
+        "dns": dict(kind="dns", port=53, policy=dns_bench_policy(), items=dns_queries(),
+                    host=dns_batch(F)),
+        "dns-stress": dict(kind="dns", port=53, policy=stress_policy, items=stress_frames,
+                           host=tile_rows(stress_frames, [1] * len(stress_frames), F, 64)),
+        "cassandra": dict(kind="cassandra", port=9042, policy=cassandra_bench_policy(),
+                          items=cassandra_requests(), host=cassandra_batch(F)),
+        "memcached": dict(kind="memcached", port=11211, policy=memcache_bench_policy(),
+                          items=memcache_frames(), host=memcache_batch(F)),
+    }
+    build = {"dns": build_dns_model, "cassandra": build_cassandra_model,
+             "memcached": build_memcache_model}
+    span_of = {"dns": "name", "cassandra": "table", "memcached": "key"}
+    for name, c in cases.items():
+        c["dev"] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in c["host"])
+        c["model"] = build[c["kind"]](c["policy"], True, c["port"])
+        c["cpu_model"] = build[c["kind"]](c["policy"], True, c["port"], device="cpu")
+        m = c["model"]
+        tab = m.nfa
+        log(f"{name}: F={F} width={c['host'][0].shape[1]} R={m.n_rules} automaton="
+            f"{type(tab).__name__}" + (f" S={tab.n_states} C={tab.n_classes}" if tab is not None else ""))
+        if tab is None:
+            raise AssertionError(f"{name}: the bench policy has pattern/regex rows, so an automaton")
+
+    def verdicts(c, model, args):
+        if c["kind"] == "dns":
+            return dns_verdicts_attr(model, *args)
+        fn = cassandra_verdicts if c["kind"] == "cassandra" else memcache_verdicts
+        return (fn(model, *args),)
+
+    http_policy = http_bench_policy()
+    models = {
+        "dns": (cases["dns"]["model"], cases["dns"]["cpu_model"]),
+        "cassandra": (cases["cassandra"]["model"], cases["cassandra"]["cpu_model"]),
+        "memcached": (cases["memcached"]["model"], cases["memcached"]["cpu_model"]),
+        "http": (build_http_model_for_port(http_policy, True, 80),
+                 build_http_model_for_port(http_policy, True, 80, device="cpu")),
+    }
+    engines = {
+        "dns-engine": ("dns", 53, cases["dns"]["policy"],
+                       lambda m: DnsBatchEngine(m), dns_engine_feeds(random.Random(31), 3000)),
+        "cassandra-engine": ("cassandra", 9042, cases["cassandra"]["policy"],
+                             lambda m: CassandraBatchEngine(cases["cassandra"]["policy"], True, 9042, m),
+                             cassandra_engine_feeds(random.Random(37), 2000)),
+        "memcache-engine": ("memcache", 11211, cases["memcached"]["policy"],
+                            lambda m: MemcacheBatchEngine(cases["memcached"]["policy"], True, 11211, m),
+                            memcache_engine_feeds(random.Random(41), 2000)),
+        "http-sidecar-engine": ("http", 80, http_policy,
+                                lambda m: HttpSidecarEngine(http_policy, True, 80, m),
+                                http_sidecar_feeds(random.Random(43), 2000)),
+    }
+    model_of = {"dns": "dns", "cassandra": "cassandra", "memcache": "memcached", "http": "http"}
+
+    # the main path, counted: every count is set to 0 here and read after
+    # the last call; each run's own launches are the deltas around it, and
+    # each automaton search on a span through a recorder around the
+    # model's search call.
+    log("== DNS, Cassandra, memcached main path (counted)")
+
+    def counts():
+        return {n: k.launches for n, k in kerns.items()}
+
+    def delta(before):
+        return {n: k.launches - before[n] for n, k in kerns.items()}
+
+    span_runs = {}
+    current = {}
+    mods = {"dns": dns_mod, "cassandra": cass_mod, "memcached": mc_mod}
+    searches = {kind: mod.automaton_search_spans for kind, mod in mods.items()}
+
+    def recorder(kind):
+        def counted(tab, data, start, end):
+            before = counts()
+            out = searches[kind](tab, data, start, end)
+            run = span_runs.setdefault(f"{current['run']}:{span_of[kind]}", dict.fromkeys(kerns, 0))
+            for n, d in delta(before).items():
+                run[n] += d
+            return out
+        return counted
+
+    for k in kerns.values():
+        k.launches = 0
+    runs, outs, eng_card = {}, {}, {}
+    for kind, mod in mods.items():
+        mod.automaton_search_spans = recorder(kind)
+    try:
+        for name, c in cases.items():
+            before = counts()
+            current["run"] = name
+            if c["kind"] == "dns":
+                outs[name] = (dns_verdicts(c["model"], *c["host"]), dns_verdicts_attr(c["model"], *c["host"]))
+            else:
+                outs[name] = verdicts(c, c["model"], c["host"])
+            runs[name] = delta(before)
+        for name, (proto, port, policy, make, feeds) in engines.items():
+            before = counts()
+            current["run"] = name
+            eng_card[name] = run_l7_engine(lambda: make(models[model_of[proto]][0]), feeds)
+            runs[name] = delta(before)
+    finally:
+        for kind, mod in mods.items():
+            mod.automaton_search_spans = searches[kind]
+    torch.cuda.synchronize()
+    launches = counts()
+    log("launches:", json.dumps(launches))
+    log("launches by run:", json.dumps({n: {k: c for k, c in r.items() if c}
+                                        for n, r in {**runs, **span_runs}.items()}))
+    for n, count in launches.items():
+        if sum(r[n] for r in runs.values()) != count:
+            raise AssertionError(f"{n}: the runs' launches do not add up to the main path's")
+    for n in new:
+        if launches[n] <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the main path")
+    own = {"dns": ("dns_name", "dns_hits"), "cassandra": ("cassandra_hits",),
+           "memcached": ("memcache_hits",)}
+    for name, c in cases.items():
+        calls = 2 if c["kind"] == "dns" else 1  # verdicts and _attr; one call each else
+        kname = scan_kernel(c["model"].nfa)
+        want = dict.fromkeys(kerns, 0)
+        for k in own[c["kind"]]:
+            want[k] = calls
+        want[kname] = calls
+        if runs[name] != want:
+            raise AssertionError(f"{name}: launches {runs[name]} != {want}")
+        got = {k: n for k, n in span_runs.get(f"{name}:{span_of[c['kind']]}", {}).items() if n}
+        if got != {kname: calls}:
+            raise AssertionError(f"{name}: span launches {got} != {{{kname!r}: {calls}}}")
+    for name, ks in (("dns-engine", ("dns_name", "dns_hits")), ("cassandra-engine", ("cassandra_hits",)),
+                     ("memcache-engine", ("memcache_hits",)),
+                     ("http-sidecar-engine", ("http_frame", "http_lit", "http_hits"))):
+        if not all(runs[name][k] > 0 for k in ks) or len({runs[name][k] for k in ks}) != 1:
+            raise AssertionError(f"{name}: launches {runs[name]}")
+
+    # the model against the CPU path and the host oracle
+    log("== DNS, Cassandra, memcached model")
+    for name, c in cases.items():
+        got = outs[name][1] if c["kind"] == "dns" else outs[name]
+        if c["kind"] == "dns":
+            for x, y in zip(outs[name][0], got[:3]):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: verdicts and verdicts_attr disagree")
+        n = len(c["items"])
+        host = [t.cpu() for t in got]
+        for t in host:
+            if t.device.type != "cpu" or not torch.equal(t, t[:n].repeat(-(-F // n))[:F]):
+                raise AssertionError(f"{name}: rows of one request disagree")
+        want = verdicts(c, c["cpu_model"], tuple(a[:n] for a in c["host"]))
+        for i, (g, w) in enumerate(zip(host, want)):
+            if not torch.equal(g[:n], w):
+                raise AssertionError(f"{name}: card output {i} != CPU output")
+        if c["kind"] == "dns":
+            complete, msg_len, allow, rule = (t[:n] for t in host)
+            if not bool(complete.all()) or msg_len.tolist() != [len(q) for q in c["items"]]:
+                raise AssertionError(f"{name}: frames not framed whole")
+            got_o = [(bool(a), int(r)) for a, r in zip(allow, rule)]
+            want_o = dns_oracle(c["policy"], c["items"], [1] * n)
+        elif c["kind"] == "cassandra":
+            allow = host[0][:n]
+            got_o = [bool(a) for a in allow]
+            want_o = [c["policy"].matches(True, 9042, 1, f"/query/{a}/{t}") for a, t, _ in c["items"]]
+        else:
+            allow = host[0][:n]
+            got_o = [bool(a) for a in allow]
+            want_o = [c["policy"].matches(True, 11211, 1, MemcacheMeta(
+                command="" if b else cmd, opcode=op if b else -1, keys=list(keys)))
+                for b, op, cmd, keys in c["items"]]
+        bad = sum(1 for x, y in zip(got_o, want_o) if x != y)
+        if bad:
+            raise AssertionError(f"{name}: {bad} verdicts disagree with the host oracle")
+        log(f"{name}: card == cpu on {n} distinct rows, == host oracle, "
+            f"allow share {float(allow.float().mean()):.3f}")
+
+    # the engines against the CPU engines and the streaming parsers
+    log("== DNS, Cassandra, memcached, HTTP-sidecar engines")
+    for name, (proto, port, policy, make, feeds) in engines.items():
+        card_out, eng = eng_card[name]
+        cpu_out, cpu_eng = run_l7_engine(lambda: make(models[model_of[proto]][1]), feeds)
+        stream_out = run_l7_stream(policy, proto, port, feeds)
+        for other, label in ((cpu_out, "the CPU engine"), (stream_out, "the streaming parser")):
+            if card_out != other:
+                raise AssertionError(f"{name}: ops differ from {label}: {_first_diff(card_out, other)}")
+        n_ops = sum(len(ops) for _, ops, _ in card_out)
+        n_drop = sum(1 for _, ops, _ in card_out for op, _ in ops if op == 2)
+        n_inject = sum(len(inj) for _, _, inj in card_out)
+        judged = ""
+        if hasattr(eng, "device_judged"):
+            if (eng.device_judged, eng.host_judged) != (cpu_eng.device_judged, cpu_eng.host_judged):
+                raise AssertionError(f"{name}: device/host judged counts differ from the CPU engine")
+            judged = (f", {eng.device_judged} frames judged on the card, {eng.host_judged} by the "
+                      f"host oracle (overflow or past the peek horizon)")
+        if not n_drop:
+            raise AssertionError(f"{name}: the traffic has no denial")
+        log(f"{name}: {len(feeds[0])} flows, {n_ops} ops ({n_drop} DROP, {n_inject} inject bytes)"
+            f"{judged}, equal on card, CPU and the streaming parser")
+
+    # kernels against their plain versions, at the main path's inputs
+    log("== K8-K11 and K2/K3 on the new spans vs plain")
+    report, inputs = {}, {}
+
+    def put(kname, label, got, want):
+        report.setdefault(kname, {})[label] = max_abs_err(got, want)
+
+    for name, c in cases.items():
+        model, args = c["model"], c["dev"]
+        tab = model.nfa
+        kname = scan_kernel(tab)
+        scan, plain = scans[kname]
+        if c["kind"] == "dns":
+            data, lengths, rem = args
+            nm = dns_name(data, lengths)
+            put("dns_name", name, nm, dns_name_plain(data, lengths))
+            span = (nm.dotted, nm.span_start, nm.span_end)
+            rx = scan(tab, *span)
+            put(kname, f"{name}:name", [rx], [plain(tab, *span)])
+            hits = dns_hits(model, nm, rx, rem)
+            put("dns_hits", name, hits, dns_hits_plain(model, nm, rx, rem))
+            inputs[name] = dict(name=nm, span=span, rx=rx, hits=hits)
+        elif c["kind"] == "cassandra":
+            data, alen, tlen, nq, rem = args
+            start = torch.full_like(tlen, MAX_ACTION)
+            span = (data, start, start + tlen)
+            rx = scan(tab, *span)
+            put(kname, f"{name}:table", [rx], [plain(tab, *span)])
+            allow = cassandra_hits(model, data, alen, tlen, nq, rx, rem)
+            put("cassandra_hits", name, [allow], [cassandra_hits_plain(model, data, alen, tlen, nq, rx, rem)])
+            inputs[name] = dict(span=span, rx=rx,
+                                hits=cassandra_rule_hits_plain(model, data, alen, tlen, nq, rx, rem))
+        else:
+            kd, klen, hk, ib, op, cid, rem = args
+            span = (kd, torch.zeros_like(klen), klen)
+            rx = scan(tab, *span)
+            put(kname, f"{name}:key", [rx], [plain(tab, *span)])
+            allow = memcache_hits(model, kd, klen, hk, ib, op, cid, rx, rem)
+            put("memcache_hits", name, [allow],
+                [memcache_hits_plain(model, kd, klen, hk, ib, op, cid, rx, rem)])
+            inputs[name] = dict(span=span, rx=rx,
+                                hits=memcache_rule_hits_plain(model, kd, klen, hk, ib, op, cid, rx, rem))
+    log("max |kernel - plain|:", json.dumps(report))
+    for kname, per in report.items():
+        for label, err in per.items():
+            if err != 0:
+                raise AssertionError(f"{kname} disagrees with its plain version on {label}")
+
+    # times
+    log("== DNS, Cassandra, memcached times on", card)
+    timed = {}
+
+    def walked_rows(hits, r):
+        """Rule rows a first-match walk visits: up to the first hit, all R
+        where none."""
+        any_ = hits.any(dim=1)
+        first = torch.argmax(hits.to(torch.int32), dim=1)
+        return int(torch.where(any_, first + 1, torch.full_like(first, r)).sum())
+
+    for name, c in cases.items():
+        model, args, inp = c["model"], c["dev"], inputs[name]
+        tab = model.nfa
+        r = model.n_rules
+        rows = {}
+        kname = scan_kernel(tab)
+        data_s, s_, e_ = inp["span"]
+        f, width = data_s.shape
+        if c["kind"] == "dns":
+            data, lengths, rem = args
+            nm = inp["name"]
+            # K8: every row read once and written once (the dotted copy
+            # covers the whole row), the lengths, five [F] outputs; one op
+            # a byte for the fold, one a label for the walk
+            labels = int(((nm.dotted == 0x2E) & (data != 0x2E)).sum()) + f
+            k8 = lambda: dns_name(data, lengths)
+            rows["dns_name"] = dict(
+                ms=graph_ms(k8), call_ms=cuda_ms(k8, 50),
+                plain_ms=cuda_ms(lambda: dns_name_plain(data, lengths), 3),
+                bytes=2 * f * width + 4 * f + 14 * f, ops=f * width + labels,
+            )
+            # K9: the name bytes it compares (rows whose needle length
+            # equals the span's), the [F, R] automaton hits, spans, valid,
+            # remotes, two [F] outputs and the tables; the rows it walks
+            span_len = (nm.span_end - nm.span_start).clamp(min=0)
+            need = torch.where(nm.valid & (span_len[:, None] == model.name_len[None, :]).any(dim=1),
+                               span_len, torch.zeros_like(span_len))
+            w = model.name_needle.shape[1]
+            allow, rule = inp["hits"]
+            walked = int(torch.where(allow, rule + 1, torch.full_like(rule, r)).sum())
+            k9 = lambda: dns_hits(model, nm, inp["rx"], rem)
+            rows["dns_hits"] = dict(
+                ms=graph_ms(k9), call_ms=cuda_ms(k9, 50),
+                plain_ms=cuda_ms(lambda: dns_hits_plain(model, nm, inp["rx"], rem), 10),
+                bytes=int(need.sum()) + f * r + 9 * f + 4 * f + 5 * f + r * (w + 4 + 1 + 1 + 128 + 1),
+                ops=walked * (2 + 32) + int(need.sum()),
+            )
+            on_card = lambda: dns_verdicts(model, data, lengths, rem)
+        elif c["kind"] == "cassandra":
+            data, alen, tlen, nq, rem = args
+            cmp = ((alen[:, None] == model.action_len[None, :]) & ~model.action_any[None, :]).any(dim=1)
+            need = int(torch.where(cmp, alen.clamp(0, MAX_ACTION), torch.zeros_like(alen)).sum())
+            walked = walked_rows(inp["hits"], r)
+            k10 = lambda: cassandra_hits(model, data, alen, tlen, nq, inp["rx"], rem)
+            rows["cassandra_hits"] = dict(
+                ms=graph_ms(k10), call_ms=cuda_ms(k10, 50),
+                plain_ms=cuda_ms(lambda: cassandra_hits_plain(model, data, alen, tlen, nq, inp["rx"], rem), 10),
+                bytes=need + f * r + 13 * f + f + r * (MAX_ACTION + 4 + 1 + 1 + 128 + 1),
+                ops=walked * (2 + 32) + need,
+            )
+            on_card = lambda: (cassandra_verdicts(model, data, alen, tlen, nq, rem),)
+        else:
+            kd, klen, hk, ib, op, cid, rem = args
+            modes = model.key_mode
+            lens = model.key_needle_len[(modes == KEY_MODE_EXACT) | (modes == KEY_MODE_PREFIX)]
+            most = int(lens.max()) if lens.numel() else 0
+            need = int(torch.where(hk, klen.clamp(0, most), torch.zeros_like(klen)).sum())
+            walked = walked_rows(inp["hits"], r)
+            nc = model.cmd_tab.shape[1]
+            k11 = lambda: memcache_hits(model, kd, klen, hk, ib, op, cid, inp["rx"], rem)
+            rows["memcache_hits"] = dict(
+                ms=graph_ms(k11), call_ms=cuda_ms(k11, 50),
+                plain_ms=cuda_ms(lambda: memcache_hits_plain(model, kd, klen, hk, ib, op, cid, inp["rx"], rem), 10),
+                bytes=need + f * r + 18 * f + f + r * (256 + nc + 1 + 4 + 96 + 4 + 128 + 1),
+                ops=walked * (4 + 32) + need,
+            )
+            on_card = lambda: (memcache_verdicts(model, kd, klen, hk, ib, op, cid, rem),)
+        row = scan_row(scans[kname], tab, data_s, s_, e_, span_bytes(s_, e_, width))
+        row["span"] = span_of[c["kind"]]
+        rows[f"{kname}:{row['span']}"] = row
+        host = c["host"]
+        timed[name] = dict(rows=rows, **pass_times(on_card, lambda: verdicts(c, model, host)))
+        for kn, row in rows.items():
+            bound(row)
+            log_row(name, kn, row)
+        log_pass(name, c["kind"] + "_verdicts", timed[name], card)
+
+    for name, (proto, port, policy, make, feeds) in engines.items():
+        out = eng_card[name][0]
+        frames = sum(1 for _, ops, _ in out for op, _ in ops if op in (1, 2))
+        engine_times(f"{name}: {frames} frames of {len(feeds[0])} flows", frames, card,
+                     lambda: run_l7_engine(lambda: make(models[model_of[proto]][0]), feeds))
+    return launches, runs, span_runs, report, timed
 
 
 # --- timing -------------------------------------------------------------------
@@ -1009,6 +1708,17 @@ def main() -> int:
     engine_times(f"http engine: {frames} requests of {len(hfeeds[0])} flows", frames, card,
                  lambda: run_http_engine(hcases["http-graft"]["model"], hfeeds, FlowLog(capacity=1 << 20)))
 
+    # The third slice's paths, counted in their own run.
+    launches3, runs3, span_runs3, report3, timed3 = l7_slice(dev, card, kerns, scans, scan_kernel,
+                                                             tile_heads)
+    runs.update(runs3)
+    span_runs.update(span_runs3)
+    timed.update(timed3)
+    for kname, per in report3.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches3.items():
+        launches[kname] = launches.get(kname, 0) + n
+
     replaces = {
         "r2d2_frame": ("cilium_tpu_torch/csrc/r2d2_frame.cu", "cilium_tpu/models/r2d2.py:211", "graft"),
         "dfa_scan": ("cilium_tpu_torch/csrc/dfa_scan.cu", "cilium_tpu/ops/dfa.py:146", "graft"),
@@ -1017,6 +1727,12 @@ def main() -> int:
         "http_frame": ("cilium_tpu_torch/csrc/http_frame.cu", "cilium_tpu/models/http.py:539", "http-graft"),
         "http_lit": ("cilium_tpu_torch/csrc/http_lit.cu", "cilium_tpu/models/http.py:403", "http-graft"),
         "http_hits": ("cilium_tpu_torch/csrc/http_hits.cu", "cilium_tpu/models/http.py:509", "http-graft"),
+        "dns_name": ("cilium_tpu_torch/csrc/dns_name.cu", "cilium_tpu/models/dns.py:223", "dns"),
+        "dns_hits": ("cilium_tpu_torch/csrc/dns_hits.cu", "cilium_tpu/models/dns.py:291", "dns"),
+        "cassandra_hits": ("cilium_tpu_torch/csrc/cassandra_hits.cu",
+                           "cilium_tpu/models/cassandra.py:160", "cassandra"),
+        "memcache_hits": ("cilium_tpu_torch/csrc/memcache_hits.cu",
+                          "cilium_tpu/models/memcached.py:209", "memcached"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     kernels_line = []

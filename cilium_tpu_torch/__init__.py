@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of ``cilium_tpu``'s r2d2 and HTTP L7 verdict paths.
+"""PyTorch + CUDA port of ``cilium_tpu``'s r2d2, HTTP, DNS, Cassandra and
+memcached L7 verdict paths.
 
 The JAX package stays the reference; this package imports neither JAX nor
 anything of ``cilium_tpu``.  Where it needs one of that package's jax-free
@@ -13,6 +14,15 @@ HTTP: NPDS ``http_rules`` -> ``models.http.build_http_model_for_port`` ->
 ``models.http.http_verdicts`` (kernels K5 head framing, K6 literal tier,
 K2/K3 on the regex spans, K7 rule hits) ->
 ``runtime.engines.HttpBatchEngine`` PASS/DROP ops with 403 injects.
+
+DNS: NPDS ``l7_proto: "dns"`` -> ``models.dns.build_dns_model`` ->
+``models.dns.dns_verdicts`` (kernels K8 frame and QNAME walk, K2/K3 on the
+dotted name, K9 rule hits) -> ``runtime.dnsengine.DnsBatchEngine``.
+Cassandra and memcached: ``models.cassandra`` / ``models.memcached``
+(K2/K3 on the table or key span, K10 / K11 ACL) ->
+``runtime.l7engine.CassandraBatchEngine`` / ``MemcacheBatchEngine``, whose
+streaming parsers take their verdicts from the device;
+``runtime.l7engine.HttpSidecarEngine`` runs HTTP through the same base.
 
 Entry points take ``device=None``, which means the CUDA card; they raise if
 there is none.  The CPU runs the kernels' plain PyTorch versions and is

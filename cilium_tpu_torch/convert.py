@@ -1,4 +1,5 @@
-"""Carry a JAX-built r2d2 or HTTP model's tables over into the port.
+"""Carry a JAX-built r2d2, HTTP, DNS, Cassandra or memcached model's
+tables over into the port.
 
 ``model_from_numpy`` takes the leaves of a ``cilium_tpu`` ``R2d2BatchModel``
 as numpy arrays — ``cmd_needle``, ``cmd_len``, ``cmd_any``, ``remote_ids``,
@@ -14,6 +15,15 @@ caller's to pass; without rows the model makes no byte-invariance claim.
 ``http_model_from_numpy`` does the same for the 20 leaves of a
 ``cilium_tpu`` ``HttpBatchModel``, whose ``line_nfa`` and ``head_nfa`` are
 each a ``DeviceDfa``'s leaves, a ``DeviceNfa``'s leaves or None.
+
+``dns_model_from_numpy``, ``cassandra_model_from_numpy`` and
+``memcache_model_from_numpy`` take the array leaves of a ``cilium_tpu``
+``DnsBatchModel``, ``CassandraBatchModel`` or ``MemcacheBatchModel`` and
+its ``nfa`` as a dict of automaton leaves.  The port compiles no
+automaton for a model without pattern, table-regex or key-regex rows
+(those rows never read it), so the ``nfa`` leaf is dropped there.
+Converted DNS models make no byte-invariance claim
+(``invariant_rows=None``), as converted r2d2 and HTTP models do not.
 """
 
 from __future__ import annotations
@@ -22,7 +32,10 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.cassandra import CassandraBatchModel
+from .models.dns import DnsBatchModel
 from .models.http import HttpBatchModel
+from .models.memcached import KEY_MODE_REGEX, MemcacheBatchModel
 from .models.r2d2 import R2d2BatchModel
 from .ops.dfa import DeviceDfa, dfa_from_arrays
 from .ops.nfa import DeviceNfa, nfa_from_dense
@@ -125,12 +138,8 @@ def http_model_from_numpy(
     The JAX model's static fields come as arguments; without its rule
     rows the model makes no byte-invariance claim."""
     device = resolve_device(device)
-
-    def up(name, dtype):
-        return torch.from_numpy(np.array(leaves[name], dtype)).to(device)
-
     return HttpBatchModel(
-        **{name: up(name, dtype) for name, dtype in HTTP_TABLES.items()},
+        **_tables(leaves, HTTP_TABLES, device),
         line_nfa=automaton_from_leaves(leaves["line_nfa"], device),
         head_nfa=automaton_from_leaves(leaves["head_nfa"], device),
         n_rules=n_rules,
@@ -138,4 +147,67 @@ def http_model_from_numpy(
         has_path_rx=has_path_rx,
         match_kinds=tuple(match_kinds),
         invariant_rows=None,
+    )
+
+
+# The array leaves of the JAX DNS, Cassandra and memcached models, in
+# pytree order (cilium_tpu/models/dns.py:82-87, cassandra.py:59-64,
+# memcached.py:74-80), without the automaton.
+DNS_TABLES = {
+    "name_needle": np.uint8, "name_len": np.int32, "name_any": bool,
+    "use_rx": bool, "remote_ids": np.int32, "any_remote": bool,
+}
+CASSANDRA_TABLES = {
+    "action_needle": np.uint8, "action_len": np.int32, "action_any": bool,
+    "table_none": bool, "remote_ids": np.int32, "any_remote": bool,
+}
+MEMCACHE_TABLES = {
+    "op_tab": bool, "cmd_tab": bool, "empty_rule": bool,
+    "key_mode": np.int32, "key_needle": np.uint8, "key_needle_len": np.int32,
+    "remote_ids": np.int32, "any_remote": bool,
+}
+
+
+def _tables(leaves: dict, tables: dict, device) -> dict:
+    return {
+        name: torch.from_numpy(np.array(leaves[name], dtype)).to(device)
+        for name, dtype in tables.items()
+    }
+
+
+def dns_model_from_numpy(leaves: dict, device=None, *, match_kinds: tuple = ()) -> DnsBatchModel:
+    """The port's ``DnsBatchModel`` on ``device`` (None: the CUDA card)
+    from a JAX model's leaves: the arrays named in ``DNS_TABLES`` and
+    ``nfa``, a dict of automaton leaves."""
+    device = resolve_device(device)
+    has_rx = bool(np.asarray(leaves["use_rx"]).any())
+    return DnsBatchModel(
+        nfa=automaton_from_leaves(leaves["nfa"], device) if has_rx else None,
+        **_tables(leaves, DNS_TABLES, device),
+        match_kinds=tuple(match_kinds),
+        invariant_rows=None,
+    )
+
+
+def cassandra_model_from_numpy(leaves: dict, device=None) -> CassandraBatchModel:
+    """The port's ``CassandraBatchModel`` on ``device`` (None: the CUDA
+    card) from a JAX model's leaves: the arrays named in
+    ``CASSANDRA_TABLES`` and ``nfa``."""
+    device = resolve_device(device)
+    has_rx = not bool(np.asarray(leaves["table_none"]).all())
+    return CassandraBatchModel(
+        nfa=automaton_from_leaves(leaves["nfa"], device) if has_rx else None,
+        **_tables(leaves, CASSANDRA_TABLES, device),
+    )
+
+
+def memcache_model_from_numpy(leaves: dict, device=None) -> MemcacheBatchModel:
+    """The port's ``MemcacheBatchModel`` on ``device`` (None: the CUDA
+    card) from a JAX model's leaves: the arrays named in
+    ``MEMCACHE_TABLES`` and ``nfa``."""
+    device = resolve_device(device)
+    has_rx = bool((np.asarray(leaves["key_mode"]) == KEY_MODE_REGEX).any())
+    return MemcacheBatchModel(
+        nfa=automaton_from_leaves(leaves["nfa"], device) if has_rx else None,
+        **_tables(leaves, MEMCACHE_TABLES, device),
     )

@@ -1,11 +1,14 @@
-"""Port entry points: the r2d2 verdict step on the card, and the HTTP
-verdict pass's policy and batch.
+"""Port entry points: the r2d2 verdict step on the card, and the HTTP,
+DNS, Cassandra and memcached verdict passes' policies and batches.
 
 ``bench_policy``, ``batch`` and ``entry`` are the counterparts of
 ``__graft_entry__._bench_policy``, ``_batch`` and ``entry()``
 (``__graft_entry__.py:6-72``); ``http_bench_policy`` and ``http_batch``
 are the port's copy of ``bench.py::bench_http``'s setup
-(``bench.py:211-240``), built through NPDS.
+(``bench.py:211-240``), and the ``dns_*``, ``cassandra_*`` and
+``memcache_*`` pairs of ``bench_dns`` (``bench.py:566-615``),
+``bench_cassandra`` (``:366-401``) and ``bench_memcached``
+(``:447-501``), all built through NPDS.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.cassandra import encode_cassandra_batch
+from .models.memcached import encode_memcache_batch
 from .models.r2d2 import build_r2d2_model, r2d2_verdicts
+from .proxylib.parsers.dns import encode_dns_query
 from .proxylib import (
     NetworkPolicy,
     PolicyInstance,
@@ -132,3 +138,140 @@ def http_batch(f: int, l: int = 512):
         lengths[i] = len(r)
     remotes = np.ones((f,), np.int32)
     return data, lengths, remotes
+
+
+def _l7_policy(port: int, l7_proto: str, l7_rules: list) -> PolicyInstance:
+    """One NPDS policy named "bench" whose ingress ``port`` allows
+    ``l7_rules`` of ``l7_proto`` from any remote."""
+    return compile_policy(
+        NetworkPolicy(
+            name="bench",
+            policy=2,
+            ingress_per_port_policies=[
+                PortNetworkPolicy(
+                    port=port,
+                    rules=[PortNetworkPolicyRule(l7_proto=l7_proto, l7_rules=l7_rules)],
+                )
+            ],
+        )
+    )
+
+
+def dns_bench_policy() -> PolicyInstance:
+    """``bench_dns``'s policy: port 53 allows ``api.example.com``,
+    ``*.svc.cluster.local`` and ``^cdn[0-9]+[.]edge[.]net$``
+    (``bench.py:566-586``)."""
+    return _l7_policy(53, "dns", [
+        {"matchName": "api.example.com"},
+        {"matchPattern": "*.svc.cluster.local"},
+        {"matchRegex": "^cdn[0-9]+[.]edge[.]net$"},
+    ])
+
+
+def dns_queries(n: int = 1024) -> list[bytes]:
+    """``bench.py:589-605``'s query frames from ``random.Random(13)``: 30%
+    api.example.com, 25% pod*.svc.cluster.local, 15% cdn*.edge.net, 30%
+    evil*.test."""
+    rng = random.Random(13)
+    msgs = []
+    for _ in range(n):
+        roll = rng.random()
+        if roll < 0.3:
+            msgs.append(encode_dns_query("api.example.com"))
+        elif roll < 0.55:
+            msgs.append(encode_dns_query(f"pod{rng.randrange(1000)}.svc.cluster.local"))
+        elif roll < 0.7:
+            msgs.append(encode_dns_query(f"cdn{rng.randrange(100)}.edge.net"))
+        else:
+            msgs.append(encode_dns_query(f"evil{rng.randrange(1000)}.test"))
+    return msgs
+
+
+def dns_batch(f: int, l: int = 64):
+    """(data [f, l] uint8, lengths [f] int32, remotes [f] int32) numpy
+    arrays cycling ``dns_queries()`` (``bench.py:607-614``)."""
+    msgs = dns_queries()
+    data = np.zeros((f, l), np.uint8)
+    lengths = np.zeros((f,), np.int32)
+    for i in range(f):
+        m = msgs[i % len(msgs)][:l]
+        data[i, : len(m)] = np.frombuffer(m, np.uint8)
+        lengths[i] = len(m)
+    return data, lengths, np.ones((f,), np.int32)
+
+
+def cassandra_bench_policy() -> PolicyInstance:
+    """``bench_cassandra``'s policy: port 9042 allows ``select`` and
+    ``insert`` on tables matching ``^public\\.`` (``bench.py:366-386``)."""
+    return _l7_policy(9042, "cassandra", [
+        {"query_action": "select", "query_table": "^public\\."},
+        {"query_action": "insert", "query_table": "^public\\."},
+    ])
+
+
+def cassandra_requests(n: int = 1024) -> list[tuple[str, str, bool]]:
+    """``bench.py:389-394``'s (action, table, non_query) tuples from
+    ``random.Random(17)``."""
+    rng = random.Random(17)
+    out = []
+    for _ in range(n):
+        action = rng.choice(["select", "insert", "update", "delete"])
+        ks = "public" if rng.random() < 0.5 else "secret"
+        out.append((action, f"{ks}.t{rng.randrange(40)}", False))
+    return out
+
+
+def cassandra_batch(f: int):
+    """``encode_cassandra_batch`` of ``cassandra_requests()`` cycled to
+    ``f`` rows, plus remotes: (data [f, 128] uint8, action_len, table_len,
+    non_query, remotes) numpy arrays (``bench.py:396-400``)."""
+    reqs = cassandra_requests()
+    data, alen, tlen, nq, overflow = encode_cassandra_batch(
+        [reqs[i % len(reqs)] for i in range(f)]
+    )
+    assert not overflow.any()
+    return data, alen, tlen, nq, np.ones((f,), np.int32)
+
+
+def memcache_bench_policy() -> PolicyInstance:
+    """``bench_memcached``'s policy: port 11211 allows ``get`` with
+    keyPrefix ``user:``, ``set`` with keyRegex ``^sess:[0-9]+$`` and
+    ``delete`` with keyExact ``the-key`` (``bench.py:447-470``)."""
+    return _l7_policy(11211, "memcache", [
+        {"command": "get", "keyPrefix": "user:"},
+        {"command": "set", "keyRegex": "^sess:[0-9]+$"},
+        {"command": "delete", "keyExact": "the-key"},
+    ])
+
+
+def memcache_frames(n: int = 1024) -> list[tuple[bool, int, str, list[bytes]]]:
+    """``bench.py:474-494``'s (is_binary, opcode, command, keys) frames
+    from ``random.Random(23)``: text and binary, half allowed."""
+    rng = random.Random(23)
+    out = []
+    for _ in range(n):
+        kind = rng.randrange(6)
+        if kind == 0:
+            out.append((False, 0, "get", [b"user:%d" % rng.randrange(99)]))
+        elif kind == 1:
+            out.append((False, 0, "get", [b"admin:%d" % rng.randrange(99)]))
+        elif kind == 2:
+            out.append((False, 0, "set", [b"sess:%d" % rng.randrange(99)]))
+        elif kind == 3:
+            out.append((False, 0, "set", [b"sess:x%d" % rng.randrange(99)]))
+        elif kind == 4:
+            out.append((True, rng.choice([0, 9]), "", [b"user:%d" % rng.randrange(99)]))
+        else:
+            out.append((True, 1, "", [b"sess:%d" % rng.randrange(99)]))
+    return out
+
+
+def memcache_batch(f: int):
+    """``encode_memcache_batch`` of ``memcache_frames()`` cycled to ``f``
+    rows, plus remotes: (key_data [f, 96] uint8, key_len, has_key,
+    is_binary, opcode, cmd_id, remotes) numpy arrays
+    (``bench.py:496-500``)."""
+    frames = memcache_frames()
+    *arrays, overflow = encode_memcache_batch([frames[i % len(frames)] for i in range(f)])
+    assert not overflow.any()
+    return (*arrays, np.ones((f,), np.int32))

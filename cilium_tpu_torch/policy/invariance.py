@@ -27,8 +27,7 @@ models/http.collect_http_rows in the JAX package, proxylib policy.matches_at):
   gate re-validates cached (verdict, rule, epoch) against a cold
   recompute.
 
-This is the r2d2 and HTTP half of ``cilium_tpu/policy/invariance.py``; the
-DNS row reduction waits for that model's slice.
+A copy of ``cilium_tpu/policy/invariance.py``.
 
 Rows are reduced to ``(remote_set_or_None, byte_free)`` pairs by the
 model builders (``invariant_rows`` on the batch models, host-side aux
@@ -59,6 +58,28 @@ def reduce_r2d2_rows(rows) -> tuple:
     return tuple(
         (remotes if remotes else None, not cmd and not file_rx)
         for remotes, cmd, file_rx in rows
+    )
+
+
+def reduce_dns_rows(rows) -> tuple:
+    """(remote_set_or_None, byte_free) per flattened DNS row.  A row is
+    byte-free iff it carries no name constraint (the matcherless
+    always-match shape, or a DnsRule with none of matchName/
+    matchPattern/matchRegex set).  This is SOUND only because the DNS
+    engine's always-match rows admit any complete frame — the QNAME
+    validity gate masks name-CONSTRAINED rows only (a malformed
+    question can never satisfy a name rule, but a byte-free "allow
+    these peers' DNS" row passes it, host and device alike) — so the
+    verdict and the attributed first-match row really are independent
+    of the frame's bytes, and a cached whole-frame short-circuit is
+    exactly what a cold recompute would produce."""
+    return tuple(
+        (
+            remotes if remotes else None,
+            rule is None
+            or not (rule.name or rule.pattern or rule.regex),
+        )
+        for remotes, rule in rows
     )
 
 
@@ -109,8 +130,7 @@ MEMO_MAX = 1 << 16  # bound each engine's per-identity claim memo
 class InvariantClaimEngine:
     """Mixin: the engine half of the verdict-cache contract — THE one
     definition behind every engine's ``verdict_invariant``
-    (R2d2BatchEngine and BaseBatchEngine here; the JAX package's other
-    engine tiers too).
+    (R2d2BatchEngine, BaseBatchEngine, DeviceAssistedEngine).
 
     ``verdict_invariant(remote_id)`` returns ``(allow, rule_row)``
     when every future frame's verdict (and attributed first-match

@@ -1,12 +1,13 @@
 """Host policy compile for the port: the NPDS wire model, the policy-match
-cascade and the r2d2 and HTTP rule parsers.
+cascade, the rule parsers and the per-connection op loop.
 
-Copies of the jax-free ``cilium_tpu/proxylib`` modules the r2d2 and HTTP
-slices need (``types``, ``npds``, ``parser``, ``policy``, ``accesslog``,
-the rule half of ``parsers/r2d2`` and ``parsers/http``).
+Copies of the jax-free ``cilium_tpu/proxylib`` modules the r2d2, HTTP,
+DNS, Cassandra and memcached slices need (``types``, ``npds``,
+``parser``, ``policy``, ``accesslog``, ``connection``, the rule half of
+``parsers/r2d2`` and ``parsers/{http,dns,cassandra,memcached}``).
 ``PolicyInstance.matches_at`` is the host oracle the device verdicts are
-held against.  The streaming connection and instance layers are not part
-of the port yet.
+held against; ``Connection`` drives the streaming parsers inside
+``runtime/l7engine.py``.  The instance layer is not part of the port yet.
 """
 
 from .types import (
@@ -34,6 +35,7 @@ from .npds import (
     UDP,
 )
 from .policy import PolicyInstance, PolicyMap, build_policy_map, compile_policy
+from .connection import Connection, FILTER_OPS_CAPACITY
 from .accesslog import LogEntry, EntryType, MemoryAccessLogger
 
 # Rule-parser registrations (import side effects, like the reference's init()).
@@ -46,5 +48,6 @@ __all__ = [
     "register_l7_rule_parser",
     "NetworkPolicy", "PortNetworkPolicy", "PortNetworkPolicyRule", "TCP", "UDP",
     "PolicyInstance", "PolicyMap", "build_policy_map", "compile_policy",
+    "Connection", "FILTER_OPS_CAPACITY",
     "LogEntry", "EntryType", "MemoryAccessLogger",
 ]

@@ -2,8 +2,11 @@
 
 Like the reference's per-parser ``init()`` functions
 (reference: proxylib/r2d2/r2d2parser.go:133-137).  The port registers the
-r2d2 and HTTP parsers.
+r2d2, HTTP, DNS, Cassandra and memcached parsers.
 """
 
 from . import r2d2  # noqa: F401
+from . import cassandra  # noqa: F401
+from . import memcached  # noqa: F401
 from . import http  # noqa: F401
+from . import dns  # noqa: F401

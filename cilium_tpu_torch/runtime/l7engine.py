@@ -1,0 +1,568 @@
+"""Device-assisted L7 engines for stateful protocols (cassandra, memcached)
+and HTTP through the same base.
+
+Counterpart of ``cilium_tpu/runtime/l7engine.py`` with the port's models
+inside.  The r2d2/HTTP engines re-implement framing and emission around a
+pure device model.  Cassandra and memcached have deeply stateful
+connection semantics (prepared-statement caches, keyspace tracking,
+reply-intent queues with in-order denial injection), so this engine
+keeps the streaming oracle parser as the single source of framing/state
+truth and batches only the decision:
+
+1. **Peek**: extract match inputs for every complete frame in each
+   flow's buffer WITHOUT mutating parser state (clones for the
+   keyspace-tracking tokenizer).
+2. **Judge**: one device pass over the collected frames (cassandra
+   (action, table) ACL / memcached (command, key) ACL / HTTP heads) and
+   one device-to-host copy of its verdicts.
+3. **Drive**: run the oracle parser through the port's ``Connection``
+   exactly as in-process proxylib — its ``Connection.matches`` is
+   answered from the precomputed device verdicts, so the op/byte/inject
+   stream is bit-identical to the oracle by construction.
+
+The host ``policy.matches_at`` answers only frames the device judge did
+not: the reference's fail-closed overflow frames (tokens the fixed-width
+tensors cannot hold, multi-key frames) and frames past a flow's peek
+horizon.  They are counted in ``host_judged``.  A judge that raises
+propagates out of ``pump()``: there is no host fallback for a failing
+device.  What only the sidecar service reads comes with the serving
+seam: its containment hooks (``device_gate``, ``device_fail_hook``,
+``judge_dispatch``), the ``handles_reply`` and ``capacity`` settings and
+the columnar reassembly declarations (``reasm_spec``).
+
+Reference seams: proxylib/proxylib/connection.go:118 (op loop),
+proxylib/cassandra/cassandraparser.go, proxylib/memcached/*.
+"""
+
+from __future__ import annotations
+
+import logging
+import struct
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..models.base import ConstVerdict
+from ..models.cassandra import cassandra_verdicts, encode_cassandra_batch
+from ..models.memcached import encode_memcache_batch, memcache_verdicts
+from ..policy.invariance import InvariantClaimEngine
+from ..proxylib.connection import Connection, InjectBuf
+from ..proxylib.parsers.cassandra import CASS_HDR_LEN, CassandraParser
+from ..proxylib.parsers.http import HttpParser, head_and_body_len, parse_head
+from ..proxylib.parsers.memcached import (
+    BINARY_HEADER_SIZE,
+    BinaryMemcacheParser,
+    MemcacheParser,
+)
+from ..proxylib.types import DROP, ERROR, MORE, PASS, FilterResult, OpError
+from ..utils import flowdebug, metrics
+
+# Per-flow debug stream: every per-frame/per-op message in this module
+# rides the flowdebug gate (one boolean when disabled).
+_flow_log = logging.getLogger("cilium_tpu_torch.runtime.flow")
+
+
+class _EngineInstance:
+    """Duck-typed proxylib Instance: policy decisions come from the
+    engine's precomputed device verdicts, logging from its logger."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def policy_matches_at(self, policy_name, ingress, port, remote_id, l7):
+        """(allow, rule) — Connection.matches stamps the rule onto the
+        connection's ``last_rule_id`` for flow-record emission.  Device
+        rounds answer from the precomputed (verdict, rule) queue; frames
+        the device did not judge (overflow frames, frames beyond the peek
+        horizon) walk the oracle's matches_at (the same flattened row
+        order the device's first match uses)."""
+        q = self.engine._pending_verdicts.get(self.engine._driving_flow)
+        if q:
+            allow, rule = q.popleft()
+            return bool(allow), int(rule)
+        self.engine.host_judged += 1
+        policy = self.engine.policy
+        if policy is None:
+            return False, -1
+        return policy.matches_at(ingress, port, remote_id, l7)
+
+    def policy_matches(self, policy_name, ingress, port, remote_id, l7):
+        return self.policy_matches_at(
+            policy_name, ingress, port, remote_id, l7
+        )[0]
+
+    def log(self, entry) -> None:
+        if self.engine.logger is not None:
+            self.engine.logger.log(entry)
+
+
+class _EngineFlow:
+    __slots__ = ("conn", "parser", "bufs", "ops", "stalled", "skip",
+                 "overflowed")
+
+    def __init__(self, conn, parser):
+        self.conn = conn
+        self.parser = parser
+        self.bufs = {False: bytearray(), True: bytearray()}
+        self.ops = {False: [], True: []}
+        # Per-direction need-more marker: don't re-drive until new bytes.
+        self.stalled = {False: False, True: False}
+        # Bytes already covered by a PASS/DROP that overshot the buffered
+        # input (a parser may decide on a frame prefix — e.g. memcached
+        # binary bodies); consumed on arrival without re-parsing.
+        self.skip = {False: 0, True: 0}
+        # Retained-bytes cap exceeded: buffers dropped with a typed
+        # protocol-error, flow is dead.
+        self.overflowed = False
+
+
+class DeviceAssistedEngine(InvariantClaimEngine):
+    """Common pump for peek/judge/drive engines.
+
+    Subclasses implement ``_peek(flow, buf)`` returning the list of
+    device-encodable frame descriptors for complete request frames at
+    the head of ``buf`` (in order), or [] when none, and ``_judge(descs,
+    remotes)`` returning numpy (verdicts, overflow) or (verdicts,
+    overflow, rules).
+    """
+
+    proto = ""
+
+    def __init__(self, policy, ingress: bool, port: int, model,
+                 logger=None, max_buffer: int = 1 << 20,
+                 attr_enabled: bool = True):
+        self.policy = policy  # PolicyInstance for the host-judged frames
+        # Rule attribution gate: False (flow_observe off) keeps the
+        # judge on the plain verdict call — no first-match output, no
+        # extra readback.
+        self.attr_enabled = attr_enabled
+        # Verdict-cache offload tier gate (service config flow_cache):
+        # when on, judge steps may answer byte-invariant identities
+        # host-side from the claim instead of encoding device rows.
+        self.cache_enabled = False
+        self.ingress = ingress
+        self.port = port
+        self.model = model
+        self.logger = logger
+        # Per-flow retained-bytes cap across both direction buffers
+        # (0 = unbounded) — see runtime/batch.py FlowState.
+        self.max_buffer = max_buffer
+        self.buffer_overflows = 0
+        self.flows: dict[int, _EngineFlow] = {}
+        self.instance = _EngineInstance(self)
+        self._pending_verdicts: dict[int, deque] = {}
+        self._driving_flow: int | None = None
+        self.device_judged = 0  # frames decided on device (telemetry)
+        self.host_judged = 0  # frames decided by the host oracle (telemetry)
+
+    # -- flow management --------------------------------------------------
+
+    def flow(self, flow_id: int, remote_id: int = 0, policy_name: str = "",
+             dst_id: int = 0, src_addr: str = "", dst_addr: str = "",
+             **_kw) -> _EngineFlow:
+        st = self.flows.get(flow_id)
+        if st is None:
+            conn = Connection(
+                instance=self.instance,
+                conn_id=flow_id,
+                ingress=self.ingress,
+                src_id=remote_id,
+                dst_id=dst_id,
+                src_addr=src_addr,
+                dst_addr=dst_addr or f"0.0.0.0:{self.port}",
+                policy_name=policy_name,
+                port=self.port,
+                parser_name=self.proto,
+                orig_buf=InjectBuf(4096),
+                reply_buf=InjectBuf(4096),
+            )
+            conn.parser = self._make_parser(conn)
+            st = _EngineFlow(conn, conn.parser)
+            self.flows[flow_id] = st
+        return st
+
+    def feed(self, flow_id: int, data: bytes, reply: bool = False,
+             remote_id: int = 0, **kw) -> None:
+        st = self.flow(flow_id, remote_id, **kw)
+        if st.overflowed:
+            if not st.ops[reply]:  # dead flow: every further feed errors
+                st.ops[reply].append(
+                    (ERROR, int(OpError.ERROR_INVALID_FRAME_LENGTH))
+                )
+            return
+        if st.skip[reply]:
+            take = min(st.skip[reply], len(data))
+            st.skip[reply] -= take
+            data = data[take:]
+            if not data:
+                return
+        retained = len(st.bufs[False]) + len(st.bufs[True])
+        if self.max_buffer and retained + len(data) > self.max_buffer:
+            # Retained-bytes cap: drop everything buffered in THIS
+            # direction plus the incoming bytes with a typed
+            # protocol-error pair; the flow is dead (caller closes on
+            # the ERROR result).  The opposite direction's buffer is
+            # left intact — the shim still mirrors those retained
+            # bytes, and clearing them here with no covering op would
+            # desync that mirror; they die with the flow (the next
+            # entry in that direction gets the overflowed ERROR above).
+            dropped = len(st.bufs[reply]) + len(data)
+            st.bufs[reply].clear()
+            st.overflowed = True
+            st.stalled[False] = st.stalled[True] = True
+            self.buffer_overflows += 1
+            st.ops[reply].append((DROP, dropped))
+            st.ops[reply].append(
+                (ERROR, int(OpError.ERROR_INVALID_FRAME_LENGTH))
+            )
+            return
+        st.bufs[reply] += data
+        st.stalled[reply] = False
+
+    def close_flow(self, flow_id: int) -> None:
+        self.flows.pop(flow_id, None)
+        self._pending_verdicts.pop(flow_id, None)
+
+    def take_ops(self, flow_id: int, reply: bool = False):
+        st = self.flows[flow_id]
+        ops = st.ops[reply]
+        st.ops[reply] = []
+        inject_orig = st.conn.orig_buf.take()
+        inject_reply = st.conn.reply_buf.take()
+        return ops, inject_orig, inject_reply
+
+    # -- the pump ---------------------------------------------------------
+
+    def pump(self) -> None:
+        while self._round():
+            pass
+
+    def _round(self) -> bool:
+        # 1. peek request-direction frames across flows
+        batch_entries: list[tuple[int, object]] = []
+        for fid, st in self.flows.items():
+            if st.stalled[False] or not st.bufs[False]:
+                continue
+            for desc in self._peek(st, bytes(st.bufs[False])):
+                batch_entries.append((fid, desc))
+        # 2. judge on the device; a judge that raises propagates.
+        self._pending_verdicts = {}
+        if batch_entries and not isinstance(self.model, ConstVerdict):
+            judged = self._judge(
+                [d for _, d in batch_entries],
+                np.asarray(
+                    [self.flows[fid].conn.src_id for fid, _ in batch_entries],
+                    np.int32,
+                ),
+            )
+            # Engines with device-side rule attribution return a third
+            # per-frame array of first-match rule rows; the rest
+            # attribute -1 (the queue always carries pairs).
+            if len(judged) == 3:
+                verdicts, overflow, rules = judged
+            else:
+                verdicts, overflow = judged
+                rules = None
+            stopped: set[int] = set()
+            for i, (fid, _) in enumerate(batch_entries):
+                if fid in stopped:
+                    continue
+                if overflow[i]:
+                    # the host oracle from this frame on, for THIS flow only
+                    stopped.add(fid)
+                    continue
+                self._pending_verdicts.setdefault(fid, deque()).append(
+                    (bool(verdicts[i]),
+                     int(rules[i]) if rules is not None else -1)
+                )
+                self.device_judged += 1
+        elif batch_entries:
+            for fid, _ in batch_entries:
+                self._pending_verdicts.setdefault(fid, deque()).append(
+                    (bool(self.model.allow), -1)
+                )
+
+        # 3. drive the oracle op loop per (flow, direction)
+        progress = False
+        for fid, st in self.flows.items():
+            for reply in (False, True):
+                if st.stalled[reply] or not st.bufs[reply]:
+                    continue
+                self._driving_flow = fid if not reply else None
+                ops: list = []
+                res = st.conn.on_data(
+                    reply, False, [bytes(st.bufs[reply])], ops
+                )
+                self._driving_flow = None
+                flowdebug.log(
+                    _flow_log, "flow %d %s %s drive: %d op(s) rule=%d",
+                    fid, self.proto, "reply" if reply else "orig",
+                    len(ops), st.conn.last_rule_id,
+                )
+                consumed = 0
+                for op, n in ops:
+                    st.ops[reply].append((op, n))
+                    if op in (PASS, DROP):
+                        take = min(n, len(st.bufs[reply]) - consumed)
+                        consumed += take
+                        st.skip[reply] += n - take  # decide-on-prefix
+                if consumed:
+                    del st.bufs[reply][:consumed]
+                    progress = True
+                if res != FilterResult.OK:
+                    # parser error: ops carry ERROR; connection is dead
+                    st.stalled[False] = st.stalled[True] = True
+                elif not ops or ops[-1][0] == MORE or not st.bufs[reply]:
+                    st.stalled[reply] = True
+            # discard unused verdicts: next round re-peeks
+        self._pending_verdicts = {}
+        return progress
+
+    # -- subclass hooks ---------------------------------------------------
+
+    def _make_parser(self, conn):
+        raise NotImplementedError
+
+    def _peek(self, st: _EngineFlow, buf: bytes) -> list:
+        raise NotImplementedError
+
+    def _judge(self, descs: list, remotes: np.ndarray):
+        raise NotImplementedError
+
+
+class CassandraBatchEngine(DeviceAssistedEngine):
+    proto = "cassandra"
+
+    def _make_parser(self, conn):
+        return CassandraParser(conn)
+
+    class _PeekState:
+        """Non-mutating tokenizer context: keyspace evolves across the
+        peeked frames without touching the live parser.  The unprepared
+        error inject is swallowed by the null connection — the real
+        inject happens when the oracle drives the frame."""
+
+        _send_unprepared = CassandraParser._send_unprepared
+
+        def __init__(self, parser):
+            self.keyspace = parser.keyspace
+            self.prepared_path_by_stream_id = dict(
+                parser.prepared_path_by_stream_id
+            )
+            self.prepared_path_by_prepared_id = (
+                parser.prepared_path_by_prepared_id
+            )
+            self.connection = _NullConn()
+
+    def _peek(self, st, buf):
+        clone = self._PeekState(st.parser)
+        descs = []
+        off = 0
+        while True:
+            if len(buf) - off < CASS_HDR_LEN:
+                break
+            (request_len,) = struct.unpack_from(">I", buf, off + 5)
+            end = off + CASS_HDR_LEN + request_len
+            if end > len(buf):
+                break
+            frame = buf[off:end]
+            err, paths = CassandraParser._parse_request(clone, frame)
+            if err:
+                break  # oracle will ERROR on this frame; stop peeking
+            # All paths of the frame must match (batch opcode): encode
+            # each as a device row; the drive phase consumes one verdict
+            # per path in order (the oracle matches() per path).
+            for path in paths:
+                parts = path.split("/")
+                if len(parts) >= 4:
+                    descs.append((parts[2], parts[3], False))
+                else:
+                    descs.append(("", "", True))
+            off = end
+        return descs
+
+    def _judge(self, descs, remotes):
+        data, alen, tlen, nq, overflow = encode_cassandra_batch(descs)
+        allow = cassandra_verdicts(self.model, data, alen, tlen, nq, remotes)
+        return allow.cpu().numpy(), overflow
+
+
+class _NullConn:
+    """Inject sink for the peek pass (the real inject happens when the
+    oracle processes the frame)."""
+
+    def inject(self, reply, data):
+        return len(data)
+
+
+class MemcacheBatchEngine(DeviceAssistedEngine):
+    proto = "memcache"
+
+    def _make_parser(self, conn):
+        return MemcacheParser(conn)
+
+    def _peek(self, st, buf):
+        # Resolve the sniffed protocol (same rule as the unified parser).
+        inner = st.parser.parser
+        if inner is None:
+            if not buf:
+                return []
+            binary = buf[0] >= 128
+        else:
+            binary = isinstance(inner, BinaryMemcacheParser)
+
+        descs = []
+        off = 0
+        while True:
+            rest = buf[off:]
+            if binary:
+                if len(rest) < BINARY_HEADER_SIZE:
+                    break
+                (body_len,) = struct.unpack_from(">I", rest, 8)
+                (key_len,) = struct.unpack_from(">H", rest, 2)
+                extras_len = rest[4]
+                if key_len and len(rest) < BINARY_HEADER_SIZE + key_len + extras_len:
+                    break  # oracle asks MORE for the key
+                if not rest[0] & 0x80:
+                    break  # oracle errors out
+                key = rest[
+                    BINARY_HEADER_SIZE + extras_len :
+                    BINARY_HEADER_SIZE + extras_len + key_len
+                ]
+                descs.append((True, rest[1], "", [key]))
+                # The oracle decides once header+key are in, with
+                # pre-pass/drop for the body (decide-on-prefix).
+                off += BINARY_HEADER_SIZE + body_len
+                if off > len(buf):
+                    break
+            else:
+                linefeed = rest.find(b"\r\n")
+                if linefeed < 0:
+                    break
+                tokens = rest[:linefeed].split()
+                if not tokens:
+                    break
+                command = tokens[0]
+                cmd = command.decode("ascii", "replace")
+                keys: list[bytes] = []
+                frame_len = linefeed + 2
+                if command.startswith(b"get"):
+                    keys = tokens[1:]
+                elif command.startswith(b"gat"):
+                    keys = tokens[2:]
+                elif command in (b"set", b"add", b"replace", b"append",
+                                 b"prepend", b"cas"):
+                    keys = tokens[1:2]
+                    try:
+                        frame_len += int(tokens[4]) + 2
+                    except (IndexError, ValueError):
+                        break  # oracle errors
+                elif command in (b"delete", b"incr", b"decr", b"touch"):
+                    keys = tokens[1:2]
+                descs.append((False, 0, cmd, keys))
+                off += frame_len
+                if off > len(buf):
+                    break
+        return descs
+
+    def _judge(self, descs, remotes):
+        key_data, key_len, has_key, is_bin, opcode, cmd_id, overflow = (
+            encode_memcache_batch(descs)
+        )
+        allow = memcache_verdicts(
+            self.model, key_data, key_len, has_key, is_bin, opcode, cmd_id,
+            remotes,
+        )
+        return allow.cpu().numpy(), overflow
+
+
+class HttpSidecarEngine(DeviceAssistedEngine):
+    """HTTP through the sidecar seam — the cilium.l7policy filter
+    served by the verdict service (reference: envoy/cilium_l7policy.cc
+    request path): complete request frames are judged on device via the
+    HTTP batch model (``models/http.py``: K5-K7, K2/K3 on its spans);
+    partial frames, replies, and oversized heads ride the streaming
+    HttpParser oracle."""
+
+    proto = "http"
+    MIN_WIDTH = 512
+    MAX_WIDTH = 1 << 15  # beyond this: the host oracle (parser denies)
+    MIN_ROWS = 64
+
+    def _make_parser(self, conn):
+        return HttpParser(conn)
+
+    def _peek(self, st, buf):
+        descs = []
+        off = 0
+        while True:
+            framed = head_and_body_len(buf[off:])
+            if framed is None:
+                break
+            head_len, body_len = framed
+            head = buf[off : off + head_len]
+            if parse_head(head) is None:
+                # The oracle denies malformed request lines WITHOUT
+                # consuming a device verdict — stop peeking here so the
+                # per-flow verdict queue stays aligned (the cassandra
+                # peek breaks on parse errors for the same reason).
+                break
+            descs.append(head)
+            off += head_len + body_len
+        return descs
+
+    def _judge(self, descs, remotes):
+        n = len(descs)
+        allow = np.zeros(n, bool)
+        overflow = np.zeros(n, bool)
+        rules = np.full(n, -1, np.int32)
+        buckets: dict[int, list[int]] = {}
+        cache_hits = 0
+        for i, head in enumerate(descs):
+            if len(head) > self.MAX_WIDTH:
+                overflow[i] = True
+                continue
+            if self.cache_enabled:
+                claim = self.verdict_invariant(int(remotes[i]))
+                if claim is not None and claim[0]:
+                    # Byte-invariant allow (the verdict-cache offload
+                    # tier): answer from the claim — verdict AND rule
+                    # row are bytes-independent — and keep the head out
+                    # of the device batch.  Deny claims stay on the
+                    # normal path (the oracle owns 403 framing).
+                    allow[i] = True
+                    rules[i] = claim[1]
+                    cache_hits += 1
+                    continue
+            w = self.MIN_WIDTH
+            while w < len(head):
+                w *= 2
+            buckets.setdefault(w, []).append(i)
+        if cache_hits:  # one batched inc per judge step, never per frame
+            metrics.VerdictCacheHits.inc("engine", amount=cache_hits)
+        for w, idxs in sorted(buckets.items()):
+            f_pad = self.MIN_ROWS
+            while f_pad < len(idxs):
+                f_pad *= 2
+            data = np.zeros((f_pad, w), np.uint8)
+            lengths = np.zeros((f_pad,), np.int32)
+            rem = np.zeros((f_pad,), np.int32)
+            for j, i in enumerate(idxs):
+                h = descs[i]
+                data[j, : len(h)] = np.frombuffer(h, np.uint8)
+                lengths[j] = len(h)
+                rem[j] = remotes[i]
+            if self.attr_enabled:
+                _, _, a, r = self.model.verdicts_attr(data, lengths, rem)
+                # One device-to-host copy for the bucket's verdicts.
+                host = torch.stack([a.to(torch.int32), r]).cpu().numpy()
+                a, r = host[0] != 0, host[1]
+            else:
+                _, _, a = self.model(data, lengths, rem)
+                a, r = a.cpu().numpy(), None
+            for j, i in enumerate(idxs):
+                allow[i] = bool(a[j])
+                if r is not None:
+                    rules[i] = int(r[j])
+        return allow, overflow, rules

@@ -12,8 +12,25 @@ import numpy as np
 import pytest
 import torch
 
+from cilium_tpu_torch.models import cassandra as cass_mod
+from cilium_tpu_torch.models import dns as dns_mod
 from cilium_tpu_torch.models import http as http_mod
+from cilium_tpu_torch.models import memcached as mc_mod
 from cilium_tpu_torch.models import r2d2 as r2d2_mod
+from cilium_tpu_torch.models.cassandra import (
+    MAX_ACTION,
+    build_cassandra_model,
+    cassandra_hits,
+    cassandra_hits_plain,
+    encode_cassandra_batch,
+)
+from cilium_tpu_torch.models.dns import (
+    build_dns_model_from_rows,
+    dns_hits,
+    dns_hits_plain,
+    dns_name,
+    dns_name_plain,
+)
 from cilium_tpu_torch.models.http import (
     build_http_model,
     http_frame,
@@ -22,6 +39,13 @@ from cilium_tpu_torch.models.http import (
     http_hits_plain,
     http_lit,
     http_lit_plain,
+)
+from cilium_tpu_torch.models.memcached import (
+    TEXT_COMMANDS,
+    build_memcache_model,
+    encode_memcache_batch,
+    memcache_hits,
+    memcache_hits_plain,
 )
 from cilium_tpu_torch.models.r2d2 import (
     build_r2d2_model_from_rows,
@@ -36,6 +60,13 @@ from cilium_tpu_torch.ops.dfa import device_dfa, dfa_scan_plain, dfa_search_span
 from cilium_tpu_torch.ops.nfa import device_nfa, nfa_scan_plain, nfa_search_spans
 from cilium_tpu_torch.ops.rxsearch import automaton_search_spans
 from cilium_tpu_torch.policy.api import PortRuleHTTP
+from cilium_tpu_torch.proxylib import (
+    NetworkPolicy,
+    PortNetworkPolicy,
+    PortNetworkPolicyRule,
+    compile_policy,
+)
+from cilium_tpu_torch.proxylib.parsers.dns import DNS_QNAME_OFF, MAX_LABELS, DnsRule, encode_dns_query
 from cilium_tpu_torch.regex import compile_patterns
 from cilium_tpu_torch.regex.dfa import compile_pattern_dfas
 
@@ -319,3 +350,202 @@ def test_http_model_widest_bucket_matches_cpu(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert bool(want[2].any()) and not bool(want[0].all())
+
+
+# --- the DNS kernels K8, K9 ----------------------------------------------------
+
+DNS_ROWS = [
+    (frozenset({7}), DnsRule(name="www.example.com")),
+    (frozenset(), DnsRule(pattern="*.svc.cluster.local")),
+    (frozenset({7, 9}), DnsRule(regex="^cdn[0-9]+[.]edge[.]net$")),
+    (frozenset({3}), None),
+    (frozenset(), DnsRule(name="api.internal")),
+]
+DNS_NAMES = ["www.example.com", "WWW.Example.COM", "a.svc.cluster.local", "svc.cluster.local",
+             "cdn42.edge.net", "cdnx.edge.net", "api.internal", "", "a" * 63, "x.y"]
+
+
+def _dns_batch(rng, f, l):
+    """Query frames (upper case, pointers, oversized labels, 40 and 41
+    labels, QDCOUNT 0, cut QTYPE), incomplete and pipelined rows, and
+    random bytes, in an [f, l] batch."""
+    data = rng.integers(0, 256, size=(f, l)).astype(np.uint8)
+    lengths = rng.integers(0, l + 1, size=f).astype(np.int32)
+    for i in range(f):
+        kind = i % 9
+        name = DNS_NAMES[(i // 9) % len(DNS_NAMES)]
+        if kind == 0:
+            frame = encode_dns_query(name)
+        elif kind == 1:
+            frame = bytearray(encode_dns_query(name or "x"))
+            frame[DNS_QNAME_OFF] = [0xC0, 64, 255][i % 3]
+        elif kind == 2:
+            frame = encode_dns_query(".".join("a" for _ in range(MAX_LABELS + i % 2)))
+        elif kind == 3:
+            frame = encode_dns_query(name, qdcount=0)
+        elif kind == 4:
+            frame = bytearray(encode_dns_query(name))[:-2]
+            frame[0:2] = (len(frame) - 2).to_bytes(2, "big")
+        elif kind == 5:
+            frame = encode_dns_query(name)[: int(rng.integers(0, 20))]  # incomplete
+        elif kind == 6:
+            frame = encode_dns_query(name) + encode_dns_query("a.b")  # pipelined
+        elif kind == 7:
+            frame = bytearray(encode_dns_query("ab.cd.ef"))
+            frame[DNS_QNAME_OFF + 3] = 0xC0  # a pointer after a label
+        else:
+            continue  # random bytes
+        frame = bytes(frame)[:l]
+        data[i, : len(frame)] = np.frombuffer(frame, np.uint8)
+        lengths[i] = len(frame)
+    return data, lengths
+
+
+@pytest.mark.parametrize("l", [16, 64, 67, 330])
+def test_dns_name_kernel_matches_plain(cuda, l):
+    rng = np.random.default_rng(l)
+    data, lengths = _dns_batch(rng, 4099, l)
+    d, n = _to(cuda, data, lengths)
+    before = dns_mod._DNS_NAME.launches
+    got = dns_name(d, n)
+    torch.cuda.synchronize()
+    assert dns_mod._DNS_NAME.launches == before + 1
+    want = dns_name_plain(d, n)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+    if l >= 64:
+        assert bool(want.valid.any()) and not bool(want.valid.all())
+
+
+@pytest.mark.parametrize("l", [64, 330])
+def test_dns_hits_kernel_matches_plain(cuda, l):
+    rng = np.random.default_rng(3 + l)
+    remotes = rng.choice([1, 3, 7, 9], size=4099).astype(np.int32)
+    data, lengths = _dns_batch(rng, 4099, l)
+    d, n, rm = _to(cuda, data, lengths, remotes)
+    name = dns_name(d, n)
+    for rows in (DNS_ROWS, [r for r in DNS_ROWS if r[1] is None or r[1].name]):
+        model = build_dns_model_from_rows(rows, bucket=True, device=cuda)
+        rx = None
+        if model.nfa is not None:
+            rx = automaton_search_spans(model.nfa, name.dotted, name.span_start, name.span_end)
+        before = dns_mod._DNS_HITS.launches
+        got = dns_hits(model, name, rx, rm)
+        torch.cuda.synchronize()
+        assert dns_mod._DNS_HITS.launches == before + 1
+        want = dns_hits_plain(model, name, rx, rm)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(want[0].any()) and not bool(want[0].all())
+
+
+def test_dns_model_card_matches_cpu(cuda):
+    data, lengths = _dns_batch(np.random.default_rng(8), 2048, 96)
+    remotes = (np.arange(2048) % 10).astype(np.int32)
+    card = build_dns_model_from_rows(DNS_ROWS, bucket=True, device=cuda)
+    cpu = build_dns_model_from_rows(DNS_ROWS, bucket=True, device="cpu")
+    got = card.verdicts_attr(data, lengths, remotes)
+    want = cpu.verdicts_attr(data, lengths, remotes)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+
+
+# --- the Cassandra and memcached kernels K10, K11 ---------------------------------
+
+
+def _policy(port, proto, rules):
+    return compile_policy(NetworkPolicy(name="k", policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=port, rules=[
+            PortNetworkPolicyRule(remote_policies=rs, l7_proto=proto, l7_rules=r)
+            for rs, r in rules])]))
+
+
+CASS_RULES = [
+    ([], [{"query_action": "select", "query_table": "^public\\."}, {"query_action": "use"}]),
+    ([2, 3], [{"query_table": "users"}, {"query_action": "create-table"}]),
+]
+
+
+def _cass_batch(rng, f):
+    actions = ["select", "insert", "use", "create-table", "selec", "selectt", ""]
+    tables = ["public.a", "secret.users", "", "public", "x" * 96]
+    reqs = [(actions[int(rng.integers(len(actions)))], tables[int(rng.integers(len(tables)))],
+             bool(rng.random() < 0.1)) for _ in range(f)]
+    data, alen, tlen, nq, _ = encode_cassandra_batch(reqs)
+    return data, alen, tlen, nq, rng.integers(0, 5, size=f).astype(np.int32)
+
+
+@pytest.mark.parametrize("f", [4099, 65536])
+def test_cassandra_hits_kernel_matches_plain(cuda, f):
+    rng = np.random.default_rng(f)
+    d, alen, tlen, nq, rm = _to(cuda, *_cass_batch(rng, f))
+    for rules in (CASS_RULES, [([], [{"query_action": "select"}])]):
+        model = build_cassandra_model(_policy(9042, "cassandra", rules), True, 9042, device=cuda)
+        rx = None
+        if model.nfa is not None:
+            start = torch.full_like(tlen, MAX_ACTION)
+            rx = automaton_search_spans(model.nfa, d, start, start + tlen)
+        before = cass_mod._CASSANDRA_HITS.launches
+        got = cassandra_hits(model, d, alen, tlen, nq, rx, rm)
+        torch.cuda.synchronize()
+        assert cass_mod._CASSANDRA_HITS.launches == before + 1
+        want = cassandra_hits_plain(model, d, alen, tlen, nq, rx, rm)
+        assert torch.equal(got, want)
+        assert bool(want.any()) and not bool(want.all())
+
+
+MC_RULES = [
+    ([], [{"command": "get", "keyExact": "user:1"}, {"command": "get", "keyPrefix": "user:"},
+          {"command": "set", "keyRegex": "^sess:[0-9]+$"}, {"command": "delete"}]),
+    ([4], [{}]),
+]
+
+
+def _mc_batch(rng, f):
+    nc = len(TEXT_COMMANDS)
+    keys = [b"user:1", b"user:", b"user", b"user:12", b"sess:9", b"sess:x", b"", b"k" * 96]
+    frames = []
+    for _ in range(f):
+        key = keys[int(rng.integers(len(keys)))]
+        if rng.random() < 0.5:
+            frames.append((True, int(rng.choice([0, 1, 4, 9, 27, 200])), "", [key]))
+        else:
+            cmd = ["get", "set", "delete", "stats"][int(rng.integers(4))]
+            frames.append((False, 0, cmd, [] if cmd == "stats" else [key]))
+    key_data, key_len, has_key, is_bin, opcode, cmd_id, _ = encode_memcache_batch(frames)
+    opcode[::97] = -1  # indices outside the tables: counted from the end, clamped
+    cmd_id[1::89] = nc + 3
+    return key_data, key_len, has_key, is_bin, opcode, cmd_id, rng.integers(0, 6, size=f).astype(np.int32)
+
+
+@pytest.mark.parametrize("f", [4099, 65536])
+def test_memcache_hits_kernel_matches_plain(cuda, f):
+    rng = np.random.default_rng(f + 1)
+    args = _to(cuda, *_mc_batch(rng, f))
+    for rules in (MC_RULES, [([], [{"command": "get", "keyPrefix": "user:"}])]):
+        model = build_memcache_model(_policy(11211, "memcache", rules), True, 11211, device=cuda)
+        rx = None
+        if model.nfa is not None:
+            rx = automaton_search_spans(model.nfa, args[0], torch.zeros_like(args[1]), args[1])
+        before = mc_mod._MEMCACHE_HITS.launches
+        got = memcache_hits(model, *args[:6], rx, args[6])
+        torch.cuda.synchronize()
+        assert mc_mod._MEMCACHE_HITS.launches == before + 1
+        want = memcache_hits_plain(model, *args[:6], rx, args[6])
+        assert torch.equal(got, want)
+        assert bool(want.any()) and not bool(want.all())
+
+
+def test_l7_models_card_match_cpu(cuda):
+    rng = np.random.default_rng(21)
+    cass = _cass_batch(rng, 1024)
+    mc = _mc_batch(rng, 1024)
+    for build, policy, port, batch_ in (
+        (build_cassandra_model, _policy(9042, "cassandra", CASS_RULES), 9042, cass),
+        (build_memcache_model, _policy(11211, "memcache", MC_RULES), 11211, mc),
+    ):
+        card = build(policy, True, port, device=cuda)
+        cpu = build(policy, True, port, device="cpu")
+        got = card(*batch_)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), cpu(*batch_))
