@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the port's r2d2, HTTP, DNS, Cassandra and memcached verdict paths
-on one CUDA card and check them.
+and its L3/L4 datapath on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -41,7 +41,19 @@ which fails the run on any mismatch:
    K8-K11 launch once per call and K2/K3 once per call on the name, table
    and key spans; then phases 3-6 for these paths, the engines held
    against the CPU engines and the streaming parsers driven through the
-   port's ``Connection``.
+   port's ``Connection``;
+8. the fourth slice, the L3/L4 datapath, counted in a run of its own (all
+   F = 65,536): ``datapath_verdicts`` on bench_datapath's maps and mix
+   (K14 ``datapath4``), ``datapath_verdicts6`` at the same table scale
+   (K14 ``datapath6``), ``netdev_verdicts`` and ``overlay_verdicts`` (K15),
+   ``PreFilter.filter_batch`` on v4 and v6 sources (K12), the map-level
+   lookups on the passes' own intermediates (K13 ``lb_select``,
+   ``exact_lookup``, ``policy_can_access``, K12 on the ipcache), and a CT
+   round trip (``apply_ct_creates``, tables rebuilt, every created flow
+   established); the card is held against the CPU path on the whole
+   batch, the host oracles on 2,000 packets a shape and each kernel's
+   plain version, ``account_verdicts`` runs once on the card's output,
+   and everything is timed.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -49,6 +61,7 @@ line last.
 
 from __future__ import annotations
 
+import ipaddress
 import json
 import random
 import subprocess
@@ -59,7 +72,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-SCALAR_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (fp32)
+# Every kernel here does integer work: an int32 compare, AND or add is one
+# instruction on one of an SM's 64 int32 lanes (CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0), where the published
+# 67 TFLOP/s fp32 counts an FMA as two ops on 128 lanes: 67e12 / 4.
+INT32_OPS_PER_S = 67e12 / 4
 F = 65536
 
 
@@ -1131,6 +1148,665 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
     return launches, runs, span_runs, report, timed
 
 
+# --- the L3/L4 datapath: maps, batches and the slice ----------------------------
+
+
+def _ip4(s: str) -> int:
+    return int(ipaddress.IPv4Address(s))
+
+
+def _ip6(s: str) -> int:
+    return int(ipaddress.IPv6Address(s))
+
+
+def _flat(out) -> list:
+    """A pass's outputs (a dict or tuple, with tuples of word tensors
+    inside) as one list of tensors."""
+    vals = out.values() if isinstance(out, dict) else out
+    return [x for v in vals for x in (v if isinstance(v, tuple) else (v,))]
+
+
+def _i32(a) -> np.ndarray:
+    return (np.asarray(a, np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def datapath6_case(f):
+    """The v6 egress pass at bench_datapath's table scale: 64 VIPs x 3
+    backends, 1,024 /64s and three /128s, 510 + 2 policy entries, 4,096
+    CT entries; the mix of tests/test_datapath_pipeline6.py:61-94
+    (service, established, ipcache hit and miss, UDP 53 to the wildcard
+    rule) drawn from random.Random(31).  Returns (maps, (saddr ints,
+    daddr ints, saddr words, daddr words, sport, dport, proto))."""
+    from cilium_tpu_torch.maps.ctmap import PROTO_TCP, PROTO_UDP, CtKey6, CtMap
+    from cilium_tpu_torch.maps.ipcache import IpcacheMap
+    from cilium_tpu_torch.maps.lbmap import LbMap
+    from cilium_tpu_torch.maps.policymap import DIR_EGRESS, PolicyMap
+    from cilium_tpu_torch.ops.lpm import ipv6_to_words
+
+    rng = random.Random(31)
+    lb = LbMap()
+    for s in range(64):
+        lb.upsert_service6(_ip6(f"fd00:aa::{s + 1:x}"), 80,
+                           [(_ip6(f"fd00:be::{s * 8 + b + 1:x}"), 8000 + b) for b in range(3)],
+                           rev_nat_index=s + 1)
+    ipc = IpcacheMap()
+    for i in range(1024):
+        ipc.upsert(f"fd00:{i:x}::/64", sec_label=256 + i)
+    for j, host in enumerate(("fd00:3::7", "fd00:5::9", "fd00:be::5")):
+        ipc.upsert(f"{host}/128", sec_label=2000 + j)
+    pol = PolicyMap()
+    for i in range(510):
+        pol.allow(256 + i, 8000 + i % 3, PROTO_TCP, DIR_EGRESS,
+                  proxy_port=16000 if i % 5 == 0 else 0)
+    pol.allow(2000, 8000, PROTO_TCP, DIR_EGRESS)
+    pol.allow(0, 53, PROTO_UDP, DIR_EGRESS)
+    ct = CtMap()
+    keys = []
+    for k in range(4096):
+        key = CtKey6(daddr=_ip6(f"fd00:be::{k % 192 + 1:x}"), saddr=_ip6(f"fd00:1::{k + 5:x}"),
+                     dport=8000 + k % 3, sport=42000 + k % 20000, nexthdr=PROTO_TCP)
+        ct.create(key)
+        keys.append(key)
+    saddr, daddr = [], []
+    sport = np.zeros((f,), np.int64)
+    dport = np.zeros((f,), np.int64)
+    proto = np.zeros((f,), np.int64)
+    for i in range(f):
+        saddr.append(_ip6(f"fd00:{rng.randrange(8):x}::{rng.randrange(1, 200):x}"))
+        roll = rng.random()
+        if roll < 0.4:  # VIP traffic
+            daddr.append(_ip6(f"fd00:aa::{rng.randrange(1, 67):x}"))
+            dport[i] = 80 if rng.random() < 0.8 else 8080
+        elif roll < 0.7:  # backend / pod
+            daddr.append(_ip6(f"fd00:be::{rng.randrange(1, 30):x}"))
+            dport[i] = rng.choice([8000, 53, 9999])
+        elif roll < 0.85:  # a /128 entry
+            daddr.append(_ip6("fd00:3::7"))
+            dport[i] = 8000
+        else:  # unknown -> world
+            daddr.append(_ip6("2001:db8::9"))
+            dport[i] = 8000
+        if rng.random() < 0.2:  # an established tuple
+            k = keys[rng.randrange(len(keys))]
+            saddr[-1], daddr[-1] = k.saddr, k.daddr
+            sport[i], dport[i] = k.sport, k.dport
+        else:
+            sport[i] = rng.randrange(1024, 60000)
+        proto[i] = PROTO_TCP if rng.random() < 0.8 else PROTO_UDP
+    return (ct, lb, ipc, pol), (saddr, daddr, ipv6_to_words(saddr), ipv6_to_words(daddr),
+                                _i32(sport), _i32(dport), _i32(proto))
+
+
+def node_case(f):
+    """The node-ingress programs at the same table scale: 1,024 /24s (every
+    eighth with a tunnel endpoint at or above 2^31) and a HOST_ID prefix,
+    64 local endpoints and the host endpoint, 4,096 CT entries (2,048
+    inbound, 2,048 egress-created whose replies come back swapped), 509 +
+    3 ingress policy entries; the mix of tests/test_datapath_ingress.py:
+    69-100 with reserved and HOST_ID sources, from random.Random(37).
+    Returns (maps, {column: [f] int32})."""
+    from cilium_tpu_torch.datapath.ingress import HOST_ID, WORLD_ID
+    from cilium_tpu_torch.maps.ctmap import PROTO_TCP, PROTO_UDP, CtKey4, CtMap
+    from cilium_tpu_torch.maps.ipcache import IpcacheMap
+    from cilium_tpu_torch.maps.lxcmap import ENDPOINT_F_HOST, EndpointInfo, LxcMap
+    from cilium_tpu_torch.maps.policymap import DIR_INGRESS, PolicyMap
+
+    rng = random.Random(37)
+    ipc = IpcacheMap()
+    for i in range(1024):
+        tun = _ip4(f"192.168.{i // 8 % 256}.{i % 250 + 1}") if i % 8 == 7 else 0
+        ipc.upsert(f"10.{i // 256}.{i % 256}.0/24", sec_label=256 + i, tunnel_endpoint=tun)
+    ipc.upsert("10.250.0.0/16", sec_label=HOST_ID)
+    lxc = LxcMap()
+    for e in range(64):
+        lxc.upsert(f"10.0.0.{e + 10}", 40 + e, EndpointInfo(ifindex=e + 2))
+    lxc.upsert("10.0.0.1", 1, EndpointInfo(flags=ENDPOINT_F_HOST))
+    pol = PolicyMap()
+    for i in range(509):
+        pol.allow(256 + i, 8080, PROTO_TCP, DIR_INGRESS, proxy_port=14000 if i % 5 == 0 else 0)
+    pol.allow(WORLD_ID, 8080, PROTO_TCP, DIR_INGRESS)
+    pol.allow(0, 53, PROTO_UDP, DIR_INGRESS)
+    pol.allow(300, 0, 0, DIR_INGRESS)
+    ct = CtMap()
+    inbound, outbound = [], []
+    for k in range(2048):
+        key = CtKey4(daddr=_ip4(f"10.0.0.{k % 64 + 10}"), saddr=_ip4(f"10.1.{k // 250 % 256}.{k % 250 + 1}"),
+                     dport=8080, sport=41000 + k, nexthdr=PROTO_TCP)
+        ct.create(key)
+        inbound.append(key)
+        key = CtKey4(daddr=_ip4(f"203.0.113.{k % 250 + 1}"), saddr=_ip4(f"10.0.0.{k % 64 + 10}"),
+                     dport=443, sport=50000 + k, nexthdr=PROTO_TCP)
+        ct.create(key)
+        outbound.append(key)
+    cols = {k: np.zeros((f,), np.int64) for k in
+            ("saddr", "daddr", "sport", "dport", "proto", "src_id", "vni")}
+    for i in range(f):
+        roll = rng.random()
+        if roll < 0.4:  # known pod source
+            cols["saddr"][i] = _ip4(f"10.{rng.randrange(4)}.{rng.randrange(256)}.{rng.randrange(2, 250)}")
+        elif roll < 0.55:  # SNAT / host-claiming prefix
+            cols["saddr"][i] = _ip4(f"10.250.0.{rng.randrange(1, 250)}")
+        else:  # unknown world source
+            cols["saddr"][i] = _ip4(f"203.0.{rng.randrange(113, 120)}.{rng.randrange(1, 250)}")
+        droll = rng.random()
+        if droll < 0.45:  # local endpoint, sometimes an established tuple
+            cols["daddr"][i] = _ip4(f"10.0.0.{rng.randrange(10, 74)}")
+            cols["dport"][i] = rng.choice([8080, 53, 9000])
+            cols["sport"][i] = rng.randrange(1024, 60000)
+            pick = rng.random()
+            if pick < 0.2:
+                k = inbound[rng.randrange(len(inbound))]
+                cols["saddr"][i], cols["daddr"][i] = k.saddr, k.daddr
+                cols["sport"][i], cols["dport"][i] = k.sport, k.dport
+            elif pick < 0.4:  # the reply to an egress-created entry
+                k = outbound[rng.randrange(len(outbound))]
+                cols["saddr"][i], cols["daddr"][i] = k.daddr, k.saddr
+                cols["sport"][i], cols["dport"][i] = k.dport, k.sport
+        elif droll < 0.55:  # host endpoint
+            cols["daddr"][i] = _ip4("10.0.0.1")
+            cols["dport"][i] = 22
+            cols["sport"][i] = rng.randrange(1024, 60000)
+        elif droll < 0.8:  # remote pod, via the overlay where the ipcache says so
+            cols["daddr"][i] = _ip4(f"10.{rng.randrange(4)}.{rng.randrange(256)}.{rng.randrange(1, 250)}")
+            cols["dport"][i] = 8080
+            cols["sport"][i] = rng.randrange(1024, 60000)
+        else:  # unknown destination
+            cols["daddr"][i] = _ip4("198.51.100.7")
+            cols["dport"][i] = 443
+            cols["sport"][i] = rng.randrange(1024, 60000)
+        cols["proto"][i] = PROTO_TCP if rng.random() < 0.8 else PROTO_UDP
+        cols["src_id"][i] = rng.choice([0, 0, HOST_ID, 4, 100, 5000])
+        cols["vni"][i] = rng.choice([256, 257, 300, WORLD_ID])
+    return (ipc, lxc, ct, pol), {k: _i32(v) for k, v in cols.items()}
+
+
+def prefilter_case(f):
+    """1,024 v4 deny prefixes (/8-/32) and 256 v6 ones (/32-/128) drawn
+    from random.Random(41), none inside 100.64.0.0/10 or fc00::/7; the
+    sources are 20% inside a deny prefix and 80% in those two ranges.
+    Returns (cidrs, v4 addresses, v6 addresses)."""
+    rng = random.Random(41)
+    keep4, keep6 = ipaddress.ip_network("100.64.0.0/10"), ipaddress.ip_network("fc00::/7")
+    nets4, nets6 = [], []
+    while len(nets4) < 1024:
+        net = ipaddress.ip_network(f"{ipaddress.IPv4Address(rng.getrandbits(32))}/{rng.randrange(8, 33)}",
+                                   strict=False)
+        if not net.overlaps(keep4):
+            nets4.append(net)
+    while len(nets6) < 256:
+        net = ipaddress.ip_network(f"{ipaddress.IPv6Address(rng.getrandbits(128))}/{rng.randrange(32, 129)}",
+                                   strict=False)
+        if not net.overlaps(keep6):
+            nets6.append(net)
+
+    def sources(nets, keep, bits):
+        out = []
+        for _ in range(f):
+            if rng.random() < 0.2:
+                net = rng.choice(nets)
+                host = rng.getrandbits(bits - net.prefixlen) if net.prefixlen < bits else 0
+                out.append(int(net.network_address) | host)
+            else:
+                out.append(int(keep.network_address) | rng.getrandbits(bits - keep.prefixlen))
+        return out
+
+    return ([str(n) for n in nets4 + nets6], sources(nets4, keep4, 32), sources(nets6, keep6, 128))
+
+
+def l34_slice(dev, card, kerns):
+    """The fourth slice's paths on the card at F = 65,536: the v4 egress
+    pass on bench_datapath's maps and mix (K14 datapath4), the v6 pass
+    (K14 datapath6), node ingress from the netdev and the overlay (K15),
+    the XDP prefilter for v4 and v6 (K12), and the map-level lookups on
+    the passes' own intermediates (K13 exact_lookup, policy_can_access,
+    lb_select and K12 on the ipcache), then a CT round trip through
+    apply_ct_creates.  Every count is set to 0 just before the counted run
+    and read just after; then the card is held against the CPU path on
+    the whole batch, against the host oracles on 2,000 packets a shape,
+    and each kernel against its plain version, and timed.  Returns
+    (launches, runs, report, timed) for the kernels line."""
+    import copy
+
+    from cilium_tpu_torch.datapath import ingress as ing_mod
+    from cilium_tpu_torch.datapath import pipeline as dp_mod
+    from cilium_tpu_torch.datapath import pipeline6 as dp6_mod
+    from cilium_tpu_torch.datapath.notify import account_verdicts
+    from cilium_tpu_torch.datapath.prefilter import PreFilter
+    from cilium_tpu_torch.entry import datapath_batch, datapath_bench_maps
+    from cilium_tpu_torch.flowlog import FlowLog
+    from cilium_tpu_torch.maps import lbmap as lb_mod
+    from cilium_tpu_torch.maps import policymap as pol_mod
+    from cilium_tpu_torch.maps.metricsmap import MetricsMap
+    from cilium_tpu_torch.maps.policymap import DIR_EGRESS
+    from cilium_tpu_torch.models import cassandra as cass_mod
+    from cilium_tpu_torch.models import dns as dns_mod
+    from cilium_tpu_torch.models import memcached as mc_mod
+    from cilium_tpu_torch.ops import lpm as lpm_mod
+    from cilium_tpu_torch.ops import maplookup as ml_mod
+
+    new = {"lpm_lookup": lpm_mod._LPM, "exact_lookup": ml_mod._EXACT,
+           "policy_can_access": pol_mod._POLICY, "lb_select": lb_mod._LB,
+           "datapath4": dp_mod._DATAPATH[1], "datapath6": dp_mod._DATAPATH[4],
+           "ingress": ing_mod._INGRESS}
+    kerns = {**kerns, "dns_name": dns_mod._DNS_NAME, "dns_hits": dns_mod._DNS_HITS,
+             "cassandra_hits": cass_mod._CASSANDRA_HITS, "memcache_hits": mc_mod._MEMCACHE_HITS, **new}
+    host_arrays = dp_mod.host_arrays
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # the shapes at F = 65,536
+    t0 = time.monotonic()
+    maps4 = datapath_bench_maps()
+    pk4 = datapath_batch(F)
+    maps6, (sa6, da6, sw6, dw6, sp6, dp6, pr6) = datapath6_case(F)
+    node, npk = node_case(F)
+    cidrs, src4, src6 = prefilter_case(F)
+    words4 = _i32(src4)
+    words6 = np.stack(lpm_mod.ipv6_to_words(src6))
+    pf, pf_cpu = PreFilter(), PreFilter(device="cpu")
+    for p in (pf, pf_cpu):
+        p.insert(1, cidrs)
+    tables = {
+        "datapath": (dp_mod.build_tables(*maps4), dp_mod.build_tables(*maps4, device="cpu")),
+        "datapath6": (dp6_mod.build_tables6(*maps6), dp6_mod.build_tables6(*maps6, device="cpu")),
+        "node": (ing_mod.build_ingress_tables(*node), ing_mod.build_ingress_tables(*node, device="cpu")),
+    }
+    in4 = (pk4[0], pk4[1], *pk4[2:])
+    in6 = (sw6, dw6, sp6, dp6, pr6)
+    cols = [npk[k] for k in ("saddr", "daddr", "sport", "dport", "proto")]
+    t4, t6, tn = (tables[k][0] for k in ("datapath", "datapath6", "node"))
+    log(f"l34 shapes built in {time.monotonic() - t0:.1f} s: datapath CT {t4.ct.n} LB {t4.lb.valid.shape[0]}x"
+        f"{t4.lb.b_port.shape[1]} ipcache {t4.ipcache.n} policy {t4.policy.table.n}; datapath6 CT "
+        f"{t6.ct.n} LB {t6.lb.valid.shape[0]} ipcache {t6.ipcache.n} policy {t6.policy.table.n}; node "
+        f"ipcache {tn.ipcache_id.n} lxc {tn.lxc.n} CT {tn.ct.n} policy {tn.policy.table.n}; prefilter "
+        f"{pf.device_lpm().n} v4 / {pf.device_lpm(v6=True).n} v6 prefixes")
+
+    def maps_run(t, out, saddr_w, daddr_w, sport, dport, proto):
+        """The map-level lookups on the pass's own intermediates: LB on
+        daddr with the flow hash, CT on the post-DNAT tuple, the ipcache
+        LPM and the policy cascade on dst_identity."""
+        if t.w == 1:
+            fh = dp_mod.flow_hash32(saddr_w[0], daddr_w[0], sport, dport, proto)
+            lb = lb_mod.lb4_select_backend_batch(t.lb, daddr_w[0], dport, fh)
+            lb = (lb[0], (lb[1],), lb[2], lb[3])
+            nd = (out["new_daddr"],)
+        else:
+            fh = dp_mod.flow_hash32_v6(saddr_w, daddr_w, sport, dport, proto)
+            lb = lb_mod.lb6_select_backend_batch(t.lb, daddr_w, dport, fh)
+            nd = out["new_daddr_words"]
+        ct = ml_mod.exact_lookup(t.ct, *nd, *saddr_w, out["new_dport"], sport, proto)
+        ip = lpm_mod.lpm_lookup(t.ipcache, *nd)
+        pol = pol_mod.policy_can_access_batch(t.policy, out["dst_identity"], out["new_dport"], proto,
+                                              DIR_EGRESS)
+        return dict(fh=fh, lb=lb, ct=ct, ip=ip, pol=pol)
+
+    def maps_agree(name, out, m, daddr_w, dport):
+        """The map-level answers compose to the pass's outputs."""
+        found, target, port, rev = m["lb"]
+        nd = (out["new_daddr"],) if "new_daddr" in out else out["new_daddr_words"]
+        est, allowed, proxy = m["ct"][0], m["pol"][0], m["pol"][1]
+        checks = [all(torch.equal(torch.where(found, t_, d), n) for t_, d, n in zip(target, daddr_w, nd)),
+                  torch.equal(torch.where(found, port, dport), out["new_dport"]),
+                  torch.equal(torch.where(found, rev, 0), out["rev_nat"]),
+                  torch.equal(est, out["established"]),
+                  torch.equal(torch.where(m["ip"][0], m["ip"][1], dp_mod.WORLD_ID), out["dst_identity"]),
+                  torch.equal(torch.where(est, 0, proxy), out["proxy_port"]),
+                  torch.equal(torch.where(est | allowed, torch.where((proxy > 0) & ~est, 2, 0), 1).to(torch.int32),
+                              out["verdict"])]
+        if not all(checks):
+            raise AssertionError(f"{name}: the map-level lookups do not compose to the pass ({checks})")
+
+    d4 = [on_dev(a) for a in pk4]
+    d6 = (tuple(on_dev(w) for w in sw6), tuple(on_dev(w) for w in dw6), on_dev(sp6), on_dev(dp6), on_dev(pr6))
+    dn = [on_dev(c) for c in cols]
+    dsrc, dvni = on_dev(npk["src_id"]), on_dev(npk["vni"])
+
+    # the main path, counted
+    log("== L3/L4 datapath main path (counted)")
+
+    def counts():
+        return {n: k.launches for n, k in kerns.items()}
+
+    def delta(before):
+        return {n: k.launches - before[n] for n, k in kerns.items()}
+
+    runs, outs = {}, {}
+
+    def run(name, fn):
+        before = counts()
+        outs[name] = fn()
+        runs[name] = delta(before)
+
+    flowlogs = {"prefilter": FlowLog(capacity=1 << 17), "prefilter6": FlowLog(capacity=1 << 17)}
+    ct4_rt, ct6_rt = copy.deepcopy(maps4[0]), copy.deepcopy(maps6[0])
+    for k in kerns.values():
+        k.launches = 0
+    run("datapath", lambda: dp_mod.datapath_verdicts(t4, *in4))
+    run("datapath-maps", lambda: maps_run(t4, outs["datapath"], (d4[0],), (d4[1],), *d4[2:]))
+    run("datapath6", lambda: dp6_mod.datapath_verdicts6(t6, *in6))
+    run("datapath6-maps", lambda: maps_run(t6, outs["datapath6"], *d6))
+    run("netdev", lambda: ing_mod.netdev_verdicts(tn, *cols, npk["src_id"]))
+    run("overlay", lambda: ing_mod.overlay_verdicts(tn, *cols, npk["vni"]))
+    run("prefilter", lambda: pf.filter_batch(words4, flowlog=flowlogs["prefilter"]))
+    run("prefilter6", lambda: pf.filter_batch(words6, v6=True, flowlog=flowlogs["prefilter6"]))
+    # the CT round trip: the host applies the creates, the tables are
+    # rebuilt, and every created flow must come back established
+    created4 = dp_mod.apply_ct_creates(ct4_rt, outs["datapath"], pk4[0], pk4[2], pk4[4])
+    created6 = dp6_mod.apply_ct_creates6(ct6_rt, outs["datapath6"], sw6, sp6, pr6)
+    t4_rt = dp_mod.build_tables(ct4_rt, *maps4[1:])
+    t6_rt = dp6_mod.build_tables6(ct6_rt, *maps6[1:])
+    run("datapath-rt", lambda: dp_mod.datapath_verdicts(t4_rt, *in4))
+    run("datapath6-rt", lambda: dp6_mod.datapath_verdicts6(t6_rt, *in6))
+    torch.cuda.synchronize()
+    launches = counts()
+    log("launches:", json.dumps({k: n for k, n in launches.items() if n}))
+    log("launches by run:", json.dumps({n: {k: c for k, c in r.items() if c} for n, r in runs.items()}))
+    for n, count in launches.items():
+        if sum(r[n] for r in runs.values()) != count:
+            raise AssertionError(f"{n}: the runs' launches do not add up to the main path's")
+    for n in new:
+        if launches[n] <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the main path")
+    maps_want = {"lb_select": 1, "exact_lookup": 1, "lpm_lookup": 1, "policy_can_access": 1}
+    want = {"datapath": {"datapath4": 1}, "datapath-maps": maps_want, "datapath6": {"datapath6": 1},
+            "datapath6-maps": maps_want, "netdev": {"ingress": 1}, "overlay": {"ingress": 1},
+            "prefilter": {"lpm_lookup": 1}, "prefilter6": {"lpm_lookup": 1},
+            "datapath-rt": {"datapath4": 1}, "datapath6-rt": {"datapath6": 1}}
+    for name, w in want.items():
+        got = {k: c for k, c in runs[name].items() if c}
+        if got != w:
+            raise AssertionError(f"{name}: launches {got} != {w}")
+
+    # the card against the CPU path (whole batch) and the host oracles
+    log("== L3/L4 datapath against the CPU path and the host oracles")
+    maps_agree("datapath", outs["datapath"], outs["datapath-maps"], (d4[1],), d4[3])
+    maps_agree("datapath6", outs["datapath6"], outs["datapath6-maps"], d6[1], d6[3])
+    cpu = {
+        "datapath": dp_mod.datapath_verdicts(tables["datapath"][1], *in4),
+        "datapath6": dp6_mod.datapath_verdicts6(tables["datapath6"][1], *in6),
+        "netdev": ing_mod.netdev_verdicts(tables["node"][1], *cols, npk["src_id"]),
+        "overlay": ing_mod.overlay_verdicts(tables["node"][1], *cols, npk["vni"]),
+    }
+    card_h = {}
+    for name, want_out in cpu.items():
+        got, want_h = host_arrays(outs[name]), host_arrays(want_out)
+        for key, w in want_h.items():
+            for g_, w_ in zip(got[key] if isinstance(w, tuple) else (got[key],), w if isinstance(w, tuple) else (w,)):
+                if g_.dtype != w_.dtype or not np.array_equal(g_, w_):
+                    raise AssertionError(f"{name}: card {key} != CPU path")
+        card_h[name] = got
+    for name, words, v6 in (("prefilter", words4, False), ("prefilter6", words6, True)):
+        keep_cpu = pf_cpu.filter_batch(words, v6=v6)
+        if not np.array_equal(outs[name], keep_cpu):
+            raise AssertionError(f"{name}: card keep mask != CPU path")
+    sample = sorted(random.Random(43).sample(range(F), 2000))
+
+    def u32(x):
+        return int(np.int64(x) & 0xFFFFFFFF)
+
+    def hold(name, oracle_fn, fields):
+        got = card_h[name]
+        for i in sample:
+            want_o = oracle_fn(i)
+            for key in fields:
+                if u32(got[key][i]) != u32(want_o[key]):
+                    raise AssertionError(f"{name}: packet {i} {key} {got[key][i]} != oracle {want_o[key]}")
+
+    fields4 = ("verdict", "new_daddr", "new_dport", "dst_identity", "proxy_port", "rev_nat",
+               "established", "needs_ct_create")
+    hold("datapath", lambda i: dp_mod.host_oracle(*maps4, u32(pk4[0][i]), u32(pk4[1][i]), int(pk4[2][i]),
+                                                   int(pk4[3][i]), int(pk4[4][i])), fields4)
+    got6 = card_h["datapath6"]
+    for i in sample:
+        want_o = dp6_mod.host_oracle6(*maps6, sa6[i], da6[i], int(sp6[i]), int(dp6[i]), int(pr6[i]))
+        words = sum(u32(w[i]) << (96 - 32 * j) for j, w in enumerate(got6["new_daddr_words"]))
+        if words != want_o["new_daddr"] or any(u32(got6[k][i]) != u32(want_o[k]) for k in fields4 if k != "new_daddr"):
+            raise AssertionError(f"datapath6: packet {i} != oracle {want_o}")
+    fieldsn = ("verdict", "src_identity", "lxc_id", "tunnel_endpoint", "proxy_port", "established",
+               "needs_ct_create")
+    hold("netdev", lambda i: ing_mod.host_oracle_netdev(
+        *node, *(u32(c[i]) if j < 2 else int(c[i]) for j, c in enumerate(cols)),
+        src_identity=int(npk["src_id"][i])), fieldsn)
+    hold("overlay", lambda i: ing_mod.host_oracle_netdev(
+        *node, *(u32(c[i]) if j < 2 else int(c[i]) for j, c in enumerate(cols)),
+        tunnel_id=int(npk["vni"][i])), fieldsn)
+    nets = [ipaddress.ip_network(c) for c in cidrs]
+    for name, srcs, keep, v in (("prefilter", src4, outs["prefilter"], 4),
+                                ("prefilter6", src6, outs["prefilter6"], 6)):
+        deny = [n for n in nets if n.version == v]
+        for i in sample:
+            addr = ipaddress.ip_address(srcs[i])
+            if bool(keep[i]) == any(addr in n for n in deny):
+                raise AssertionError(f"{name}: packet {i} keep {keep[i]} disagrees with the deny sets")
+    for name, out, created in (("datapath-rt", outs["datapath-rt"], outs["datapath"]),
+                               ("datapath6-rt", outs["datapath6-rt"], outs["datapath6"])):
+        need = created["needs_ct_create"]
+        if not bool(need.any()) or not bool(out["established"][need].all()):
+            raise AssertionError(f"{name}: a created flow did not come back established")
+    log(f"CT round trip: {created4} v4 and {created6} v6 entries created; every created flow comes back "
+        f"established (v4 established share {float(outs['datapath-rt']['established'].float().mean()):.3f})")
+    acct = []
+    for out in (outs["datapath"], cpu["datapath"]):
+        fl = FlowLog(capacity=1 << 17)
+        counts_ = account_verdicts(out, MetricsMap(), flowlog=fl, proto=pk4[4])
+        acct.append((counts_, [{k: v for k, v in r.items() if k != "ts"} for r in fl.query(n=1 << 17)]))
+    if acct[0] != acct[1] or not acct[0][1]:
+        raise AssertionError("account_verdicts: the card's output accounts differently from the CPU path's")
+    log(f"account_verdicts on the card's output: {acct[0][0]}, {len(acct[0][1])} flow records, "
+        "equal to the CPU path's")
+    for name in ("datapath", "datapath6", "netdev", "overlay"):
+        v = card_h[name]["verdict"]
+        log(f"{name}: card == CPU path on {F} packets, == host oracle on {len(sample)}; verdicts "
+            f"{np.bincount(v, minlength=5).tolist()} (FORWARD, DROP, TO_PROXY, TO_HOST, TO_OVERLAY), "
+            f"established share {card_h[name]['established'].mean():.3f}")
+    for name in ("prefilter", "prefilter6"):
+        log(f"{name}: card == CPU path, == deny sets on {len(sample)}; drop share "
+            f"{1 - outs[name].mean():.3f}, {len(flowlogs[name].query(n=1 << 17))} flow records")
+
+    # kernels against their plain versions, at the main path's inputs
+    log("== K12-K15 vs plain")
+    report = {}
+
+    def put(kname, label, got, want_):
+        report.setdefault(kname, {})[label] = max_abs_err(_flat(got), _flat(want_))
+
+    inputs = {}
+    for name, t, w, args in (("datapath", t4, 1, ((d4[0],), (d4[1],), *d4[2:])), ("datapath6", t6, 4, d6)):
+        put(f"datapath{4 if w == 1 else 6}", name, dp_mod.datapath_pass(t, *args),
+            dp_mod.datapath_pass_plain(t, *args))
+        out = outs[name]
+        nd = (out["new_daddr"],) if w == 1 else out["new_daddr_words"]
+        m = outs[f"{name}-maps"]
+        saddr_w, daddr_w, sport, dport, proto = args
+        lb_in = (t.lb, daddr_w, dport, m["fh"])
+        ct_in = (t.ct, *nd, *saddr_w, out["new_dport"], sport, proto)
+        pol_in = (t.policy, out["dst_identity"], out["new_dport"], proto, DIR_EGRESS)
+        put("lb_select", f"{name}-maps", lb_mod.lb_select(*lb_in), lb_mod.lb_select_plain(*lb_in))
+        put("exact_lookup", f"{name}-maps", ml_mod.exact_lookup(*ct_in), ml_mod.exact_lookup_plain(*ct_in))
+        put("lpm_lookup", f"{name}-maps", lpm_mod.lpm_lookup(t.ipcache, *nd), lpm_mod.lpm_lookup_plain(t.ipcache, *nd))
+        put("policy_can_access", f"{name}-maps", pol_mod.policy_can_access_batch(*pol_in),
+            pol_mod.policy_can_access_plain(*pol_in))
+        inputs[name] = dict(args=args, nd=nd, lb=lb_in, ct=ct_in, pol=pol_in)
+    for name, mode, src in (("netdev", ing_mod.MODE_NETDEV, dsrc), ("overlay", ing_mod.MODE_OVERLAY, dvni)):
+        put("ingress", name, ing_mod.ingress(tn, mode, *dn, src), ing_mod.ingress_plain(tn, mode, *dn, src))
+    pf_words = {"prefilter": (on_dev(words4),), "prefilter6": tuple(on_dev(w) for w in words6)}
+    for name, ws in pf_words.items():
+        lpm = pf.device_lpm(v6=name == "prefilter6")
+        put("lpm_lookup", name, lpm_mod.lpm_lookup(lpm, *ws), lpm_mod.lpm_lookup_plain(lpm, *ws))
+    log("max |kernel - plain|:", json.dumps(report))
+    for kname, per in report.items():
+        for label, err in per.items():
+            if err != 0:
+                raise AssertionError(f"{kname} disagrees with its plain version on {label}")
+
+    # times
+    log("== L3/L4 datapath times on", card)
+    timed = {}
+
+    def nbytes(*objs):
+        total = 0
+        for o in objs:
+            if isinstance(o, torch.Tensor):
+                total += o.numel() * o.element_size()
+            else:
+                total += nbytes(*vars(o).values())
+        return total
+
+    # Operations as the walks of csrc/l34.cuh need them on this run's data:
+    # one integer op (a compare, or the AND of a mask) for the reject column
+    # of every row a walk reads, and the row's other key columns only where
+    # that one passed.
+    def chunks(n):
+        step = ml_mod.chunk_rows(n)
+        return [(lo, min(F, lo + step)) for lo in range(0, F, step)]
+
+    def first_rows(table, queries):
+        """[F] rows a walk that stops at its first match reads: up to its
+        first row matching any of ``queries``, all N on a miss."""
+        out = torch.empty(F, dtype=torch.int64, device=dev)
+        for lo, hi in chunks(table.n):
+            m = None
+            for q in queries:
+                mq = ml_mod.table_matches(table, q, lo, hi)
+                m = mq if m is None else m | mq
+            first = torch.argmax(m.to(torch.int32), dim=1) + 1
+            out[lo:hi] = torch.where(m.any(dim=1), first, table.n)
+        return out
+
+    def passing(n, test, limit=None):
+        """``test(lo, hi)``'s [hi - lo, n] rows summed over the F queries,
+        only those below ``limit[f]`` (the rows the walk reads) when given."""
+        total = 0
+        idx = torch.arange(n, device=dev)
+        for lo, hi in chunks(n):
+            m = test(lo, hi)
+            if limit is not None:
+                m = m & (idx[None, :] < limit[lo:hi, None])
+            total += int(m.sum())
+        return total
+
+    def exact_ops(table, q, limit=None):
+        """exact_sum: column K - 2 of every row read (all N, or up to
+        ``limit``), the other K - 1 where it matched; without a limit
+        (every matched row summed) one add a value column a matched row."""
+        k = len(q)
+        c = k - 2 if k >= 2 else 0
+        col = table.cols[c]
+        ops = (F * table.n if limit is None else int(limit.sum())) \
+            + (k - 1) * passing(table.n, lambda lo, hi: col[None, :] == q[c][lo:hi, None], limit)
+        if limit is None:
+            ops += table.values.shape[1] * passing(table.n, lambda lo, hi: ml_mod.table_matches(table, q, lo, hi))
+        return ops
+
+    def lpm_ops(lpm, words):
+        """lpm_walk: the mask and compare of word 0 of every prefix, of
+        words 1..W-1 where word 0 matched."""
+        a, m0, w0 = words[0], lpm.masks[0], lpm.words[0]
+        ops = 2 * F * lpm.n
+        if len(words) > 1:
+            ops += 2 * (len(words) - 1) * passing(
+                lpm.n, lambda lo, hi: (a[lo:hi, None] & m0[None, :]) == w0[None, :])
+        return ops
+
+    def policy_ops(pmap, ident):
+        """policy_walk: the identity column of every row against the
+        identity and 0, the dport, proto and direction columns where it
+        passed."""
+        c0 = pmap.table.cols[0]
+        return 2 * F * pmap.table.n + 3 * passing(
+            pmap.table.n, lambda lo, hi: (c0[None, :] == ident[lo:hi, None]) | (c0[None, :] == 0))
+
+    def lb_ops(lb, vip_words):
+        """lb_walk: VIP word 0 of every service, words 1..W-1 and the
+        two port tests (the L4 port, the wildcard) where it matched."""
+        v0, a = lb.vip_words[0], vip_words[0]
+        return F * lb.valid.shape[0] + (len(vip_words) + 1) * passing(
+            lb.valid.shape[0], lambda lo, hi: v0[None, :] == a[lo:hi, None])
+
+    def ct_either_ops(ct, sa, da, sp, dp, pr):
+        """ingress.cu ct_either: the sport column of every row up to the
+        first match of either orientation, against both ports; the other
+        four columns of each orientation whose port matched."""
+        limit = first_rows(ct, [(da, sa, dp, sp, pr), (sa, da, sp, dp, pr)])
+        c3 = ct.cols[3]
+        fwd = passing(ct.n, lambda lo, hi: c3[None, :] == sp[lo:hi, None], limit)
+        rev = passing(ct.n, lambda lo, hi: c3[None, :] == dp[lo:hi, None], limit)
+        return 2 * int(limit.sum()) + 4 * (fwd + rev), limit
+
+    def row(fn, plain, bytes_, ops, plain_iters=3):
+        return bound(dict(ms=graph_ms(fn), call_ms=cuda_ms(fn, 30), plain_ms=cuda_ms(plain, plain_iters),
+                          bytes=bytes_, ops=ops))
+
+    for name, t, w in (("datapath", t4, 1), ("datapath6", t6, 4)):
+        inp = inputs[name]
+        args = inp["args"]
+        kname = f"datapath{4 if w == 1 else 6}"
+        lb_in, ct_in, pol_in = inp["lb"], inp["ct"], inp["pol"]
+        ct_limit = first_rows(t.ct, [ct_in[1:]])
+        ct_rows = int(ct_limit.sum())
+        io = (2 * w + 3) * 4 * F + (w + 6) * 4 * F + 2 * F
+        map_ops = {"lb_select": lb_ops(t.lb, lb_in[1]), "lpm_lookup": lpm_ops(t.ipcache, inp["nd"]),
+                   "policy_can_access": policy_ops(t.policy, pol_in[1])}
+        ops = sum(map_ops.values()) + exact_ops(t.ct, ct_in[1:], ct_limit)
+        rows = {kname: row(lambda: dp_mod.datapath_pass(t, *args), lambda: dp_mod.datapath_pass_plain(t, *args),
+                           io + nbytes(t), ops)}
+        pt = pass_times(lambda: _flat(dp_mod.datapath_pass(t, *args)),
+                        (lambda: _flat(dp_mod.datapath_verdicts(t4, *in4))) if w == 1
+                        else (lambda: _flat(dp6_mod.datapath_verdicts6(t6, *in6))))
+        timed[name] = dict(rows=rows, **pt)
+        k_ct = 2 * w + 3
+        mrows = {
+            "lb_select": row(lambda: lb_mod.lb_select(*lb_in), lambda: lb_mod.lb_select_plain(*lb_in),
+                             (w + 2) * 4 * F + F + (w + 2) * 4 * F + nbytes(t.lb), map_ops["lb_select"]),
+            "exact_lookup": row(lambda: ml_mod.exact_lookup(*ct_in), lambda: ml_mod.exact_lookup_plain(*ct_in),
+                                k_ct * 4 * F + F + 4 * F + nbytes(t.ct), exact_ops(t.ct, ct_in[1:])),
+            "lpm_lookup": row(lambda: lpm_mod.lpm_lookup(t.ipcache, *inp["nd"]),
+                              lambda: lpm_mod.lpm_lookup_plain(t.ipcache, *inp["nd"]),
+                              w * 4 * F + 9 * F + nbytes(t.ipcache), map_ops["lpm_lookup"]),
+            "policy_can_access": row(lambda: pol_mod.policy_can_access_batch(*pol_in),
+                                     lambda: pol_mod.policy_can_access_plain(*pol_in),
+                                     12 * F + 5 * F + nbytes(t.policy), map_ops["policy_can_access"]),
+        }
+        timed[f"{name}-maps"] = dict(rows=mrows)
+        for kn, r in {**rows, **mrows}.items():
+            log_row(name if kn.startswith("datapath") else f"{name}-maps", kn, r)
+        log(f"{name}: the CT lookup must compare {ct_rows / F:.1f} rows a packet (to its first match, "
+            f"all {t.ct.n} on a miss)")
+        log_pass(name, kname, timed[name], card)
+    for name, mode, src in (("netdev", ing_mod.MODE_NETDEV, dsrc), ("overlay", ing_mod.MODE_OVERLAY, dvni)):
+        sa, da, sp, dp, pr = dn
+        ct_ops, ct_limit = ct_either_ops(tn.ct, sa, da, sp, dp, pr)
+        ct_rows = int(ct_limit.sum())
+        ops = (lpm_ops(tn.ipcache_id, (sa,)) if mode == ing_mod.MODE_NETDEV else 0) \
+            + exact_ops(tn.lxc, (da,)) + ct_ops + policy_ops(tn.policy, outs[name]["src_identity"]) \
+            + lpm_ops(tn.ipcache_tun, (da,))
+        tabs = [tn.lxc, tn.ct, tn.policy, tn.ipcache_tun] + ([tn.ipcache_id] if mode == ing_mod.MODE_NETDEV else [])
+        rows = {"ingress": row(lambda: ing_mod.ingress(tn, mode, *dn, src),
+                               lambda: ing_mod.ingress_plain(tn, mode, *dn, src),
+                               24 * F + 22 * F + nbytes(*tabs), ops)}
+        host_src = npk["src_id"] if mode == ing_mod.MODE_NETDEV else npk["vni"]
+        timed[name] = dict(rows=rows, **pass_times(lambda: _flat(ing_mod.ingress(tn, mode, *dn, src)),
+                                                   lambda: _flat(ing_mod.ingress(tn, mode, *cols, host_src))))
+        log_row(name, "ingress", rows["ingress"])
+        log(f"{name}: the CT lookup must compare {ct_rows / F:.1f} rows a packet (either orientation)")
+        log_pass(name, "ingress", timed[name], card)
+    for name, ws in pf_words.items():
+        v6 = name == "prefilter6"
+        lpm = pf.device_lpm(v6=v6)
+        w = 4 if v6 else 1
+        host_words = words6 if v6 else words4
+        rows = {"lpm_lookup": row(lambda: lpm_mod.prefilter_check_batch(lpm, *ws),
+                                  lambda: lpm_mod.lpm_lookup_plain(lpm, *ws),
+                                  w * 4 * F + 9 * F + nbytes(lpm), lpm_ops(lpm, ws))}
+        timed[name] = dict(rows=rows, **pass_times(
+            lambda: (lpm_mod.prefilter_check_batch(lpm, *ws),),
+            lambda: (torch.from_numpy(pf.filter_batch(host_words, v6=v6)),)))
+        log_row(name, "lpm_lookup", rows["lpm_lookup"])
+        log_pass(name, "filter_batch", timed[name], card)
+    return launches, runs, report, timed
+
+
 # --- timing -------------------------------------------------------------------
 
 
@@ -1187,7 +1863,7 @@ def max_abs_err(got, want) -> int:
 def bound(row):
     """Fill ``bound_ms`` / ``bound_by`` from the row's bytes and ops."""
     t_bytes = row["bytes"] / HBM_BYTES_PER_S
-    t_ops = row["ops"] / SCALAR_OPS_PER_S
+    t_ops = row["ops"] / INT32_OPS_PER_S
     row["bound_ms"] = max(t_bytes, t_ops) * 1e3
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
@@ -1719,6 +2395,15 @@ def main() -> int:
     for kname, n in launches3.items():
         launches[kname] = launches.get(kname, 0) + n
 
+    # The fourth slice's paths (the L3/L4 datapath), counted in their own run.
+    launches4, runs4, report4, timed4 = l34_slice(dev, card, kerns)
+    runs.update(runs4)
+    timed.update(timed4)
+    for kname, per in report4.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches4.items():
+        launches[kname] = launches.get(kname, 0) + n
+
     replaces = {
         "r2d2_frame": ("cilium_tpu_torch/csrc/r2d2_frame.cu", "cilium_tpu/models/r2d2.py:211", "graft"),
         "dfa_scan": ("cilium_tpu_torch/csrc/dfa_scan.cu", "cilium_tpu/ops/dfa.py:146", "graft"),
@@ -1733,6 +2418,18 @@ def main() -> int:
                            "cilium_tpu/models/cassandra.py:160", "cassandra"),
         "memcache_hits": ("cilium_tpu_torch/csrc/memcache_hits.cu",
                           "cilium_tpu/models/memcached.py:209", "memcached"),
+        "lpm_lookup": ("cilium_tpu_torch/csrc/lpm.cu", "cilium_tpu/ops/lpm.py:109", "prefilter"),
+        "exact_lookup": ("cilium_tpu_torch/csrc/l34_tables.cu", "cilium_tpu/ops/maplookup.py:80",
+                         "datapath-maps"),
+        "policy_can_access": ("cilium_tpu_torch/csrc/l34_tables.cu", "cilium_tpu/maps/policymap.py:191",
+                              "datapath-maps"),
+        "lb_select": ("cilium_tpu_torch/csrc/l34_tables.cu", "cilium_tpu/maps/lbmap.py:284",
+                      "datapath-maps"),
+        "datapath4": ("cilium_tpu_torch/csrc/datapath.cu", "cilium_tpu/datapath/pipeline.py:125",
+                      "datapath"),
+        "datapath6": ("cilium_tpu_torch/csrc/datapath.cu", "cilium_tpu/datapath/pipeline6.py:92",
+                      "datapath6"),
+        "ingress": ("cilium_tpu_torch/csrc/ingress.cu", "cilium_tpu/datapath/ingress.py:91", "netdev"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     kernels_line = []
@@ -1803,7 +2500,8 @@ def pass_times(on_card, from_numpy):
 
 def log_row(name, kname, row):
     log(f"{name:15s} {kname:14s} device {row['ms']:.5f} ms  per call {row['call_ms']:.5f} ms  "
-        f"plain {row['plain_ms']:.5f} ms  bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+        f"plain {row['plain_ms']:.5f} ms  bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
+        f"{row['bytes']} bytes, {row['ops']} ops)")
 
 
 def log_pass(name, fn, t, card):

@@ -24,6 +24,12 @@ automaton for a model without pattern, table-regex or key-regex rows
 (those rows never read it), so the ``nfa`` leaf is dropped there.
 Converted DNS models make no byte-invariance claim
 (``invariant_rows=None``), as converted r2d2 and HTTP models do not.
+
+``datapath_tables_from_numpy``, ``datapath_tables6_from_numpy`` and
+``ingress_tables_from_numpy`` take the leaves of a ``cilium_tpu``
+``DatapathTables``, ``DatapathTables6`` or ``IngressTables`` as numpy
+arrays, in pytree order (``jax.tree_util.tree_leaves``), and build the
+port's tables: the datapath's "weights carried across".
 """
 
 from __future__ import annotations
@@ -31,13 +37,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .datapath.ingress import IngressTables
+from .datapath.pipeline import DatapathTables
+from .datapath.pipeline6 import DatapathTables6
 from .device import resolve_device
+from .maps.lbmap import DeviceLb6Map, DeviceLbMap
+from .maps.policymap import DevicePolicyMap
 from .models.cassandra import CassandraBatchModel
 from .models.dns import DnsBatchModel
 from .models.http import HttpBatchModel
 from .models.memcached import KEY_MODE_REGEX, MemcacheBatchModel
 from .models.r2d2 import R2d2BatchModel
 from .ops.dfa import DeviceDfa, dfa_from_arrays
+from .ops.lpm import lpm_from_arrays
+from .ops.maplookup import table_from_arrays
 from .ops.nfa import DeviceNfa, nfa_from_dense
 
 
@@ -211,3 +224,69 @@ def memcache_model_from_numpy(leaves: dict, device=None) -> MemcacheBatchModel:
         nfa=automaton_from_leaves(leaves["nfa"], device) if has_rx else None,
         **_tables(leaves, MEMCACHE_TABLES, device),
     )
+
+
+# --- the L3/L4 datapath's tables ----------------------------------------------
+
+
+class _Leaves:
+    """The leaves of a JAX table pytree, consumed in order (a
+    ``DeviceTable`` is its key columns, values and valid; a ``DeviceLpm``
+    its W words, W masks, plen, values and valid; a ``DeviceLbMap`` or
+    ``DeviceLb6Map`` its seven arrays)."""
+
+    def __init__(self, leaves, device):
+        self._it = iter(leaves)
+        self.device = device
+
+    def take(self, n: int) -> list:
+        return [np.array(next(self._it)) for _ in range(n)]
+
+    def table(self, k: int):
+        cols = self.take(k)
+        values, valid = self.take(2)
+        return table_from_arrays(cols, values, valid, self.device)
+
+    def lpm(self, w: int):
+        words, masks = self.take(w), self.take(w)
+        plen, values, valid = self.take(3)
+        return lpm_from_arrays(np.stack(words), np.stack(masks), plen, values, valid, self.device)
+
+    def lb(self, cls):
+        return cls.from_arrays(*self.take(7), self.device)
+
+    def done(self) -> None:
+        if next(self._it, None) is not None:
+            raise ValueError("more leaves than the tables hold")
+
+
+def datapath_tables_from_numpy(leaves, device=None) -> DatapathTables:
+    """The port's v4 ``DatapathTables`` on ``device`` (None: the CUDA card)
+    from a JAX ``DatapathTables``' 25 leaves: CT (5 columns), LB, ipcache
+    LPM (1 word), policy (4 columns)."""
+    it = _Leaves(leaves, resolve_device(device))
+    out = DatapathTables(ct=it.table(5), lb=it.lb(DeviceLbMap), ipcache=it.lpm(1),
+                         policy=DevicePolicyMap(table=it.table(4)))
+    it.done()
+    return out
+
+
+def datapath_tables6_from_numpy(leaves, device=None) -> DatapathTables6:
+    """The port's ``DatapathTables6`` from a JAX ``DatapathTables6``' 37
+    leaves: CT (11 columns), LB6, ipcache LPM (4 words), policy."""
+    it = _Leaves(leaves, resolve_device(device))
+    out = DatapathTables6(ct=it.table(11), lb=it.lb(DeviceLb6Map), ipcache=it.lpm(4),
+                          policy=DevicePolicyMap(table=it.table(4)))
+    it.done()
+    return out
+
+
+def ingress_tables_from_numpy(leaves, device=None) -> IngressTables:
+    """The port's ``IngressTables`` from a JAX ``IngressTables``' 26
+    leaves: the identity and tunnel LPMs, the endpoint table (1 column),
+    CT (5 columns), policy."""
+    it = _Leaves(leaves, resolve_device(device))
+    out = IngressTables(ipcache_id=it.lpm(1), ipcache_tun=it.lpm(1), lxc=it.table(1),
+                        ct=it.table(5), policy=DevicePolicyMap(table=it.table(4)))
+    it.done()
+    return out

@@ -8,7 +8,9 @@ are the port's copy of ``bench.py::bench_http``'s setup
 (``bench.py:211-240``), and the ``dns_*``, ``cassandra_*`` and
 ``memcache_*`` pairs of ``bench_dns`` (``bench.py:566-615``),
 ``bench_cassandra`` (``:366-401``) and ``bench_memcached``
-(``:447-501``), all built through NPDS.
+(``:447-501``), all built through NPDS.  ``datapath_bench_maps`` and
+``datapath_batch`` are ``bench_datapath``'s maps and packet mix
+(``bench.py:1417-1490``).
 """
 
 from __future__ import annotations
@@ -275,3 +277,97 @@ def memcache_batch(f: int):
     *arrays, overflow = encode_memcache_batch([frames[i % len(frames)] for i in range(f)])
     assert not overflow.any()
     return (*arrays, np.ones((f,), np.int32))
+
+
+# --- the composed L3/L4 datapath (bench.py:1417-1490) ---------------------------
+
+DATAPATH_SERVICES = 64
+
+
+def _ip4(s: str) -> int:
+    import ipaddress
+
+    return int(ipaddress.IPv4Address(s))
+
+
+def _datapath_ct_keys():
+    from .maps.ctmap import PROTO_TCP, CtKey4
+
+    return [
+        CtKey4(
+            daddr=_ip4(f"10.{i % 4}.{i % 250}.{i % 200 + 1}"),
+            saddr=_ip4(f"10.200.0.{i % 250 + 1}"),
+            dport=8000 + (i % 3), sport=1024 + i % 50000,
+            nexthdr=PROTO_TCP,
+        )
+        for i in range(4096)
+    ]
+
+
+def datapath_bench_maps():
+    """bench_datapath's host maps at per-endpoint scale: (ct, lb, ipcache,
+    policy) with 64 services x 3 backends, 1,024 ipcache /24s, 510 + 1
+    egress policy entries and 4,096 CT entries."""
+    from .maps.ctmap import PROTO_TCP, CtMap
+    from .maps.ipcache import IpcacheMap
+    from .maps.lbmap import LbMap
+    from .maps.policymap import DIR_EGRESS, PolicyMap
+
+    lb = LbMap()
+    for s in range(DATAPATH_SERVICES):
+        vip = _ip4(f"172.16.0.{s + 1}")
+        lb.upsert_service(
+            vip, 80,
+            [(_ip4(f"10.9.{s}.{b + 1}"), 8080) for b in range(3)],
+            rev_nat_index=s + 1,
+        )
+    ipc = IpcacheMap()
+    for i in range(1024):
+        ipc.upsert(f"10.{i // 250}.{i % 250}.0/24", sec_label=256 + i)
+    pol = PolicyMap()
+    for i in range(510):
+        pol.allow(256 + i, 8080 if i % 2 else 8000, PROTO_TCP, DIR_EGRESS,
+                  proxy_port=15000 if i % 7 == 0 else 0)
+    pol.allow(0, 443, PROTO_TCP, DIR_EGRESS)
+    ct = CtMap()
+    for k in _datapath_ct_keys():
+        ct.create(k)
+    return ct, lb, ipc, pol
+
+
+def datapath_batch(f: int = 65536):
+    """bench_datapath's packet mix (``random.Random(29)``): 20% established
+    CT tuples, 30% service VIPs on port 80, the rest pods and world
+    addresses on 8000, 8080, 443 or 9999.  Returns (saddr, daddr, sport,
+    dport, proto) [f] int32 numpy arrays, addresses as uint32 bit
+    patterns."""
+    from .maps.ctmap import PROTO_TCP
+
+    rng = random.Random(29)
+    ct_keys = _datapath_ct_keys()
+    saddr = np.zeros((f,), np.int64)
+    daddr = np.zeros((f,), np.int64)
+    sport = np.zeros((f,), np.int64)
+    dport = np.zeros((f,), np.int64)
+    proto = np.full((f,), PROTO_TCP, np.int64)
+    for i in range(f):
+        roll = rng.random()
+        if roll < 0.2:  # established flow: exercise the CT fast path
+            k = ct_keys[rng.randrange(len(ct_keys))]
+            saddr[i], daddr[i] = k.saddr, k.daddr
+            sport[i], dport[i] = k.sport, k.dport
+            continue
+        saddr[i] = _ip4(f"10.200.0.{rng.randrange(250) + 1}")
+        if roll < 0.5:  # service VIP
+            daddr[i] = _ip4(f"172.16.0.{rng.randrange(DATAPATH_SERVICES) + 1}")
+            dport[i] = 80
+        else:
+            daddr[i] = _ip4(
+                f"10.{rng.randrange(5)}.{rng.randrange(250)}."
+                f"{rng.randrange(200) + 1}"
+            )
+            dport[i] = rng.choice([8000, 8080, 443, 9999])
+        sport[i] = rng.randrange(1024, 51024)
+    as32 = lambda a: (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32)  # noqa: E731
+    return (as32(saddr), as32(daddr), sport.astype(np.int32), dport.astype(np.int32),
+            proto.astype(np.int32))

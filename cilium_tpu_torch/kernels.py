@@ -19,6 +19,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -153,6 +154,16 @@ def check(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) 
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def arg(x, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> torch.Tensor:
+    """``x`` as a kernel argument: host data (a numpy array or a list) is
+    copied to ``device`` as ``dtype``; a tensor must already be what the
+    kernel takes (see ``check``) and is never copied or converted."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dtype)
+    check(x, name, dtype, shape, device)
+    return x
 
 
 def on_cpu(device: torch.device) -> bool:

@@ -2,8 +2,9 @@
 
 reference: pkg/metrics/metrics.go:51-430 — counters exported in
 Prometheus text format.  Copied from ``cilium_tpu/utils/metrics.py``:
-the counter type, the registry and the two counters the port
-increments (the HTTP engine's cache tier and the flow-record ring).
+the counter type, the registry and the counters the port increments
+(the HTTP engine's cache tier, the flow-record ring and the datapath
+metrics map's drop and forward counts).
 """
 
 from __future__ import annotations
@@ -90,4 +91,12 @@ FlowVerdictsTotal = registry.counter(
     "Flow verdict records by verdict, serving path, and the deciding "
     "rule's compiled match kind (literal|regex|nfa|l3|l4)",
     ("verdict", "path", "match_kind"),
+)
+
+# Datapath packet counts, fed from the metrics map (maps/metricsmap.py).
+DropCount = registry.counter(
+    "drop_count_total", "Dropped packets/requests", ("reason", "direction")
+)
+ForwardCount = registry.counter(
+    "forward_count_total", "Forwarded packets/requests", ("direction",)
 )

@@ -549,3 +549,227 @@ def test_l7_models_card_match_cpu(cuda):
         got = card(*batch_)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), cpu(*batch_))
+
+
+# --- the L3/L4 kernels K12-K15 -------------------------------------------------
+
+
+import random  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
+
+import l34_worlds as worlds  # noqa: E402
+from cilium_tpu_torch.datapath import ingress as ing_mod  # noqa: E402
+from cilium_tpu_torch.datapath import pipeline as dp_mod  # noqa: E402
+from cilium_tpu_torch.datapath.ingress import (  # noqa: E402
+    MODE_NETDEV,
+    MODE_OVERLAY,
+    build_ingress_tables,
+    ingress,
+    ingress_plain,
+)
+from cilium_tpu_torch.datapath.pipeline import build_tables, datapath_pass, datapath_pass_plain  # noqa: E402
+from cilium_tpu_torch.datapath.pipeline6 import build_tables6, datapath_verdicts6  # noqa: E402
+from cilium_tpu_torch.maps import lbmap as lb_mod  # noqa: E402
+from cilium_tpu_torch.maps import policymap as pol_mod  # noqa: E402
+from cilium_tpu_torch.maps.ctmap import CtKey4, CtKey6, CtMap  # noqa: E402
+from cilium_tpu_torch.maps.ipcache import IpcacheMap  # noqa: E402
+from cilium_tpu_torch.maps.lbmap import DeviceLb6Map, DeviceLbMap, LbMap, lb_select, lb_select_plain  # noqa: E402
+from cilium_tpu_torch.maps.lxcmap import EndpointInfo, LxcMap  # noqa: E402
+from cilium_tpu_torch.maps.policymap import (  # noqa: E402
+    DevicePolicyMap,
+    PolicyMap,
+    policy_can_access_batch,
+    policy_can_access_plain,
+)
+from cilium_tpu_torch.ops import lpm as lpm_mod  # noqa: E402
+from cilium_tpu_torch.ops import maplookup as ml_mod  # noqa: E402
+from cilium_tpu_torch.ops.lpm import _mask32, lpm_from_arrays, lpm_lookup, lpm_lookup_plain  # noqa: E402
+from cilium_tpu_torch.ops.maplookup import exact_lookup, exact_lookup_plain, pack_table, table_from_arrays  # noqa: E402
+
+PORT_MAPS = SimpleNamespace(CtMap=CtMap, CtKey4=CtKey4, CtKey6=CtKey6, LbMap=LbMap,
+                            IpcacheMap=IpcacheMap, PolicyMap=PolicyMap, LxcMap=LxcMap,
+                            EndpointInfo=EndpointInfo)
+
+
+def _rand_lpm(rng, n, w, dev):
+    """Random prefixes over W words (a /0 first, equal prefixes with other
+    values, some rows invalid) and addresses half inside them."""
+    plen = rng.integers(0, 32 * w + 1, n)
+    plen[0] = 0
+    masks = np.stack([_mask32(plen, i, w == 4) for i in range(w)])
+    words = rng.integers(0, 1 << 32, (w, n), dtype=np.uint64).astype(np.uint32) & masks
+    if n >= 8:  # equal prefixes with other values: the largest value wins
+        half = n // 2
+        words[:, half:half + 3] = words[:, 1:4]
+        plen[half:half + 3] = plen[1:4]
+        masks[:, half:half + 3] = masks[:, 1:4]
+    values = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    return lpm_from_arrays(words.view(np.int32), masks.view(np.int32), plen.astype(np.int32),
+                           values, valid, dev), words
+
+
+def _addrs(rng, words, f):
+    w, n = words.shape
+    rows = rng.integers(0, n, f)
+    noise = rng.integers(0, 1 << 32, (w, f), dtype=np.uint64).astype(np.uint32)
+    inside = rng.random(f) < 0.5
+    out = np.where(inside[None, :], words[:, rows] | (noise & 0xFF), noise)
+    return [torch.from_numpy(np.ascontiguousarray(out[i].view(np.int32))) for i in range(w)]
+
+
+@pytest.mark.parametrize("w,n,f", [(1, 1, 1), (1, 1000, 4099), (4, 33, 300), (4, 1025, 2049)])
+def test_lpm_kernel_matches_plain(cuda, w, n, f):
+    rng = np.random.default_rng(n + f)
+    lpm, words = _rand_lpm(rng, n, w, cuda)
+    addr = [a.to(cuda) for a in _addrs(rng, words, f)]
+    before = lpm_mod._LPM.launches
+    got = lpm_lookup(lpm, *addr)
+    torch.cuda.synchronize()
+    assert lpm_mod._LPM.launches == before + 1
+    want = lpm_lookup_plain(lpm, *addr)
+    for g, wt in zip(got, want):
+        assert torch.equal(g, wt)
+    assert bool(want[0].any()) or n == 1
+
+
+@pytest.mark.parametrize("k,v,n,f", [(1, 2, 7, 129), (4, 1, 513, 4099), (5, 3, 4097, 1000), (11, 1, 64, 33)])
+def test_exact_lookup_kernel_matches_plain(cuda, k, v, n, f):
+    """Keys from a small range, so duplicate keys sum (with int32 wrap)
+    and padding rows (all-zero keys, invalid) meet all-zero queries."""
+    rng = np.random.default_rng(k * 100 + n)
+    keys = rng.integers(0, 3, (n - 2, k))
+    values = rng.integers(-(1 << 31), 1 << 31, (n - 2, v))
+    table = pack_table(keys, values, pad_to=n, device=cuda)
+    q = [torch.from_numpy(rng.integers(0, 4, f).astype(np.int32)).to(cuda) for _ in range(k)]
+    before = ml_mod._EXACT.launches
+    got = exact_lookup(table, *q)
+    torch.cuda.synchronize()
+    assert ml_mod._EXACT.launches == before + 1
+    want = exact_lookup_plain(table, *q)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(want[0].any()) and not bool(want[0].all()) or k >= 5
+
+
+@pytest.mark.parametrize("n,f", [(5, 100), (513, 4099)])
+def test_policy_kernel_matches_plain(cuda, n, f):
+    rng = np.random.default_rng(n)
+    keys = np.stack([rng.integers(0, 3, n), rng.choice([0, 80, 65535], n),
+                     rng.choice([0, 6, 17], n), rng.integers(0, 2, n)], axis=1)
+    vals = rng.integers(-5, 20000, (n, 2))
+    dmap = DevicePolicyMap(table=pack_table(keys, vals, pad_to=n + 3, device=cuda))
+    ident = torch.from_numpy(rng.integers(0, 4, f).astype(np.int32)).to(cuda)
+    dport = torch.from_numpy(rng.choice([0, 80, 65535, 8], f).astype(np.int32)).to(cuda)
+    proto = torch.from_numpy(rng.choice([0, 6, 17], f).astype(np.int32)).to(cuda)
+    for direction in (0, 1):
+        before = pol_mod._POLICY.launches
+        got = policy_can_access_batch(dmap, ident, dport, proto, direction)
+        torch.cuda.synchronize()
+        assert pol_mod._POLICY.launches == before + 1
+        want = policy_can_access_plain(dmap, ident, dport, proto, direction)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("w,s,f", [(1, 1, 50), (1, 70, 4099), (4, 9, 1000)])
+def test_lb_kernel_matches_plain(cuda, w, s, f):
+    """Duplicate VIPs, L4 and wildcard rows, counts of -1, 0 and above the
+    backend columns (the index clamps), invalid rows, hashes >= 2^31."""
+    rng = np.random.default_rng(s * w)
+    b = 3
+    vips = (rng.integers(0, 4, (w, s)) + (1 << 31)).astype(np.uint32).view(np.int32)
+    cls = DeviceLbMap if w == 1 else DeviceLb6Map
+    dlb = cls.from_arrays(
+        vips, rng.choice([0, 80], s).astype(np.int32),
+        rng.choice([-1, 0, 1, 2, 3, 9], s).astype(np.int32), rng.integers(0, 100, s).astype(np.int32),
+        rng.integers(-(1 << 31), 1 << 31, (w, s, b)).astype(np.int32),
+        rng.integers(1, 65536, (s, b)).astype(np.int32), rng.random(s) < 0.9, cuda,
+    )
+    vw = [torch.from_numpy((rng.integers(0, 5, f) + (1 << 31)).astype(np.uint32).view(np.int32)).to(cuda)
+          for _ in range(w)]
+    dport = torch.from_numpy(rng.choice([0, 80, 443], f).astype(np.int32)).to(cuda)
+    fh = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, f).astype(np.int32)).to(cuda)
+    before = lb_mod._LB.launches
+    got = lb_select(dlb, vw, dport, fh)
+    torch.cuda.synchronize()
+    assert lb_mod._LB.launches == before + 1
+    want = lb_select_plain(dlb, vw, dport, fh)
+    assert torch.equal(got[0], want[0])
+    for g, wt in zip(got[1], want[1]):
+        assert torch.equal(g, wt)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+
+
+def _equal_dicts(got, want):
+    assert got.keys() == want.keys()
+    for key in want:
+        g, wt = got[key], want[key]
+        if isinstance(wt, tuple):
+            for a, c in zip(g, wt):
+                assert torch.equal(a, c), key
+        else:
+            assert g.device.type == "cuda"
+            assert torch.equal(g, wt), key
+
+
+@pytest.mark.parametrize("v6,n_ct,f", [(False, 1000, 4099), (False, 0, 33), (True, 37, 1000)])
+def test_datapath_kernel_matches_plain(cuda, v6, n_ct, f):
+    rng = random.Random(n_ct + f)
+    clock = worlds.Clock()
+    if v6:
+        ct, lb, ipc, pol, keys = worlds.egress6_world(PORT_MAPS, rng, clock, n_ct=n_ct)
+        _, _, sw, dw, sport, dport, proto = worlds.egress6_packets(rng, f, keys)
+        tables = build_tables6(ct, lb, ipc, pol, device=cuda)
+    else:
+        ct, lb, ipc, pol, keys = worlds.egress4_world(PORT_MAPS, rng, clock, n_ct=n_ct)
+        sa, da, sport, dport, proto = worlds.egress4_packets(rng, f, keys)
+        sw, dw = (sa,), (da,)
+        tables = build_tables(ct, lb, ipc, pol, device=cuda)
+    args = [tuple(torch.from_numpy(a).to(cuda) for a in sw), tuple(torch.from_numpy(a).to(cuda) for a in dw),
+            *(torch.from_numpy(a).to(cuda) for a in (sport, dport, proto))]
+    kern = dp_mod._DATAPATH[tables.w]
+    before = kern.launches
+    got = datapath_pass(tables, *args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _equal_dicts(got, datapath_pass_plain(tables, *args))
+    assert n_ct == 0 or bool(got["established"].any())
+
+
+@pytest.mark.parametrize("mode,f", [(MODE_NETDEV, 4099), (MODE_OVERLAY, 1000), (MODE_NETDEV, 1)])
+def test_ingress_kernel_matches_plain(cuda, mode, f):
+    rng = random.Random(f)
+    ipc, lxc, ct, pol = worlds.node_world(PORT_MAPS, rng, worlds.Clock(), n_ct=40)
+    tables = build_ingress_tables(ipc, lxc, ct, pol, device=cuda)
+    p = worlds.node_packets(rng, f)
+    src = p["src_id"] if mode == MODE_NETDEV else p["vni"]
+    args = [torch.from_numpy(p[k]).to(cuda) for k in ("saddr", "daddr", "sport", "dport", "proto")]
+    args.append(torch.from_numpy(src).to(cuda))
+    before = ing_mod._INGRESS.launches
+    got = ingress(tables, mode, *args)
+    torch.cuda.synchronize()
+    assert ing_mod._INGRESS.launches == before + 1
+    _equal_dicts(got, ingress_plain(tables, mode, *args))
+
+
+def test_l34_wrappers_reject_bad_inputs(cuda):
+    table = table_from_arrays([np.zeros(4, np.int32)], np.zeros((4, 1), np.int32), np.ones(4, bool), cuda)
+    q = torch.zeros((8,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        exact_lookup(table, q.to(torch.int64))
+    with pytest.raises(ValueError):
+        exact_lookup(table, q.cpu())
+    with pytest.raises(ValueError):
+        exact_lookup(table, torch.zeros((8, 2), dtype=torch.int32, device=cuda)[:, 0])
+    with pytest.raises(ValueError):
+        exact_lookup(table, q, q)
+    lpm, _ = _rand_lpm(np.random.default_rng(0), 4, 1, cuda)
+    with pytest.raises(ValueError):
+        lpm_lookup(lpm, q, q)
+    with pytest.raises(ValueError):
+        lpm_lookup(lpm, q[None, :])
+    ct, lb, ipc, pol, _ = worlds.egress4_world(PORT_MAPS, random.Random(1), worlds.Clock())
+    tables = build_tables(ct, lb, ipc, pol, device=cuda)
+    with pytest.raises(ValueError):
+        datapath_pass(tables, (q,), (q,), q, q, q[:7])
+    with pytest.raises(ValueError):
+        datapath_verdicts6(tables, (q,) * 4, (q,) * 4, q, q, q)
