@@ -53,7 +53,22 @@ which fails the run on any mismatch:
    established); the card is held against the CPU path on the whole
    batch, the host oracles on 2,000 packets a shape and each kernel's
    plain version, ``account_verdicts`` runs once on the card's output,
-   and everything is timed.
+   and everything is timed;
+9. the fifth slice, the sidecar verdict service, counted in a run of its
+   own: a ``VerdictService`` at the reference's defaults (batch_flows
+   2,048, batch_width 256, the card, eager dispatch) on a unix socket,
+   driven by the port's ``SidecarClient`` over the socket and then the shm
+   rings with r2d2 (4,096 conns, bench_mixed's mix), HTTP and DNS (1,024
+   each, DNS through the columnar reassembly lane) and Cassandra and
+   memcached (256 each); every op and inject equals the port's in-process
+   proxylib oracle's, K16 ``gather_rows`` launches once per blob chunk
+   the service issued, each protocol's kernels launch in its own drive,
+   the guard never trips and no judge fails; the same traffic through a
+   service at verdict_device="cpu" and one dispatching through CUDA
+   graphs gives the same ops, and dispatch_mode="auto" resolves by
+   measurement; then frames/s, the seam's round trip p50/p99, the
+   device's idle share, and K16 against its plain version, timed at
+   buckets 512 and 2,048.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -66,6 +81,7 @@ import json
 import random
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1810,6 +1826,634 @@ def l34_slice(dev, card, kerns):
 # --- timing -------------------------------------------------------------------
 
 
+# --- phase 9: the sidecar verdict service ------------------------------------
+
+SIDE_NAMES = {"r2d2": "sidecar-pol", "http": "http-graft", "dns": "dns-bench",
+              "cassandra": "cass-bench", "memcache": "mc-bench"}
+SIDE_PORTS = {"r2d2": 80, "http": 80, "dns": 53, "cassandra": 9042, "memcache": 11211}
+# Connections per protocol (ISSUE shapes): r2d2 4,096 under bench_mixed's
+# mix, HTTP and DNS 1,024, Cassandra and memcached 256.
+SIDE_CONNS = {"r2d2": 4096, "http": 1024, "dns": 1024, "cassandra": 256, "memcache": 256}
+SIDE_BASES = {"r2d2": 1_000_000, "http": 2_000_000, "dns": 3_000_000,
+              "cassandra": 4_000_000, "memcache": 5_000_000}
+# The kernels each protocol's engine runs on the card (r2d2 and DNS also
+# the blob lane's K16).
+SIDE_KERNELS = {
+    "r2d2": ("r2d2_frame", "dfa_scan", "r2d2_hits", "gather_rows"),
+    "dns": ("dns_name", "dfa_scan", "dns_hits", "gather_rows"),
+    "http": ("http_frame", "http_lit", "http_hits"),
+    "cassandra": ("dfa_scan", "cassandra_hits"),
+    "memcache": ("dfa_scan", "memcache_hits"),
+}
+R2D2_CORPUS = (b"READ /public/a.txt\r\n", b"READ /private/x\r\n", b"HALT\r\n",
+               b"WRITE /public/b\r\n", b"RESET\r\n", b"READ /public/deep/path/c.dat\r\n")
+
+
+def sidecar_policies():
+    """tests/test_sidecar.py's two-rule r2d2 policy and bench.py's HTTP,
+    DNS, Cassandra and memcached policies (``entry.*_bench_policy``), one
+    NPDS policy each, pushed together."""
+    import dataclasses
+
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.proxylib import NetworkPolicy, PortNetworkPolicy, PortNetworkPolicyRule
+
+    out = [NetworkPolicy(name=SIDE_NAMES["r2d2"], policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+            remote_policies=[1, 3], l7_proto="r2d2",
+            l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}])])])]
+    for proto, make in (("http", entry.http_bench_policy), ("dns", entry.dns_bench_policy),
+                        ("cassandra", entry.cassandra_bench_policy),
+                        ("memcache", entry.memcache_bench_policy)):
+        out.append(dataclasses.replace(make().config, name=SIDE_NAMES[proto]))
+    return out
+
+
+def r2d2_side_rounds(rng, n_conns, n_rounds=3):
+    """bench_mixed's mix (bench.py:1556-1562) per conn: 80% whole frames
+    (the blob lane), 10% frames split across rounds, 5% pipelined pairs,
+    5% reply-direction bytes; remote 9 (denied) on every 7th conn."""
+    def frame():
+        roll = rng.random()
+        if roll < 0.5:
+            return b"READ /public/f%d.txt\r\n" % rng.randrange(1000)
+        return R2D2_CORPUS[rng.randrange(len(R2D2_CORPUS))]
+
+    rounds = [[] for _ in range(n_rounds)]
+    for fid in range(n_conns):
+        remote = 9 if fid % 7 == 6 else (1 if fid % 2 else 3)
+        kind = fid % 20
+        for rnd in range(n_rounds):
+            f = frame()
+            if kind < 16:
+                rounds[rnd].append((fid, f, remote, False))
+            elif kind < 18:
+                cut = rng.randrange(1, len(f))
+                rounds[rnd].append((fid, f[:cut] if rnd % 2 == 0 else f[cut:], remote, False))
+            elif kind < 19:
+                rounds[rnd].append((fid, f + frame(), remote, False))
+            else:
+                rounds[rnd].append((fid, b"OK %d\r\n" % rnd if rnd else f, remote, rnd > 0))
+    return rounds
+
+
+def dns_side_rounds(n_conns, n_rounds=4):
+    """bench.py:664-705's DNS lane over ``entry.dns_queries()``: whole
+    frames, frames split mid-QNAME across round pairs, pipelined pairs."""
+    from cilium_tpu_torch.entry import dns_queries
+
+    msgs = dns_queries(64)
+    rounds = [[] for _ in range(n_rounds)]
+    for rnd in range(n_rounds):
+        for fid in range(n_conns):
+            f = msgs[(fid + rnd) % len(msgs)]
+            if fid % 3 == 0:
+                fs = msgs[(fid + rnd // 2) % len(msgs)]
+                half = len(fs) // 2
+                chunk = fs[:half] if rnd % 2 == 0 else fs[half:]
+            elif fid % 3 == 1:
+                chunk = f + msgs[(fid + rnd + 1) % len(msgs)]
+            else:
+                chunk = f
+            rounds[rnd].append((fid, chunk, 1, False))
+    return rounds
+
+
+def sidecar_traffic():
+    """{proto: (rounds of (conn, bytes, remote, reply), batch group of a conn)}."""
+    def req(rounds):
+        return [[(fid, chunk, remote, False) for fid, chunk, remote in rnd] for rnd in rounds]
+
+    return {
+        "r2d2": (r2d2_side_rounds(random.Random(41), SIDE_CONNS["r2d2"]),
+                 lambda fid: int(fid % 20 >= 16)),
+        "http": (req(http_sidecar_feeds(random.Random(43), SIDE_CONNS["http"])), lambda fid: 0),
+        "dns": (dns_side_rounds(SIDE_CONNS["dns"]), lambda fid: int(fid % 3 != 2)),
+        "cassandra": (req(cassandra_engine_feeds(random.Random(47), SIDE_CONNS["cassandra"])),
+                      lambda fid: 0),
+        "memcache": (req(memcache_engine_feeds(random.Random(53), SIDE_CONNS["memcache"])),
+                     lambda fid: 0),
+    }
+
+
+def sidecar_oracle(proto, rounds, pols):
+    """Each round's {conn: (ops, orig inject, reply inject)} from the port's
+    in-process proxylib ``Instance`` on the host, fed as the service's
+    buffer mirror feeds it (new bytes appended per direction, the
+    unconsumed buffer offered again, bytes a PASS/DROP covered beyond it
+    skipped on arrival)."""
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.proxylib.types import DROP, PASS, FilterResult
+
+    mod = inst.open_module([("node-id", f"oracle-{proto}")], False)
+    inst.find_instance(mod).policy_update(pols)
+    conns, out = {}, []
+    for rnd in rounds:
+        got = {}
+        for fid, chunk, remote, reply in rnd:
+            if fid not in conns:
+                res, conn = inst.on_new_connection(
+                    mod, proto, SIDE_BASES[proto] + fid, True, remote, 2, "1.1.1.1:1",
+                    f"2.2.2.2:{SIDE_PORTS[proto]}", SIDE_NAMES[proto],
+                    orig_buf_capacity=1 << 16, reply_buf_capacity=1 << 16,
+                )
+                if res != FilterResult.OK:
+                    raise AssertionError(f"oracle {proto} conn {fid}: {res!r}")
+                conns[fid] = [conn, {False: bytearray(), True: bytearray()}, {False: 0, True: 0}]
+            conn, bufs, skip = conns[fid]
+            take = min(skip[reply], len(chunk))
+            skip[reply] -= take
+            bufs[reply].extend(chunk[take:])
+            ops = []
+            if bufs[reply]:
+                conn.on_data(reply, False, [bytes(bufs[reply])], ops)
+            consumed = 0
+            for op, n in ops:
+                if op in (PASS, DROP):
+                    t = min(n, len(bufs[reply]) - consumed)
+                    consumed += t
+                    skip[reply] += n - t
+            del bufs[reply][:consumed]
+            got[fid] = ([(int(o), int(n)) for o, n in ops], conn.orig_buf.take(),
+                        conn.reply_buf.take())
+        out.append(got)
+    for fid in conns:
+        inst.close_connection(SIDE_BASES[proto] + fid)
+    inst.close_module(mod)
+    return out
+
+
+class SidecarDriver:
+    """One ``SidecarClient`` on a service: opens the conns of a protocol
+    and drives its rounds, one DATA batch a round for each batch group (a
+    round's batches in flight together), timing each batch's round trip
+    on the host clock."""
+
+    def __init__(self, path, transport, pols, base_shift=0):
+        from cilium_tpu_torch.proxylib.types import FilterResult
+        from cilium_tpu_torch.sidecar import SidecarClient
+
+        self.client = SidecarClient(path, timeout=120.0, transport=transport)
+        self.mod = self.client.open_module([])
+        if pols is not None and self.client.policy_update(self.mod, pols) != int(FilterResult.OK):
+            raise AssertionError("policy_update refused")
+        self.shift = base_shift
+        self.rtt_ms = []
+        self._got = {}
+        self._sent = {}
+        self._evt = threading.Event()
+        self.client.verdict_callback = self._on_verdict
+
+    def _on_verdict(self, vb):
+        t = time.perf_counter()
+        self._got[vb.seq] = (vb, t)
+        self._evt.set()
+
+    def base(self, proto):
+        return SIDE_BASES[proto] + self.shift
+
+    def open(self, proto, rounds):
+        from cilium_tpu_torch.proxylib.types import FilterResult
+
+        seen = {}
+        for rnd in rounds:
+            for fid, _, remote, _ in rnd:
+                seen.setdefault(fid, remote)
+        for fid, remote in seen.items():
+            res, _ = self.client.new_connection(
+                self.mod, proto, self.base(proto) + fid, True, remote, 2, "1.1.1.1:1",
+                f"2.2.2.2:{SIDE_PORTS[proto]}", SIDE_NAMES[proto])
+            if res != int(FilterResult.OK):
+                raise AssertionError(f"{proto} conn {fid}: result {res}")
+        return list(seen)
+
+    def close(self, proto, fids):
+        for fid in fids:
+            self.client.close_connection(self.base(proto) + fid)
+
+    def run(self, proto, rounds, group):
+        from cilium_tpu_torch.sidecar import wire
+
+        base = self.base(proto)
+        out = []
+        for rnd in rounds:
+            batches = {}
+            for e in rnd:
+                batches.setdefault(group(e[0]), []).append(e)
+            seqs = []
+            for ents in batches.values():
+                seq = next(self.client._seq)
+                seqs.append(seq)
+                ids = np.array([base + fid for fid, *_ in ents], np.uint64)
+                flags = np.array([wire.FLAG_REPLY if r else 0 for *_, r in ents], np.uint8)
+                lens = np.array([len(c) for _, c, _, _ in ents], np.uint32)
+                blob = b"".join(c for _, c, _, _ in ents)
+                self._sent[seq] = time.perf_counter()
+                self.client.send_batch(seq, ids, flags, lens, blob)
+            deadline = time.monotonic() + 120
+            while not all(q in self._got for q in seqs):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{proto}: batches {seqs} unanswered")
+                self._evt.wait(0.01)
+                self._evt.clear()
+            per = {}
+            for q in seqs:
+                vb, t = self._got.pop(q)
+                self.rtt_ms.append((t - self._sent.pop(q)) * 1e3)
+                for j in range(vb.count):
+                    cid, res, ops, io, ir = vb.entry(j)
+                    if res != 0:
+                        raise AssertionError(f"{proto} conn {int(cid) - base}: result {res}")
+                    o, a, b = per.setdefault(int(cid) - base, ([], b"", b""))
+                    per[int(cid) - base] = (o + [(int(x), int(n)) for x, n in ops], a + io, b + ir)
+            out.append(per)
+        return out
+
+    def close_client(self):
+        self.client.close()
+
+
+def side_mismatches(got, exp):
+    """(conn, round) pairs whose ops or injects differ, or that one side
+    lacks."""
+    bad = 0
+    for g, e in zip(got, exp):
+        for fid in set(g) | set(e):
+            if g.get(fid) != e.get(fid):
+                bad += 1
+    return bad + abs(len(got) - len(exp))
+
+
+def side_frames(exp):
+    from cilium_tpu_torch.proxylib.types import DROP, PASS
+
+    return sum(1 for rnd in exp for ops, _, _ in rnd.values() for op, _ in ops if op in (PASS, DROP))
+
+
+def side_config(**kw):
+    """The reference's defaults (batch_flows 2,048, batch_width 256, the
+    0.5 ms batch window, reasm on) on the card unless ``kw`` says otherwise."""
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    return DaemonConfig(**kw)
+
+
+def sidecar_serve(path, cfg, pols, traffic, transports=("socket",), counted=None):
+    """Start a service, drive every protocol over each transport, stop it.
+    ``counted(phase, proto, svc)`` is called with "start" after every conn
+    is open (the engines built and prewarmed) and with "before"/"after"
+    around each protocol's drive over the first transport.  Returns (service status, per-transport
+    {proto: rounds}, per-transport {proto: drive seconds}, rtts, engines)."""
+    from cilium_tpu_torch.sidecar import VerdictService
+
+    svc = VerdictService(path, cfg).start()
+    drivers = []
+    try:
+        for i, tr in enumerate(transports):
+            drivers.append(SidecarDriver(path, tr, pols if i == 0 else None, base_shift=100_000 * i))
+        opened = [{p: d.open(p, traffic[p][0]) for p in traffic} for d in drivers]
+        if counted:
+            counted("start", None, svc)
+        outs, secs = [], []
+        for d in drivers:
+            o, s = {}, {}
+            for proto, (rounds, group) in traffic.items():
+                if counted and d is drivers[0]:
+                    counted("before", proto, svc)
+                t0 = time.perf_counter()
+                o[proto] = d.run(proto, rounds, group)
+                s[proto] = time.perf_counter() - t0
+                if counted and d is drivers[0]:
+                    counted("after", proto, svc)
+            outs.append(o)
+            secs.append(s)
+        status = svc.status()
+        engines = {key[-1]: eng for key, eng in svc._engines.items()}
+        extra = dict(blob_chunks=svc.blob_chunks, dispatch=svc.dispatch_mode_chosen,
+                     measured=getattr(svc, "dispatch_measured", None), svc=svc)
+        for d, op in zip(drivers, opened):
+            for proto, fids in op.items():
+                d.close(proto, fids)
+        rtts = [ms for d in drivers for ms in d.rtt_ms]
+        return status, outs, secs, rtts, engines, extra
+    finally:
+        for d in drivers:
+            d.close_client()
+        svc.stop()
+
+
+def sidecar_slice(dev, card, kerns):
+    """Phase 9: the sidecar verdict service on the card, counted in a run
+    of its own.  Returns (launches, runs, report, timed) as the other
+    slices do."""
+    import tempfile
+
+    from cilium_tpu_torch.models import cassandra as cass_mod
+    from cilium_tpu_torch.models import dns as dns_mod
+    from cilium_tpu_torch.models import memcached as mc_mod
+    from cilium_tpu_torch.ops import gather as gather_mod
+    from cilium_tpu_torch.proxylib import instance as inst
+
+    log("== sidecar slice")
+    t_phase = time.monotonic()
+    kerns = dict(kerns)
+    kerns.update(dns_name=dns_mod._DNS_NAME, dns_hits=dns_mod._DNS_HITS,
+                 cassandra_hits=cass_mod._CASSANDRA_HITS, memcache_hits=mc_mod._MEMCACHE_HITS,
+                 gather_rows=gather_mod._GATHER_ROWS)
+    pols = sidecar_policies()
+    traffic = sidecar_traffic()
+    t0 = time.monotonic()
+    expect = {p: sidecar_oracle(p, traffic[p][0], pols) for p in traffic}
+    frames = {p: side_frames(e) for p, e in expect.items()}
+    log(f"sidecar traffic: " + ", ".join(
+        f"{p} {SIDE_CONNS[p]} conns x {len(traffic[p][0])} rounds = {frames[p]} frames"
+        for p in traffic) + f"; host oracle {time.monotonic() - t0:.1f} s")
+    inst.reset_module_registry()
+    with tempfile.TemporaryDirectory(prefix="sidecar-", dir=".") as tmp:
+        return _sidecar_runs(dev, card, kerns, pols, traffic, expect, frames, tmp, t_phase)
+
+
+def _sidecar_runs(dev, card, kerns, pols, traffic, expect, frames, tmp, t_phase):
+    """The service runs of ``sidecar_slice``, their sockets under ``tmp``."""
+    from cilium_tpu_torch.ops import gather as gather_mod
+
+    # 9a. the counted run: eager dispatch, socket then shm.
+    per_proto, marks = {}, {}
+
+    def counted(phase, proto, svc):
+        if phase == "start":
+            for k in kerns.values():
+                k.launches = 0
+            marks["blob0"] = svc.blob_chunks
+            marks["svc"] = svc
+            return
+        now = {n: k.launches for n, k in kerns.items()}
+        if phase == "before":
+            marks[proto] = now
+        else:
+            per_proto[proto] = {n: now[n] - marks[proto][n] for n in now}
+
+    status, outs, secs, rtts, engines, extra = sidecar_serve(
+        f"{tmp}/eager.sock", side_config(dispatch_mode="eager"), pols, traffic,
+        transports=("socket", "shm"), counted=counted)
+    launches = {n: k.launches for n, k in kerns.items()}
+    blob_chunks = extra["blob_chunks"] - marks["blob0"]
+    for tr, o in zip(("socket", "shm"), outs):
+        for proto in traffic:
+            bad = side_mismatches(o[proto], expect[proto])
+            log(f"sidecar {tr:6s} {proto:9s} vs host oracle: {bad} mismatches "
+                f"({len(o[proto])} rounds, {frames[proto]} frames)")
+            if bad:
+                raise AssertionError(f"sidecar {tr} {proto}: {bad} mismatches against the oracle")
+    sessions = status["transport"]["sessions"]
+    if sorted(s["mode"] for s in sessions) != ["shm", "socket"] or not status["transport"]["shm_entries"]:
+        raise AssertionError(f"transports: {sessions}, shm entries {status['transport']['shm_entries']}")
+    # Launches add up: K16 once per blob chunk; each protocol's kernels
+    # launched in its own drive and no other protocol's.
+    if launches["gather_rows"] != blob_chunks or blob_chunks == 0:
+        raise AssertionError(f"K16 launched {launches['gather_rows']} times for {blob_chunks} blob chunks")
+    for proto, d in per_proto.items():
+        want = set(SIDE_KERNELS[proto])
+        missing = [k for k in want if d[k] == 0]
+        stray = {k: v for k, v in d.items() if v and k not in want}
+        if missing or stray:
+            raise AssertionError(f"sidecar {proto}: kernels not launched {missing}, stray {stray}")
+        pairs = {"r2d2": ("r2d2_frame", "r2d2_hits"), "dns": ("dns_name", "dns_hits"),
+                 "http": ("http_frame", "http_hits")}
+        if proto in pairs and d[pairs[proto][0]] != d[pairs[proto][1]]:
+            raise AssertionError(f"sidecar {proto}: {pairs[proto]} launched {d}")
+        if proto == "http" and d["http_lit"] != d["http_frame"]:
+            raise AssertionError(f"sidecar http: {d}")
+        log(f"sidecar launches, socket drive of {proto}: " +
+            ", ".join(f"{k} {d[k]}" for k in SIDE_KERNELS[proto]))
+    log(f"sidecar counted run: K16 {launches['gather_rows']} launches = {blob_chunks} blob chunks; "
+        f"totals {launches}")
+    # Nothing silently fell back.
+    cont, devst = status["containment"], status["device"]
+    if (cont["quarantined"] or cont["batch_crashes"] or cont["error_entries"] or cont["shed_entries"]
+            or cont["refused_entries"] or cont["readback_failures"]):
+        raise AssertionError(f"sidecar containment tripped: {cont} {devst}")
+    if not status["reasm"]["rounds_by_framing"].get("dns"):
+        raise AssertionError(f"dns columnar lane never engaged: {status['reasm']}")
+    log(f"sidecar reasm rounds by framing {status['reasm']['rounds_by_framing']}, "
+        f"vec batches {marks['svc'].vec_batches}, fast-path requests {marks['svc'].fast_log.requests}, "
+        f"guard {cont['quarantined']}, judged on the device {devst['device_judged']}, "
+        f"by the host oracle {devst['host_judged']}")
+
+    # 9b. the same traffic at verdict_device="cpu" (socket only).
+    cpu_status, cpu_outs, _, _, cpu_engines, _ = sidecar_serve(
+        f"{tmp}/cpu.sock", side_config(verdict_device="cpu"), pols, traffic)
+    for proto in traffic:
+        bad = side_mismatches(outs[0][proto], cpu_outs[0][proto])
+        if bad:
+            raise AssertionError(f"sidecar {proto}: card and CPU service differ in {bad} places")
+    for proto in ("http", "cassandra", "memcache"):
+        got = (engines[proto].device_judged, engines[proto].host_judged)
+        want = (cpu_engines[proto].device_judged, cpu_engines[proto].host_judged)
+        # Two transports drove the card's engines: the CPU's counts twice.
+        if got != (2 * want[0], 2 * want[1]) or want[0] == 0:
+            raise AssertionError(f"sidecar {proto}: judged on the device/host {got}, CPU {want}")
+        log(f"sidecar {proto}: frames judged on the device {got[0]}, by the host oracle {got[1]} "
+            f"(overflow and peek-horizon frames; the CPU service: {want[0]} / {want[1]} per transport)")
+    log("sidecar card service == CPU service: 0 mismatches on every protocol")
+
+    # 9c. CUDA graphs ("jit") against eager, and "auto" resolving by measurement.
+    # Two drives on fresh conns: shapes prewarm does not cover (the
+    # columnar lane's widths, the HTTP judge's buckets) are captured at
+    # first use in the first; the second runs on warm graphs.
+    # Graph replays launch the kernels without their wrappers: each
+    # replay adds the launches its graph captured to ``replayed``, so
+    # K16's replays must equal this run's blob chunks.
+    cap0 = {n: k.captured for n, k in kerns.items()}
+    jit_marks = {}
+
+    def jit_counted(phase, proto, svc):
+        if phase == "start":
+            jit_marks["replayed"] = {n: k.replayed for n, k in kerns.items()}
+            jit_marks["blob0"] = svc.blob_chunks
+
+    jit_status, jit_outs, jit_secs, _, _, jit_extra = sidecar_serve(
+        f"{tmp}/jit.sock", side_config(dispatch_mode="jit"), pols, traffic,
+        transports=("socket", "socket"), counted=jit_counted)
+    replayed = {n: k.replayed - jit_marks["replayed"][n] for n, k in kerns.items()}
+    jit_chunks = jit_extra["blob_chunks"] - jit_marks["blob0"]
+    if replayed["gather_rows"] != jit_chunks or jit_chunks == 0:
+        raise AssertionError(f"jit: K16 replayed {replayed['gather_rows']} times for {jit_chunks} blob chunks")
+    for proto in ("r2d2", "dns"):
+        idle = [k for k in SIDE_KERNELS[proto] if not replayed[k]]
+        if idle:
+            raise AssertionError(f"jit {proto}: kernels never replayed from a graph: {idle}")
+    for proto in traffic:
+        bad = sum(side_mismatches(o[proto], outs[0][proto]) for o in jit_outs)
+        if bad:
+            raise AssertionError(f"sidecar {proto}: graphs and eager differ in {bad} places")
+    led = jit_status["ledger"]
+    log(f"sidecar jit ledger: {led['compiles']} compiles ({led['by_cause']}), "
+        f"{led['dispatch_path_compiles']} of them captured on the dispatch path, "
+        f"{led['compile_seconds']:.3f} s in all")
+    graphs = jit_status["device"]["graphs"]
+    captured = {n: k.captured - cap0[n] for n, k in kerns.items() if k.captured - cap0[n]}
+    if jit_status["dispatch_mode"] != "jit" or not graphs["captures"] or not graphs["replays"] \
+            or not captured.get("gather_rows"):
+        raise AssertionError(f"jit service: {jit_status['dispatch_mode']} {graphs} {captured}")
+    log(f"sidecar jit (CUDA graphs) == eager: 0 mismatches; {graphs['captures']} graphs captured, "
+        f"{graphs['replays']} replays; kernels captured {captured}; launches replayed from graphs "
+        f"after the conns opened {({n: v for n, v in replayed.items() if v})}, K16 "
+        f"{replayed['gather_rows']} = {jit_chunks} blob chunks")
+    auto_traffic = {"r2d2": traffic["r2d2"]}
+    auto_status, auto_outs, _, _, _, auto_extra = sidecar_serve(
+        f"{tmp}/auto.sock", side_config(dispatch_mode="auto"), pols, auto_traffic)
+    if auto_status["dispatch_mode"] not in ("eager", "jit") or not auto_extra["measured"]:
+        raise AssertionError(f"auto did not resolve by measurement: {auto_status['dispatch_mode']}")
+    if side_mismatches(auto_outs[0]["r2d2"], outs[0]["r2d2"]):
+        raise AssertionError("sidecar auto: ops differ from eager")
+    m = auto_extra["measured"]
+    log(f"sidecar auto: 8 issues + readback, eager {m['eager_ms']:.3f} ms, graphs "
+        f"{m['jit_ms']:.3f} ms -> {auto_status['dispatch_mode']} [{card}]")
+
+    # 9d. numbers, each with the card line.
+    for proto in traffic:
+        rates = ", ".join(f"{name} {frames[proto] / t[proto]:.0f}" for name, t in (
+            ("eager socket", secs[0]), ("eager shm", secs[1]), ("graphs first", jit_secs[0]),
+            ("graphs warm", jit_secs[1])))
+        log(f"sidecar {proto}: {frames[proto]} frames; frames/s {rates} (host clock) [{card}]")
+    r = np.array(rtts)
+    log(f"sidecar batch round trip (eager, socket and shm, {len(r)} batches of the drives): p50 "
+        f"{np.percentile(r, 50):.3f} ms, p99 {np.percentile(r, 99):.3f} ms (host clock) [{card}]")
+    seam = sidecar_latency(f"{tmp}/lat.sock", pols, card)
+    idle = sidecar_idle(f"{tmp}/idle.sock", pols, traffic, card)
+
+    # 9e. K16 against its plain version on the card, at the main path's
+    # shapes (the whole-frame batch of round 0, cut as _issue_chunks_blob
+    # cuts it), and timed at buckets 512 and 2,048.
+    report, timed = {"gather_rows": {}}, {}
+    r2d2_rounds, r2d2_group = traffic["r2d2"]
+    whole = [c for fid, c, _, _ in r2d2_rounds[0] if r2d2_group(fid) == 0]
+    for f_pad in (512, 2048):
+        blob, offs, lens = side_blob_chunk(whole, f_pad)
+        b, o, ln = (torch.from_numpy(a).to(dev) for a in (blob, offs, lens))
+        got = gather_mod.gather_rows(b, o, ln, 256)
+        want = gather_mod.gather_rows_plain(b, o, ln, 256)
+        err = max_abs_err([got], [want])
+        report["gather_rows"][f"sidecar-{f_pad}"] = err
+        edge_o = o.clone()
+        edge_l = ln.clone()
+        edge_o[:4] = torch.tensor([65535, 65530, 0, 3], dtype=torch.int32)
+        edge_l[:4] = torch.tensor([256, 300, 0, -1], dtype=torch.int32)
+        err_e = max_abs_err([gather_mod.gather_rows(b, edge_o, edge_l, 256)],
+                            [gather_mod.gather_rows_plain(b, edge_o, edge_l, 256)])
+        report["gather_rows"][f"sidecar-{f_pad}-edges"] = err_e
+        if err or err_e:
+            raise AssertionError(f"K16 differs from its plain version at {f_pad}: {err} / {err_e}")
+        g = (o.long()[:, None] + torch.arange(256, device=dev)[None, :]).clamp(0, 65535)
+        covered = torch.zeros(65536, dtype=torch.bool, device=dev)
+        col = torch.arange(256, device=dev)[None, :]
+        covered[g[col < ln.long()[:, None]]] = True
+        row = dict(
+            ms=graph_ms(lambda: gather_mod.gather_rows(b, o, ln, 256)),
+            call_ms=cuda_ms(lambda: gather_mod.gather_rows(b, o, ln, 256), 50),
+            plain_ms=cuda_ms(lambda: gather_mod.gather_rows_plain(b, o, ln, 256), 20),
+            library_ms=cuda_ms(lambda: b[g], 50),
+            bytes=f_pad * 256 + int(covered.sum()) + 8 * f_pad, ops=0,
+        )
+        bound(row)
+        shape = "sidecar" if f_pad == 2048 else "sidecar-512"
+        timed[shape] = {"rows": {"gather_rows": row}}
+        log_row(shape, "gather_rows", row)
+        log(f"{shape:15s} gather_rows library blob[g] (one advanced-indexing call, no mask) "
+            f"{row['library_ms']:.5f} ms [{card}]")
+    runs = {"sidecar": launches, "sidecar-512": launches}
+    log(f"sidecar slice: {time.monotonic() - t_phase:.1f} s; seam p50/p99 {seam}; idle share {idle}")
+    return launches, runs, report, timed
+
+
+def side_blob_chunk(frames, f_pad, blob_len=65536):
+    """The first chunk ``_issue_chunks_blob`` cuts from whole frames: the
+    flow cap ``f_pad`` and the 65,536-byte window, padded to ``f_pad``."""
+    offs, lens, blob, n = [], [], bytearray(), 0
+    for f in frames:
+        if n == f_pad or len(blob) + len(f) > blob_len:
+            break
+        offs.append(len(blob))
+        lens.append(len(f))
+        blob += f
+        n += 1
+    o = np.zeros(f_pad, np.int32)
+    ln = np.zeros(f_pad, np.int32)
+    o[:n], ln[:n] = offs, lens
+    bp = np.zeros(blob_len, np.uint8)
+    bp[: len(blob)] = np.frombuffer(bytes(blob), np.uint8)
+    return bp, o, ln
+
+
+def sidecar_latency(path, pols, card, n_batches=400, per_batch=64):
+    """Round trip of one whole-frame r2d2 batch at a time (the blob lane),
+    on the host clock: p50 and p99 over ``n_batches`` batches."""
+    from cilium_tpu_torch.sidecar import VerdictService
+
+    svc = VerdictService(path, side_config(dispatch_mode="eager")).start()
+    d = None
+    try:
+        d = SidecarDriver(path, "socket", pols, base_shift=900_000)
+        rounds = [[(i % 4096, R2D2_CORPUS[(i + k) % 3], 1, False) for i in range(per_batch)]
+                  for k in range(n_batches)]
+        fids = d.open("r2d2", rounds)
+        d.run("r2d2", rounds[:20], lambda fid: 0)  # warm
+        d.rtt_ms.clear()
+        d.run("r2d2", rounds, lambda fid: 0)
+        r = np.array(d.rtt_ms)
+        d.close("r2d2", fids)
+    finally:
+        if d is not None:
+            d.close_client()
+        svc.stop()
+    out = (float(np.percentile(r, 50)), float(np.percentile(r, 99)))
+    log(f"sidecar seam round trip, {n_batches} sequential batches of {per_batch} whole r2d2 frames "
+        f"(eager, socket): p50 {out[0]:.3f} ms, p99 {out[1]:.3f} ms (host clock) [{card}]")
+    return out
+
+
+def sidecar_idle(path, pols, traffic, card):
+    """The device's idle share over the r2d2 and DNS drives, from the
+    profiler's device time against the wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cilium_tpu_torch.sidecar import VerdictService
+
+    sub = {p: traffic[p] for p in ("r2d2", "dns")}
+    svc = VerdictService(path, side_config(dispatch_mode="eager")).start()
+    d = None
+    try:
+        d = SidecarDriver(path, "socket", pols, base_shift=800_000)
+        opened = {p: d.open(p, sub[p][0]) for p in sub}
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        try:
+            prof.start()
+        except RuntimeError as err:
+            log(f"sidecar idle share: not measured ({err})")
+            return None
+        try:
+            t0 = time.perf_counter()
+            for p, (rounds, group) in sub.items():
+                d.run(p, rounds, group)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            prof.stop()
+        for p, fids in opened.items():
+            d.close(p, fids)
+    finally:
+        if d is not None:
+            d.close_client()
+        svc.stop()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    share = 1 - busy / wall_us
+    log(f"sidecar r2d2 + dns drives under the profiler: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.2f} ms, idle share {share:.4f} [{card}]")
+    return share
+
+
 def cuda_ms(fn, iters):
     """Mean ms per call over ``iters`` calls after two warm-up calls."""
     fn()
@@ -2404,6 +3048,15 @@ def main() -> int:
     for kname, n in launches4.items():
         launches[kname] = launches.get(kname, 0) + n
 
+    # The fifth slice's path (the sidecar verdict service), counted in its own run.
+    launches5, runs5, report5, timed5 = sidecar_slice(dev, card, kerns)
+    runs.update(runs5)
+    timed.update(timed5)
+    for kname, per in report5.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches5.items():
+        launches[kname] = launches.get(kname, 0) + n
+
     replaces = {
         "r2d2_frame": ("cilium_tpu_torch/csrc/r2d2_frame.cu", "cilium_tpu/models/r2d2.py:211", "graft"),
         "dfa_scan": ("cilium_tpu_torch/csrc/dfa_scan.cu", "cilium_tpu/ops/dfa.py:146", "graft"),
@@ -2430,8 +3083,10 @@ def main() -> int:
         "datapath6": ("cilium_tpu_torch/csrc/datapath.cu", "cilium_tpu/datapath/pipeline6.py:92",
                       "datapath6"),
         "ingress": ("cilium_tpu_torch/csrc/ingress.cu", "cilium_tpu/datapath/ingress.py:91", "netdev"),
+        "gather_rows": ("cilium_tpu_torch/csrc/gather_rows.cu", "cilium_tpu/sidecar/service.py:165",
+                        "sidecar"),
     }
-    fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = []
     for kname, (source, ref, shape) in replaces.items():
         row = timed[shape]["rows"][kname]
@@ -2439,7 +3094,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source, "replaces": ref,
             "launches": launches[kname], "max_abs_err": max(report[kname].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None, "shape": shape,
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"), "shape": shape,
             "shape_launches": runs[shape][kname], "call_ms": row["call_ms"],
         }
         others = {}
@@ -2447,7 +3102,7 @@ def main() -> int:
             for key, w in t["rows"].items():
                 if other != shape and key.split(":")[0] == kname:
                     label = other if ":" not in key else f"{other}:{key.split(':')[1]}"
-                    others[label] = {k: w[k] for k in fields}
+                    others[label] = {k: w.get(k) for k in fields}
                     # this run's own launches on the counted main path
                     run = span_runs[label] if ":" in label else runs[other]
                     others[label]["launches"] = run[kname]

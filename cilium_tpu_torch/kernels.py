@@ -32,6 +32,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# Every CudaKernel, in creation order.
+ALL: list["CudaKernel"] = []
 
 
 def nvcc() -> str:
@@ -98,20 +100,36 @@ def library(stem: str) -> ctypes.CDLL:
     return lib
 
 
+def captured_by(fn) -> list[tuple["CudaKernel", int]]:
+    """Run ``fn`` (a CUDA graph capture) and return the kernel launches
+    it recorded, as (kernel, count) pairs: what one replay launches."""
+    before = [k.captured for k in ALL]
+    fn()
+    return [(k, k.captured - n) for k, n in zip(ALL, before) if k.captured > n]
+
+
 class CudaKernel:
     """One C launcher of a ``csrc/*.cu`` library.
 
     ``launches`` counts successful launches and nothing else, so a run
-    can show that its path went through the kernel.  Arguments are
-    passed as ``ctypes`` values: ``c_void_p`` for every pointer and the
-    stream, ``c_int`` for sizes."""
+    can show that its path went through the kernel.  A call made while
+    the stream is being captured into a CUDA graph launches nothing: it
+    counts in ``captured`` instead.  The graph's replays launch the
+    kernel without this wrapper; whoever replays a graph adds the
+    launches the graph holds to ``replayed`` (see ``captured_by``).
+    Every instance is listed in ``ALL``.  Arguments are passed as ``ctypes``
+    values: ``c_void_p`` for every pointer and the stream, ``c_int`` for
+    sizes."""
 
     def __init__(self, stem: str, symbol: str, argtypes: list):
         self.stem = stem
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.captured = 0
+        self.replayed = 0
         self._fn = None
+        ALL.append(self)
 
     def _bind(self):
         if self._fn is None:
@@ -129,13 +147,17 @@ class CudaKernel:
         fn = self._bind()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
+            capturing = torch.cuda.is_current_stream_capturing()
             err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {err} "
                 f"({self._err(err).decode()})"
             )
-        self.launches += 1
+        if capturing:
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 def check(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:

@@ -120,6 +120,10 @@ class DnsBatchModel(VerdictModel):
     def verdicts_attr(self, data, lengths, remotes):
         return dns_verdicts_attr(self, data, lengths, remotes)
 
+    def dispatch_bare(self) -> "DnsBatchModel":
+        """Table-shape signature marker (see R2d2BatchModel)."""
+        return self
+
 
 def _collect_rows(rules: CompiledPortRules):
     rows = []  # (remote_set, DnsRule | None)

@@ -90,6 +90,14 @@ class R2d2BatchModel(VerdictModel):
     def verdicts_attr(self, data, lengths, remotes):
         return r2d2_verdicts_attr(self, data, lengths, remotes)
 
+    def dispatch_bare(self) -> "R2d2BatchModel":
+        """Marker the sidecar service reads: models exposing this have a
+        table-shape signature (``_model_shape_key``, the tensors of the
+        model's dataclass fields), so a same-bucketed churn rebuild is
+        recognised as such in its ledger and prewarm books.  The model
+        is its own bare form."""
+        return self
+
 
 def _collect_rows(rules: CompiledPortRules):
     """Flatten (rule, matcher) pairs into device rows.  A rule with no L7

@@ -1,7 +1,8 @@
-"""r2d2 L7 rules: the rule matcher and its NPDS rule parser.
+"""r2d2 line-protocol parser — the minimum end-to-end protocol family.
 
-A copy of the rule half of ``cilium_tpu/proxylib/parsers/r2d2.py``
-(reference: proxylib/r2d2/r2d2parser.go).  Protocol:
+A copy of ``cilium_tpu/proxylib/parsers/r2d2.py`` (reference:
+proxylib/r2d2/r2d2parser.go): the rule matcher, its NPDS rule parser and
+the streaming parser the sidecar's in-process oracle connections run.  Protocol:
   "READ <filename>\\r\\n" | "WRITE <filename>\\r\\n" | "HALT\\r\\n" | "RESET\\r\\n"
 Rules are key/value pairs {cmd: exact, file: regex}; the ``file`` regex uses
 search semantics (Go regexp.MatchString, reference: r2d2parser.go:79).
@@ -17,7 +18,9 @@ from dataclasses import dataclass
 
 from ...regex import CompiledPattern, compile_pattern, py_search
 from ...regex.parse import ParseError as RegexParseError
-from ..parser import parse_error, register_l7_rule_parser
+from ..accesslog import EntryType
+from ..parser import parse_error, register_l7_rule_parser, register_parser_factory
+from ..types import DROP, ERROR, MORE, PASS, OpError
 
 VALID_CMDS = ("READ", "WRITE", "HALT", "RESET")
 FILE_CMDS = ("", "READ", "WRITE")
@@ -87,4 +90,45 @@ def r2d2_rule_parser(rule_config):
     return rules
 
 
+class R2d2Parser:
+    """(reference: r2d2parser.go:151-214)."""
+
+    def __init__(self, connection):
+        self.connection = connection
+
+    def on_data(self, reply, end_stream, data):
+        joined = b"".join(data)
+        idx = joined.find(b"\r\n")
+        if idx < 0:
+            return MORE, 1
+        msg = joined[:idx]
+        msg_len = idx + 2
+
+        if reply:
+            return PASS, msg_len
+
+        fields = msg.decode("utf-8", "surrogateescape").split(" ")
+        if len(fields) == 0:
+            return ERROR, int(OpError.ERROR_INVALID_FRAME_TYPE)
+        file_ = fields[1] if len(fields) == 2 else ""
+        req = R2d2RequestData(cmd=fields[0], file=file_)
+
+        matches = self.connection.matches(req)
+        self.connection.log(
+            EntryType.Request if matches else EntryType.Denied,
+            proto="r2d2",
+            fields={"cmd": req.cmd, "file": req.file},
+        )
+        if not matches:
+            self.connection.inject(True, b"ERROR\r\n")
+            return DROP, msg_len
+        return PASS, msg_len
+
+
+class R2d2ParserFactory:
+    def create(self, connection):
+        return R2d2Parser(connection)
+
+
+register_parser_factory("r2d2", R2d2ParserFactory())
 register_l7_rule_parser("r2d2", r2d2_rule_parser)

@@ -68,14 +68,27 @@ class R2d2BatchEngine(InvariantClaimEngine):
     """Batch engine for the r2d2 model (the flagship end-to-end slice).
 
     Framing is parameterized through four class hooks so length-
-    prefixed families (the JAX package's DnsBatchEngine) can reuse
-    the whole feed/feed_extract/settle_entry/pump machinery:
+    prefixed families (runtime/dnsengine.DnsBatchEngine) reuse the
+    whole feed/feed_extract/settle_entry/pump machinery:
     ``_frame_split`` (first complete frame length), ``_frame_msg``
     (the judged/logged message slice), ``frame_row`` (the device-row
     bytes the async slow path reconstructs from a settled message),
     and ``DENY_INJECT`` (the per-denied-frame reply inject)."""
 
     proto = "r2d2"
+
+    # Columnar feed contract (sidecar/reasm.py): the service's
+    # reassembler may own this engine's carry state in its byte arena
+    # and judge whole rounds of frames columnar — the scalar
+    # feed/feed_extract/settle_entry path below stays the oracle/
+    # fallback rung and must never drift from it.
+    reasm_columnar = True
+
+    @staticmethod
+    def reasm_spec() -> str:
+        """Framing kind of the columnar feed contract
+        (reasm.FRAMINGS): r2d2 frames on the first CRLF."""
+        return "crlf"
 
     # Reply bytes injected per denied frame (byte-exact with the
     # streaming oracle; reference: r2d2parser.go:211).
@@ -202,6 +215,19 @@ class R2d2BatchEngine(InvariantClaimEngine):
             frames.append((self._frame_msg(st.buffer, msg_len), msg_len))
             del st.buffer[:msg_len]
         return frames
+
+    def adopt_residue(self, flow_id: int, data: bytes, overflowed: bool,
+                      remote_id: int = 0, policy_name: str = "",
+                      **flow_kwargs) -> None:
+        """Lane-exit half of the columnar feed contract: the service's
+        reassembler hands back a conn's arena carry (and its
+        dead/overflowed latch) when the conn leaves the columnar lane,
+        so the scalar feed/pump path resumes from exactly the retained
+        bytes — no byte lost or replayed across the transition."""
+        st = self.flow(flow_id, remote_id, policy_name, **flow_kwargs)
+        if data:
+            st.buffer = bytearray(data) + st.buffer
+        st.overflowed = st.overflowed or overflowed
 
     def settle_entry(self, flow_id: int, frames: list, more: bool):
         """The finish half of one async entry in ONE dict lookup (the

@@ -7,8 +7,8 @@ settle_entry/pump) with the framing hooks rebound to DNS-over-TCP: frames
 split on the 2-byte big-endian length prefix, the judged message is the
 WHOLE prefixed frame, and denied frames inject nothing (a synthesized DNS
 response would need the query id echoed per frame — see
-proxylib/parsers/dns.py).  The sidecar's columnar reassembly hooks
-(``reasm_columnar``, ``reasm_spec``) come with the serving seam.
+proxylib/parsers/dns.py).  ``reasm_spec`` names the sidecar's columnar
+twin of that framing (``sidecar/reasm.py`` FRAMINGS["dns"]).
 """
 
 from __future__ import annotations
@@ -22,6 +22,14 @@ class DnsBatchEngine(R2d2BatchEngine):
     """Batch engine for the DNS name-policy model (models/dns.py)."""
 
     proto = "dns"
+
+    reasm_columnar = True
+
+    @staticmethod
+    def reasm_spec() -> str:
+        """Columnar feed contract framing kind (reasm.FRAMINGS):
+        DNS-over-TCP frames on a 2-byte big-endian length prefix."""
+        return "dns"
 
     # Denied queries DROP with no reply inject (module docstring).
     DENY_INJECT = b""

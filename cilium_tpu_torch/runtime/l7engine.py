@@ -25,10 +25,10 @@ not: the reference's fail-closed overflow frames (tokens the fixed-width
 tensors cannot hold, multi-key frames) and frames past a flow's peek
 horizon.  They are counted in ``host_judged``.  A judge that raises
 propagates out of ``pump()``: there is no host fallback for a failing
-device.  What only the sidecar service reads comes with the serving
-seam: its containment hooks (``device_gate``, ``device_fail_hook``,
-``judge_dispatch``), the ``handles_reply`` and ``capacity`` settings and
-the columnar reassembly declarations (``reasm_spec``).
+device (the sidecar service answers that round's entries with typed
+``UNKNOWN_ERROR`` verdicts).  The service sets ``judge_dispatch`` to run
+the HTTP judge through its dispatch mode, and reads ``handles_reply``
+and ``capacity``.
 
 Reference seams: proxylib/proxylib/connection.go:118 (op loop),
 proxylib/cassandra/cassandraparser.go, proxylib/memcached/*.
@@ -128,10 +128,11 @@ class DeviceAssistedEngine(InvariantClaimEngine):
     """
 
     proto = ""
+    handles_reply = True
 
     def __init__(self, policy, ingress: bool, port: int, model,
-                 logger=None, max_buffer: int = 1 << 20,
-                 attr_enabled: bool = True):
+                 logger=None, capacity: int = 2048,
+                 max_buffer: int = 1 << 20, attr_enabled: bool = True):
         self.policy = policy  # PolicyInstance for the host-judged frames
         # Rule attribution gate: False (flow_observe off) keeps the
         # judge on the plain verdict call — no first-match output, no
@@ -148,6 +149,7 @@ class DeviceAssistedEngine(InvariantClaimEngine):
         # Per-flow retained-bytes cap across both direction buffers
         # (0 = unbounded) — see runtime/batch.py FlowState.
         self.max_buffer = max_buffer
+        self.capacity = capacity
         self.buffer_overflows = 0
         self.flows: dict[int, _EngineFlow] = {}
         self.instance = _EngineInstance(self)
@@ -155,6 +157,10 @@ class DeviceAssistedEngine(InvariantClaimEngine):
         self._driving_flow: int | None = None
         self.device_judged = 0  # frames decided on device (telemetry)
         self.host_judged = 0  # frames decided by the host oracle (telemetry)
+        # Optional service-owned judge dispatch: (data, lengths,
+        # remotes) -> host (complete, len, allow, rule-or-None) through
+        # the service's dispatch mode (eager or CUDA graphs).
+        self.judge_dispatch = None
 
     # -- flow management --------------------------------------------------
 
@@ -246,7 +252,8 @@ class DeviceAssistedEngine(InvariantClaimEngine):
                 continue
             for desc in self._peek(st, bytes(st.bufs[False])):
                 batch_entries.append((fid, desc))
-        # 2. judge on the device; a judge that raises propagates.
+        # 2. judge on the device; a judge that raises propagates (the
+        # service answers the round's entries with typed errors).
         self._pending_verdicts = {}
         if batch_entries and not isinstance(self.model, ConstVerdict):
             judged = self._judge(
@@ -553,7 +560,11 @@ class HttpSidecarEngine(DeviceAssistedEngine):
                 data[j, : len(h)] = np.frombuffer(h, np.uint8)
                 lengths[j] = len(h)
                 rem[j] = remotes[i]
-            if self.attr_enabled:
+            if self.judge_dispatch is not None:
+                # Service-owned dispatch: host arrays, through the
+                # service's dispatch mode.
+                _, _, a, r = self.judge_dispatch(data, lengths, rem)
+            elif self.attr_enabled:
                 _, _, a, r = self.model.verdicts_attr(data, lengths, rem)
                 # One device-to-host copy for the bucket's verdicts.
                 host = torch.stack([a.to(torch.int32), r]).cpu().numpy()

@@ -8,6 +8,8 @@ This file imports no JAX, so it runs where only the port is installed.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -773,3 +775,156 @@ def test_l34_wrappers_reject_bad_inputs(cuda):
         datapath_pass(tables, (q,), (q,), q, q, q[:7])
     with pytest.raises(ValueError):
         datapath_verdicts6(tables, (q,) * 4, (q,) * 4, q, q, q)
+
+
+# --- K16 gather_rows and the sidecar's CUDA-graph dispatch -------------------
+
+
+@pytest.mark.parametrize("f,blob_len,width", [(1, 65536, 256), (512, 65536, 256), (2048, 65536, 256),
+                                              (300, 300, 40), (7, 1, 16)])
+def test_gather_rows_kernel_matches_plain(cuda, f, blob_len, width):
+    from cilium_tpu_torch.ops import gather as gather_mod
+
+    rng = np.random.default_rng(f + width)
+    blob = rng.integers(0, 256, blob_len, dtype=np.uint8)
+    offs = rng.integers(-3, blob_len + 3, f).astype(np.int32)
+    lens = rng.integers(-2, width + 20, f).astype(np.int32)
+    edges = [(blob_len - 1, width), (blob_len - 1, 1), (0, 0), (5, width + 40)]
+    for i, (o, ln) in enumerate(edges[:f]):
+        offs[i], lens[i] = o, ln
+    b, o, ln = _to(cuda, blob, offs, lens)
+    before = gather_mod._GATHER_ROWS.launches
+    got = gather_mod.gather_rows(b, o, ln, width)
+    torch.cuda.synchronize()
+    assert gather_mod._GATHER_ROWS.launches == before + 1
+    assert torch.equal(got, gather_mod.gather_rows_plain(b, o, ln, width))
+
+
+def test_gathered_call_in_a_graph_matches_eager(cuda, tmp_path):
+    """The sidecar's blob lane (K16 then the r2d2 model) replayed from a
+    CUDA graph gives the eager call's verdicts and rules, for two
+    different chunks through the same captured graph; a capture counts in
+    ``captured``, not in ``launches``, and each replay in ``replayed``."""
+    from cilium_tpu_torch.ops import gather as gather_mod
+    from cilium_tpu_torch.sidecar.service import VerdictService, _to_host
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    policy = compile_policy(NetworkPolicy(name="p", policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+            remote_policies=[1, 3], l7_proto="r2d2",
+            l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}])])]))
+    model = r2d2_mod.build_r2d2_model(policy, True, 80, device=cuda)
+    svc = VerdictService(str(tmp_path / "g.sock"), DaemonConfig(dispatch_mode="jit")).start()
+    try:
+        frames = [b"READ /public/a.txt\r\n", b"READ /private/x\r\n", b"HALT\r\n", b"WRITE /public/b\r\n"]
+        rng = np.random.default_rng(5)
+        for _ in range(2):
+            n = 300
+            pick = [frames[i] for i in rng.integers(0, len(frames), n)]
+            lens = np.zeros(512, np.int32)
+            lens[:n] = [len(p) for p in pick]
+            offs = np.zeros(512, np.int32)
+            offs[:n] = np.concatenate(([0], np.cumsum(lens[:n])[:-1]))
+            blob = np.zeros(svc.BLOB_CHUNK, np.uint8)
+            raw = np.frombuffer(b"".join(pick), np.uint8)
+            blob[: len(raw)] = raw
+            rem = np.zeros(512, np.int32)
+            rem[:n] = rng.choice([1, 3, 9], n)
+            svc._use_jit = True
+            k16 = gather_mod._GATHER_ROWS
+            launches, captured, replayed = k16.launches, k16.captured, k16.replayed
+            replays = svc.graph_stats["replays"]
+            g_allow, g_rule = svc._gathered_call(model, blob, offs, lens, rem)
+            assert svc.graph_stats["replays"] == replays + 1
+            assert k16.replayed == replayed + 1  # the graph holds one K16 launch
+            assert gather_mod._GATHER_ROWS.captured - captured <= 1
+            assert gather_mod._GATHER_ROWS.launches - launches <= 1  # the warm launch only
+            svc._use_jit = False
+            e_allow, e_rule = svc._gathered_call(model, blob, offs, lens, rem)
+            np.testing.assert_array_equal(_to_host(g_allow), _to_host(e_allow))
+            np.testing.assert_array_equal(_to_host(g_rule), _to_host(e_rule))
+        assert svc.graph_stats["captures"] == 1
+        with pytest.raises(TypeError):
+            np.asarray(torch.ones(2, device=cuda))  # why every readback is _to_host
+    finally:
+        svc.stop()
+
+
+def test_graph_service_recaptures_after_a_policy_swap(cuda, tmp_path):
+    """A service dispatching through CUDA graphs serves a whole-frame
+    batch (the blob lane) equal to the in-process oracle, before and after
+    a policy swap; the swap's new model gets graphs of its own."""
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.proxylib.types import FilterResult
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    def pol(rules):
+        return NetworkPolicy(name="p", policy=2, ingress_per_port_policies=[
+            PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+                remote_policies=[1, 3], l7_proto="r2d2", l7_rules=rules)])])
+
+    frames = [b"READ /public/a.txt\r\n", b"READ /private/x\r\n", b"HALT\r\n", b"RESET\r\n"]
+
+    def oracle(rules, conn_ids, msgs, remotes):
+        mod = inst.open_module([("node-id", "oracle")], False)
+        inst.find_instance(mod).policy_update([pol(rules)])
+        out = []
+        for cid, m, r in zip(conn_ids, msgs, remotes):
+            _, conn = inst.on_new_connection(mod, "r2d2", cid, True, r, 2, "1.1.1.1:1",
+                                             "2.2.2.2:80", "p")
+            ops = []
+            conn.on_data(False, False, [m], ops)
+            out.append([(int(o), int(n)) for o, n in ops])
+            inst.close_connection(cid)
+        inst.close_module(mod)
+        return out
+
+    inst.reset_module_registry()
+    svc = VerdictService(str(tmp_path / "swap.sock"), DaemonConfig(dispatch_mode="jit")).start()
+    client = SidecarClient(svc.socket_path, timeout=120.0)
+    try:
+        rules0 = [{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}]
+        mod = client.open_module([])
+        assert client.policy_update(mod, [pol(rules0)]) == int(FilterResult.OK)
+        ids = list(range(1, 301))
+        remotes = [9 if i % 7 == 0 else 1 for i in ids]
+        for cid, r in zip(ids, remotes):
+            assert client.new_connection(mod, "r2d2", cid, True, r, 2, "1.1.1.1:1",
+                                         "2.2.2.2:80", "p")[0] == int(FilterResult.OK)
+        got, evt = {}, threading.Event()
+
+        def cb(vb):
+            got[vb.seq] = vb
+            evt.set()
+
+        client.verdict_callback = cb
+
+        def round_trip(msgs):
+            seq = next(client._seq)
+            client.send_batch(seq, np.array(ids, np.uint64), np.zeros(len(ids), np.uint8),
+                              np.array([len(m) for m in msgs], np.uint32), b"".join(msgs))
+            assert evt.wait(60)
+            while seq not in got:
+                evt.clear()
+                assert evt.wait(60)
+            vb = got.pop(seq)
+            per = {}
+            for j in range(vb.count):
+                cid, res, ops, _, _ = vb.entry(j)
+                per.setdefault(int(cid), []).extend((int(o), int(n)) for o, n in ops)
+            return [per[c] for c in ids]
+
+        msgs = [frames[i % len(frames)] for i in ids]
+        captures0 = svc.graph_stats["captures"]
+        assert captures0 > 0
+        assert round_trip(msgs) == oracle(rules0, ids, msgs, remotes)
+        rules1 = [{"cmd": "RESET"}]
+        assert client.policy_update(mod, [pol(rules1)]) == int(FilterResult.OK)
+        assert svc.graph_stats["captures"] > captures0
+        assert round_trip(msgs) == oracle(rules1, ids, msgs, remotes)
+        assert svc.blob_chunks >= 2 and svc.status()["containment"]["refused_entries"] == {}
+    finally:
+        client.close()
+        svc.stop()
+        inst.reset_module_registry()
