@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's r2d2, HTTP, DNS, Cassandra and memcached verdict paths
-and its L3/L4 datapath on one CUDA card and check them.
+"""Drive the port's r2d2, HTTP, DNS, Cassandra, memcached and Kafka
+verdict paths, its L3/L4 datapath, its sidecar service and its
+chunk-folded DFA search on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -68,7 +69,23 @@ which fails the run on any mismatch:
    graphs gives the same ops, and dispatch_mode="auto" resolves by
    measurement; then frames/s, the seam's round trip p50/p99, the
    device's idle share, and K16 against its plain version, timed at
-   buckets 512 and 2,048.
+   buckets 512 and 2,048;
+10. Kafka, counted in a run of its own: ``kafka_verdicts`` on
+   bench_kafka's rules and requests (F = 65,536, W = 32) and on the fuzz
+   mix (0-9 topics, api keys to 70, overflow rows) against
+   tests/test_kafka.py's seven rule sets, then ``KafkaBatchEngine`` on
+   2,048 flows over 3 rounds (whole, split and pipelined frames, a
+   framing error every 50th flow, an overflow every 20th); K17
+   ``kafka_hits`` launches once a call and once a device step of the
+   engine; the card against the CPU path, ``matches_rule`` on 4,096 rows
+   a shape, the CPU engine and a frame-by-frame oracle, K17 against its
+   plain version, and times;
+11. the chunk-folded DFA search, counted in a run of its own:
+   ``seqdfa_search_batch`` (K18 ``seqdfa_fold`` then ``seqdfa_apply``) on
+   tests/test_seqdfa.py's 9 patterns at F = 2,048 x W = 32,768 and F = 256
+   x W = 4,096, n_chunks 1, 8 and 64; bit-equal to K2 ``dfa_search_batch``
+   on the non-absorbing tables, fold and apply to their plain versions
+   at 4,096 and at 32,768 with 64 chunks, and timed beside K2.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -2454,6 +2471,536 @@ def sidecar_idle(path, pols, traffic, card):
     return share
 
 
+# --- phase 10: Kafka -----------------------------------------------------------
+
+
+def _kstr(s):
+    b = s.encode()
+    return len(b).to_bytes(2, "big", signed=True) + b
+
+
+def _kframe(api_key, version, cid, client, body):
+    payload = (api_key.to_bytes(2, "big", signed=True) + version.to_bytes(2, "big", signed=True)
+               + cid.to_bytes(4, "big", signed=True) + _kstr(client) + body)
+    return len(payload).to_bytes(4, "big", signed=True) + payload
+
+
+def _kint32(*vals):
+    return b"".join(int(v).to_bytes(4, "big", signed=True) for v in vals)
+
+
+def kafka_frame(rng, topics, cid, kind=None):
+    """One request frame of tests/test_kafka.py's fuzz mix: produce (kind
+    0), fetch (1) or metadata (2) over ``topics``, or a header-only
+    heartbeat (3); ``kind`` None draws one."""
+    client = rng.choice(["producer-1", "consumer-1", "admin", ""])
+    version = rng.randrange(0, 3)
+    kind = rng.randrange(4) if kind is None else kind
+    if kind == 0:
+        body = (1).to_bytes(2, "big") + _kint32(1000, len(topics))
+        body += b"".join(_kstr(t) + _kint32(1, 0, 4) + b"recs" for t in topics)
+        return _kframe(0, version, cid, client, body)
+    if kind == 1:
+        body = _kint32(-1, 100, 1, len(topics))
+        body += b"".join(_kstr(t) + _kint32(1, 0, 0, 0, 1048576) for t in topics)
+        return _kframe(1, version, cid, client, body)
+    if kind == 2:
+        return _kframe(3, version, cid, client, _kint32(len(topics)) + b"".join(_kstr(t) for t in topics))
+    return _kframe(12, 0, cid, client, b"\x00\x00")
+
+
+KAFKA_POOL = ["a", "b", "c", "events", "logs"] + [f"t{i}" for i in range(7)]
+# tests/test_kafka.py's seven fuzz rule sets (test_fuzz_matches_host_oracle)
+KAFKA_FUZZ_RULES = [
+    [{}],
+    [{"topic": "a"}, {"topic": "b"}],
+    [{"role": "produce", "topic": "events"}],
+    [{"role": "consume"}],
+    [{"api_version": "2", "topic": "a"}],
+    [{"client_id": "producer-1"}],
+    [{"topic": "a", "client_id": "consumer-1"}, {"topic": "logs"}],
+]
+
+
+def kafka_fuzz_requests(rng, n):
+    """``n`` parsed requests: the fuzz mix with 0-9 distinct topics (9 is
+    past MAX_TOPICS: overflow), and one in five a header-only request with
+    an api key in [0, 70] (64 and above: overflow)."""
+    from cilium_tpu_torch.kafka import parse_request
+    from cilium_tpu_torch.kafka.request import RequestMessage
+
+    reqs = []
+    for i in range(n):
+        if rng.random() < 0.2:
+            reqs.append(RequestMessage(api_key=rng.randrange(0, 71), api_version=rng.randrange(0, 3),
+                                       correlation_id=i, client_id=rng.choice(["admin", ""]),
+                                       topics=[], parsed=False))
+        else:
+            topics = rng.sample(KAFKA_POOL, k=rng.randrange(0, 10))
+            reqs.append(parse_request(kafka_frame(rng, topics, i)))
+    return reqs
+
+
+def _krules(kws):
+    from cilium_tpu_torch.policy.api import PortRuleKafka
+
+    out = []
+    for kw in kws:
+        r = PortRuleKafka(**kw)
+        r.sanitize()
+        out.append(r)
+    return out
+
+
+def kafka_engine_rows():
+    """(remote set, rule) rows of the engine drive: fuzz rule set 7 with
+    its first row behind remotes {1, 2}, the produce role on ``events``
+    behind remote 3, and any-remote rules on t0-t11 so overflow requests
+    (9-10 topics) can be allowed by the host."""
+    rules = _krules([{"topic": "a", "client_id": "consumer-1"}, {"topic": "logs"},
+                     {"role": "produce", "topic": "events"}]
+                    + [{"topic": f"t{i}"} for i in range(12)])
+    sets = [frozenset({1, 2}), frozenset(), frozenset({3})] + [frozenset()] * 12
+    return list(zip(sets, rules))
+
+
+def kafka_engine_feeds(rng, n_flows):
+    """3 rounds of (flow, bytes, remote) for ``n_flows`` flows: whole
+    frames, frames split across rounds, pipelined pairs; every 50th flow
+    opens with a framing error (a negative length) and every 20th sends a
+    request of 9-10 topics (overflow)."""
+    rounds = [[], [], []]
+    for fid in range(1, n_flows + 1):
+        remote = rng.randrange(1, 5)
+        if fid % 50 == 0:
+            rounds[0].append((fid, (-5).to_bytes(4, "big", signed=True) + b"garbage", remote))
+            rounds[1].append((fid, kafka_frame(rng, ["a"], fid), remote))
+            continue
+        if fid % 20 == 0:
+            topics = [f"t{i}" for i in rng.sample(range(12), k=rng.randrange(9, 11))]
+            if rng.random() < 0.5:
+                topics[-1] = "secret"
+            frames = [kafka_frame(rng, topics, fid, kind=0)]
+        else:
+            frames = [kafka_frame(rng, rng.sample(KAFKA_POOL, k=rng.randrange(0, 4)), fid)
+                      for _ in range(rng.choice([1, 1, 2]))]
+        stream = b"".join(frames)
+        mode = rng.randrange(3)
+        if mode == 0:
+            rounds[0].append((fid, stream, remote))
+        else:
+            cuts = sorted(rng.sample(range(1, len(stream)), k=min(mode, len(stream) - 1)))
+            parts = [stream[a:b] for a, b in zip([0, *cuts], [*cuts, len(stream)])]
+            for rnd, part in zip(rounds, parts):
+                rnd.append((fid, part, remote))
+    return rounds
+
+
+def kafka_oracle(rows, rounds, inject_capacity=4096):
+    """The rounds judged by ``matches_rule`` frame by frame, in the engines'
+    (flow, ops, inject) shape: PASS or DROP with the error response per
+    frame, a framing error drops the buffer and every later byte, a frame
+    that does not parse drops, MORE where bytes wait."""
+    from cilium_tpu_torch.kafka import matches_rule, parse_request
+    from cilium_tpu_torch.kafka.request import KafkaParseError, frame_length
+
+    bufs, closed, out = {}, set(), []
+    for rnd in rounds:
+        for fid, chunk, _ in rnd:
+            bufs.setdefault(fid, bytearray()).extend(chunk)
+        for fid, _, remote in rnd:
+            buf, ops, inject = bufs[fid], [], bytearray()
+            while buf:
+                if fid in closed:
+                    ops.append((2, len(buf)))
+                    buf.clear()
+                    break
+                try:
+                    n = frame_length(bytes(buf))
+                except KafkaParseError:
+                    closed.add(fid)
+                    ops.append((2, len(buf)))
+                    buf.clear()
+                    break
+                if n is None or len(buf) < n:
+                    break
+                try:
+                    req = parse_request(bytes(buf[:n]))
+                except KafkaParseError:
+                    ops.append((2, n))
+                else:
+                    rules = [r for rs, r in rows if not rs or remote in rs]
+                    if matches_rule(req, rules):
+                        ops.append((1, n))
+                    else:
+                        ops.append((2, n))
+                        inject += req.create_response().raw[: max(inject_capacity - len(inject), 0)]
+                del buf[:n]
+            if buf:
+                ops.append((0, 1))
+            out.append((fid, ops, bytes(inject)))
+    return out
+
+
+class _CountedModel:
+    """A model wrapper that counts the engine's device steps."""
+
+    def __init__(self, model):
+        self.model = model
+        self.calls = 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.model(*args)
+
+
+def kafka_bound(model, b, rem):
+    """(bytes, ops) K17 needs on this batch: seven [F] columns, the [F]
+    output, the topic lengths of active slots and the bytes of those
+    whose length some topic rule shares, the client bytes of parsed rows
+    whose length some client rule shares, and the tables once; 4 gate ops
+    and 32 remote compares (where the row has a remote set) per rule row
+    the walk visits before the verdict settles, one length compare per
+    (active topic, topic rule) where the row's gates hold and one per
+    byte compared where the lengths are equal."""
+    from cilium_tpu_torch.models.base import remote_ok
+    from cilium_tpu_torch.models.kafka import FIND_COORDINATOR_KEY
+
+    f, t_n, width = b.topics.shape
+    r = model.n_rules
+    tc = b.topic_count.long()
+    active = torch.arange(t_n, device=rem.device)[None, :] < tc[:, None]  # [F, T]
+    topic_rule = ~model.topic_any
+    t_match = (b.topic_len[:, :, None] == model.topic_len[None, None, :]) & topic_rule[None, None, :]
+    c_need = b.parsed & ((b.client_len[:, None] == model.client_len[None, :])
+                         & ~model.client_any[None, :]).any(dim=1)
+    nbytes = (23 * f + 4 * int(tc.clamp(0, t_n).sum())
+              + int((b.topic_len * (active & t_match.any(dim=2))).sum())
+              + int((b.client_len * c_need).sum())
+              + r * (64 + 4 + 1 + 64 + 4 + 1 + 256 + 4 + 1 + 128 + 1) + 64)
+    # the walk's early exit: each rule row's key, version, request-type
+    # and remote gates (the plain version's, kafka_rule_hits)
+    key = b.api_key.clamp(0, 63).long()
+    in_range = (b.api_key >= 0) & (b.api_key < 64)
+    client_eq = (b.client_len[:, None] == model.client_len[None, :]) & (
+        b.client[:, None, :] == model.client[None, :, :]).all(dim=-1)
+    nil_reject = topic_rule[None, :] & (model.is_topic_key[key] & in_range)[:, None]
+    extra = torch.where(b.parsed[:, None], model.client_any[None, :] | client_eq,
+                        (b.api_key == FIND_COORDINATOR_KEY)[:, None] | ~nil_reject)
+    extra |= (model.topic_any & model.client_any)[None, :]
+    base = (model.api_key_mask.T[key] & in_range[:, None]
+            & (model.version_any[None, :] | (model.version[None, :] == b.api_version[:, None]))
+            & extra & remote_ok(rem, model.remote_ids, model.any_remote))
+    simple = (base & (model.topic_any[None, :] | (tc == 0)[:, None])).to(torch.int32).cummax(dim=1).values
+    t_eq = t_match & (b.topics[:, :, None, :] == model.topic[None, None, :, :width]).all(dim=-1)
+    cover = (t_eq & base[:, None, :]).to(torch.int32).cummax(dim=2).values.bool()
+    done = simple.bool() | ((cover | ~active[:, :, None]).all(dim=1) & (tc > 0)[:, None])
+    first = torch.where(done.any(dim=1), torch.argmax(done.to(torch.int32), dim=1) + 1,
+                        torch.full_like(tc, r))
+    visited = torch.arange(r, device=rem.device)[None, :] < first[:, None]  # [F, R]
+    ops = int((visited * (4 + 32 * (~model.any_remote).to(torch.int64))[None, :]).sum())
+    cmp = (visited & base)[:, None, :] & active[:, :, None] & topic_rule[None, None, :]
+    ops += int(cmp.sum()) + int(((cmp & t_match) * b.topic_len[:, :, None]).sum())
+    return nbytes, ops
+
+
+def kafka_slice(dev, card, kerns):
+    """Phase 10, Kafka on the card, counted in a run of its own: bench_kafka's
+    shape (F = 65,536, 2 rules, W = 32), the fuzz mix against
+    tests/test_kafka.py's seven rule sets (F = 65,536, overflow rows
+    included) and ``KafkaBatchEngine`` on 2,048 flows over 3 rounds.  The
+    card is held against the CPU path, ``matches_rule`` on 4,096 rows a
+    shape, the CPU engine and the oracle, and K17 against its plain
+    version; then timed.  Returns (launches, runs, report, timed)."""
+    from cilium_tpu_torch.entry import kafka_batch, kafka_bench_rules, kafka_requests
+    from cilium_tpu_torch.kafka import matches_rule
+    from cilium_tpu_torch.models.kafka import (
+        KafkaRequestBatch,
+        build_kafka_model,
+        encode_requests,
+        kafka_hits,
+        kafka_rule_hits,
+        kafka_verdicts,
+        kafka_verdicts_plain,
+    )
+    from cilium_tpu_torch.runtime.engines import KafkaBatchEngine
+
+    log("== Kafka slice")
+    t_phase = time.monotonic()
+    rules = kafka_bench_rules()
+    batch, remotes = kafka_batch(F)
+    cases = {"kafka": dict(rows=[(frozenset(), r) for r in rules], reqs=kafka_requests(),
+                           batch=batch, remotes=remotes)}
+    pool = kafka_fuzz_requests(random.Random(17), 4096)
+    pb = encode_requests(pool)
+    reps = -(-F // len(pool))
+    fuzz_batch = KafkaRequestBatch(**{k: np.ascontiguousarray(np.concatenate([v] * reps)[:F])
+                                      for k, v in vars(pb).items()})
+    fuzz_rem = np.ones(F, np.int32)
+    for i, kws in enumerate(KAFKA_FUZZ_RULES, 1):
+        cases[f"kafka-fuzz-{i}"] = dict(rows=[(frozenset(), r) for r in _krules(kws)], reqs=pool,
+                                        batch=fuzz_batch, remotes=fuzz_rem)
+    for name, c in cases.items():
+        c["model"] = build_kafka_model(c["rows"])
+        c["cpu_model"] = build_kafka_model(c["rows"], device="cpu")
+        c["dev"] = c["batch"].to_device(dev)
+        c["rem"] = torch.from_numpy(c["remotes"]).to(dev)
+        b = c["batch"]
+        log(f"{name}: F={F} W={b.topics.shape[2]} R={c['model'].n_rules} overflow rows "
+            f"{int(b.overflow.sum())} topic counts {np.bincount(b.topic_count, minlength=9).tolist()}")
+    if cases["kafka"]["batch"].overflow.any() or not fuzz_batch.overflow.any():
+        raise AssertionError("kafka: bench's batch must not overflow and the fuzz batch must")
+    eng_rows = kafka_engine_rows()
+    feeds = kafka_engine_feeds(random.Random(19), 2048)
+
+    # the main path, counted
+    log("== Kafka main path (counted)")
+
+    def counts():
+        return {n: k.launches for n, k in kerns.items()}
+
+    def delta(before):
+        return {n: k.launches - before[n] for n, k in kerns.items()}
+
+    for k in kerns.values():
+        k.launches = 0
+    runs, outs = {}, {}
+    for name, c in cases.items():
+        before = counts()
+        outs[name] = kafka_verdicts(c["model"], c["batch"], c["remotes"])
+        runs[name] = delta(before)
+    counted_model = _CountedModel(build_kafka_model(eng_rows))
+    before = counts()
+    eng_card = run_l7_engine(lambda: KafkaBatchEngine(counted_model, host_rows=eng_rows), feeds)[0]
+    runs["kafka-engine"] = delta(before)
+    torch.cuda.synchronize()
+    launches = counts()
+    log("launches:", json.dumps({n: v for n, v in launches.items() if v}))
+    log("launches by run:", json.dumps({n: {k: v for k, v in r.items() if v} for n, r in runs.items()}))
+    for n, count in launches.items():
+        if sum(r[n] for r in runs.values()) != count:
+            raise AssertionError(f"{n}: the runs' launches do not add up to the main path's")
+    for name in cases:
+        want = dict.fromkeys(kerns, 0)
+        want["kafka_hits"] = 1
+        if runs[name] != want:
+            raise AssertionError(f"{name}: launches {runs[name]} != {want}")
+    want = dict.fromkeys(kerns, 0)
+    want["kafka_hits"] = counted_model.calls
+    if not counted_model.calls or runs["kafka-engine"] != want:
+        raise AssertionError(f"kafka-engine: launches {runs['kafka-engine']} != its "
+                             f"{counted_model.calls} device steps")
+
+    # the model against the CPU path and the host oracle
+    log("== Kafka model")
+    for name, c in cases.items():
+        got = outs[name]
+        if got.device.type != dev.type:
+            raise AssertionError(f"{name}: output not on the card")
+        host = got.cpu().numpy()
+        n = len(c["reqs"])
+        if not (host == np.resize(host[:n], F)).all():
+            raise AssertionError(f"{name}: rows of one request disagree")
+        want = kafka_verdicts(c["cpu_model"], c["batch"], c["remotes"]).numpy()
+        if not (host == want).all():
+            raise AssertionError(f"{name}: card != CPU on {int((host != want).sum())} rows")
+        sample = min(F, 4096)  # row i holds request i % n
+        over = c["batch"].overflow
+        oracle = [matches_rule(c["reqs"][i % n], [r for _, r in c["rows"]]) and not over[i]
+                  for i in range(sample)]
+        bad = sum(1 for i in range(sample) if bool(host[i]) != oracle[i])
+        if bad:
+            raise AssertionError(f"{name}: {bad} of {sample} verdicts disagree with matches_rule")
+        log(f"{name}: card == cpu on {F} rows, == matches_rule on {sample} rows (overflow denied), "
+            f"allow share {float(host.mean()):.3f}")
+
+    log("== Kafka engine")
+    cpu_out = run_l7_engine(lambda: KafkaBatchEngine(build_kafka_model(eng_rows, device="cpu"),
+                                                     host_rows=eng_rows), feeds)[0]
+    oracle_out = kafka_oracle(eng_rows, feeds)
+    for other, label in ((cpu_out, "the CPU engine"), (oracle_out, "the matches_rule oracle")):
+        if eng_card != other:
+            raise AssertionError(f"kafka-engine: ops differ from {label}: {_first_diff(eng_card, other)}")
+    n_ops = sum(len(ops) for _, ops, _ in eng_card)
+    n_drop = sum(1 for _, ops, _ in eng_card for op, _ in ops if op == 2)
+    n_inject = sum(len(inj) for _, _, inj in eng_card)
+    if not n_drop or not n_inject:
+        raise AssertionError("kafka-engine: the traffic has no denial")
+    log(f"kafka-engine: {len(feeds[0])} flows x 3 rounds, {n_ops} ops ({n_drop} DROP, {n_inject} inject "
+        f"bytes), {counted_model.calls} device steps, equal on card, CPU and the oracle")
+
+    # K17 against its plain version at the main path's inputs
+    log("== K17 vs plain")
+    report = {"kafka_hits": {}}
+    for name, c in cases.items():
+        allow, simple, cover = kafka_hits(c["model"], c["dev"], c["rem"], parts=True)
+        want = kafka_verdicts_plain(c["model"], c["dev"], c["rem"])
+        report["kafka_hits"][name] = max_abs_err(
+            [kafka_hits(c["model"], c["dev"], c["rem"]), allow, simple, cover],
+            [want, want, *kafka_rule_hits(c["model"], c["dev"], c["rem"])])
+    log("max |kernel - plain|:", json.dumps(report))
+    if any(report["kafka_hits"].values()):
+        raise AssertionError("K17 disagrees with its plain version")
+
+    # times
+    log("== Kafka times on", card)
+    timed = {}
+    for name, c in cases.items():
+        model, b, rem = c["model"], c["dev"], c["rem"]
+        nbytes, ops = kafka_bound(model, b, rem)
+        k17 = lambda: kafka_hits(model, b, rem)
+        row = dict(ms=graph_ms(k17), call_ms=cuda_ms(k17, 50),
+                   plain_ms=cuda_ms(lambda: kafka_verdicts_plain(model, b, rem), 5),
+                   library_ms=None, bytes=nbytes, ops=ops)
+        bound(row)
+        nb = c["batch"]
+        timed[name] = dict(rows={"kafka_hits": row}, **pass_times(
+            lambda: (kafka_hits(model, b, rem),), lambda: (kafka_verdicts(model, nb, c["remotes"]),)))
+        log_row(name, "kafka_hits", row)
+        log_pass(name, "kafka_verdicts", timed[name], card)
+    frames = sum(1 for _, ops, _ in eng_card for op, _ in ops if op in (1, 2))
+    engine_times(f"kafka-engine: {frames} frames of {len(feeds[0])} flows", frames, card,
+                 lambda: run_l7_engine(lambda: KafkaBatchEngine(build_kafka_model(eng_rows),
+                                                                host_rows=eng_rows), feeds))
+    log(f"Kafka slice: {time.monotonic() - t_phase:.1f} s")
+    return launches, runs, report, timed
+
+
+# --- phase 11: long-frame sequence folding (seqdfa) ----------------------------
+
+SEQ_CHUNKS = (1, 8, 64)
+# (shape, flows, width): the engines' capacity at the HTTP engine's
+# MAX_WIDTH, and a narrower batch the plain version can follow quickly
+SEQ_SHAPES = (("seqdfa-32k", 2048, 32768), ("seqdfa-4k", 256, 4096))
+
+
+def seqdfa_slice(dev, card, kerns):
+    """Phase 11, the chunk-folded DFA search on the card, counted in a run
+    of its own: seqdfa-32k (F = 2,048, the engines' capacity, x W =
+    32,768, the HTTP engine's MAX_WIDTH) and seqdfa-4k (F = 256 x W =
+    4,096), tests/test_seqdfa.py's 9 patterns, n_chunks 1, 8 and 64.  K18
+    is held against K2 ``dfa_search_batch`` on the non-absorbing tables
+    (every case), its fold and apply against their plain versions where
+    the plain fold is quick enough (``plain_case``), and timed beside K2.
+    Returns (launches, runs, report, timed)."""
+    from cilium_tpu_torch.entry import seqdfa_batch, seqdfa_tables
+    from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
+    from cilium_tpu_torch.ops.seqdfa import (
+        device_dfa_absorbing,
+        seqdfa_apply,
+        seqdfa_apply_plain,
+        seqdfa_fold,
+        seqdfa_fold_plain,
+        seqdfa_search_batch,
+    )
+
+    log("== seqdfa slice")
+    t_phase = time.monotonic()
+    tables = seqdfa_tables()
+    dfa = device_dfa(tables, dev)
+    dfa_abs = device_dfa_absorbing(tables, dev)
+    r, s, c = dfa_abs.n_patterns, dfa_abs.n_states, dfa_abs.n_classes
+    cases = {}
+    for label, f, width in SEQ_SHAPES:
+        data, lengths = seqdfa_batch(f, width, max(SEQ_CHUNKS))
+        d = torch.from_numpy(data).to(dev)
+        l = torch.from_numpy(lengths).to(dev)
+        for k in SEQ_CHUNKS:
+            cases[f"{label}-k{k}"] = dict(d=d, l=l, k=k, f=f, width=width, base=label)
+        log(f"{label}: F={f} W={width} R={r} S={s} C={c} mean length {float(lengths.mean()):.0f}")
+
+    log("== seqdfa main path (counted)")
+
+    def counts():
+        return {n: k.launches for n, k in kerns.items()}
+
+    def delta(before):
+        return {n: k.launches - before[n] for n, k in kerns.items()}
+
+    for k in kerns.values():
+        k.launches = 0
+    runs, outs = {}, {}
+    for name, cs in cases.items():
+        before = counts()
+        outs[name] = seqdfa_search_batch(dfa_abs, cs["d"], cs["l"], cs["k"])
+        runs[name] = delta(before)
+    torch.cuda.synchronize()
+    launches = counts()
+    log("launches:", json.dumps({n: v for n, v in launches.items() if v}))
+    for name in cases:
+        want = dict.fromkeys(kerns, 0)
+        want.update(seqdfa_fold=1, seqdfa_apply=1)
+        if runs[name] != want:
+            raise AssertionError(f"{name}: launches {runs[name]} != {want}")
+    for n, count in launches.items():
+        if sum(rr[n] for rr in runs.values()) != count:
+            raise AssertionError(f"{n}: the runs' launches do not add up to the main path's")
+
+    # The plain fold steps a [F, R, K, S] state W / K times: at 32k it is
+    # followed at n_chunks 64 only, and 32k-k1 / -k8 stand on K2 alone.
+    def plain_case(cs):
+        return cs["base"] == "seqdfa-4k" or cs["k"] == max(SEQ_CHUNKS)
+
+    # against K2 on the non-absorbing tables (every case) and the plain
+    # fold and apply (the plain cases), bit for bit
+    log("== K18 vs K2 and plain")
+    report = {"seqdfa_fold": {}, "seqdfa_apply": {}}
+    serial = {}
+    for name, cs in cases.items():
+        if cs["base"] not in serial:
+            serial[cs["base"]] = dfa_search_batch(dfa, cs["d"], cs["l"])
+        if not torch.equal(outs[name], serial[cs["base"]]):
+            raise AssertionError(f"{name}: K18 != K2 on {int((outs[name] != serial[cs['base']]).sum())} "
+                                 f"(flow, pattern) pairs")
+        if plain_case(cs):
+            maps = seqdfa_fold(dfa_abs, cs["d"], cs["l"], cs["k"])
+            want_maps = seqdfa_fold_plain(dfa_abs, cs["d"], cs["l"], cs["k"])
+            want = seqdfa_apply_plain(dfa_abs, want_maps)
+            report["seqdfa_fold"][name] = max_abs_err([maps], [want_maps])
+            report["seqdfa_apply"][name] = max_abs_err([seqdfa_apply(dfa_abs, maps)], [want])
+            if not torch.equal(outs[name], want):
+                raise AssertionError(f"{name}: K18 != its plain version")
+    hits = serial["seqdfa-32k"]
+    log(f"K18 == K2 at every n_chunks; 32k match share per pattern "
+        f"{[round(float(x), 3) for x in hits.float().mean(dim=0)]}")
+    log("max |kernel - plain|:", json.dumps(report))
+    if any(v for per in report.values() for v in per.values()):
+        raise AssertionError("K18 disagrees with its plain version")
+
+    # times: fold and apply apart, the pair against K2 at the same width
+    log("== seqdfa times on", card)
+    timed = {}
+    for name, cs in cases.items():
+        d, l, k, f, width = cs["d"], cs["l"], cs["k"], cs["f"], cs["width"]
+        active = int(l.clamp(0, width).sum())
+        maps = seqdfa_fold(dfa_abs, d, l, k)
+        fold = lambda: seqdfa_fold(dfa_abs, d, l, k)
+        apply_ = lambda: seqdfa_apply(dfa_abs, maps)
+        plain = plain_case(cs)
+        rows = {
+            "seqdfa_fold": dict(
+                ms=graph_ms(fold, iters=5, replays=4), call_ms=cuda_ms(fold, 10),
+                plain_ms=cuda_ms(lambda: seqdfa_fold_plain(dfa_abs, d, l, k), 2) if plain else None,
+                library_ms=None, bytes=active + 4 * f + f * r * k * s + 256 + r * s * c,
+                ops=active * r * s),
+            "seqdfa_apply": dict(
+                ms=graph_ms(apply_), call_ms=cuda_ms(apply_, 50),
+                plain_ms=cuda_ms(lambda: seqdfa_apply_plain(dfa_abs, maps), 10),
+                library_ms=None, bytes=f * r * k + f * r + r + r * s, ops=f * r * k),
+        }
+        for kname, row in rows.items():
+            bound(row)
+            log_row(name, kname, row)
+        k2 = lambda: dfa_search_batch(dfa, d, l)
+        k2_ms = graph_ms(k2, iters=5, replays=4)
+        timed[name] = dict(rows=rows, k2_ms=k2_ms)
+        pair = rows["seqdfa_fold"]["ms"] + rows["seqdfa_apply"]["ms"]
+        log(f"{name:15s} K18 fold + apply {pair:.5f} ms against K2 dfa_scan {k2_ms:.5f} ms "
+            f"(K18 / K2 = {pair / k2_ms:.3f}) [{card}]")
+    log(f"seqdfa slice: {time.monotonic() - t_phase:.1f} s")
+    return launches, runs, report, timed
+
+
 def cuda_ms(fn, iters):
     """Mean ms per call over ``iters`` calls after two warm-up calls."""
     fn()
@@ -3057,6 +3604,24 @@ def main() -> int:
     for kname, n in launches5.items():
         launches[kname] = launches.get(kname, 0) + n
 
+    # The sixth slice's paths (Kafka, the chunk-folded DFA search), each
+    # counted in a run of its own over every kernel of the port (their
+    # modules imported first, so that K17 and K18 are in kernels.ALL).
+    from cilium_tpu_torch.models import kafka  # noqa: F401
+    from cilium_tpu_torch.ops import seqdfa  # noqa: F401
+
+    every = {k.symbol: k for k in kernels.ALL}
+    if len(every) != len(kernels.ALL):
+        raise AssertionError("two kernels share a launcher name")
+    for slice_ in (kafka_slice, seqdfa_slice):
+        launches6, runs6, report6, timed6 = slice_(dev, card, every)
+        runs.update(runs6)
+        timed.update(timed6)
+        for kname, per in report6.items():
+            report.setdefault(kname, {}).update(per)
+        for kname, n in launches6.items():
+            launches[kname] = launches.get(kname, 0) + n
+
     replaces = {
         "r2d2_frame": ("cilium_tpu_torch/csrc/r2d2_frame.cu", "cilium_tpu/models/r2d2.py:211", "graft"),
         "dfa_scan": ("cilium_tpu_torch/csrc/dfa_scan.cu", "cilium_tpu/ops/dfa.py:146", "graft"),
@@ -3085,6 +3650,11 @@ def main() -> int:
         "ingress": ("cilium_tpu_torch/csrc/ingress.cu", "cilium_tpu/datapath/ingress.py:91", "netdev"),
         "gather_rows": ("cilium_tpu_torch/csrc/gather_rows.cu", "cilium_tpu/sidecar/service.py:165",
                         "sidecar"),
+        "kafka_hits": ("cilium_tpu_torch/csrc/kafka_hits.cu", "cilium_tpu/models/kafka.py:318", "kafka"),
+        "seqdfa_fold": ("cilium_tpu_torch/csrc/seqdfa.cu", "cilium_tpu/ops/seqdfa.py:68",
+                        "seqdfa-32k-k64"),
+        "seqdfa_apply": ("cilium_tpu_torch/csrc/seqdfa.cu", "cilium_tpu/ops/seqdfa.py:121",
+                         "seqdfa-32k-k64"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = []
@@ -3154,8 +3724,9 @@ def pass_times(on_card, from_numpy):
 
 
 def log_row(name, kname, row):
+    plain = "not measured" if row["plain_ms"] is None else f"{row['plain_ms']:.5f} ms"
     log(f"{name:15s} {kname:14s} device {row['ms']:.5f} ms  per call {row['call_ms']:.5f} ms  "
-        f"plain {row['plain_ms']:.5f} ms  bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
+        f"plain {plain}  bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
         f"{row['bytes']} bytes, {row['ops']} ops)")
 
 

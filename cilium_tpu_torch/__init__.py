@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of ``cilium_tpu``'s r2d2, HTTP, DNS, Cassandra and
-memcached L7 verdict paths.
+"""PyTorch + CUDA port of ``cilium_tpu``'s device paths: the r2d2, HTTP,
+DNS, Cassandra, memcached and Kafka L7 verdict paths below, the L3/L4
+datapath (``datapath/``) and the sidecar verdict service (``sidecar/``).
 
 The JAX package stays the reference; this package imports neither JAX nor
 anything of ``cilium_tpu``.  Where it needs one of that package's jax-free
@@ -23,6 +24,13 @@ Cassandra and memcached: ``models.cassandra`` / ``models.memcached``
 ``runtime.l7engine.CassandraBatchEngine`` / ``MemcacheBatchEngine``, whose
 streaming parsers take their verdicts from the device;
 ``runtime.l7engine.HttpSidecarEngine`` runs HTTP through the same base.
+
+Kafka: sanitized ``policy.api.PortRuleKafka`` rows ->
+``models.kafka.build_kafka_model`` -> ``models.kafka.kafka_verdicts`` over
+``encode_requests`` of parsed requests (kernel K17 topic ACL) ->
+``runtime.engines.KafkaBatchEngine`` PASS/DROP ops with error-response
+injects.  Long frames: ``ops.seqdfa.device_dfa_absorbing`` ->
+``ops.seqdfa.seqdfa_search_batch`` (kernel K18: chunk fold, then apply).
 
 Entry points take ``device=None``, which means the CUDA card; they raise if
 there is none.  The CPU runs the kernels' plain PyTorch versions and is

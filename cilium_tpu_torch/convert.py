@@ -1,5 +1,5 @@
-"""Carry a JAX-built r2d2, HTTP, DNS, Cassandra or memcached model's
-tables over into the port.
+"""Carry a JAX-built r2d2, HTTP, DNS, Cassandra, memcached or Kafka
+model's tables over into the port.
 
 ``model_from_numpy`` takes the leaves of a ``cilium_tpu`` ``R2d2BatchModel``
 as numpy arrays — ``cmd_needle``, ``cmd_len``, ``cmd_any``, ``remote_ids``,
@@ -25,6 +25,11 @@ automaton for a model without pattern, table-regex or key-regex rows
 Converted DNS models make no byte-invariance claim
 (``invariant_rows=None``), as converted r2d2 and HTTP models do not.
 
+``kafka_model_from_numpy`` takes the twelve leaves of a ``cilium_tpu``
+``KafkaBatchModel`` as numpy arrays, in pytree order.  ``dfa_from_leaves``
+takes the leaves of any ``DeviceDfa``, those of ``device_dfa_absorbing``
+(the sequence-folded search's tables) included.
+
 ``datapath_tables_from_numpy``, ``datapath_tables6_from_numpy`` and
 ``ingress_tables_from_numpy`` take the leaves of a ``cilium_tpu``
 ``DatapathTables``, ``DatapathTables6`` or ``IngressTables`` as numpy
@@ -46,6 +51,7 @@ from .maps.policymap import DevicePolicyMap
 from .models.cassandra import CassandraBatchModel
 from .models.dns import DnsBatchModel
 from .models.http import HttpBatchModel
+from .models.kafka import KafkaBatchModel
 from .models.memcached import KEY_MODE_REGEX, MemcacheBatchModel
 from .models.r2d2 import R2d2BatchModel
 from .ops.dfa import DeviceDfa, dfa_from_arrays
@@ -54,7 +60,7 @@ from .ops.maplookup import table_from_arrays
 from .ops.nfa import DeviceNfa, nfa_from_dense
 
 
-def dfa_from_leaves(leaves: dict, device) -> DeviceDfa:
+def dfa_from_leaves(leaves: dict, device=None) -> DeviceDfa:
     lo = np.asarray(leaves["cls_lo"])
     hi = np.asarray(leaves["cls_hi"])
     c = lo.shape[0]
@@ -78,7 +84,7 @@ def dfa_from_leaves(leaves: dict, device) -> DeviceDfa:
     )
 
 
-def nfa_from_leaves(leaves: dict, device) -> DeviceNfa:
+def nfa_from_leaves(leaves: dict, device=None) -> DeviceNfa:
     delta_flat = np.asarray(leaves["delta_flat"])
     s = delta_flat.shape[0]
     c = delta_flat.shape[1] // s
@@ -224,6 +230,26 @@ def memcache_model_from_numpy(leaves: dict, device=None) -> MemcacheBatchModel:
         nfa=automaton_from_leaves(leaves["nfa"], device) if has_rx else None,
         **_tables(leaves, MEMCACHE_TABLES, device),
     )
+
+
+# The leaves of a JAX KafkaBatchModel, in its pytree order
+# (cilium_tpu/models/kafka.py:58-66).
+KAFKA_TABLES = {
+    "api_key_mask": bool, "version": np.int32, "version_any": bool,
+    "client": np.uint8, "client_len": np.int32, "client_any": bool,
+    "topic": np.uint8, "topic_len": np.int32, "topic_any": bool,
+    "is_topic_key": bool, "remote_ids": np.int32, "any_remote": bool,
+}
+
+
+def kafka_model_from_numpy(leaves, device=None) -> KafkaBatchModel:
+    """The port's ``KafkaBatchModel`` on ``device`` (None: the CUDA card)
+    from a JAX ``KafkaBatchModel``'s twelve leaves, in pytree order."""
+    leaves = list(leaves)
+    if len(leaves) != len(KAFKA_TABLES):
+        raise ValueError(f"expected {len(KAFKA_TABLES)} leaves, got {len(leaves)}")
+    return KafkaBatchModel(**_tables(dict(zip(KAFKA_TABLES, leaves)), KAFKA_TABLES,
+                                     resolve_device(device)))
 
 
 # --- the L3/L4 datapath's tables ----------------------------------------------

@@ -10,7 +10,11 @@ are the port's copy of ``bench.py::bench_http``'s setup
 ``bench_cassandra`` (``:366-401``) and ``bench_memcached``
 (``:447-501``), all built through NPDS.  ``datapath_bench_maps`` and
 ``datapath_batch`` are ``bench_datapath``'s maps and packet mix
-(``bench.py:1417-1490``).
+(``bench.py:1417-1490``).  ``kafka_bench_rules``, ``kafka_requests`` and
+``kafka_batch`` are ``bench_kafka``'s rules and requests
+(``bench.py:272-301``); ``seqdfa_tables`` and ``seqdfa_batch`` are a
+long-frame search at the HTTP engine's ``MAX_WIDTH`` over
+tests/test_seqdfa.py's patterns.
 """
 
 from __future__ import annotations
@@ -21,6 +25,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .kafka.request import RequestMessage
+from .models.kafka import KafkaRequestBatch, encode_requests
+from .policy.api import PortRuleKafka
+from .regex.dfa import DfaTables, compile_pattern_dfas
+from .runtime.engines import HttpBatchEngine
 from .models.cassandra import encode_cassandra_batch
 from .models.memcached import encode_memcache_batch
 from .models.r2d2 import build_r2d2_model, r2d2_verdicts
@@ -277,6 +286,86 @@ def memcache_batch(f: int):
     *arrays, overflow = encode_memcache_batch([frames[i % len(frames)] for i in range(f)])
     assert not overflow.any()
     return (*arrays, np.ones((f,), np.int32))
+
+
+def kafka_bench_rules() -> list[PortRuleKafka]:
+    """``bench_kafka``'s two sanitized rules: produce and consume on
+    ``allowed-topic`` (``bench.py:281-285``)."""
+    rules = []
+    for role in ("produce", "consume"):
+        r = PortRuleKafka(role=role, topic="allowed-topic")
+        r.sanitize()
+        rules.append(r)
+    return rules
+
+
+def kafka_requests(n: int = 1024) -> list[RequestMessage]:
+    """``bench.py:288-299``'s parsed requests from ``random.Random(13)``:
+    half on ``allowed-topic``, api keys 0-3, version 1, client "bench"."""
+    rng = random.Random(13)
+    reqs = []
+    for _ in range(n):
+        topic = "allowed-topic" if rng.random() < 0.5 else f"t{rng.randrange(50)}"
+        api_key = rng.choice([0, 1, 2, 3])  # produce/fetch/offsets/metadata
+        reqs.append(
+            RequestMessage(
+                api_key=api_key, api_version=1,
+                correlation_id=rng.randrange(1 << 16),
+                client_id="bench", topics=[topic], parsed=True,
+            )
+        )
+    return reqs
+
+
+def kafka_batch(f: int) -> tuple[KafkaRequestBatch, np.ndarray]:
+    """(``encode_requests`` of ``kafka_requests()`` cycled to ``f`` rows,
+    remotes [f] int32 of 1) (``bench.py:301-303``)."""
+    reqs = kafka_requests()
+    batch = encode_requests([reqs[i % len(reqs)] for i in range(f)])
+    return batch, np.ones((f,), np.int32)
+
+
+# tests/test_seqdfa.py's patterns: anchors, $, loops, bounded repeats.
+SEQDFA_PATTERNS = (
+    r"abc", r"^abc", r"abc$", r"a.*c", r"(ab|cd)+", r"[a-z0-9_]+",
+    r"/public/.*", r"^(GET|HEAD)$", r"a{2,4}",
+)
+
+
+def seqdfa_tables() -> DfaTables:
+    """The per-pattern DFA tables of ``SEQDFA_PATTERNS``."""
+    return compile_pattern_dfas(list(SEQDFA_PATTERNS))
+
+
+def seqdfa_batch(f: int, width: int = HttpBatchEngine.MAX_WIDTH, n_chunks: int = 1,
+                 seed: int = 5):
+    """(data [f, width] uint8, lengths [f] int32): long frames from
+    tests/test_seqdfa.py's alphabet with near-matches planted, lengths
+    spread over [0, width]; every eighth row ends at a chunk boundary of
+    ``n_chunks`` (or one byte either side), and row 0 holds ``/public/``
+    across the middle boundary."""
+    if width % n_chunks:
+        raise ValueError(f"width {width} is not a multiple of n_chunks {n_chunks}")
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdxyz_/PGHET0123 ", np.uint8)
+    data = alphabet[rng.integers(0, len(alphabet), size=(f, width))]
+    lengths = rng.integers(0, width + 1, size=f).astype(np.int32)
+    lc = width // n_chunks
+    edge = np.arange(0, f, 8)
+    lengths[edge] = np.clip(rng.integers(0, n_chunks + 1, size=len(edge)) * lc
+                            + rng.integers(-1, 2, size=len(edge)), 0, width)
+    plants = [b"abc", b"/public/x", b"GET", b"abab", b"aaa", b"cd"]
+    for i in range(f):
+        for _ in range(rng.integers(0, 4)):
+            ins = plants[rng.integers(len(plants))]
+            pos = int(rng.integers(0, max(1, width - len(ins) + 1)))
+            data[i, pos : pos + len(ins)] = np.frombuffer(ins, np.uint8)[: width - pos]
+    if f:
+        mid = max(0, width // 2 - 4)
+        data[0, mid : mid + 9] = np.frombuffer(b"/public/d", np.uint8)[: width - mid]
+        lengths[0] = width
+    data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    return np.ascontiguousarray(data), lengths
 
 
 # --- the composed L3/L4 datapath (bench.py:1417-1490) ---------------------------

@@ -30,6 +30,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
+# Guards the library cache and every kernel's launch counters.
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # Every CudaKernel, in creation order.
@@ -100,6 +101,14 @@ def library(stem: str) -> ctypes.CDLL:
     return lib
 
 
+def add_replays(held: list[tuple["CudaKernel", int]]) -> None:
+    """Count one replay of a graph that holds ``held`` (``captured_by``'s
+    pairs) in each kernel's ``replayed``, under the counters' lock."""
+    with _lock:
+        for k, n in held:
+            k.replayed += n
+
+
 def captured_by(fn) -> list[tuple["CudaKernel", int]]:
     """Run ``fn`` (a CUDA graph capture) and return the kernel launches
     it recorded, as (kernel, count) pairs: what one replay launches."""
@@ -154,10 +163,12 @@ class CudaKernel:
                 f"{self.symbol}: CUDA error {err} "
                 f"({self._err(err).decode()})"
             )
-        if capturing:
-            self.captured += 1
-        else:
-            self.launches += 1
+        # Under the lock: two threads launching at once must not lose a count.
+        with _lock:
+            if capturing:
+                self.captured += 1
+            else:
+                self.launches += 1
 
 
 def check(t, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..device import resolve_device
 from ..regex.dfa import DfaBlowupError, DfaTables
 
 # State ids are 7 bits in the kernel (bit 7 carries "target accepts"), and
@@ -51,9 +52,10 @@ class DeviceDfa:
         return self.delta.device
 
 
-def dfa_from_arrays(classmap, delta, start, accept, accept_final, device) -> DeviceDfa:
+def dfa_from_arrays(classmap, delta, start, accept, accept_final, device=None) -> DeviceDfa:
     """Upload numpy tables: classmap [256], delta [R, S, C], start [R],
-    accept and accept_final [R, S]."""
+    accept and accept_final [R, S]; ``device=None`` is the card."""
+    device = resolve_device(device)
     r, s, c = delta.shape
     if s > MAX_DFA_DEVICE_STATES:
         # DfaBlowupError (not ValueError) so compile_automaton's 'auto'
@@ -86,7 +88,7 @@ def dfa_from_arrays(classmap, delta, start, accept, accept_final, device) -> Dev
     )
 
 
-def device_dfa(tables: DfaTables, device) -> DeviceDfa:
+def device_dfa(tables: DfaTables, device=None) -> DeviceDfa:
     """Upload packed host tables to ``device``; raises DfaBlowupError above
     MAX_DFA_DEVICE_STATES states."""
     return dfa_from_arrays(

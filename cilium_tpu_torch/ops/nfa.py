@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..device import resolve_device
 from ..regex.tables import NfaTables
 
 # The kernel keeps the state set in at most 32 registers of 32 bits
@@ -67,9 +68,11 @@ def unpack_bits(words: torch.Tensor, s: int) -> torch.Tensor:
     return bits.reshape(*words.shape[:-1], -1)[..., :s].bool()
 
 
-def nfa_from_dense(classmap, delta, start, accept, accept_final, device) -> DeviceNfa:
+def nfa_from_dense(classmap, delta, start, accept, accept_final, device=None) -> DeviceNfa:
     """Upload dense numpy tables: classmap [256], delta [C, S, S] 0/1,
-    start [S], accept and accept_final [R, S]."""
+    start [S], accept and accept_final [R, S]; ``device=None`` is the
+    card."""
+    device = resolve_device(device)
     c, s, s2 = delta.shape
     if s != s2:
         raise ValueError("delta must be [C, S, S]")
@@ -97,7 +100,7 @@ def nfa_from_dense(classmap, delta, start, accept, accept_final, device) -> Devi
     )
 
 
-def device_nfa(tables: NfaTables, device) -> DeviceNfa:
+def device_nfa(tables: NfaTables, device=None) -> DeviceNfa:
     """Upload packed host tables to ``device``."""
     return nfa_from_dense(
         tables.classmap, tables.delta, tables.start, tables.accept,

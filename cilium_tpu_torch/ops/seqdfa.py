@@ -1,0 +1,166 @@
+"""Long-frame DFA search by chunk folding: kernel K18 and its plain version.
+
+Counterpart of ``cilium_tpu/ops/seqdfa.py`` on one device.  A very wide
+frame (a 32 KB HTTP head is the widest the in-process engine takes) puts
+the serial scan (``ops/dfa.py``, K2) through tens of thousands of
+dependent steps per (flow, pattern).  Chunk folding replaces that chain:
+
+1. **Absorbing accepts.**  Accept states become self-loops on every byte
+   class (``make_absorbing``), so sticky acceptance ("some prefix reached
+   an accept state") is a property of the final state alone, and the
+   whole span is one function of the start state.
+2. **Chunk folding.**  The width splits into ``n_chunks`` equal chunks;
+   each folds to a state map S -> S, the state each start state reaches
+   over the chunk's bytes.  Positions outside ``[0, lengths)`` are the
+   identity.
+3. **Composition.**  The maps compose in chunk order, and the pattern's
+   start state goes through them to an ``accept_final`` test.
+
+The reference carries each map as an [S, S] one-hot int8 matrix and
+composes by matmul.  A state map is a function, so here it is the target
+of each start state, ``maps [F, R, K, S]`` uint8: K18 ``seqdfa_fold``
+writes it (one thread per (flow, pattern, chunk, start state)) and K18
+``seqdfa_apply`` walks ``s = maps[f, r, k, s]`` over k and tests
+``accept_final`` (one thread per (flow, pattern)).  The result is
+bit-identical for every ``n_chunks`` and equal to K2 ``dfa_search_batch``
+on the non-absorbing tables.  The sequence-sharded form
+(``seqdfa_search_sharded``: each GPU folds its slice, one all-gather of
+the maps) comes with the port's multi-GPU steps.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..regex.dfa import DfaTables
+from .dfa import DeviceDfa, device_dfa
+
+SEQ_AXIS = "seq"
+
+_SEQDFA_FOLD = kernels.CudaKernel(
+    "seqdfa", "seqdfa_fold",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+_SEQDFA_APPLY = kernels.CudaKernel(
+    "seqdfa", "seqdfa_apply",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+)
+
+
+def make_absorbing(tables: DfaTables) -> DfaTables:
+    """Accept states become self-loops on every byte class, so sticky
+    acceptance reduces to final-state acceptance (step 1 above)."""
+    delta = tables.delta.copy()
+    ri, si = np.nonzero(tables.accept)
+    delta[ri, si, :] = si[:, None]
+    return replace(tables, delta=delta)
+
+
+def device_dfa_absorbing(tables: DfaTables, device=None) -> DeviceDfa:
+    """``make_absorbing`` tables on ``device`` (``None``: the card, and
+    raises without one); raises DfaBlowupError above 128 states, as
+    ``device_dfa`` does."""
+    return device_dfa(make_absorbing(tables), device)
+
+
+def _check_fold(dfa: DeviceDfa, data, lengths, n_chunks: int) -> None:
+    device = dfa.device
+    kernels.check(data, "data", torch.uint8, (None, None), device)
+    f, width = data.shape
+    kernels.check(lengths, "lengths", torch.int32, (f,), device)
+    if n_chunks < 1 or width % n_chunks != 0:
+        raise ValueError(f"width {width} is not a multiple of n_chunks {n_chunks}")
+
+
+def seqdfa_fold_plain(dfa: DeviceDfa, data, lengths, n_chunks: int) -> torch.Tensor:
+    """Plain PyTorch version of K18's fold: maps [F, R, K, S] uint8,
+    maps[f, r, k, s0] = the state pattern r reaches from s0 over chunk k
+    of data[f] (``cilium_tpu/ops/seqdfa.py:68`` ``_fold_chunk``)."""
+    f, width = data.shape
+    r, s = dfa.n_patterns, dfa.n_states
+    k = n_chunks
+    lc = width // k
+    state = torch.arange(s, device=data.device).expand(f, r, k, s).clone()
+    if f == 0 or r == 0:
+        return state.to(torch.uint8)
+    cls = dfa.classmap.long()[data.long()].view(f, k, lc)  # [F, K, Lc]
+    delta = dfa.delta.long()
+    ridx = torch.arange(r, device=data.device)[None, :, None, None]
+    t0 = torch.arange(k, device=data.device) * lc  # [K]
+    # Steps past the last active position change nothing.
+    steps = min(lc, max(0, int(lengths.max())))
+    for j in range(steps):
+        active = (t0 + j)[None, :] < lengths[:, None]  # [F, K]
+        nxt = delta[ridx, state, cls[:, None, :, j : j + 1]]
+        state = torch.where(active[:, None, :, None], nxt, state)
+    return state.to(torch.uint8)
+
+
+def seqdfa_apply_plain(dfa: DeviceDfa, maps) -> torch.Tensor:
+    """Plain PyTorch version of K18's apply: [F, R] bool — the start state
+    through the chunk maps in order, then ``accept_final``
+    (``cilium_tpu/ops/seqdfa.py:113`` ``_compose`` and ``:121``
+    ``_apply_start_accept``)."""
+    f, r, k, _ = maps.shape
+    state = dfa.start.long()[None, :].expand(f, r)
+    for c in range(k):
+        state = maps[:, :, c, :].long().gather(2, state[:, :, None])[:, :, 0]
+    ridx = torch.arange(r, device=maps.device)[None, :]
+    return dfa.accept_final[ridx, state]
+
+
+def seqdfa_search_batch_plain(dfa: DeviceDfa, data, lengths, n_chunks: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of K18 (fold, then apply): [F, R] bool."""
+    _check_fold(dfa, data, lengths, n_chunks)
+    return seqdfa_apply_plain(dfa, seqdfa_fold_plain(dfa, data, lengths, n_chunks))
+
+
+def seqdfa_fold(dfa: DeviceDfa, data, lengths, n_chunks: int) -> torch.Tensor:
+    """K18 fold: maps [F, R, K, S] uint8 of ``data[f, :lengths[f]]`` cut
+    into ``n_chunks`` chunks of equal width; all on the tables' device."""
+    _check_fold(dfa, data, lengths, n_chunks)
+    device = dfa.device
+    if kernels.on_cpu(device):
+        return seqdfa_fold_plain(dfa, data, lengths, n_chunks)
+    f, width = data.shape
+    r, s, c = dfa.n_patterns, dfa.n_states, dfa.n_classes
+    maps = torch.empty((f, r, n_chunks, s), dtype=torch.uint8, device=device)
+    if maps.numel():
+        p = kernels.p
+        _SEQDFA_FOLD.launch(
+            device, p(data), p(lengths), p(dfa.classmap), p(dfa.delta),
+            f, width, r, s, c, n_chunks, p(maps),
+        )
+    return maps
+
+
+def seqdfa_apply(dfa: DeviceDfa, maps) -> torch.Tensor:
+    """K18 apply: [F, R] bool from the fold's maps."""
+    device = dfa.device
+    r, s = dfa.n_patterns, dfa.n_states
+    kernels.check(maps, "maps", torch.uint8, (None, r, None, s), device)
+    if kernels.on_cpu(device):
+        return seqdfa_apply_plain(dfa, maps)
+    f, _, k, _ = maps.shape
+    if k < 1:
+        raise ValueError("maps: expected at least one chunk")
+    out = torch.empty((f, r), dtype=torch.bool, device=device)
+    if out.numel():
+        p = kernels.p
+        _SEQDFA_APPLY.launch(
+            device, p(maps), p(dfa.start), p(dfa.accept_final), f, r, s, k, p(out),
+        )
+    return out
+
+
+def seqdfa_search_batch(dfa_abs: DeviceDfa, data, lengths, n_chunks: int = 1) -> torch.Tensor:
+    """Search each pattern of the absorbing tables ``dfa_abs`` in
+    ``data[f, :lengths[f]]`` by folding ``n_chunks`` chunks, composing and
+    accepting: [F, R] bool.  Raises unless the width is a multiple of
+    ``n_chunks``."""
+    return seqdfa_apply(dfa_abs, seqdfa_fold(dfa_abs, data, lengths, n_chunks))

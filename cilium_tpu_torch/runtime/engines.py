@@ -1,14 +1,17 @@
-"""Per-protocol runtime batch engines: the HTTP engine.
+"""Per-protocol runtime batch engines: the HTTP and Kafka engines.
 
 Counterpart of ``cilium_tpu/runtime/engines.py`` (``EngineFlow``,
-``BaseBatchEngine`` and ``HttpBatchEngine``) with a port model inside: one
-stacked device-to-host copy per width bucket brings back every verdict
-array.  The runtime analog of the reference's proxy dispatch (reference:
-pkg/proxy/proxy.go:229-236 — HTTP to Envoy): the engine buffers flow
-bytes, frames complete requests, runs the batched verdict model, and
-converts verdicts into filter ops (PASS/DROP + inject), preserving the
-OnIO contract (reference: envoy/cilium_proxylib.cc:125).  The Kafka
-engine and the redirect -> engine factory are not part of the port yet.
+``BaseBatchEngine``, ``HttpBatchEngine`` and ``KafkaBatchEngine``) with a
+port model inside: one device-to-host copy per batch (per width bucket
+for HTTP) brings back every verdict array.  The runtime analog of the
+reference's proxy dispatch (reference: pkg/proxy/proxy.go:229-236 — HTTP
+to Envoy, Kafka to the Go proxy): the engine buffers flow bytes, frames
+complete requests, runs the batched verdict model, and converts verdicts
+into filter ops (PASS/DROP + inject), preserving the OnIO contract
+(reference: envoy/cilium_proxylib.cc:125).  The engines call their model
+directly: the reference's sharded-judge rung (``_judge_dispatch``) comes
+with the port's multi-GPU steps, and the redirect -> engine factory
+(``create_engine_for_redirect``) with its control plane.
 """
 
 from __future__ import annotations
@@ -21,11 +24,16 @@ import torch
 
 from ..accesslog import (
     HttpLogEntry,
+    KafkaLogEntry,
     LogRecord,
     VERDICT_DENIED,
     VERDICT_FORWARDED,
 )
+from ..kafka import matches_rule, parse_request
+from ..kafka.request import KafkaParseError, frame_length
 from ..models.base import ConstVerdict
+from ..models.kafka import encode_requests
+from ..policy.api import KAFKA_REVERSE_API_KEY_MAP
 from ..policy.invariance import InvariantClaimEngine
 from ..proxylib.parsers.http import HTTP_403, head_and_body_len
 from ..proxylib.types import DROP, MORE, PASS, OpType
@@ -45,6 +53,11 @@ class EngineFlow:
     ops: list[tuple[OpType, int]] = field(default_factory=list)
     reply_inject: bytearray = field(default_factory=bytearray)
     inject_capacity: int = 4096
+    # Set when the engine decides the connection must die (unparseable
+    # framing); every subsequent byte drops without re-parsing
+    # (reference: the kafka proxy closes the connection on parse errors,
+    # pkg/proxy/kafka.go handleRequest error path).
+    closed: bool = False
 
 
 class BaseBatchEngine(InvariantClaimEngine):
@@ -262,3 +275,93 @@ class HttpBatchEngine(BaseBatchEngine):
             )
         )
         self._emit(st, allow, head_len + body_len, HTTP_403, rec)
+
+
+class KafkaBatchEngine(BaseBatchEngine):
+    """Kafka frame parse + device topic-ACL verdicts + error injection
+    (reference: pkg/proxy/kafka.go:233 handleRequest)."""
+
+    proto = "kafka"
+
+    def __init__(self, model, host_rows=None, **kw):
+        super().__init__(**kw)
+        self.model = model
+        # (remotes, PortRuleKafka) rows for host fallback on overflow.
+        self.host_rows = host_rows or []
+
+    def _host_allow(self, req, remote_id: int) -> bool:
+        rules = [
+            rule for remotes, rule in self.host_rows
+            if not remotes or remote_id in remotes
+        ]
+        return matches_rule(req, rules)
+
+    def _step(self) -> bool:
+        active = []
+        for st in self.flows.values():
+            if st.closed:
+                # Connection condemned by an earlier framing error: every
+                # byte drops unparsed until the datapath tears it down.
+                if st.buffer:
+                    self._emit(st, False, len(st.buffer))
+                continue
+            buf = bytes(st.buffer)
+            try:
+                n = frame_length(buf)
+            except KafkaParseError:
+                # Unparseable framing: drop the buffer AND condemn the
+                # connection (reference: the kafka proxy closes the
+                # connection on parse errors, kafka.go handleRequest) —
+                # subsequent bytes are misframed garbage.
+                st.closed = True
+                self._emit(st, False, len(buf))
+                continue
+            if n is None or len(buf) < n:
+                continue
+            try:
+                req = parse_request(buf[:n])
+            except KafkaParseError:
+                self._emit(st, False, n)
+                continue
+            active.append((st, n, req))
+        if not active:
+            return False
+        active = active[: self.capacity]
+
+        if isinstance(self.model, ConstVerdict):
+            for st, n, req in active:
+                self._emit_kafka(st, bool(self.model.allow), n, req)
+            return True
+
+        batch = encode_requests([req for _, _, req in active])
+        remotes = np.asarray(
+            [st.remote_id for st, _, _ in active], np.int32
+        )
+        # One explicit device-to-host copy: np.asarray of a CUDA tensor
+        # raises.
+        allow = self.model(batch, remotes).cpu().numpy()
+        recs = []
+        for i, (st, n, req) in enumerate(active):
+            a = bool(allow[i])
+            if batch.overflow[i]:
+                # Device refused to judge: exact host-oracle decision.
+                a = self._host_allow(req, st.remote_id)
+            self._emit_kafka(st, a, n, req)
+            recs.append((st.flow_id, a, -1))
+        self._record_round(recs)
+        return True
+
+    def _emit_kafka(self, st: EngineFlow, allow: bool, n: int, req) -> None:
+        rec = LogRecord(
+            kafka=KafkaLogEntry(
+                error_code=0 if allow else 29,
+                api_version=req.api_version,
+                api_key=KAFKA_REVERSE_API_KEY_MAP.get(
+                    req.api_key, str(req.api_key)
+                ),
+                correlation_id=req.correlation_id,
+                topics=list(req.topics),
+            )
+        )
+        inject = b"" if allow else req.create_response().raw
+        self._emit(st, allow, n, inject, rec)

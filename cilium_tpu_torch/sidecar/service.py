@@ -300,8 +300,7 @@ class _CudaGraphFn:
                 dst.copy_(a, non_blocking=True)
             graph.replay()
             self.stats["replays"] += 1
-            for k, n in held:
-                k.replayed += n
+            kernels.add_replays(held)
             return _issue_readback(outs)
 
     def _capture(self, args, sig):

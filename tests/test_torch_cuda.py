@@ -42,6 +42,15 @@ from cilium_tpu_torch.models.http import (
     http_lit,
     http_lit_plain,
 )
+from cilium_tpu_torch.kafka.request import RequestMessage
+from cilium_tpu_torch.models import kafka as kafka_mod
+from cilium_tpu_torch.models.kafka import (
+    build_kafka_model,
+    encode_requests,
+    kafka_hits,
+    kafka_rule_hits,
+    kafka_verdicts_plain,
+)
 from cilium_tpu_torch.models.memcached import (
     TEXT_COMMANDS,
     build_memcache_model,
@@ -61,7 +70,17 @@ from cilium_tpu_torch.ops import nfa as nfa_mod
 from cilium_tpu_torch.ops.dfa import device_dfa, dfa_scan_plain, dfa_search_spans
 from cilium_tpu_torch.ops.nfa import device_nfa, nfa_scan_plain, nfa_search_spans
 from cilium_tpu_torch.ops.rxsearch import automaton_search_spans
-from cilium_tpu_torch.policy.api import PortRuleHTTP
+from cilium_tpu_torch.ops import seqdfa as seqdfa_mod
+from cilium_tpu_torch.ops.dfa import dfa_search_batch
+from cilium_tpu_torch.ops.seqdfa import (
+    device_dfa_absorbing,
+    seqdfa_apply,
+    seqdfa_fold,
+    seqdfa_fold_plain,
+    seqdfa_search_batch,
+    seqdfa_search_batch_plain,
+)
+from cilium_tpu_torch.policy.api import PortRuleHTTP, PortRuleKafka
 from cilium_tpu_torch.proxylib import (
     NetworkPolicy,
     PortNetworkPolicy,
@@ -928,3 +947,120 @@ def test_graph_service_recaptures_after_a_policy_swap(cuda, tmp_path):
         client.close()
         svc.stop()
         inst.reset_module_registry()
+
+
+KAFKA_RULES = [
+    ({}, ()), ({"topic": "a"}, (1, 2)), ({"role": "produce", "topic": "events"}, ()),
+    ({"role": "consume"}, (3,)), ({"api_version": "2", "topic": "b"}, ()),
+    ({"client_id": "producer-1"}, (1,)), ({"topic": "a", "client_id": "consumer-1"}, ()),
+    ({"topic": "x" * 40}, ()), ({"topic": "y" * 200}, ()), ({"api_key": "findcoordinator", "topic": "c"}, ()),
+]
+
+
+def _kafka_case(rng, f, width, rules):
+    pool = ["a", "b", "c", "events", "logs", "x" * 32, "x" * 40, "y" * 200]
+    clients = ["producer-1", "consumer-1", "admin", "", "z" * 70]
+    reqs = []
+    for _ in range(f):
+        n = int(rng.integers(0, 10))
+        reqs.append(RequestMessage(
+            api_key=int(rng.integers(-2, 71)), api_version=int(rng.integers(0, 3)),
+            correlation_id=1, client_id=clients[int(rng.integers(len(clients)))],
+            topics=[pool[int(i)] for i in rng.integers(0, len(pool), size=n)],
+            parsed=bool(rng.random() < 0.7)))
+    rows = []
+    for kw, remotes in rules:
+        r = PortRuleKafka(**kw)
+        r.sanitize()
+        rows.append((frozenset(remotes), r))
+    return reqs, rows, encode_requests(reqs, topic_width=width), rng.integers(0, 5, size=f).astype(np.int32)
+
+
+@pytest.mark.parametrize("width,f", [(32, 4099), (256, 4099), (32, 65536)])
+def test_kafka_hits_kernel_matches_plain(cuda, width, f):
+    """K17 against kafka_verdicts_plain and kafka_rule_hits, with
+    out-of-range keys, 0-9 topics (overflow rows) and rule topics longer
+    than the width."""
+    rng = np.random.default_rng(width + f)
+    for rules in (KAFKA_RULES, KAFKA_RULES[1:2], KAFKA_RULES[7:8]):
+        reqs, rows, batch, remotes = _kafka_case(rng, f, width, rules)
+        assert batch.overflow.any() and not batch.overflow.all()
+        model = build_kafka_model(rows, device=cuda)
+        tb = batch.to_device(cuda)
+        rem = torch.from_numpy(remotes).to(cuda)
+        before = kafka_mod._KAFKA_HITS.launches
+        got = kafka_hits(model, tb, rem)
+        allow, simple, cover = kafka_hits(model, tb, rem, parts=True)
+        torch.cuda.synchronize()
+        assert kafka_mod._KAFKA_HITS.launches == before + 2
+        want = kafka_verdicts_plain(model, tb, rem)
+        assert torch.equal(got, want) and torch.equal(allow, want)
+        want_simple, want_cover = kafka_rule_hits(model, tb, rem)
+        assert torch.equal(simple, want_simple) and torch.equal(cover, want_cover)
+        if len(rules) > 1:
+            assert bool(want.any()) and not bool(want.all())
+
+
+def test_kafka_hits_rejects_bad_inputs(cuda):
+    rng = np.random.default_rng(3)
+    _, rows, batch, remotes = _kafka_case(rng, 64, 32, KAFKA_RULES)
+    model = build_kafka_model(rows, device=cuda)
+    tb = batch.to_device(cuda)
+    rem = torch.from_numpy(remotes).to(cuda)
+    with pytest.raises(ValueError):
+        kafka_hits(model, batch.to_device("cpu"), rem)
+    with pytest.raises(ValueError):
+        kafka_hits(model, tb, torch.from_numpy(np.repeat(remotes, 2)).to(cuda)[::2])
+    with pytest.raises(TypeError):
+        kafka_hits(model, tb, rem.to(torch.int64))
+
+
+SEQ_PATTERNS = [r"abc", r"^abc", r"abc$", r"a.*c", r"(ab|cd)+", r"[a-z0-9_]+",
+                r"/public/.*", r"^(GET|HEAD)$", r"a{2,4}"]
+SEQ_ALPHABET = np.frombuffer(b"abcdxyz_/PGHET0123 ", np.uint8)
+
+
+def _seq_batch(rng, f, width, n_chunks):
+    data = rng.choice(SEQ_ALPHABET, size=(f, width)).astype(np.uint8)
+    lengths = rng.integers(0, width + 1, size=f).astype(np.int32)
+    lc = width // n_chunks
+    lengths[: 3 * 5] = np.clip(np.repeat(np.arange(5) * lc, 3) + np.tile([-1, 0, 1], 5), 0, width)
+    data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    return data, lengths
+
+
+@pytest.mark.parametrize("patterns,f,width", [
+    (SEQ_PATTERNS, 1027, 1024),
+    ([f"/g{j:03d}/[a-z0-9]+/item/.*" for j in range(200)], 33, 256),  # table past shared memory
+])
+def test_seqdfa_kernel_matches_plain_and_serial(cuda, patterns, f, width):
+    tables = compile_pattern_dfas(patterns)
+    dfa = device_dfa(tables, cuda)
+    dfa_abs = device_dfa_absorbing(tables, cuda)
+    for n_chunks in (1, 4, 64):
+        data, lengths = _seq_batch(np.random.default_rng(n_chunks), f, width, n_chunks)
+        d, l = _to(cuda, data, lengths)
+        before = (seqdfa_mod._SEQDFA_FOLD.launches, seqdfa_mod._SEQDFA_APPLY.launches)
+        maps = seqdfa_fold(dfa_abs, d, l, n_chunks)
+        got = seqdfa_apply(dfa_abs, maps)
+        torch.cuda.synchronize()
+        assert (seqdfa_mod._SEQDFA_FOLD.launches, seqdfa_mod._SEQDFA_APPLY.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(maps, seqdfa_fold_plain(dfa_abs, d, l, n_chunks))
+        assert torch.equal(got, seqdfa_search_batch_plain(dfa_abs, d, l, n_chunks))
+        assert torch.equal(got, dfa_search_batch(dfa, d, l))
+        assert torch.equal(seqdfa_search_batch(dfa_abs, d, l, n_chunks), got)
+
+
+def test_seqdfa_rejects_bad_inputs(cuda):
+    dfa_abs = device_dfa_absorbing(compile_pattern_dfas(SEQ_PATTERNS), cuda)
+    data, lengths = _seq_batch(np.random.default_rng(0), 16, 64, 4)
+    d, l = _to(cuda, data, lengths)
+    with pytest.raises(ValueError):
+        seqdfa_fold(dfa_abs, d.cpu(), l.cpu(), 4)
+    with pytest.raises(ValueError):
+        seqdfa_fold(dfa_abs, d.t().contiguous().t(), l, 4)
+    with pytest.raises(ValueError):
+        seqdfa_fold(dfa_abs, d, l, 3)
+    with pytest.raises(ValueError):
+        seqdfa_apply(dfa_abs, seqdfa_fold(dfa_abs, d, l, 4).transpose(0, 2).contiguous().transpose(0, 2))

@@ -9,6 +9,10 @@ space, one space or two.
 
 from __future__ import annotations
 
+import contextlib
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,7 @@ from cilium_tpu.ops.nfa import nfa_search_batch as ref_nfa_batch
 from cilium_tpu.ops.nfa import nfa_search_spans as ref_nfa_spans
 from cilium_tpu.regex import compile_patterns as ref_compile_patterns
 from cilium_tpu.regex.dfa import compile_pattern_dfas as ref_compile_dfas
+from cilium_tpu_torch import kernels
 from cilium_tpu_torch.models.r2d2 import r2d2_frame
 from cilium_tpu_torch.ops import bytescan as port_bs
 from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch, dfa_search_spans
@@ -172,6 +177,15 @@ def test_dispatch_keeps_the_128_state_guard():
     _eq(automaton_search_batch(compile_automaton(blowup, CPU), d, n), ref_nfa_batch(ref, data, lengths))
 
 
+def test_automaton_uploads_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_dfa(compile_pattern_dfas(PATTERNS))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_nfa(compile_patterns(NFA_PATTERNS))
+    assert device_nfa(compile_patterns(NFA_PATTERNS), CPU).classmap.device == CPU
+
+
 def test_wrappers_check_inputs():
     port = device_dfa(compile_pattern_dfas(["abc"]), CPU)
     data = torch.zeros((4, 8), dtype=torch.uint8)
@@ -184,3 +198,38 @@ def test_wrappers_check_inputs():
         dfa_search_spans(port, data, span[:3], span)
     with pytest.raises(TypeError):
         r2d2_frame(data, span.to(torch.int64))
+
+
+def test_launch_counters_lose_no_count_under_threads(monkeypatch):
+    """Many threads launching one kernel (half of them while "capturing")
+    and replaying graphs that hold it: every launch, capture and replay is
+    counted (the counters are updated under kernels._lock).  The launcher
+    is a stub, so no card is needed."""
+    capturing = threading.local()
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: getattr(capturing, "on", False))
+    k = kernels.CudaKernel("stub", "stub", [])
+    k._fn = lambda stream: 0
+    n_threads, n_calls = 16, 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(i):
+            capturing.on = i % 2 == 1
+            for _ in range(n_calls):
+                k.launch(torch.device("cuda"))
+                kernels.add_replays([(k, 3)])
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        kernels.ALL.remove(k)
+    half = n_threads // 2 * n_calls
+    assert (k.launches, k.captured, k.replayed) == (half, half, 3 * n_threads * n_calls)
