@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's r2d2, HTTP, DNS, Cassandra, memcached and Kafka
-verdict paths, its L3/L4 datapath, its sidecar service and its
-chunk-folded DFA search on one CUDA card and check them.
+verdict paths, its L3/L4 datapath, its sidecar service, its chunk-folded
+DFA search and its seam benchmarks on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -85,7 +85,20 @@ which fails the run on any mismatch:
    tests/test_seqdfa.py's 9 patterns at F = 2,048 x W = 32,768 and F = 256
    x W = 4,096, n_chunks 1, 8 and 64; bit-equal to K2 ``dfa_search_batch``
    on the non-absorbing tables, fold and apply to their plain versions
-   at 4,096 and at 32,768 with 64 chunks, and timed beside K2.
+   at 4,096 and at 32,768 with 64 chunks, and timed beside K2;
+12. the seam benchmarks, counted in a run of their own (a launch here is a
+   wrapper launch or a CUDA-graph replay): ``measure_device_rtt_ms`` (K20
+   ``rtt_tick`` + a blocking readback) and ``measure_uplink_mbps``;
+   ``run_paired_colocated`` over the socket and over the shm rings (the
+   seam probe, K19 ``seam_probe``, on the card; seam - null p99, the
+   per-stage seam breakdown, graph captures inside the timed windows);
+   ``latbench.run`` with the r2d2 model at 100k, 1M and 5M requests/s;
+   ``MixBench`` (its first two timed rounds held against the in-process
+   parser) and ``oracle_rate``; ``FlowCacheBench`` with the cache on and
+   off; 16-session fan-in with its contract; then K19 at the service's
+   flow buckets and 65,536 and K20 at [8] against their plain versions,
+   and timed.  Every latency and rate is a reading, printed with the card
+   line; none is held to a limit.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -1953,15 +1966,19 @@ def sidecar_traffic():
     }
 
 
-def sidecar_oracle(proto, rounds, pols):
+def sidecar_oracle(proto, rounds, pols, name=None, port=None, base=None):
     """Each round's {conn: (ops, orig inject, reply inject)} from the port's
     in-process proxylib ``Instance`` on the host, fed as the service's
     buffer mirror feeds it (new bytes appended per direction, the
     unconsumed buffer offered again, bytes a PASS/DROP covered beyond it
-    skipped on arrival)."""
+    skipped on arrival).  The conns' policy name, port and id base default
+    to phase 9's for ``proto``."""
     from cilium_tpu_torch.proxylib import instance as inst
     from cilium_tpu_torch.proxylib.types import DROP, PASS, FilterResult
 
+    name = SIDE_NAMES[proto] if name is None else name
+    port = SIDE_PORTS[proto] if port is None else port
+    base = SIDE_BASES[proto] if base is None else base
     mod = inst.open_module([("node-id", f"oracle-{proto}")], False)
     inst.find_instance(mod).policy_update(pols)
     conns, out = {}, []
@@ -1970,8 +1987,8 @@ def sidecar_oracle(proto, rounds, pols):
         for fid, chunk, remote, reply in rnd:
             if fid not in conns:
                 res, conn = inst.on_new_connection(
-                    mod, proto, SIDE_BASES[proto] + fid, True, remote, 2, "1.1.1.1:1",
-                    f"2.2.2.2:{SIDE_PORTS[proto]}", SIDE_NAMES[proto],
+                    mod, proto, base + fid, True, remote, 2, "1.1.1.1:1",
+                    f"2.2.2.2:{port}", name,
                     orig_buf_capacity=1 << 16, reply_buf_capacity=1 << 16,
                 )
                 if res != FilterResult.OK:
@@ -1995,7 +2012,7 @@ def sidecar_oracle(proto, rounds, pols):
                         conn.reply_buf.take())
         out.append(got)
     for fid in conns:
-        inst.close_connection(SIDE_BASES[proto] + fid)
+        inst.close_connection(base + fid)
     inst.close_module(mod)
     return out
 
@@ -3001,6 +3018,549 @@ def seqdfa_slice(dev, card, kerns):
     return launches, runs, report, timed
 
 
+# --- phase 12: the seam benchmarks (latbench, mixbench, fan-in) ----------------
+
+# run_paired_colocated's pairs per transport (its default is 9)
+SEAM_PAIRED_REPS = 5
+# the service's flow buckets at latbench's batch_flows (MIN_BUCKET .. 8,192)
+SEAM_BUCKETS = (256, 512, 1024, 2048, 4096, 8192)
+SEAM_MIX_SECONDS = 5.0  # bench_mixed runs 12 s
+SEAM_CACHE_SECONDS = 3.0  # bench_flow_cache runs 8 s a side
+
+
+def seam_slice(dev, card, kerns):
+    """Phase 12, the seam benchmarks on the card, counted in a run of their
+    own: the round-trip and uplink probes, the paired seam-vs-null
+    experiment over the socket and the shm rings (the seam probe, K19, on
+    the card), the real r2d2 model at 100k, 1M and 5M requests/s, the
+    mixed-path bench held against the in-process parser, the flow cache
+    paired, and 16-session fan-in; then K19 and K20 against their plain
+    versions and timed.  Returns (launches, runs, report, timed); here a
+    launch is a wrapper launch or a graph replay."""
+    import tempfile
+
+    from cilium_tpu_torch.proxylib import instance as inst
+
+    log("== seam slice")
+    t_phase = time.monotonic()
+    inst.reset_module_registry()
+    with tempfile.TemporaryDirectory(prefix="seam-", dir=".") as tmp:
+        return _seam_runs(dev, card, kerns, tmp, t_phase)
+
+
+def seam_windows():
+    """Patch ``LatencyBench.run_rate`` to note, for each timed window on a
+    verdict service, the graph captures and ledger compiles made inside
+    it, and the tracer's wall-clock stages of the vec path after it
+    (``status()["latency"]``: cumulative over the service's rounds).
+    Returns (the notes, a function that undoes the patch)."""
+    from cilium_tpu_torch.sidecar import latbench
+
+    notes = []
+    real = latbench.LatencyBench.run_rate
+
+    def run_rate(self, rate, n_requests, seed=3):
+        svc = self.service
+        stats = getattr(svc, "graph_stats", None)
+        if stats is None:  # the null server
+            return real(self, rate, n_requests, seed)
+        c0, l0 = stats["captures"], svc.ledger.status()["compiles"]
+        r = real(self, rate, n_requests, seed)
+        notes.append(dict(rate=rate, captures=stats["captures"] - c0,
+                          compiles=svc.ledger.status()["compiles"] - l0,
+                          stages=svc.status()["latency"]["stages"].get("vec", {})))
+        return r
+
+    latbench.LatencyBench.run_rate = run_rate
+    return notes, lambda: setattr(latbench.LatencyBench, "run_rate", real)
+
+
+def tap_verdicts(client, seqs):
+    """Keep, for each seq in ``seqs``, the {conn: (ops, orig inject, reply
+    inject)} of the verdicts ``client`` delivers to whatever callback it is
+    given later (the benches set their own)."""
+    kept = {}
+    base = type(client)
+
+    class Tapped(base):
+        @property
+        def verdict_callback(self):
+            return self.__dict__.get("_tapped_cb")
+
+        @verdict_callback.setter
+        def verdict_callback(self, cb):
+            def tapped(vb):
+                if vb.seq in seqs:
+                    per = kept.setdefault(vb.seq, {})
+                    for j in range(vb.count):
+                        cid, _, ops, io, ir = vb.entry(j)
+                        o, a, b = per.get(int(cid), ([], b"", b""))
+                        per[int(cid)] = (o + [(int(x), int(n)) for x, n in ops], a + bytes(io),
+                                         b + bytes(ir))
+                cb(vb)
+
+            self.__dict__["_tapped_cb"] = None if cb is None else tapped
+
+    cb = client.verdict_callback
+    client.__class__ = Tapped
+    client.verdict_callback = cb
+    return kept
+
+
+def mix_rounds(b, n):
+    """MixBench's first ``n`` rounds (``_build_round``, the stream
+    ``oracle_rate`` feeds) as sidecar_oracle rounds: (conn, bytes, remote 1,
+    reply)."""
+    from cilium_tpu_torch.sidecar import wire
+
+    out = []
+    for r in range(n):
+        (m_ids, m_lens, m_rows), (ids, fl, lens, blob), _, _ = b._build_round(r)
+        rows = np.frombuffer(m_rows, np.uint8).reshape(-1, 64)
+        rnd = [(int(c), rows[k, : m_lens[k]].tobytes(), 1, False) for k, c in enumerate(m_ids)]
+        offs = np.concatenate(([0], np.cumsum(lens.astype(np.int64))))
+        rnd += [(int(c), blob[offs[k]:offs[k + 1]], 1, bool(fl[k] & wire.FLAG_REPLY))
+                for k, c in enumerate(ids)]
+        out.append(rnd)
+    return out
+
+
+def seam_fanin(path, card, n_sessions=16):
+    """bench.py's ``bench_fanin_concurrent`` on the card: n_sessions shim
+    sessions (one SidecarClient each, 16 conns each) feeding one
+    dispatcher at twice the single-session capacity.  Its contract holds
+    or this raises: every seq answered exactly once (served OK or a typed
+    SHED), no reply routed to the wrong session, every session served,
+    and each session's submitted count equal to its answered count."""
+    from cilium_tpu_torch.proxylib import FilterResult, NetworkPolicy, PortNetworkPolicy, PortNetworkPolicyRule
+    from cilium_tpu_torch.proxylib import instance as inst_mod
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    policy = NetworkPolicy(name="bench-fanin", policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+            remote_policies=[1], l7_proto="r2d2", l7_rules=[{"cmd": "READ", "file": "/public/.*"}])])])
+    inst_mod.reset_module_registry()
+    cfg = DaemonConfig(batch_timeout_ms=0.0, batch_flows=512, shed_queue_entries=2048,
+                       shed_queue_age_ms=25.0)
+    svc = VerdictService(path, cfg).start()
+    msg = b"READ /public/bench.txt\r\n"
+    conns_per = 16
+    clients, metas = [], []
+    try:
+        for s in range(n_sessions):
+            cl = SidecarClient(svc.socket_path, timeout=60.0, identity=f"bench-pod-{s}")
+            clients.append(cl)
+            mod = cl.open_module([])
+            if cl.policy_update(mod, [policy]) != int(FilterResult.OK):
+                raise AssertionError("fan-in: policy_update refused")
+            base = 1000 * (s + 1)
+            for k in range(conns_per):
+                res, _ = cl.new_connection(mod, "r2d2", base + k, True, 1, 2, f"1.1.1.{s + 1}:{k + 1}",
+                                           "2.2.2.2:80", "bench-fanin")
+                if res != int(FilterResult.OK):
+                    raise AssertionError(f"fan-in: conn {base + k}: {res}")
+            lock = threading.Lock()
+            answered, sent_ts = {}, {}
+
+            def cb(vb, _answered=answered, _lock=lock):
+                now = time.perf_counter()
+                ok = bool(vb.count) and int(vb.results[0]) == int(FilterResult.OK)
+                with _lock:
+                    _answered[vb.seq] = (now, ok)
+
+            cl.verdict_callback = cb
+            metas.append({"client": cl, "ids": np.arange(base, base + conns_per, dtype=np.uint64),
+                          "lens": np.full(conns_per, len(msg), np.uint32), "answered": answered,
+                          "sent": sent_ts, "lock": lock, "blob": msg * conns_per})
+
+        def fire(m, seq):
+            m["sent"][seq] = time.perf_counter()
+            m["client"].send_batch(seq, m["ids"], [0] * conns_per, m["lens"], m["blob"])
+
+        def drain(m, upto, timeout_s):
+            deadline = time.perf_counter() + timeout_s
+            while time.perf_counter() < deadline:
+                with m["lock"]:
+                    if len(m["answered"]) >= upto:
+                        return True
+                time.sleep(0.002)
+            return False
+
+        # single-session baseline: closed-loop capacity and p99
+        m0 = metas[0]
+        for s in range(1, 21):
+            fire(m0, s)
+            if not drain(m0, s, 60.0):
+                raise AssertionError("fan-in warm-up stalled")
+        with m0["lock"]:
+            m0["answered"].clear()
+        m0["sent"].clear()
+        t0 = time.perf_counter()
+        n_cap = 200
+        for s in range(100, 100 + n_cap):
+            fire(m0, s)
+            if not drain(m0, s - 99, 60.0):
+                raise AssertionError("fan-in capacity phase stalled")
+        single_rate = n_cap * conns_per / (time.perf_counter() - t0)
+        with m0["lock"]:
+            base_lat = sorted((m0["answered"][s][0] - m0["sent"][s]) * 1e3
+                              for s in m0["sent"] if s in m0["answered"])
+            m0["answered"].clear()
+        m0["sent"].clear()
+        single_p99 = base_lat[min(int(len(base_lat) * 0.99), len(base_lat) - 1)]
+
+        # n_sessions at twice the single-session capacity in aggregate
+        offered = 2.0 * single_rate
+        interval = conns_per / (offered / n_sessions)
+        window = 128  # per-session unanswered batches in flight
+
+        def open_loop(m, seq0, duration, t_start):
+            seq, next_fire = seq0, t_start
+            while time.perf_counter() - t_start < duration:
+                now = time.perf_counter()
+                if now < next_fire:
+                    time.sleep(min(next_fire - now, 0.001))
+                    continue
+                with m["lock"]:
+                    outstanding = len(m["sent"]) - len(m["answered"])
+                if outstanding >= window:
+                    time.sleep(0.001)
+                    continue
+                seq += 1
+                fire(m, seq)
+                next_fire += interval
+
+        def run_phase(duration, phase):
+            t_start = time.perf_counter() + 0.1
+            threads = [threading.Thread(target=open_loop, daemon=True, args=(
+                m, 10_000_000 * phase + 100_000 * (i + 1), duration, t_start))
+                for i, m in enumerate(metas)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(duration + 30)
+
+        def quiesce(timeout_s):
+            deadline = time.perf_counter() + timeout_s
+            while time.perf_counter() < deadline:
+                if all(all(s in m["answered"] for s in m["sent"]) for m in metas):
+                    return
+                time.sleep(0.01)
+
+        run_phase(2.0, phase=1)  # prime: the aggregated round shapes
+        quiesce(30.0)
+        for m in metas:
+            with m["lock"]:
+                m["answered"].clear()
+            m["sent"].clear()
+        duration = 4.0
+        run_phase(duration, phase=2)
+        quiesce(30.0)
+
+        silent_loss = served = shed = 0
+        p99s = []
+        for m in metas:
+            with m["lock"]:
+                done = dict(m["answered"])
+            silent_loss += sum(1 for s in m["sent"] if s not in done)
+            lats = sorted((done[s][0] - m["sent"][s]) * 1e3 for s in m["sent"] if s in done and done[s][1])
+            served += len(lats) * conns_per
+            shed += sum(conns_per for s in m["sent"] if s in done and not done[s][1])
+            if lats:
+                p99s.append(lats[min(int(len(lats) * 0.99), len(lats) - 1)])
+        misroutes = sum(c.misrouted_verdicts for c in clients)
+        if silent_loss or misroutes or len(p99s) != n_sessions:
+            raise AssertionError(f"fan-in contract: {silent_loss} batches unanswered, {misroutes} "
+                                 f"misrouted, {len(p99s)} of {n_sessions} sessions served")
+        rows = svc.status()["sessions"]["live"]
+        for row in rows:
+            if row["submitted"] != row["answered"]:
+                raise AssertionError(f"fan-in session {row}")
+        out = dict(single_rate=single_rate, single_p99_ms=single_p99, aggregate_rate=served / duration,
+                   offered=offered, per_session_p99_ms=[round(p, 3) for p in p99s],
+                   p99_worst_ms=max(p99s), p99_median_ms=sorted(p99s)[n_sessions // 2],
+                   served_entries=served, shed_entries=shed, dispatch=svc.dispatch_mode_chosen)
+    finally:
+        for c in clients:
+            c.close()
+        svc.stop()
+        inst_mod.reset_module_registry()
+    log(f"fan-in, {n_sessions} sessions x {conns_per} conns at 2x the single-session capacity "
+        f"({offered:.0f} offered): aggregate {out['aggregate_rate']:.0f} verdicts/s served, "
+        f"{shed} shed typed, single session {single_rate:.0f} verdicts/s (p99 {single_p99:.3f} ms); "
+        f"per-session p99 median {out['p99_median_ms']:.3f} ms, worst {out['p99_worst_ms']:.3f} ms "
+        f"{out['per_session_p99_ms']}; 0 unanswered, 0 misrouted; dispatch {out['dispatch']} "
+        f"(host clock) [{card}]")
+    return out
+
+
+def _rate_line(tag, r, card):
+    log(f"{tag}: offered {r.offered_rate:.0f}/s achieved {r.achieved_rate:.0f}/s "
+        f"({r.requests} requests) p50 {r.p50_ms:.4f} p90 {r.p90_ms:.4f} p99 {r.p99_ms:.4f} "
+        f"max {r.max_ms:.4f} ms; added p50 {r.added_p50_ms:.4f} p99 {r.added_p99_ms:.4f} ms; "
+        f"release late p50 {r.release_late_p50_ms:.4f} p99 {r.release_late_p99_ms:.4f} ms; "
+        f"gen_saturated {r.gen_saturated} (host clock) [{card}]")
+
+
+def _seam_runs(dev, card, kerns, tmp, t_phase):
+    """The runs of ``seam_slice``, their sockets under ``tmp``."""
+    from cilium_tpu_torch.models import base as base_mod
+    from cilium_tpu_torch.sidecar import latbench, mixbench
+
+    def counts():
+        return {n: (k.launches, k.replayed) for n, k in kerns.items()}
+
+    def delta(before):
+        now = counts()
+        return {n: now[n][0] - before[n][0] + now[n][1] - before[n][1] for n in now}
+
+    def launched(d, names, run):
+        idle = [n for n in names if d[n] <= 0]
+        if idle:
+            raise AssertionError(f"{run}: kernels of the path never launched: {idle}")
+
+    notes, unpatch = seam_windows()
+    runs = {}
+    # 12b-12g, the main path, counted: every count set to 0 just before,
+    # read just after; a launch is a wrapper launch or a graph replay.
+    log("== seam main path (counted)")
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+    try:
+        # 12b. device round trip (K20) and uplink
+        before = counts()
+        samples = []
+        rtt = latbench.measure_device_rtt_ms(samples=samples)
+        uplink = latbench.measure_uplink_mbps()
+        runs["seam-rtt"] = delta(before)
+        launched(runs["seam-rtt"], ["rtt_tick"], "rtt")
+        log(f"device round trip, K20 rtt_tick on [8] int32 + blocking readback: median {rtt:.4f} ms "
+            f"of {len(samples)} (min {min(samples):.4f}, max {max(samples):.4f}); uplink "
+            f"{uplink:.1f} MB/s (512 KiB pageable numpy, serialized) [{card}]")
+
+        # 12c. the paired colocated experiment, socket then shm
+        paired = {}
+        for tr in ("socket", "shm"):
+            before, n0 = counts(), len(notes)
+            out = latbench.run_paired_colocated(f"{tmp}/p{tr[:2]}.sock", reps=SEAM_PAIRED_REPS,
+                                                transport=tr)
+            d = runs[f"seam-paired-{tr}"] = delta(before)
+            launched(d, ["seam_probe"], f"paired {tr}")
+            st = out["seam_transport"]
+            if st["mode"] != tr:
+                raise AssertionError(f"paired {tr}: the seam client rode {st['mode']}: {st}")
+            win = notes[n0:]
+            paired[tr] = out
+            log(f"paired colocated ({tr}, {SEAM_PAIRED_REPS} pairs at 100k/s, seam probe K19 on the card, "
+                f"dispatch {out['dispatch_mode']}): delta p99 (seam - null) {out['delta_p99_ms']:.4f} ms, "
+                f"pair deltas {out['pair_deltas_ms']}, seam p99 runs {out['seam_p99_runs']}, null p99 "
+                f"runs {out['null_p99_runs']} (host clock) [{card}]")
+            for tag in ("seam_100k", "null_100k", "seam_1m", "null_1m"):
+                _rate_line(f"paired {tr} {tag}", out[tag], card)
+            log(f"paired {tr}: seam_stages_us {out['seam_stages_us']}; oracle p50 "
+                f"{out['oracle_p50_ms']:.4f} p99 {out['oracle_p99_ms']:.4f} ms; os noise {out['os_noise']}")
+            log(f"paired {tr}: transport {json.dumps({k: st.get(k) for k in ('mode', 'preference', 'fallbacks', 'bytes_pushed')})}")
+            log(f"paired {tr}: K19 launches + graph replays {d['seam_probe']}; graph captures in the "
+                f"{len(win)} timed windows {sum(w['captures'] for w in win)}, ledger compiles "
+                f"{sum(w['compiles'] for w in win)} "
+                f"({[{k: w[k] for k in ('rate', 'captures', 'compiles')} for w in win]})")
+            stages = [w for w in win if w["rate"] == 100_000][-1]["stages"]
+            log(f"paired {tr}: the tracer's vec-path stages over the warm-up and the 100k/s windows, "
+                f"wall clock: " + ", ".join(
+                    f"{k} {v['mean_us']} us mean / {v['p99_us']} us p99 ({v['rounds']} rounds)"
+                    for k, v in stages.items() if v["rounds"] and v["mean_us"])
+                + f" (host clock) [{card}]")
+
+        # 12d. the real r2d2 model at 100k, 1M and 5M requests/s
+        before, n0 = counts(), len(notes)
+        lat = latbench.run(f"{tmp}/lat.sock", rates=(100_000, 1_000_000, 5_000_000),
+                           n_requests=100_000, colocated=False)
+        d = runs["seam-latency"] = delta(before)
+        launched(d, ["r2d2_frame", "dfa_scan", "r2d2_hits", "gather_rows", "rtt_tick"], "latency")
+        win = notes[n0:]
+        log(f"latency, r2d2 model on the card (blob wire, dispatch {lat['dispatch_mode']}): device rtt "
+            f"{lat['device_rtt_ms']:.4f} ms, uplink {lat['uplink_mbps']:.1f} MB/s, oracle p50 "
+            f"{lat['oracle_p50_ms']:.4f} ms, dispatcher {lat['dispatcher']}; graph captures in the timed "
+            f"windows {sum(w['captures'] for w in win)}, ledger compiles {sum(w['compiles'] for w in win)} "
+            f"[{card}]")
+        for r in lat["rates"]:
+            _rate_line(f"latency {r.offered_rate:.0f}/s", r, card)
+
+        # 12e. the mixed-path bench, its first two timed rounds held to the in-process parser
+        before = counts()
+        b = mixbench.MixBench(f"{tmp}/mix.sock")
+        try:
+            # warm-up rounds 0-3 use seqs 1-8; timed rounds 4 and 5 are 9/10 and 11/12
+            kept = tap_verdicts(b.client, {9, 10, 11, 12})
+            mix = b.run(duration_s=SEAM_MIX_SECONDS)
+            mix["oracle_per_sec"] = b.oracle_rate()
+            rounds = mix_rounds(b, 6)
+        finally:
+            b.close()
+        d = runs["seam-mixed"] = delta(before)
+        launched(d, ["r2d2_frame", "r2d2_hits"], "mixed")
+        if mix["reasm_rounds"] <= 0:
+            raise AssertionError(f"mixed: the columnar reassembler never engaged: {mix}")
+        exp = sidecar_oracle("r2d2", rounds, [b._policy], name="mixbench", port=80, base=5_000_000)[4:6]
+        got = []
+        for m_seq in (9, 11):
+            per = dict(kept.get(m_seq, {}))
+            per.update(kept.get(m_seq + 1, {}))
+            got.append(per)
+        bad = side_mismatches(got, exp)
+        n_conn = sum(len(e) for e in exp)
+        log(f"mixed: timed rounds 4-5 vs the in-process parser: {bad} mismatches over {n_conn} conn rounds")
+        if bad or sum(len(g) for g in got) != n_conn:
+            raise AssertionError(f"mixed: {bad} mismatches against the in-process parser")
+        log(f"mixed ({b.pool} conns, {SEAM_MIX_SECONDS:.0f} s): {mix['verdicts_per_sec']:.0f} verdicts/s, "
+            f"slow_fraction {mix['slow_fraction']:.4f}, reasm rounds {mix['reasm_rounds']} frames "
+            f"{mix['reasm_frames']} fallbacks {mix['reasm_fallbacks']}, rounds {mix['rounds']}; "
+            f"in-process parser {mix['oracle_per_sec']:.0f} verdicts/s (host clock) [{card}]")
+
+        # 12f. the flow cache, paired
+        cache = {}
+        for on in (False, True):
+            before = counts()
+            fb = mixbench.FlowCacheBench(f"{tmp}/fc{int(on)}.sock", flow_cache=on)
+            try:
+                cache[on] = fb.run(duration_s=SEAM_CACHE_SECONDS)
+            finally:
+                fb.close()
+            runs[f"seam-cache-{'on' if on else 'off'}"] = delta(before)
+        bpv = {on: c["bytes_pushed"] / max(c["frames"], 1) for on, c in cache.items()}
+        if cache[True]["hit_rate"] < 0.5 or cache[False]["hit_rate"] != 0.0 or not bpv[True] < bpv[False]:
+            raise AssertionError(f"flow cache: {cache}")
+        log(f"flow cache ({SEAM_CACHE_SECONDS:.0f} s a side): on {cache[True]['verdicts_per_sec']:.0f} "
+            f"verdicts/s (hit rate {cache[True]['hit_rate']:.4f}, {bpv[True]:.1f} bytes a verdict), off "
+            f"{cache[False]['verdicts_per_sec']:.0f} verdicts/s (hit rate {cache[False]['hit_rate']:.4f}, "
+            f"{bpv[False]:.1f} bytes a verdict) (host clock) [{card}]")
+
+        # 12g. fan-in
+        before = counts()
+        fan = seam_fanin(f"{tmp}/fan.sock", card)
+        runs["seam-fanin"] = delta(before)
+    finally:
+        unpatch()
+    launches = {n: k.launches + k.replayed for n, k in kerns.items()}
+    log("seam launches (wrapper + graph replays):", json.dumps({n: v for n, v in launches.items() if v}))
+    log("seam launches by run:", json.dumps({r: {n: v for n, v in d.items() if v} for r, d in runs.items()}))
+    for n, count in launches.items():
+        if sum(d[n] for d in runs.values()) != count:
+            raise AssertionError(f"{n}: the seam runs' launches do not add up to the main path's")
+    for n in ("seam_probe", "rtt_tick"):
+        if launches[n] <= 0:
+            raise AssertionError(f"{n} never launched on the seam path")
+
+    # 12a. K19 and K20 against their plain versions, and timed
+    log("== K19 / K20 vs plain, and times on", card)
+    seam_probe, plain = base_mod.seam_probe, base_mod.seam_probe_plain
+    corpus = latbench._corpus(latbench.CONN_POOL)[1].astype(np.int32)
+    report = {"seam_probe": {}, "rtt_tick": {}}
+    timed = {}
+    for f in (*SEAM_BUCKETS, 65536):
+        lens = torch.from_numpy(np.resize(corpus, f)).to(dev)
+        edge = lens.clone()
+        edge[::7] = -1
+        err = 0
+        for t in (lens, edge):
+            for attr in (False, True):
+                err = max(err, max_abs_err(list(seam_probe(t, attr)), list(plain(t, attr))))
+        shape = f"seam-{f}"
+        report["seam_probe"][shape] = err
+        if err:
+            raise AssertionError(f"K19 differs from its plain version at F = {f}: {err}")
+        row = dict(
+            ms=graph_ms(lambda: seam_probe(lens, True)),
+            call_ms=cuda_ms(lambda: seam_probe(lens, True), 50),
+            plain_ms=cuda_ms(lambda: plain(lens, True), 50),
+            library_ms=cuda_ms(lambda: torch.ge(lens, 0), 50),
+            bytes=13 * f, ops=f,  # read 4F; write ok F, msg_len 4F, rule 4F
+        )
+        bound(row)
+        timed[shape] = {"rows": {"seam_probe": row}}
+        runs[shape] = launches
+        log_row(shape, "seam_probe", row)
+        log(f"{shape:15s} seam_probe library torch.ge(lengths, 0) {row['library_ms']:.5f} ms [{card}]")
+    x = torch.tensor([0, 1, -1, 2**31 - 1, -2**31, 7, 100, -100], dtype=torch.int32, device=dev)
+    err = max_abs_err([latbench.rtt_tick(x)], [latbench.rtt_tick_plain(x)])
+    report["rtt_tick"]["seam-rtt-8"] = err
+    if err or int(latbench.rtt_tick(x)[3]) != -2**31:
+        raise AssertionError(f"K20 differs from its plain version: {err}")
+    x = torch.zeros(8, dtype=torch.int32, device=dev)
+    row = dict(ms=graph_ms(lambda: latbench.rtt_tick(x)), call_ms=cuda_ms(lambda: latbench.rtt_tick(x), 50),
+               plain_ms=cuda_ms(lambda: latbench.rtt_tick_plain(x), 50),
+               library_ms=cuda_ms(lambda: x + 1, 50), bytes=64, ops=8)
+    bound(row)
+    timed["seam-rtt-8"] = {"rows": {"rtt_tick": row}}
+    runs["seam-rtt-8"] = launches
+    log_row("seam-rtt-8", "rtt_tick", row)
+    log(f"{'seam-rtt-8':15s} rtt_tick library x + 1 {row['library_ms']:.5f} ms [{card}]")
+    log("max |kernel - plain|:", json.dumps(report))
+    seam_issue_costs(dev, card)
+    log(f"seam slice: {time.monotonic() - t_phase:.1f} s")
+    return launches, runs, report, timed
+
+
+def seam_issue_costs(dev, card, f=256, n=400):
+    """12h. Where a seam round's ``device_issue`` and ``readback`` go on
+    the host: thread CPU and wall time of each step of one K19 dispatch of
+    the smallest bucket (the rounds at 100k/s fill it), as the service
+    takes them (``_upload``'s pinned staging, the K19 wrapper,
+    ``_issue_readback``'s pinned copies, ``_to_host``), and of the whole
+    issue + readback eager and as a CUDA-graph replay."""
+    from cilium_tpu_torch.models.base import SeamProbe, seam_probe
+    from cilium_tpu_torch.sidecar.service import _CudaGraphFn, _issue_readback, _to_host
+
+    data = np.zeros((f, 64), np.uint8)
+    lens = np.resize(np.arange(2, 40, dtype=np.int32), f)
+    rem = np.ones(f, np.int32)
+    probe = SeamProbe(device=dev)
+    d_lens = torch.from_numpy(lens).to(dev)
+    outs = seam_probe(d_lens, attr=True)
+    graph = _CudaGraphFn(lambda *a: probe.verdicts_attr(*a), dev, lambda *a: None,
+                         {"captures": 0, "replays": 0})
+
+    def upload():
+        return [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True) for a in (data, lens, rem)]
+
+    def eager():
+        rb = _issue_readback(probe.verdicts_attr(*upload()))
+        return [_to_host(x) for x in rb]
+
+    def replay():
+        return [_to_host(x) for x in graph(data, lens, rem)]
+
+    steps = {
+        "upload (3 pinned stagings + copies)": upload,
+        "K19 wrapper on the card's tensors": lambda: seam_probe(d_lens, attr=True),
+        "issue readback (4 pinned buffers + copies + event)": lambda: _issue_readback(outs),
+        "to_host (event wait) of an issued readback": None,
+        "eager issue + readback": eager,
+        "graph replay issue + readback": replay,
+    }
+    parts = []
+    for name, fn in steps.items():
+        if fn is None:
+            rbs = [_issue_readback(outs) for _ in range(n)]
+            torch.cuda.synchronize()
+            fn = lambda it=iter(rbs): [_to_host(x) for x in next(it)]
+        else:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        c0, w0 = time.thread_time(), time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        cpu_us = (time.thread_time() - c0) / n * 1e6
+        wall_us = (time.perf_counter() - w0) / n * 1e6
+        parts.append(f"{name}: cpu {cpu_us:.1f} us, wall {wall_us:.1f} us")
+    log(f"seam issue costs at F = {f}, {n} calls each (host clocks, one thread): " + "; ".join(parts)
+        + f" [{card}]")
+
+
 def cuda_ms(fn, iters):
     """Mean ms per call over ``iters`` calls after two warm-up calls."""
     fn()
@@ -3622,6 +4182,20 @@ def main() -> int:
         for kname, n in launches6.items():
             launches[kname] = launches.get(kname, 0) + n
 
+    # The seventh slice's path (the seam benchmarks), counted in a run of its
+    # own over every kernel (latbench imported first, so that K20 is in
+    # kernels.ALL).
+    from cilium_tpu_torch.sidecar import latbench  # noqa: F401
+
+    every = {k.symbol: k for k in kernels.ALL}
+    launches7, runs7, report7, timed7 = seam_slice(dev, card, every)
+    runs.update(runs7)
+    timed.update(timed7)
+    for kname, per in report7.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches7.items():
+        launches[kname] = launches.get(kname, 0) + n
+
     replaces = {
         "r2d2_frame": ("cilium_tpu_torch/csrc/r2d2_frame.cu", "cilium_tpu/models/r2d2.py:211", "graft"),
         "dfa_scan": ("cilium_tpu_torch/csrc/dfa_scan.cu", "cilium_tpu/ops/dfa.py:146", "graft"),
@@ -3655,6 +4229,9 @@ def main() -> int:
                         "seqdfa-32k-k64"),
         "seqdfa_apply": ("cilium_tpu_torch/csrc/seqdfa.cu", "cilium_tpu/ops/seqdfa.py:121",
                          "seqdfa-32k-k64"),
+        "seam_probe": ("cilium_tpu_torch/csrc/seam.cu", "cilium_tpu/models/base.py:41", "seam-8192"),
+        "rtt_tick": ("cilium_tpu_torch/csrc/seam.cu", "cilium_tpu/sidecar/latbench.py:617",
+                     "seam-rtt-8"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = []

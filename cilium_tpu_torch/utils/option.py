@@ -155,6 +155,11 @@ class DaemonConfig:
     # 'cpu' routes verdict models to the host CPU backend (removes the
     # device-link term; used by the co-located latency proof).
     verdict_device: str = "default"  # default | cpu
+    # DIAGNOSTIC: replace verdict compute with a trivial all-allow
+    # device op so the sidecar seam itself (batch fill -> wire ->
+    # dispatch -> device call -> readback -> wire back) can be measured
+    # with the verdict-compute term removed.  Never a production config.
+    seam_probe: bool = False
 
     # Overload & fault containment (sidecar verdict path).  The
     # contract is bounded-latency degradation, never availability loss:

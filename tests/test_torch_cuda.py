@@ -1064,3 +1064,136 @@ def test_seqdfa_rejects_bad_inputs(cuda):
         seqdfa_fold(dfa_abs, d, l, 3)
     with pytest.raises(ValueError):
         seqdfa_apply(dfa_abs, seqdfa_fold(dfa_abs, d, l, 4).transpose(0, 2).contiguous().transpose(0, 2))
+
+
+# --- K19 seam_probe and K20 rtt_tick ---------------------------------------------
+
+
+@pytest.mark.parametrize("f", [1, 513, 8192, 65536])
+def test_seam_probe_kernel_matches_plain(cuda, f):
+    from cilium_tpu_torch.models import base as base_mod
+
+    rng = np.random.default_rng(f)
+    lengths = rng.integers(-1, 257, f).astype(np.int32)
+    lengths[0] = -1
+    lens = torch.from_numpy(lengths).to(cuda)
+    for attr in (False, True):
+        before = base_mod._SEAM_PROBE.launches
+        got = base_mod.seam_probe(lens, attr=attr)
+        torch.cuda.synchronize()
+        assert base_mod._SEAM_PROBE.launches == before + 1
+        want = base_mod.seam_probe_plain(lens, attr=attr)
+        assert len(got) == len(want) == (4 if attr else 3)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.device == lens.device
+            assert torch.equal(g, w)
+        assert got[1].data_ptr() != lens.data_ptr()
+    probe = base_mod.SeamProbe(device=cuda)
+    out = probe.verdicts_attr(None, lengths, None)  # numpy in: copied to the card
+    assert all(torch.equal(g, w) for g, w in zip(out, base_mod.seam_probe_plain(lens, attr=True)))
+    with pytest.raises(TypeError):
+        base_mod.seam_probe(lens.to(torch.int64))
+    with pytest.raises(ValueError):
+        base_mod.seam_probe(lens, device="cpu")
+
+
+def test_rtt_tick_kernel_matches_plain(cuda):
+    from cilium_tpu_torch.sidecar import latbench
+
+    imax, imin = np.iinfo(np.int32).max, np.iinfo(np.int32).min
+    rng = np.random.default_rng(3)
+    for x in (np.zeros(8, np.int32), np.array([imax, imin, -1, 0, 1, imax - 1, 7, -7], np.int32),
+              rng.integers(imin, imax, 4099, dtype=np.int64).astype(np.int32)):
+        t = torch.from_numpy(x).to(cuda)
+        before = latbench._RTT_TICK.launches
+        got = latbench.rtt_tick(t)
+        torch.cuda.synchronize()
+        assert latbench._RTT_TICK.launches == before + 1
+        assert torch.equal(got, latbench.rtt_tick_plain(t))
+    assert int(latbench.rtt_tick(torch.tensor([imax], dtype=torch.int32, device=cuda))[0]) == imin
+    samples = []
+    before = latbench._RTT_TICK.launches
+    assert latbench.measure_device_rtt_ms(n=5, samples=samples) > 0
+    assert len(samples) == 5 and latbench._RTT_TICK.launches == before + 6
+    assert latbench.measure_uplink_mbps(n=2) > 0
+
+
+def seam_service_ops(path, modes, n_conns=512, pkg=None, **cfg):
+    """Each round's [(conn, result, ops, orig inject, reply inject)] from a
+    seam_probe service (batch_flows 8,192, greedy, width 64; ``cfg`` adds
+    to it) with latbench's policy and corpus over ``n_conns`` conns, one
+    matrix or blob batch a round as ``modes`` says, and the service's
+    seam_stages and status.  ``pkg`` is (VerdictService, DaemonConfig,
+    SidecarClient, proxylib) of the package to drive, the port's by
+    default (tests/test_torch_seam.py passes the JAX package's)."""
+    from cilium_tpu_torch import proxylib as port_pl
+    from cilium_tpu_torch.proxylib.types import FilterResult
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService, latbench
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    svc_cls, cfg_cls, client_cls, pl = pkg or (VerdictService, DaemonConfig, SidecarClient, port_pl)
+    cfg = dict(batch_flows=8192, batch_timeout_ms=0.0, batch_width=64, seam_probe=True, **cfg)
+    svc = svc_cls(path, cfg_cls(**cfg)).start()
+    client = client_cls(path, timeout=120.0)
+    try:
+        mod = client.open_module([])
+        policy = pl.NetworkPolicy(name="latbench", policy=2, ingress_per_port_policies=[
+            pl.PortNetworkPolicy(port=80, rules=[pl.PortNetworkPolicyRule(
+                l7_proto="r2d2", l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}])])])
+        assert client.policy_update(mod, [policy]) == int(FilterResult.OK)
+        msgs, lengths, blob, _ = latbench._corpus(n_conns)
+        ids = np.arange(1, n_conns + 1, dtype=np.uint64)
+        for cid in ids:
+            assert client.new_connection(mod, "r2d2", int(cid), True, 1, 2, "1.1.1.1:1",
+                                         "2.2.2.2:80", "latbench")[0] == int(FilterResult.OK)
+        rows = np.zeros((n_conns, 64), np.uint8)
+        for i, m in enumerate(msgs):
+            rows[i, : len(m)] = np.frombuffer(m, np.uint8)
+        got, evt = {}, threading.Event()
+
+        def cb(vb):
+            got[vb.seq] = vb
+            evt.set()
+
+        client.verdict_callback = cb
+        out = []
+        for seq, mode in enumerate(modes, start=100):
+            if mode == "blob":
+                client.send_blob(seq, ids, lengths, blob)
+            else:
+                client.send_matrix(seq, 64, ids, lengths, rows.tobytes(), complete=True)
+            while seq not in got:
+                evt.clear()
+                assert evt.wait(60)
+            vb = got.pop(seq)
+            out.append([(int(c), int(r), [(int(o), int(n)) for o, n in ops], bytes(io), bytes(ir))
+                        for c, r, ops, io, ir in (vb.entry(j) for j in range(vb.count))])
+        return out, dict(svc.seam_stages), svc.status()
+    finally:
+        client.close()
+        svc.stop()
+
+
+@pytest.mark.parametrize("dispatch_mode", ["eager", "jit"])
+def test_seam_probe_service_on_the_card_matches_cpu(cuda, tmp_path, dispatch_mode):
+    """A seam_probe service on the card (K19, launched or replayed from a
+    graph) answers the CPU service's ops, and its stages are recorded."""
+    from cilium_tpu_torch.models import base as base_mod
+
+    from cilium_tpu_torch.proxylib import instance as inst
+
+    k19 = base_mod._SEAM_PROBE
+    modes = ("matrix", "blob", "matrix", "blob")
+    before = k19.launches + k19.replayed
+    inst.reset_module_registry()
+    got, stages, status = seam_service_ops(str(tmp_path / "card.sock"), modes,
+                                           dispatch_mode=dispatch_mode)
+    assert k19.launches + k19.replayed > before
+    inst.reset_module_registry()
+    want, cpu_stages, _ = seam_service_ops(str(tmp_path / "cpu.sock"), modes, verdict_device="cpu")
+    inst.reset_module_registry()
+    assert got == want
+    assert set(stages) == set(cpu_stages) == {"concat", "eligibility", "device_issue",
+                                              "readback", "respond"}
+    assert status["containment"]["refused_entries"] == {}
+    assert status["containment"]["readback_failures"] == 0
