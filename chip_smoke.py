@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's r2d2, HTTP, DNS, Cassandra, memcached and Kafka
 verdict paths, its L3/L4 datapath, its sidecar service, its chunk-folded
-DFA search and its seam benchmarks on one CUDA card and check them.
+DFA search, its seam benchmarks and its sharded verdicts on a mesh on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -98,7 +99,25 @@ which fails the run on any mismatch:
    off; 16-session fan-in with its contract; then K19 at the service's
    flow buckets and 65,536 and K20 at [8] against their plain versions,
    and timed.  Every latency and rate is a reading, printed with the card
-   line; none is held to a limit.
+   line; none is held to a limit;
+13. rule- and flow-sharded verdicts on a mesh of slots (virtual slots on
+   the card unless the host has that many cards), counted in a run of
+   their own: ``dryrun_multichip`` at 2 x 2 and 1 x 4, ``mesh_r2d2_model``,
+   ``mesh_http_model``, ``mesh_dns_model`` and ``mesh_kafka_model`` on
+   the entry's bench policies at F = 65,536 (plain and attributed, bit
+   for bit against the single-device models, each slot's kernels and K21
+   ``shard_reduce`` / K22 ``kafka_shard_combine`` launched as many times
+   as the layout says); rules_100k (100,000 HTTP rules on 4 rule shards,
+   F = 2,048) against the unsharded table with p99, rate and table bytes;
+   multichip_scaling at 1, 2 and 4 flow slots; ``seqdfa_search_sharded``
+   at 8 slots on the seqdfa-32k and -4k shapes against K18's serial
+   search; a ``VerdictService`` with ``mesh="on"``,
+   ``mesh_rule_shards=2`` on 4 slots serving phase 9's r2d2, DNS and HTTP
+   traffic equal to the host oracle through a fault on slot 1, the
+   reshape onto the survivors and the re-promotion; then K21 (both
+   forms) and K22 against their plain versions at F = 65,536, R = 1, 2,
+   4, 8, timed beside the library calls.  The rules_100k budget and the
+   scaling floor are asserted only on 4 distinct cards.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -3561,6 +3580,517 @@ def seam_issue_costs(dev, card, f=256, n=400):
         + f" [{card}]")
 
 
+# --- phase 13: rule- and flow-sharded verdicts on a mesh (K21, K22) -----------
+
+MESH_F = 65536
+# (flows x rules) layouts of 13b, on four slots
+MESH_LAYOUTS = ((2, 2), (1, 4))
+MESH_K_RULES = (1, 2, 4, 8)
+MESH_SEQ_SLOTS = 8
+MESH_SCALE_PER_SLOT = 16384  # bench_multichip_scaling's per-device batch
+MESH_100K_F = 2048
+MESH_100K_BUDGET_MS = 1.0  # bench_rules_100k's budget, asserted only on 4 cards
+
+
+def mesh_slots(dev, n):
+    """``n`` slots: distinct cards when the host has that many, else
+    virtual slots on ``dev``."""
+    from cilium_tpu_torch.parallel.mesh import local_devices, virtual_devices
+
+    cards = local_devices()
+    return (cards[:n], True) if len(cards) >= n else (virtual_devices(n, dev), False)
+
+
+def mesh_table_bytes(models) -> int:
+    """Bytes of every tensor of the models (automata included)."""
+    total = 0
+    for m in models:
+        for v in vars(m).values():
+            if isinstance(v, torch.Tensor):
+                total += v.numel() * v.element_size()
+            elif hasattr(v, "n_states"):
+                total += sum(t.numel() * t.element_size()
+                             for t in vars(v).values() if isinstance(t, torch.Tensor))
+    return total
+
+
+def mesh_equal(name, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{name}: output {i} differs from the single-device model "
+                                 f"({int((g.cpu() != w.cpu()).sum())} rows)")
+
+
+def mesh_latencies(fn, n=20):
+    """(p99 ms, calls/s) of ``fn`` on the host clock, each call synced."""
+    fn()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    lat.sort()
+    return lat[min(int(0.99 * len(lat)), len(lat) - 1)] * 1e3, n / sum(lat)
+
+
+def mesh_rate(fn, f, n=20):
+    """Verdicts/s of ``fn`` over ``n`` calls issued back to back, one sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return f * n / (time.perf_counter() - t0)
+
+
+def mesh_slice(dev, card, kerns):
+    """Phase 13, rule- and flow-sharded verdicts on a mesh of slots, counted
+    in a run of its own over every kernel: 13b ``dryrun_multichip`` at 2 x
+    2 and 1 x 4 and the four mesh models at F = 65,536; 13c rules_100k;
+    13d multichip_scaling; 13e ``seqdfa_search_sharded`` at 8 slots; 13f a
+    mesh service through its width ladder.  Then 13a: K21 and K22 against
+    their plain versions at F = 65,536, R = 1, 2, 4, 8, timed beside the
+    library calls.  Slots are virtual slots on the card unless the host
+    has that many cards.  Returns (launches, runs, report, timed)."""
+    import tempfile
+
+    from cilium_tpu_torch.proxylib import instance as inst
+
+    log("== mesh slice")
+    t_phase = time.monotonic()
+    inst.reset_module_registry()
+    with tempfile.TemporaryDirectory(prefix="mesh-", dir=".") as tmp:
+        out = _mesh_runs(dev, card, kerns, tmp)
+    log(f"mesh slice: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def _mesh_runs(dev, card, kerns, tmp):
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.models.dns import build_dns_model
+    from cilium_tpu_torch.models.http import build_http_model, build_http_model_for_port
+    from cilium_tpu_torch.models.kafka import build_kafka_model
+    from cilium_tpu_torch.models.r2d2 import build_r2d2_model, r2d2_verdicts
+    from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
+    from cilium_tpu_torch.ops.seqdfa import (
+        SEQ_AXIS,
+        device_dfa_absorbing,
+        seqdfa_search_batch,
+        seqdfa_search_sharded,
+    )
+    from cilium_tpu_torch.parallel import rulesharding as rs
+    from cilium_tpu_torch.parallel.mesh import Mesh, flow_mesh
+
+    n_cards = torch.cuda.device_count()
+    log(f"cards on this host: {n_cards}; meshes run on "
+        + ("distinct cards where enough exist, else " if n_cards > 1 else "")
+        + f"virtual slots on {dev}")
+
+    def counts():
+        return {n: (k.launches, k.replayed) for n, k in kerns.items()}
+
+    def delta(before):
+        now = counts()
+        return {n: now[n][0] - before[n][0] + now[n][1] - before[n][1] for n in now}
+
+    runs = {}
+
+    def counted(name, fn):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[name] = delta(before)
+        return out
+
+    def expect(name, **want):
+        bad = {k: (runs[name][k], v) for k, v in want.items() if runs[name][k] != v}
+        if bad:
+            raise AssertionError(f"{name}: launches (got, want) {bad}")
+
+    # Inputs and the single-device references, built before the count.
+    r2d2_pol = entry.bench_policy()
+    r2d2_in = tuple(torch.from_numpy(a).to(dev) for a in entry.batch(MESH_F, 64))
+    http_pol = entry.http_bench_policy()
+    http_in = tuple(torch.from_numpy(a).to(dev) for a in entry.http_batch(MESH_F))
+    dns_pol = entry.dns_bench_policy()
+    dns_in = tuple(torch.from_numpy(a).to(dev) for a in entry.dns_batch(MESH_F))
+    k_rows = [(frozenset(), r) for r in entry.kafka_bench_rules()]
+    k_batch, k_rem = entry.kafka_batch(MESH_F)
+    k_batch = k_batch.to_device(dev)
+    k_rem = torch.from_numpy(k_rem).to(dev)
+    refs = {
+        "r2d2": build_r2d2_model(r2d2_pol, True, 80, device=dev),
+        "http": build_http_model_for_port(http_pol, True, 80, device=dev),
+        "dns": build_dns_model(dns_pol, True, 53, device=dev),
+    }
+    want = {fam: (m(*inp), m.verdicts_attr(*inp)) for fam, m, inp in (
+        ("r2d2", refs["r2d2"], r2d2_in), ("http", refs["http"], http_in),
+        ("dns", refs["dns"], dns_in))}
+    k_want = build_kafka_model(k_rows, dev)(k_batch, k_rem)
+    rows100k = entry.rules_100k_rows()
+    in100k = tuple(torch.from_numpy(a).to(dev) for a in entry.rules_100k_batch(MESH_100K_F, 64))
+    t0 = time.monotonic()
+    ref100k = build_http_model(rows100k, device=dev)
+    t_ref100k = time.monotonic() - t0
+    seq_tables = entry.seqdfa_tables()
+    seq_cases = []
+    for label, f, width in SEQ_SHAPES:
+        d, ln = entry.seqdfa_batch(f, width, MESH_SEQ_SLOTS)
+        seq_cases.append((label, torch.from_numpy(d).to(dev), torch.from_numpy(ln).to(dev)))
+    seq_abs = device_dfa_absorbing(seq_tables, dev)
+    seq_dfa = device_dfa(seq_tables, dev)
+    fam_kernels = {
+        "r2d2": ("r2d2_frame", "nfa_scan", "r2d2_hits"),
+        "http": ("http_frame", "http_lit", "http_hits"),
+        "dns": ("dns_name", "nfa_scan", "dns_hits"),
+    }
+    torch.cuda.synchronize()
+
+    # The main path, counted: every count set to 0 just before, read just
+    # after; a launch is a wrapper launch or a graph replay.
+    log("== mesh main path (counted)")
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+    # 13b. dryrun_multichip, then the four mesh models at F = 65,536.
+    passes = {}
+    for n_flow, n_rule in MESH_LAYOUTS:
+        name = f"mesh-dryrun-{n_flow}x{n_rule}"
+        got = counted(name, lambda: entry.dryrun_multichip(n_flow * n_rule, dev, n_rule=n_rule))
+        log(f"{name}: {got}")
+        slots, real = mesh_slots(dev, n_flow * n_rule)
+        mesh = flow_mesh(n_flow, n_rule, slots)
+        for fam, build, pol, inp in (
+            ("r2d2", rs.mesh_r2d2_model, r2d2_pol, r2d2_in),
+            ("http", rs.mesh_http_model, http_pol, http_in),
+            ("dns", rs.mesh_dns_model, dns_pol, dns_in),
+        ):
+            model = build(pol, True, 53 if fam == "dns" else 80, mesh)
+            if not isinstance(model, rs.ShardedVerdictModel):
+                raise AssertionError(f"{fam}: no sharded model ({model!r})")
+            run = f"mesh-{fam}-{n_flow}x{n_rule}"
+            plain, attr = counted(run, lambda: (model(*inp), model.verdicts_attr(*inp)))
+            mesh_equal(run, plain, want[fam][0])
+            mesh_equal(run + " attr", attr, want[fam][1])
+            per = 2 * n_flow * n_rule
+            expect(run, shard_reduce=2 * n_flow, **{k: per for k in fam_kernels[fam]})
+            passes[run] = (model, refs[fam], inp)
+            log(f"{run}: plain and attributed == the single-device model on {MESH_F} flows "
+                f"({'cards' if real else 'virtual slots'}); launches "
+                + json.dumps({k: v for k, v in runs[run].items() if v}))
+        kmodel = rs.mesh_kafka_model(k_rows, mesh)
+        run = f"mesh-kafka-{n_flow}x{n_rule}"
+        got = counted(run, lambda: kmodel(k_batch, k_rem))
+        mesh_equal(run, [got], [k_want])
+        expect(run, kafka_hits=n_flow * n_rule, kafka_shard_combine=n_flow)
+        log(f"{run}: == the single-device Kafka model on {MESH_F} requests")
+    if n_cards >= 2:
+        mesh = flow_mesh(1, 2, mesh_slots(dev, 2)[0])
+        model = rs.mesh_r2d2_model(r2d2_pol, True, 80, mesh)
+        got = counted("mesh-r2d2-cards", lambda: model.verdicts_attr(*r2d2_in))
+        mesh_equal("mesh-r2d2-cards", got, want["r2d2"][1])
+        log(f"mesh-r2d2-cards: 1 x 2 on {n_cards} cards == the single-device model")
+
+    # 13c. rules_100k: 100,000 HTTP rules on 4 rule shards.
+    slots, real100k = mesh_slots(dev, 4)
+    t0 = time.monotonic()
+    sharded100k = rs.mesh_http_model_from_rows(rows100k, flow_mesh(1, 4, slots))
+    t_sh100k = time.monotonic() - t0
+    got100k = counted("mesh-rules-100k", lambda: sharded100k(*in100k))
+    expect("mesh-rules-100k", http_frame=4, http_lit=4, http_hits=4, shard_reduce=1)
+
+    # 13d. multichip_scaling: r2d2 at 16,384 flows a slot, 1, 2 and 4 flow slots.
+    scale_pol = entry.mesh_bench_policy()
+    scale = {}
+    for nd in (1, 2, 4):
+        slots, _ = mesh_slots(dev, nd)
+        model = rs.ShardedVerdictModel(
+            rs.build_sharded_r2d2_model(scale_pol, True, 80, 1, device=slots[0].device),
+            rs.shard_offsets(2, 1), flow_mesh(nd, 1, slots), "r2d2")
+        f = MESH_SCALE_PER_SLOT * nd
+        inp = tuple(torch.from_numpy(a).to(dev) for a in entry.mesh_bench_batch(f))
+        got = counted(f"mesh-scaling-{nd}", lambda: model(*inp))
+        expect(f"mesh-scaling-{nd}", r2d2_frame=nd, shard_reduce=nd)
+        scale[nd] = (model, inp, got)
+
+    # 13e. seqdfa_search_sharded at 8 seq slots.
+    seq_slots, _ = mesh_slots(dev, MESH_SEQ_SLOTS)
+    seq_mesh = Mesh(np.array(seq_slots, dtype=object), (SEQ_AXIS,))
+    seq_got = {}
+    for label, d, ln in seq_cases:
+        run = f"mesh-seq-{label}"
+        seq_got[label] = counted(run, lambda: seqdfa_search_sharded(seq_abs, d, ln, seq_mesh))
+        expect(run, seqdfa_fold=MESH_SEQ_SLOTS, seqdfa_apply=1)
+
+    # 13f. the mesh service through its width ladder: one counted run, as
+    # its builder thread launches (reshape, parity probes) between rounds.
+    counted("mesh-service", lambda: mesh_service(dev, card, tmp))
+    idle = [n for n in ("r2d2_frame", "nfa_scan", "r2d2_hits", "dns_name", "dns_hits",
+                        "http_frame", "http_lit", "http_hits", "gather_rows", "shard_reduce")
+            if runs["mesh-service"][n] <= 0]
+    if idle:
+        raise AssertionError(f"mesh-service: kernels of the path never launched: {idle}")
+    log("mesh-service launches: " + json.dumps({k: v for k, v in runs["mesh-service"].items() if v}))
+    torch.cuda.synchronize()
+    launches = {n: k.launches + k.replayed for n, k in kerns.items()}
+    log("launches:", json.dumps({n: v for n, v in launches.items() if v}))
+    for n, count in launches.items():
+        if sum(r[n] for r in runs.values()) != count:
+            raise AssertionError(f"{n}: the runs' launches do not add up to the mesh path's")
+    for n in ("shard_reduce", "kafka_shard_combine"):
+        if launches[n] <= 0:
+            raise AssertionError(f"{n} never launched on the mesh path")
+
+    # Checks and times of 13b-13e, after the count.
+    for run, (model, ref_model, inp) in passes.items():
+        t_mesh = graph_ms(lambda: model.verdicts_attr(*inp))
+        t_one = graph_ms(lambda: ref_model.verdicts_attr(*inp))
+        log(f"{run}: attributed pass device {t_mesh:.5f} ms against the single-card model's "
+            f"{t_one:.5f} ms (x{t_mesh / t_one:.2f}) [{card}]")
+    mesh_equal("mesh-rules-100k", got100k, ref100k(*in100k))
+    if not (bool(got100k[2][1]) and not bool(got100k[2][0])):
+        raise AssertionError("mesh-rules-100k: the HEAD probe must pass and PATCH fail")
+    sh_p99, sh_rate = mesh_latencies(lambda: sharded100k(*in100k))
+    un_p99, un_rate = mesh_latencies(lambda: ref100k(*in100k))
+    sh_bytes = mesh_table_bytes(sharded100k.stacked)
+    un_bytes = mesh_table_bytes([ref100k])
+    log(f"mesh-rules-100k: {len(rows100k)} rules, F={MESH_100K_F} W=64, 4 rule shards "
+        f"({'cards' if real100k else 'virtual slots'}): sharded == unsharded, got[1] and not "
+        f"got[0]; p99 sharded {sh_p99:.4f} ms ({sh_rate * MESH_100K_F:,.0f} verdicts/s), "
+        f"unsharded {un_p99:.4f} ms ({un_rate * MESH_100K_F:,.0f} verdicts/s); budget "
+        f"{MESH_100K_BUDGET_MS} ms (asserted on 4 cards only); table bytes on the card: shards "
+        f"{sh_bytes:,} ({sh_bytes // 4:,} a slot), unsharded {un_bytes:,}; host builds "
+        f"sharded + fallback {t_sh100k:.1f} s, unsharded {t_ref100k:.1f} s [{card}]")
+    from cilium_tpu_torch.models.http import http_frame, http_hits, http_lit
+
+    for label, m in (("shard 0", sharded100k.stacked[0]), ("unsharded", ref100k)):
+        frame = http_frame(in100k[0], in100k[1])
+        lit = http_lit(m, in100k[0], frame)
+        t6 = graph_ms(lambda: http_lit(m, in100k[0], frame), iters=3, replays=3)
+        t7 = graph_ms(lambda: http_hits(m, frame.complete, *lit, None, None, None, in100k[2]),
+                      iters=3, replays=3)
+        log(f"mesh-rules-100k {label} ({m.n_rules} rules, literal rows "
+            f"{m.m_needle.shape[0]} + {m.p_needle.shape[0]}): K6 http_lit {t6:.4f} ms, "
+            f"K7 http_hits {t7:.4f} ms [{card}]")
+    if real100k and n_cards >= 4 and sh_p99 > MESH_100K_BUDGET_MS:
+        raise AssertionError(f"rules_100k sharded p99 {sh_p99:.3f} ms over the budget")
+    ref = build_r2d2_model(scale_pol, True, 80, device=dev)
+    curve = {}
+    for nd, (model, inp, got) in scale.items():
+        mesh_equal(f"mesh-scaling-{nd}", got, r2d2_verdicts(ref, *inp))
+        curve[nd] = mesh_rate(lambda: model(*inp), MESH_SCALE_PER_SLOT * nd)
+    linearity = curve[4] / (curve[1] * 4)
+    log(f"multichip_scaling (r2d2, {MESH_SCALE_PER_SLOT} flows a slot, "
+        f"{'cards' if n_cards >= 4 else 'virtual slots of one card'}): == the single-device "
+        f"model at each point; " + ", ".join(f"{k} -> {v:,.0f}/s" for k, v in curve.items())
+        + f"; linearity {linearity:.3f} (0.7 floor asserted on 4 cards only) [{card}]")
+    if n_cards >= 4 and linearity < 0.7:
+        raise AssertionError(f"multichip scaling {linearity:.2f} below 0.7")
+    for label, d, ln in seq_cases:
+        got = seq_got[label]
+        if not (torch.equal(got, seqdfa_search_batch(seq_abs, d, ln, 1))
+                and torch.equal(got, dfa_search_batch(seq_dfa, d, ln))):
+            raise AssertionError(f"mesh-seq-{label}: sharded search != K18's serial search")
+        t_sh = graph_ms(lambda: seqdfa_search_sharded(seq_abs, d, ln, seq_mesh), iters=3, replays=3)
+        t_serial = graph_ms(lambda: seqdfa_search_batch(seq_abs, d, ln, 1), iters=3, replays=3)
+        log(f"mesh-seq-{label}: {MESH_SEQ_SLOTS} slots == K18's serial search (and K2); device "
+            f"{t_sh:.4f} ms against serial {t_serial:.4f} ms [{card}]")
+
+    # 13a. K21 and K22 against their plain versions, then timed.
+    log("== K21 / K22 vs plain and timed")
+    report = {"shard_reduce": {}, "kafka_shard_combine": {}}
+    timed = {}
+    g = torch.Generator(device="cpu").manual_seed(13)
+    nomatch = torch.iinfo(torch.int32).max
+    for r in MESH_K_RULES:
+        f = MESH_F
+        allow = (torch.rand((r, f), generator=g) < 0.3).to(dev)
+        rule = torch.where(allow.cpu(), torch.randint(0, 1000, (r, f), generator=g,
+                                                      dtype=torch.int32), -1).to(dev)
+        ghost = (torch.rand((r, f), generator=g) < 0.05).to(dev)
+        allow = allow | ghost
+        rule = torch.where(ghost, torch.full_like(rule, -1), rule)
+        off = (torch.arange(r, dtype=torch.int32) * 1000).to(dev)
+        got_a, got_r = rs.shard_reduce(allow, rule, off)
+        want_a, want_r = rs.shard_reduce_plain(allow, rule, off)
+        got_p = rs.shard_reduce(allow)
+        report["shard_reduce"][f"mesh-k21-R{r}"] = max_abs_err(
+            [got_a, got_r, got_p], [want_a, want_r, rs.shard_reduce_plain(allow)])
+        k21 = lambda: rs.shard_reduce(allow, rule, off)  # noqa: E731
+        lib = lambda: torch.where(  # noqa: E731
+            allow.any(dim=0),
+            torch.where(rule >= 0, rule + off[:, None], nomatch).amin(dim=0), -1)
+        row = dict(ms=graph_ms(k21), call_ms=cuda_ms(k21, 50),
+                   plain_ms=cuda_ms(lambda: rs.shard_reduce_plain(allow, rule, off), 20),
+                   library_ms=graph_ms(lib),
+                   bytes=r * f + 4 * r * f + 4 * r + f + 4 * f, ops=2 * r * f)
+        timed[f"mesh-k21-R{r}"] = dict(rows={"shard_reduce": bound(row)})
+        runs[f"mesh-k21-R{r}"] = dict.fromkeys(kerns, 0)
+        log_row(f"mesh-k21-R{r}", "shard_reduce", row)
+        k21p = lambda: rs.shard_reduce(allow)  # noqa: E731
+        prow = dict(ms=graph_ms(k21p), call_ms=cuda_ms(k21p, 50),
+                    plain_ms=cuda_ms(lambda: rs.shard_reduce_plain(allow), 20),
+                    library_ms=graph_ms(lambda: allow.any(dim=0)),
+                    bytes=r * f + f, ops=r * f)
+        timed[f"mesh-k21plain-R{r}"] = dict(rows={"shard_reduce": bound(prow)})
+        runs[f"mesh-k21plain-R{r}"] = dict.fromkeys(kerns, 0)
+        log_row(f"mesh-k21plain-R{r}", "shard_reduce", prow)
+
+        simple = (torch.rand((r, f), generator=g) < 0.1).to(dev)
+        cover = (torch.rand((r, f, 8), generator=g) < 0.7).to(dev)
+        tc = torch.randint(0, 10, (f,), generator=g, dtype=torch.int32).to(dev)
+        ov = (torch.rand(f, generator=g) < 0.1).to(dev)
+        k22_args = (simple, cover, tc, ov)
+        report["kafka_shard_combine"][f"mesh-k22-R{r}"] = max_abs_err(
+            [rs.kafka_shard_combine(*k22_args)], [rs.kafka_shard_combine_plain(*k22_args)])
+        t_idx = torch.arange(8, device=dev)[None, :]
+        klib = lambda: ((simple.any(dim=0) | ((cover.any(dim=0) | (t_idx >= tc[:, None]))  # noqa: E731
+                                                .all(dim=1) & (tc > 0))) & ~ov)
+        k22 = lambda: rs.kafka_shard_combine(*k22_args)  # noqa: E731
+        krow = dict(ms=graph_ms(k22), call_ms=cuda_ms(k22, 50),
+                    plain_ms=cuda_ms(lambda: rs.kafka_shard_combine_plain(*k22_args), 20),
+                    library_ms=graph_ms(klib),
+                    bytes=r * f + 8 * r * f + 4 * f + f + f, ops=9 * r * f)
+        timed[f"mesh-k22-R{r}"] = dict(rows={"kafka_shard_combine": bound(krow)})
+        runs[f"mesh-k22-R{r}"] = dict.fromkeys(kerns, 0)
+        log_row(f"mesh-k22-R{r}", "kafka_shard_combine", krow)
+    # The main path's own shapes (R = 4, F = 65,536 on the 1 x 4 mesh).
+    timed["mesh-r2d2-1x4"] = dict(rows={"shard_reduce": timed["mesh-k21-R4"]["rows"]["shard_reduce"]})
+    timed["mesh-kafka-1x4"] = dict(
+        rows={"kafka_shard_combine": timed["mesh-k22-R4"]["rows"]["kafka_shard_combine"]})
+    log("max |kernel - plain|:", json.dumps(report))
+    if any(v for per in report.values() for v in per.values()):
+        raise AssertionError("K21 / K22 disagree with their plain versions")
+    return launches, runs, report, timed
+
+
+def mesh_service(dev, card, tmp):
+    """13f: a mesh="on", mesh_rule_shards=2 service on 4 slots (a 2 x 2
+    mesh) serving phase 9's seeded r2d2, DNS and HTTP traffic against the
+    host oracle, through a fault on slot 1 (the ``failed_devices`` seam),
+    the reshape onto the survivors and the re-promotion after heal."""
+    from cilium_tpu_torch.parallel import mesh as mesh_mod
+    from cilium_tpu_torch.parallel import rulesharding as rs
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.proxylib.types import FilterResult
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+
+    slots = mesh_mod.virtual_devices(4, dev)
+    pols = sidecar_policies()
+    traffic = sidecar_traffic()
+    traffic = {
+        "r2d2": (r2d2_side_rounds(random.Random(41), SIDE_CONNS["r2d2"], n_rounds=4),
+                 traffic["r2d2"][1]),
+        "dns": traffic["dns"], "http": traffic["http"],
+    }
+    expect = {p: sidecar_oracle(p, traffic[p][0], pols) for p in traffic}
+    inst.reset_module_registry()
+    orig_local = mesh_mod.local_devices
+    orig_calls = {n: getattr(rs.ShardedVerdictModel, n) for n in ("__call__", "verdicts_attr")}
+    armed = {"on": False}
+
+    class SlotLost(RuntimeError):
+        pass
+
+    def faulty(name):
+        def call(self, *a):
+            if armed["on"]:
+                armed["on"] = False
+                exc = SlotLost("planted fault: copy to slot 1 failed")
+                exc.failed_devices = [1]
+                raise exc
+            return orig_calls[name](self, *a)
+        return call
+
+    mesh_mod.local_devices = lambda device=None: slots
+    for n in orig_calls:
+        setattr(rs.ShardedVerdictModel, n, faulty(n))
+    path = f"{tmp}/mesh.sock"
+    svc = driver = pacer = None
+    try:
+        svc = VerdictService(path, side_config(
+            mesh="on", mesh_rule_shards=2, dispatch_mode="eager", mesh_reprobe_interval_s=0.05,
+            device_reprobe_interval_s=1e9)).start()
+        driver = SidecarDriver(path, "socket", pols)
+        opened = {p: driver.open(p, traffic[p][0]) for p in traffic}
+        st = svc.status()["mesh"]
+        if st is None or st["rung"] != "full" or st["devices"] != 4:
+            raise AssertionError(f"mesh service did not resolve a full 2 x 2 mesh: {st}")
+        sharded = [k[-1] for k, e in svc._engines.items()
+                   if isinstance(e.model, rs.ShardedVerdictModel)]
+        if sorted(set(sharded)) != ["dns", "http", "r2d2"]:
+            raise AssertionError(f"engines serving sharded models: {sharded}")
+        got = {p: [] for p in traffic}
+
+        def stage(k):
+            for p, (rounds, group) in traffic.items():
+                if k < len(rounds):
+                    got[p] += driver.run(p, rounds[k:k + 1], group)
+
+        def await_rung(rung, pace=False):
+            deadline = time.monotonic() + 60
+            i = 0
+            while svc.status()["mesh"]["rung"] != rung:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"rung {rung} never reached: {svc.status()['mesh']}")
+                if pace:
+                    res, shim = pacer.new_connection(pmod, "r2d2", 9_000_000 + i, True, 3, 2,
+                                                     "1.1.1.1:1", "2.2.2.2:80", SIDE_NAMES["r2d2"])
+                    if res != int(FilterResult.OK) or shim.on_io(False, b"HALT\r\n") != (
+                            int(FilterResult.OK), b"HALT\r\n"):
+                        raise AssertionError("pacing traffic was not served")
+                    shim.close()
+                    i += 1
+                time.sleep(0.05)
+            return svc.status()["mesh"]
+
+        stage(0)
+        armed["on"] = True
+        svc._device_probe_fn = lambda d: d.id != 1
+        stage(1)
+        if armed["on"]:
+            raise AssertionError("the planted fault never fired")
+        st = await_rung("reshaped")
+        if st["lost_devices"] != [1] or st["demotions"] != {"device-call": 1}:
+            raise AssertionError(f"unexpected reshape: {st}")
+        log(f"mesh service: fault on slot 1 -> demoted typed, reshaped to "
+            f"{st['serving_devices']} slots (capacity {st['capacity_frac']}), window "
+            f"{st['reshape_window_ms']:.1f} ms")
+        stage(2)
+        svc._device_probe_fn = lambda d: True
+        pacer = SidecarClient(path, timeout=120.0)
+        pmod = pacer.open_module([])
+        pacer.policy_update(pmod, pols)
+        st = await_rung("full", pace=True)
+        if st["repromotions"] != 1:
+            raise AssertionError(f"unexpected re-promotion: {st}")
+        stage(3)
+        bad = {p: side_mismatches(got[p], expect[p]) for p in traffic}
+        if any(bad.values()):
+            raise AssertionError(f"mesh service ops differ from the host oracle: {bad}")
+        c = svc.status()["containment"]
+        if c["shed_entries"] or c["error_entries"] or c["batch_crashes"] or c["refused_entries"]:
+            raise AssertionError(f"mesh service lost entries: {c}")
+        for p, fids in opened.items():
+            driver.close(p, fids)
+        log(f"mesh service (2 x 2 virtual slots): r2d2 {len(expect['r2d2'])}, DNS "
+            f"{len(expect['dns'])}, HTTP {len(expect['http'])} rounds == the host oracle through "
+            f"full -> fallback -> reshaped -> full; containment clean [{card}]")
+    finally:
+        mesh_mod.local_devices = orig_local
+        for n, fn in orig_calls.items():
+            setattr(rs.ShardedVerdictModel, n, fn)
+        for c in (driver, pacer):
+            if c is not None:
+                c.close_client() if hasattr(c, "close_client") else c.close()
+        if svc is not None:
+            svc.stop()
+        inst.reset_module_registry()
+
+
 def cuda_ms(fn, iters):
     """Mean ms per call over ``iters`` calls after two warm-up calls."""
     fn()
@@ -4196,6 +4726,20 @@ def main() -> int:
     for kname, n in launches7.items():
         launches[kname] = launches.get(kname, 0) + n
 
+    # The eighth slice's paths (rule- and flow-sharded verdicts on a mesh),
+    # counted in a run of their own over every kernel (rulesharding
+    # imported first, so that K21 and K22 are in kernels.ALL).
+    from cilium_tpu_torch.parallel import rulesharding  # noqa: F401
+
+    every = {k.symbol: k for k in kernels.ALL}
+    launches8, runs8, report8, timed8 = mesh_slice(dev, card, every)
+    runs.update(runs8)
+    timed.update(timed8)
+    for kname, per in report8.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches8.items():
+        launches[kname] = launches.get(kname, 0) + n
+
     replaces = {
         "r2d2_frame": ("cilium_tpu_torch/csrc/r2d2_frame.cu", "cilium_tpu/models/r2d2.py:211", "graft"),
         "dfa_scan": ("cilium_tpu_torch/csrc/dfa_scan.cu", "cilium_tpu/ops/dfa.py:146", "graft"),
@@ -4232,6 +4776,10 @@ def main() -> int:
         "seam_probe": ("cilium_tpu_torch/csrc/seam.cu", "cilium_tpu/models/base.py:41", "seam-8192"),
         "rtt_tick": ("cilium_tpu_torch/csrc/seam.cu", "cilium_tpu/sidecar/latbench.py:617",
                      "seam-rtt-8"),
+        "shard_reduce": ("cilium_tpu_torch/csrc/shard_reduce.cu",
+                         "cilium_tpu/parallel/rulesharding.py:527", "mesh-r2d2-1x4"),
+        "kafka_shard_combine": ("cilium_tpu_torch/csrc/shard_reduce.cu",
+                                "cilium_tpu/parallel/rulesharding.py:503", "mesh-kafka-1x4"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = []

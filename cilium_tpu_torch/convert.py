@@ -30,6 +30,14 @@ Converted DNS models make no byte-invariance claim
 takes the leaves of any ``DeviceDfa``, those of ``device_dfa_absorbing``
 (the sequence-folded search's tables) included.
 
+``sharded_model_from_numpy`` and ``sharded_kafka_model_from_numpy`` take
+the leaves of a ``cilium_tpu`` rule-sharded model (the stacked per-shard
+model, every leaf with a leading [n_shards] dim) and build the port's
+``ShardedVerdictModel`` / ``ShardedKafkaModel`` on a mesh of slots: the
+leaves are unstacked into one port model per shard, each converted by the
+family's ``*_from_numpy`` above, and the single-card fallback is converted
+beside them.
+
 ``datapath_tables_from_numpy``, ``datapath_tables6_from_numpy`` and
 ``ingress_tables_from_numpy`` take the leaves of a ``cilium_tpu``
 ``DatapathTables``, ``DatapathTables6`` or ``IngressTables`` as numpy
@@ -250,6 +258,76 @@ def kafka_model_from_numpy(leaves, device=None) -> KafkaBatchModel:
         raise ValueError(f"expected {len(KAFKA_TABLES)} leaves, got {len(leaves)}")
     return KafkaBatchModel(**_tables(dict(zip(KAFKA_TABLES, leaves)), KAFKA_TABLES,
                                      resolve_device(device)))
+
+
+# --- rule-sharded models ------------------------------------------------------
+
+
+def _unstack(leaves, j: int):
+    """Shard ``j`` of stacked leaves: every array indexed on its leading
+    shard dim, dicts walked, None kept."""
+    if leaves is None:
+        return None
+    if isinstance(leaves, dict):
+        return {k: _unstack(v, j) for k, v in leaves.items()}
+    return np.asarray(leaves)[j]
+
+
+def _family_model(family: str, leaves: dict, device, static: dict, match_kinds=()):
+    if family == "r2d2":
+        return model_from_numpy(leaves, device, match_kinds=match_kinds)
+    if family == "dns":
+        return dns_model_from_numpy(leaves, device, match_kinds=match_kinds)
+    if family == "http":
+        return http_model_from_numpy(leaves, device, match_kinds=match_kinds, **static)
+    raise ValueError(f"unknown sharded family {family!r}")
+
+
+def sharded_model_from_numpy(
+    family: str, stacked_leaves: dict, offsets, mesh, *, fallback_leaves: dict,
+    match_kinds: tuple = (), static: dict | None = None,
+    fallback_static: dict | None = None,
+):
+    """The port's ``ShardedVerdictModel`` for ``family`` ("r2d2" | "dns"
+    | "http") on ``mesh`` from a JAX ``ShardedVerdictModel``'s stacked
+    leaves (the leaf dict the family's ``*_from_numpy`` takes, each array
+    with a leading [n_shards] dim), its ``offsets`` and its fallback's
+    leaves.  For HTTP, ``static`` and ``fallback_static`` carry the JAX
+    models' ``n_rules``, ``has_method_rx`` and ``has_path_rx``.  The
+    shards and the fallback are built on the mesh's first slot."""
+    from .parallel.mesh import RULE_AXIS
+    from .parallel.rulesharding import ShardedVerdictModel
+
+    dev = mesh.devices[0, 0].device
+    n_shards = mesh.shape[RULE_AXIS]
+    stacked = [
+        _family_model(family, _unstack(stacked_leaves, j), dev, static or {})
+        for j in range(n_shards)
+    ]
+    fallback = _family_model(family, fallback_leaves, dev, fallback_static or {},
+                             match_kinds)
+    return ShardedVerdictModel(
+        stacked, np.asarray(offsets, np.int32), mesh, family,
+        fallback=fallback, match_kinds=tuple(match_kinds),
+    )
+
+
+def sharded_kafka_model_from_numpy(stacked_leaves, mesh, *, fallback_leaves):
+    """The port's ``ShardedKafkaModel`` on ``mesh`` from a JAX
+    ``ShardedKafkaModel``'s twelve stacked leaves (pytree order, each
+    with a leading [n_shards] dim) and its fallback's twelve leaves."""
+    from .parallel.mesh import RULE_AXIS
+    from .parallel.rulesharding import ShardedKafkaModel
+
+    dev = mesh.devices[0, 0].device
+    leaves = [np.asarray(x) for x in stacked_leaves]
+    stacked = [
+        kafka_model_from_numpy([x[j] for x in leaves], dev)
+        for j in range(mesh.shape[RULE_AXIS])
+    ]
+    return ShardedKafkaModel(
+        stacked, mesh, fallback=kafka_model_from_numpy(fallback_leaves, dev)
+    )
 
 
 # --- the L3/L4 datapath's tables ----------------------------------------------

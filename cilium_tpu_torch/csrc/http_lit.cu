@@ -11,13 +11,16 @@
 // Bound on the H100: at the shapes of this slice, bytes (the [F, R]
 // outputs and the few span bytes each flow needs); the compares are one
 // per needle byte per live row.  Design: one thread per flow.  The
-// needles (as 32-bit words) and one 8-byte meta entry per row sit in
-// shared memory, read by a whole warp at one address (a broadcast).  Each
-// thread packs the first min(span length, 64) bytes of its span into 16
-// register words once per slot, so a row's compare is a few masked word
-// XORs and touches no byte outside [start, start + nlen).  A hit stores
-// true into its rule's output byte; several rows of one rule store the
-// same value, which is the reference's OR of summed duplicates.
+// needles (as 32-bit words) and one 8-byte meta entry per row pass
+// through shared memory in tiles of at most kSmemBudget bytes, each read
+// by a whole warp at one address (a broadcast); a table of any size
+// (the rule-sharded 100k-rule tables hold 25,000 rows a slot) takes as
+// many tiles as it needs.  Each thread packs the first min(span length,
+// 64) bytes of its span into 16 register words once per slot, so a row's
+// compare is a few masked word XORs and touches no byte outside
+// [start, start + nlen).  A hit stores true into its rule's output byte;
+// several rows of one rule store the same value, which is the reference's
+// OR of summed duplicates.
 //
 // Semantics (cilium_tpu/models/http.py:403-414, bytescan.py:84-109):
 //   span_len = max(end - start, 0)
@@ -35,19 +38,17 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kLitW = 64;  // models/http.py LIT_W
 constexpr int kWords = kLitW / 4;
+// Shared memory one tile of rows may take (meta + needles).
+constexpr size_t kSmemBudget = 96 * 1024;
 
 struct RowMeta {
   int32_t rule;
   int32_t info;  // nlen | prefix << 16 | live << 17
 };
 
-__device__ __forceinline__ void slot_hits(
-    const uint8_t* __restrict__ row, int L, int start, int end, int last_nl,
-    const RowMeta* __restrict__ meta, const uint32_t* __restrict__ needle,
-    int n_rows, int words_per_row, bool* __restrict__ out) {
-  const int span_len = max(end - start, 0);
-  const int avail = min(span_len, kLitW);
-  uint32_t win[kWords];
+__device__ __forceinline__ void pack_window(const uint8_t* __restrict__ row,
+                                            int L, int start, int avail,
+                                            uint32_t (&win)[kWords]) {
 #pragma unroll
   for (int j = 0; j < kWords; ++j) win[j] = 0u;
 #pragma unroll
@@ -58,6 +59,12 @@ __device__ __forceinline__ void slot_hits(
       win[i >> 2] |= b << (8 * (i & 3));
     }
   }
+}
+
+__device__ __forceinline__ void tile_hits(
+    const uint32_t (&win)[kWords], int span_len, int start, int last_nl,
+    const RowMeta* __restrict__ meta, const uint32_t* __restrict__ needle,
+    int n_rows, int words_per_row, bool* __restrict__ out) {
   for (int k = 0; k < n_rows; ++k) {
     const RowMeta mk = meta[k];
     const int nlen = mk.info & 0xFFFF;
@@ -91,41 +98,56 @@ __global__ void http_lit_kernel(
     const bool* __restrict__ p_prefix, const int32_t* __restrict__ p_rule,
     const bool* __restrict__ p_live, int Np, int Wp,
     const bool* __restrict__ method_any, const bool* __restrict__ path_any,
-    int F, int L, int R, bool* __restrict__ method_ok,
+    int F, int L, int R, int tile, bool* __restrict__ method_ok,
     bool* __restrict__ path_ok) {
   extern __shared__ uint32_t smem[];
-  RowMeta* s_meta = reinterpret_cast<RowMeta*>(smem);  // [Nm + Np]
-  uint32_t* s_m = smem + 2 * (Nm + Np);                 // [Nm, Wm / 4]
-  uint32_t* s_p = s_m + Nm * (Wm / 4);                  // [Np, Wp / 4]
-  for (int k = threadIdx.x; k < Nm + Np; k += blockDim.x) {
-    const bool is_m = k < Nm;
-    const int i = is_m ? k : k - Nm;
-    const int nlen = is_m ? m_len[i] : p_len[i];
-    const bool prefix = is_m ? m_prefix[i] : p_prefix[i];
-    const bool live = is_m ? m_live[i] : p_live[i];
-    s_meta[k].rule = is_m ? m_rule[i] : p_rule[i];
-    s_meta[k].info = (nlen & 0xFFFF) | (prefix ? 1 << 16 : 0) |
-                     (live ? 1 << 17 : 0);
-  }
-  const uint32_t* gm = reinterpret_cast<const uint32_t*>(m_needle);
-  const uint32_t* gp = reinterpret_cast<const uint32_t*>(p_needle);
-  for (int i = threadIdx.x; i < Nm * (Wm / 4); i += blockDim.x) s_m[i] = gm[i];
-  for (int i = threadIdx.x; i < Np * (Wp / 4); i += blockDim.x) s_p[i] = gp[i];
-  __syncthreads();
+  RowMeta* s_meta = reinterpret_cast<RowMeta*>(smem);  // [tile]
+  uint32_t* s_needle = smem + 2 * tile;                 // [tile, W / 4]
 
+  // Threads past F load tiles with the others and compare nothing.
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= F) return;
-  bool* out_m = method_ok + static_cast<size_t>(f) * R;
-  bool* out_p = path_ok + static_cast<size_t>(f) * R;
-  for (int r = 0; r < R; ++r) {
-    out_m[r] = method_any[r];
-    out_p[r] = path_any[r];
+  const bool valid = f < F;
+  const size_t fi = valid ? static_cast<size_t>(f) : 0;
+  const uint8_t* row = data + fi * L;
+  if (valid) {
+    for (int r = 0; r < R; ++r) {
+      method_ok[fi * R + r] = method_any[r];
+      path_ok[fi * R + r] = path_any[r];
+    }
   }
-  const uint8_t* row = data + static_cast<size_t>(f) * L;
-  const int s1 = sp1[f];
-  slot_hits(row, L, 0, s1, last_nl_m[f], s_meta, s_m, Nm, Wm / 4, out_m);
-  slot_hits(row, L, s1 + 1, sp2[f], last_nl_p[f], s_meta + Nm, s_p, Np,
-            Wp / 4, out_p);
+  const int s1 = valid ? sp1[fi] : 0;
+  for (int slot = 0; slot < 2; ++slot) {
+    const bool is_m = slot == 0;
+    const int n_all = is_m ? Nm : Np;
+    const int wpr = (is_m ? Wm : Wp) / 4;
+    const uint8_t* g_needle = is_m ? m_needle : p_needle;
+    const int32_t* g_len = is_m ? m_len : p_len;
+    const bool* g_prefix = is_m ? m_prefix : p_prefix;
+    const int32_t* g_rule = is_m ? m_rule : p_rule;
+    const bool* g_live = is_m ? m_live : p_live;
+    const int start = is_m ? 0 : s1 + 1;
+    const int end = valid ? (is_m ? s1 : sp2[fi]) : 0;
+    const int last_nl = valid ? (is_m ? last_nl_m[fi] : last_nl_p[fi]) : 0;
+    const int span_len = max(end - start, 0);
+    uint32_t win[kWords];
+    pack_window(row, L, start, valid ? min(span_len, kLitW) : 0, win);
+    bool* out = (is_m ? method_ok : path_ok) + fi * R;
+    for (int base = 0; base < n_all; base += tile) {
+      const int n = min(tile, n_all - base);
+      __syncthreads();  // the previous tile's compares are done
+      for (int k = threadIdx.x; k < n; k += blockDim.x) {
+        const int i = base + k;
+        s_meta[k].rule = g_rule[i];
+        s_meta[k].info = (g_len[i] & 0xFFFF) | (g_prefix[i] ? 1 << 16 : 0) |
+                         (g_live[i] ? 1 << 17 : 0);
+      }
+      const uint32_t* gw =
+          reinterpret_cast<const uint32_t*>(g_needle) + static_cast<size_t>(base) * wpr;
+      for (int i = threadIdx.x; i < n * wpr; i += blockDim.x) s_needle[i] = gw[i];
+      __syncthreads();
+      if (valid) tile_hits(win, span_len, start, last_nl, s_meta, s_needle, n, wpr, out);
+    }
+  }
 }
 
 }  // namespace
@@ -141,8 +163,10 @@ CILIUM_EXPORT int http_lit(
   if (F <= 0) return cudaSuccess;
   if (Wm % 8 || Wp % 8 || Wm > kLitW || Wp > kLitW || Nm < 0 || Np < 0)
     return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(Nm + Np) * sizeof(RowMeta) +
-                      static_cast<size_t>(Nm) * Wm + static_cast<size_t>(Np) * Wp;
+  const size_t per_row = sizeof(RowMeta) + static_cast<size_t>(std::max(Wm, Wp));
+  const int tile = static_cast<int>(
+      std::min<size_t>(std::max(std::max(Nm, Np), 1), kSmemBudget / per_row));
+  const size_t smem = static_cast<size_t>(tile) * per_row;
   cudaError_t err = allow_smem(http_lit_kernel, smem);
   if (err != cudaSuccess) return err;
   http_lit_kernel<<<(F + kThreads - 1) / kThreads, kThreads, smem,
@@ -157,6 +181,6 @@ CILIUM_EXPORT int http_lit(
       static_cast<const bool*>(p_prefix), static_cast<const int32_t*>(p_rule),
       static_cast<const bool*>(p_live), Np, Wp,
       static_cast<const bool*>(method_any), static_cast<const bool*>(path_any),
-      F, L, R, static_cast<bool*>(method_ok), static_cast<bool*>(path_ok));
+      F, L, R, tile, static_cast<bool*>(method_ok), static_cast<bool*>(path_ok));
   return cudaGetLastError();
 }

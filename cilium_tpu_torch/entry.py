@@ -14,7 +14,11 @@ are the port's copy of ``bench.py::bench_http``'s setup
 ``kafka_batch`` are ``bench_kafka``'s rules and requests
 (``bench.py:272-301``); ``seqdfa_tables`` and ``seqdfa_batch`` are a
 long-frame search at the HTTP engine's ``MAX_WIDTH`` over
-tests/test_seqdfa.py's patterns.
+tests/test_seqdfa.py's patterns.  ``dryrun_multichip`` is the
+counterpart of ``__graft_entry__.dryrun_multichip`` on a mesh of virtual
+slots; ``mesh_bench_policy`` / ``mesh_bench_batch`` and
+``rules_100k_rows`` / ``rules_100k_batch`` are ``bench_multichip_scaling``'s
+and ``bench_rules_100k``'s inputs (``bench.py:3072-3120,3184-3225``).
 """
 
 from __future__ import annotations
@@ -460,3 +464,198 @@ def datapath_batch(f: int = 65536):
     as32 = lambda a: (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32)  # noqa: E731
     return (as32(saddr), as32(daddr), sport.astype(np.int32), dport.astype(np.int32),
             proto.astype(np.int32))
+
+
+# --- multi-card: the dry run and bench.py's sharding inputs -------------------
+
+
+def dryrun_multichip(n_devices: int, device=None, n_rule: int | None = None) -> dict:
+    """The counterpart of ``__graft_entry__.dryrun_multichip``: the full
+    batched verdict step over an ``n_devices``-slot mesh with BOTH
+    parallel axes live — flows (data-parallel) x rules (model-parallel:
+    per-shard NFA tables, the K21 merge) — on tiny shapes, plus the Kafka
+    sharded step (K22) and the sequence-sharded DFA search on the same
+    slots.  The slots are ``n_devices`` virtual slots on ``device``
+    (None: the card; the reference asks its runtime for that many CPU
+    devices).  ``n_rule`` defaults to the reference's 2 (1 for one slot).
+    Raises on any disagreement with the single-device models; returns the
+    checked outputs' first rows."""
+    from .models.kafka import build_kafka_model, kafka_verdicts
+    from .models.r2d2 import r2d2_verdicts_attr
+    from .ops.dfa import device_dfa, dfa_search_batch
+    from .ops.seqdfa import SEQ_AXIS, device_dfa_absorbing, seqdfa_search_sharded
+    from .parallel.mesh import Mesh, flow_mesh, virtual_devices
+    from .parallel.rulesharding import (
+        ShardedKafkaModel,
+        ShardedVerdictModel,
+        build_sharded_kafka_model,
+        build_sharded_r2d2_model,
+        shard_offsets,
+    )
+
+    device = resolve_device(device)
+    devices = virtual_devices(n_devices, device)
+    if n_rule is None:
+        n_rule = 2 if n_devices >= 2 else 1
+    n_flow = n_devices // n_rule
+    mesh = flow_mesh(n_flow=n_flow, n_rule=n_rule, devices=devices)
+    policy = bench_policy()
+
+    f = 8 * n_flow
+    data, lengths, remotes = batch(f, 32)
+    n_rows = 2  # the graft policy's flattened row count
+    sharded = ShardedVerdictModel(
+        build_sharded_r2d2_model(policy, True, 80, n_rule, device=device),
+        shard_offsets(n_rows, n_rule), mesh, "r2d2",
+    )
+    _, _, allow = sharded(data, lengths, remotes)
+    got = allow[:4].cpu().tolist()
+    if got != [True, False, True, False]:
+        raise AssertionError(f"multichip dryrun verdicts wrong: {got}")
+    # Cross-check the rule-sharded path against the unsharded model.
+    ref = build_r2d2_model(policy, True, 80, device=device)
+    _, _, want = r2d2_verdicts(ref, data, lengths, remotes)
+    if not torch.equal(allow, want):
+        raise AssertionError("rule-sharded verdicts diverge from single-device model")
+    # Attributed step: the GLOBAL first-match rule id (shard-local
+    # argmax + cross-shard min-index reduction) must equal the unsharded
+    # argmax row — the serving path's attribution contract.
+    _, _, a_allow, a_rule = sharded.verdicts_attr(data, lengths, remotes)
+    _, _, w_allow, w_rule = r2d2_verdicts_attr(ref, data, lengths, remotes)
+    if not (torch.equal(a_allow, w_allow) and torch.equal(a_rule, w_rule)):
+        raise AssertionError("global first-match rule ids diverge from single-device argmax")
+
+    # Kafka: topic-ACL rules sharded over the rule axis, partial
+    # reductions merged before the all-topics combine.
+    k_rules = []
+    for spec in (
+        {"topic": "orders", "role": "produce"},
+        {"topic": "logs", "role": "consume"},
+        {"topic": "metrics"},
+        {"client_id": "trusted"},
+    ):
+        kr = PortRuleKafka(**spec)
+        kr.sanitize()
+        k_rules.append((frozenset(), kr))
+    reqs = [
+        RequestMessage(0, 2, 1, "p", ["orders"], parsed=True),
+        RequestMessage(0, 2, 1, "p", ["secret"], parsed=True),
+        RequestMessage(1, 2, 1, "c", ["logs"], parsed=True),
+        RequestMessage(12, 0, 1, "trusted", [], parsed=False),
+    ] * (f // 4)
+    kbatch = encode_requests(reqs)
+    kremotes = np.ones((len(reqs),), np.int32)
+    kmodel = ShardedKafkaModel(
+        build_sharded_kafka_model(k_rules, n_rule, device=device), mesh
+    )
+    kallow = kmodel(kbatch, kremotes)
+    kref = kafka_verdicts(build_kafka_model(k_rules, device), kbatch, kremotes)
+    if not torch.equal(kallow, kref):
+        raise AssertionError("rule-sharded kafka verdicts diverge")
+
+    # Sequence axis: long frames sharded across the BYTE axis — chunk
+    # folding + composition (ops/seqdfa.py), checked bit-identical
+    # against the serial DFA scan.
+    seq_mesh = Mesh(np.array(devices, dtype=object), (SEQ_AXIS,))
+    seq_tables = compile_pattern_dfas([r"/public/.*", r"^(GET|HEAD)$"])
+    seq_width = 16 * n_devices
+    seq_f = 4 * n_devices  # flow count must split over the seq axis
+    seq_data = np.zeros((seq_f, seq_width), np.uint8)
+    head = b"x" * (seq_width // 2 - 4) + b"/public/a"  # straddles chunks
+    seq_data[0, : len(head)] = np.frombuffer(head, np.uint8)
+    seq_data[1, :3] = np.frombuffer(b"GET", np.uint8)
+    seq_lengths = np.zeros((seq_f,), np.int32)
+    seq_lengths[:4] = [len(head), 3, 0, seq_width]
+    d = torch.from_numpy(seq_data).to(device)
+    ln = torch.from_numpy(seq_lengths).to(device)
+    seq_got = seqdfa_search_sharded(device_dfa_absorbing(seq_tables, device), d, ln, seq_mesh)
+    seq_want = dfa_search_batch(device_dfa(seq_tables, device), d, ln)
+    if not torch.equal(seq_got, seq_want):
+        raise AssertionError("seq-sharded DFA diverges")
+    if not (bool(seq_got[0, 0]) and bool(seq_got[1, 1])):
+        raise AssertionError("seq-sharded DFA misses the straddling match")
+    return {
+        "mesh": (n_flow, n_rule), "allow": got,
+        "kafka_allow": kallow[:4].cpu().tolist(),
+        "seq": seq_got[:2].cpu().tolist(),
+    }
+
+
+def mesh_bench_policy() -> PolicyInstance:
+    """``bench.py::_mesh_bench_policy`` (``:3072-3102``): port 80 allows
+    ``READ /public/.*`` and ``HALT``."""
+    return compile_policy(
+        NetworkPolicy(
+            name="mesh-bench",
+            policy=2,
+            ingress_per_port_policies=[
+                PortNetworkPolicy(
+                    port=80,
+                    rules=[
+                        PortNetworkPolicyRule(
+                            l7_proto="r2d2",
+                            l7_rules=[
+                                {"cmd": "READ", "file": "/public/.*"},
+                                {"cmd": "HALT"},
+                            ],
+                        )
+                    ],
+                )
+            ],
+        )
+    )
+
+
+def mesh_bench_batch(f: int, width: int = 64):
+    """``bench.py::_mesh_bench_batch`` (``:3105-3120``): ``f`` messages
+    drawn from ``random.Random(11)``, remotes 1."""
+    rng = random.Random(11)
+    msgs = [
+        b"READ /public/a.txt\r\n", b"HALT\r\n",
+        b"READ /private/b\r\n", b"WRITE /x\r\n",
+    ]
+    data = np.zeros((f, width), np.uint8)
+    lengths = np.zeros((f,), np.int32)
+    for i in range(f):
+        m = msgs[rng.randrange(len(msgs))]
+        data[i, : len(m)] = np.frombuffer(m, np.uint8)
+        lengths[i] = len(m)
+    return data, lengths, np.ones((f,), np.int32)
+
+
+RULES_100K = 100_000
+
+
+def rules_100k_rows(n: int = RULES_100K) -> list:
+    """``bench.py::bench_rules_100k``'s table (``:3207-3216``): n - 1
+    literal method + path rules with 1-3 remote ids drawn from
+    ``random.Random(13)``, then one remote-free ``HEAD`` rule last."""
+    from .policy.api import PortRuleHTTP
+
+    rng = random.Random(13)
+    verbs = ("GET", "POST", "PUT", "DELETE")
+    rows = [
+        (
+            frozenset(rng.sample(range(1, 50_000), rng.randrange(1, 4))),
+            PortRuleHTTP(method=verbs[j % 4], path=f"/p{j:06d}"),
+        )
+        for j in range(n - 1)
+    ]
+    rows.append((frozenset(), PortRuleHTTP(method="HEAD")))
+    return rows
+
+
+def rules_100k_batch(f: int = 2048, width: int = 64):
+    """``bench_rules_100k``'s batch (``:3217-3226``): odd rows the HEAD
+    probe the last rule allows, even rows a PATCH nothing allows;
+    remotes 1."""
+    data = np.zeros((f, width), np.uint8)
+    lengths = np.zeros((f,), np.int32)
+    remotes = np.ones((f,), np.int32)
+    probe_allow = b"HEAD /anything HTTP/1.1\r\n\r\n"  # last row
+    probe_deny = b"PATCH /nope HTTP/1.1\r\n\r\n"
+    for i in range(f):
+        m = probe_allow if i % 2 else probe_deny
+        data[i, : len(m)] = np.frombuffer(m, np.uint8)
+        lengths[i] = len(m)
+    return data, lengths, remotes

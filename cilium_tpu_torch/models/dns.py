@@ -171,21 +171,26 @@ def build_dns_model(
     return build_dns_model_from_rows(rows, bucket=True, device=device)
 
 
-def dns_row_arrays(rows: list, n_pad: int):
+def dns_row_arrays(rows: list, n_pad: int, width: int | None = None):
     """Host arrays for (remote_set, DnsRule|None) rows padded to
     ``n_pad`` (padding rows are dead: remote set {-1}, needle_len -1,
-    never-accepting automaton slot).  Returns (needle, n_len, n_any,
+    never-accepting automaton slot).  Shared by the single-card build
+    and the rule-sharded build (which passes one ``width`` for every
+    shard) so the two cannot drift.  Returns (needle, n_len, n_any,
     use_rx, packed_ids, any_remote, patterns)."""
     exact = [
         (r.name.encode("latin-1", "replace") if r is not None else b"")
         for _, r in rows
     ]
-    # The needle must hold the WHOLE longest exact name (bounded by the
-    # MAX_LABELS walk at ~2.5KB): truncating here would make the exact
-    # compare a prefix compare — a device over-allow the host oracle
-    # never produces.
-    width = max((len(b) for b in exact), default=0)
-    width = max(8, (width + 7) // 8 * 8)
+    if width is None:
+        # The needle must hold the WHOLE longest exact name (bounded by
+        # the MAX_LABELS walk at ~2.5KB): truncating here would make the
+        # exact compare a prefix compare — a device over-allow the host
+        # oracle never produces.
+        width = max((len(b) for b in exact), default=0)
+        width = max(8, (width + 7) // 8 * 8)
+    elif any(len(b) > width for b in exact):
+        raise ValueError(f"needle width {width} does not cover every name")
     needle = np.zeros((n_pad, width), np.uint8)
     n_len = np.full((n_pad,), -1, np.int32)
     n_any = np.zeros((n_pad,), bool)

@@ -60,9 +60,6 @@ from .base import (
 _RE_META = set("\\^$.[]|()*+?{}")
 
 LIT_W = 64  # max literal needle bytes; longer literals fall to regex
-# Shared memory a block of K6 may hold: the needles and one 8-byte meta
-# entry per literal row (csrc/http_lit.cu).
-LIT_SMEM_MAX = 227 * 1024
 
 _HTTP_FRAME = kernels.CudaKernel(
     "http_frame", "http_frame",
@@ -326,12 +323,6 @@ class HttpBatchModel(VerdictModel):
             chk(getattr(self, f"{slot}_prefix"), f"{slot}_prefix", torch.bool, (n,), device)
             chk(getattr(self, f"{slot}_rule"), f"{slot}_rule", torch.int32, (n,), device)
             chk(getattr(self, f"{slot}_live"), f"{slot}_live", torch.bool, (n,), device)
-        smem = sum(t.shape[0] * (t.shape[1] + 8) for t in (self.m_needle, self.p_needle))
-        if smem > LIT_SMEM_MAX:
-            raise ValueError(
-                f"{self.m_needle.shape[0]} + {self.p_needle.shape[0]} literal rows need "
-                f"{smem} bytes of K6 shared memory, above {LIT_SMEM_MAX}"
-            )
         chk(self.method_any, "method_any", torch.bool, (r,), device)
         chk(self.path_any, "path_any", torch.bool, (r,), device)
         chk(self.line_rule, "line_rule", torch.int32, (None,), device)

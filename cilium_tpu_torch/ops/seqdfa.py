@@ -24,8 +24,9 @@ writes it (one thread per (flow, pattern, chunk, start state)) and K18
 ``accept_final`` (one thread per (flow, pattern)).  The result is
 bit-identical for every ``n_chunks`` and equal to K2 ``dfa_search_batch``
 on the non-absorbing tables.  The sequence-sharded form
-(``seqdfa_search_sharded``: each GPU folds its slice, one all-gather of
-the maps) comes with the port's multi-GPU steps.
+(``seqdfa_search_sharded``) runs one chunk on each slot of a ("seq",)
+mesh and gathers the maps in chunk order for one apply: no kernel of its
+own.
 """
 
 from __future__ import annotations
@@ -164,3 +165,45 @@ def seqdfa_search_batch(dfa_abs: DeviceDfa, data, lengths, n_chunks: int = 1) ->
     accepting: [F, R] bool.  Raises unless the width is a multiple of
     ``n_chunks``."""
     return seqdfa_apply(dfa_abs, seqdfa_fold(dfa_abs, data, lengths, n_chunks))
+
+
+def seqdfa_search_sharded(dfa_abs: DeviceDfa, data, lengths, mesh) -> torch.Tensor:
+    """Sequence-sharded search over ``mesh``'s SEQ_AXIS (K slots): slot
+    k folds its byte slice ``data[:, k*lc:(k+1)*lc]`` with K18's fold
+    (``n_chunks=1``), the [F, R, 1, S] maps are gathered in k order onto
+    the first slot as [F, R, K, S] (the reference's all_gather; no copy
+    on a virtual mesh), and K18's apply composes and accepts.  Slot k's
+    lengths are ``clamp(lengths - k*lc, 0, lc)``, which folds exactly the
+    positions ``t0 = k*lc`` selects in the reference's ``_fold_chunk``.
+    Returns [F, R] bool on the first slot (the reference's slot k emits
+    flow block k; the blocks concatenate to the same array).  ``data`` is
+    [F, W] with W and F divisible by the seq axis size."""
+    from ..device import as_tensor
+    from ..parallel.mesh import moved, to_slot
+
+    n_seq = mesh.shape[SEQ_AXIS]
+    f, width = data.shape
+    if width % n_seq != 0:
+        raise ValueError(f"width {width} not divisible by seq axis {n_seq}")
+    lc = width // n_seq
+    if f % n_seq != 0:
+        raise ValueError(f"flow count {f} not divisible by seq axis {n_seq}")
+    slots = list(mesh.devices.flat)
+    first = slots[0].device
+    if not isinstance(data, torch.Tensor):
+        data = as_tensor(data, torch.uint8, first)
+    if not isinstance(lengths, torch.Tensor):
+        lengths = as_tensor(lengths, torch.int32, first)
+    tables = {}
+    maps = []
+    for k, slot in enumerate(slots):
+        dev = slot.device
+        if dev not in tables:
+            tables[dev] = moved(dfa_abs, dev)
+        tab = tables[dev]
+        d = to_slot(data[:, k * lc:(k + 1) * lc], dev).contiguous()
+        ln = (to_slot(lengths, dev) - k * lc).clamp(0, lc).to(torch.int32)
+        maps.append(seqdfa_fold(tab, d, ln, 1))
+    gathered = torch.cat([to_slot(m, first) for m in maps], dim=2)
+    return seqdfa_apply(tables[first], gathered)
+

@@ -8,10 +8,12 @@ reference's proxy dispatch (reference: pkg/proxy/proxy.go:229-236 — HTTP
 to Envoy, Kafka to the Go proxy): the engine buffers flow bytes, frames
 complete requests, runs the batched verdict model, and converts verdicts
 into filter ops (PASS/DROP + inject), preserving the OnIO contract
-(reference: envoy/cilium_proxylib.cc:125).  The engines call their model
-directly: the reference's sharded-judge rung (``_judge_dispatch``) comes
-with the port's multi-GPU steps, and the redirect -> engine factory
-(``create_engine_for_redirect``) with its control plane.
+(reference: envoy/cilium_proxylib.cc:125).  The engines dispatch through
+the mesh rung (``_judge_dispatch``): a raising sharded model
+(``parallel.rulesharding``) flips the engine to its single-card fallback.
+``_daemon_mesh`` resolves a daemon's verdict mesh from its config; the
+redirect -> engine factory (``create_engine_for_redirect``) comes with the
+port's control plane.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from ..policy.invariance import InvariantClaimEngine
 from ..proxylib.parsers.http import HTTP_403, head_and_body_len
 from ..proxylib.types import DROP, MORE, PASS, OpType
 from ..utils import flowdebug, metrics
+
+log = logging.getLogger(__name__)
 
 # Per-flow debug stream, flowdebug-gated (one boolean when disabled).
 _flow_log = logging.getLogger("cilium_tpu_torch.runtime.flow")
@@ -79,6 +83,26 @@ class BaseBatchEngine(InvariantClaimEngine):
             st = EngineFlow(flow_id=flow_id, remote_id=remote_id, **kw)
             self.flows[flow_id] = st
         return st
+
+    def _judge_dispatch(self, call):
+        """Mesh rung for the daemon-side engines (the sidecar service
+        has its own in _mesh_guarded): a raising SHARDED dispatch
+        flips this engine to the wrapper's single-card fallback —
+        typed mesh_demotions_total{engine-judge} — and reissues the
+        round on it, never a crashed step.  Single-card models have
+        no fallback and re-raise unchanged."""
+        try:
+            return call(self.model)
+        except Exception:
+            fb = getattr(self.model, "fallback", None)
+            if fb is None:
+                raise
+            log.exception(
+                "sharded judge failed; engine demoted to single-card"
+            )
+            metrics.MeshDemotions.inc("engine-judge")
+            self.model = fb
+            return call(fb)
 
     def feed(self, flow_id: int, data: bytes, remote_id: int = 0, **kw) -> None:
         self.flow(flow_id, remote_id, **kw).buffer += data
@@ -244,9 +268,13 @@ class HttpBatchEngine(BaseBatchEngine):
             # flowlog the rule index would be computed, read back, and
             # dropped.
             if self.flowlog is not None:
-                outs = self.model.verdicts_attr(data, lengths, remotes)
+                outs = self._judge_dispatch(
+                    lambda m: m.verdicts_attr(data, lengths, remotes)
+                )
             else:
-                outs = self.model(data, lengths, remotes)
+                outs = self._judge_dispatch(
+                    lambda m: m(data, lengths, remotes)
+                )
             # One device-to-host copy for every verdict array of the bucket.
             host = torch.stack([t.to(torch.int32) for t in outs]).cpu().numpy()
             allow = host[2] != 0
@@ -339,7 +367,9 @@ class KafkaBatchEngine(BaseBatchEngine):
         )
         # One explicit device-to-host copy: np.asarray of a CUDA tensor
         # raises.
-        allow = self.model(batch, remotes).cpu().numpy()
+        allow = self._judge_dispatch(
+            lambda m: m(batch, remotes)
+        ).cpu().numpy()
         recs = []
         for i, (st, n, req) in enumerate(active):
             a = bool(allow[i])
@@ -365,3 +395,38 @@ class KafkaBatchEngine(BaseBatchEngine):
         )
         inject = b"" if allow else req.create_response().raw
         self._emit(st, allow, n, inject, rec)
+
+
+def _daemon_mesh(daemon):
+    """The daemon's (flows, rules) verdict mesh: honors a pre-set
+    ``daemon.verdict_mesh`` (tests/embedders), otherwise resolves
+    ONCE from the daemon's DaemonConfig mesh knobs (same resolution
+    as the sidecar service — parallel/mesh.serving_mesh) and caches
+    the answer on the daemon.  The slots are the config's verdict
+    device's (``local_devices``: every card, or one CPU slot).  None =
+    single-card builds."""
+    mesh = getattr(daemon, "verdict_mesh", None)
+    if mesh is not None or getattr(daemon, "_verdict_mesh_resolved",
+                                   False):
+        return mesh
+    cfg = getattr(daemon, "config", None)
+    if cfg is not None and getattr(cfg, "mesh", "off") != "off":
+        from ..parallel import mesh as mesh_mod
+
+        dev = "cpu" if getattr(cfg, "verdict_device", "default") == "cpu" else None
+        try:
+            mesh = mesh_mod.serving_mesh(
+                cfg.mesh, getattr(cfg, "mesh_rule_shards", 0),
+                getattr(cfg, "mesh_flow_shards", 0),
+                devices=mesh_mod.local_devices(dev),
+            )
+        except Exception:  # noqa: BLE001 — fail to single-card, typed
+            log.exception("verdict mesh resolution failed; "
+                          "single-card builds")
+            mesh = None
+    try:
+        daemon.verdict_mesh = mesh
+        daemon._verdict_mesh_resolved = True
+    except Exception:  # noqa: BLE001 — slotted/frozen daemon doubles
+        pass
+    return mesh

@@ -23,10 +23,13 @@ kernels' plain versions).  What changed against the reference:
 - a device result is copied to pinned host memory as soon as it is
   issued, behind a recorded CUDA event (``_Readback``), and every
   readback of a model output goes through ``_to_host``;
-- multi-chip mesh serving is not part of the port yet:
-  ``DaemonConfig.validate`` rejects ``mesh="on"`` with
-  ``MeshUnavailable``, and the service serves on one card
-  (``_mesh_status`` reports rung "single");
+- multi-card mesh serving runs the port's sharded models
+  (``parallel/rulesharding.py``) on slots from
+  ``parallel.mesh.local_devices``: one per card, or several slots of one
+  card (a virtual mesh); the width ladder's device points are a copy to
+  the slot and back (``_probe_mesh_device``), fault attribution reads
+  ``cuda:N`` too, and a model whose slots span cards dispatches eagerly
+  (one CUDA graph cannot span cards);
 - no device engine's frame is judged on the host in place of the card: a
   judge or kernel launch that raises answers its round's entries with
   typed ``UNKNOWN_ERROR`` verdicts, and while the guard holds the device
@@ -61,6 +64,7 @@ import base64
 import binascii
 import contextlib
 import dataclasses
+import re
 import functools
 import json
 import logging
@@ -90,6 +94,10 @@ from ..models.base import ConstVerdict
 from ..ops.gather import gather_rows
 from ..proxylib import instance as pl
 from ..analysis.protocols import (
+    MESH_FALLBACK,
+    MESH_FULL,
+    MESH_LADDER_PROTOCOL,
+    MESH_RESHAPED,
     CACHE_ARMED,
     CACHE_DECLINED,
     CACHE_UNARMED,
@@ -200,6 +208,12 @@ def _gather_model(model, blob, offs, lens, remotes, width: int,
     if attr:
         return model.verdicts_attr(rows, lens, remotes)
     return model(rows, lens, remotes)
+
+
+def _spans_cards(model) -> bool:
+    """True for a sharded model whose slots lie on more than one card:
+    one CUDA graph cannot span cards, so it dispatches eagerly."""
+    return bool(getattr(model, "spans_cards", False))
 
 
 def _call_model(model, data, lens, remotes):
@@ -337,9 +351,14 @@ class _CudaGraphFn:
 
 def _tensor_signature(obj, prefix: str = ""):
     """(name, shape, dtype) of every tensor of a model, walking its
-    dataclass fields in order (nested automaton tables included)."""
+    dataclass fields in order (nested automaton tables included); a
+    sharded model is its mesh shape and its shard models in order."""
     if isinstance(obj, torch.Tensor):
         yield (prefix, tuple(obj.shape), str(obj.dtype))
+    elif isinstance(getattr(obj, "stacked", None), list):
+        yield ("mesh", tuple(obj.mesh.shape.items()), "")
+        for j, shard in enumerate(obj.stacked):
+            yield from _tensor_signature(shard, f"stacked[{j}]")
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
             name = f"{prefix}.{f.name}" if prefix else f.name
@@ -494,7 +513,6 @@ class VerdictService:
     def __init__(self, socket_path: str, config: DaemonConfig | None = None):
         self.socket_path = socket_path
         self.config = config or DaemonConfig()
-        # Raises MeshUnavailable for mesh="on" (one card in the port).
         self.config.validate()
         # Overload & fault containment: the guard owns the quarantine
         # state machine (device -> quarantine: typed refusal), the
@@ -657,17 +675,62 @@ class VerdictService:
             self.dispatch_mode_chosen = "eager"
         # CUDA-graph captures and replays over the service's life.
         self.graph_stats = {"captures": 0, "replays": 0}
-        # Multi-chip mesh state the handoff snapshot and the admission
-        # windows read.  The port serves on one card (ROADMAP Queue 1
-        # item 7), so these keep the reference's one-card values: no
-        # lost device, full capacity, the base minimum bucket.
+        # Multi-card sharded serving (parallel/rulesharding.py): the
+        # (flows, rules) mesh resolves lazily at the FIRST engine
+        # build (a service that never dispatches must not initialize a
+        # backend) and is guarded by _mesh_lock.  A faulting mesh rung
+        # walks a WIDTH LADDER instead of collapsing binary: full mesh
+        # -> reshaped mesh over the surviving slots -> single-card
+        # fallback -> quarantine (typed refusal), every transition typed
+        # (the guard's quarantine/heal ladder keeps owning
+        # single-device health on the rung below).
+        self._mesh = None
+        self._mesh_resolved = False
+        self._mesh_lock = threading.Lock()
+        self._mesh_demoted: str | None = None
+        self.mesh_demotions: dict[str, int] = {}
+        # Width-ladder rung state.  The rung is DERIVED, never stored:
+        # full = (_mesh_demoted None, _mesh_serving None); reshaped =
+        # (None, Mesh over survivors); fallback = (reason, *).
+        # _mesh_serving is the degraded mesh the engines currently
+        # dispatch on; _mesh_lost is the attributed dead device-id set
+        # (mirrors the DeviceGuard per-device health table).
+        self._mesh_serving = None
         self._mesh_lost: set[int] = set()
         self.mesh_reshapes = 0
+        self.mesh_reshape_failures: dict[str, int] = {}
+        # Fallback-width window of the LAST completed reshape (fault
+        # stamp -> reshaped flip), the bench drift-guard metric.
+        self.mesh_reshape_window_ms = 0.0
+        self._mesh_fault_at = 0.0
+        # Capacity fraction of the current rung (1.0 full, width ratio
+        # reshaped, 1/width fallback) — scales the admission queue cap
+        # and the DRR credit windows so a degraded mesh sheds typed at
+        # its actual capacity.
         self._mesh_capacity = 1.0
-        self._mesh_min_bucket = 0
-        # Mesh ladder state a predecessor's snapshot carried; the port
-        # keeps it for the status surface and never resolves a mesh.
+        # Test seam: per-slot probe callable (MeshDevice -> bool).  None
+        # uses the real copy-to-the-slot-and-back probe.
+        self._device_probe_fn = None
+        # Mesh ladder state staged by restore_handoff, consumed at
+        # _resolve_mesh (a successor resumes reshaped instead of
+        # re-probing a known-dead slot).
         self._handoff_mesh: dict | None = None
+        # An explicit flow extent wider than the smallest
+        # dispatch bucket grows the minimum bucket to match (set at
+        # _resolve_mesh, read by the _min_bucket property).
+        self._mesh_min_bucket = 0
+        # Guarded re-promotion: demotion is no longer
+        # sticky-until-restart — a timed re-probe (mirroring the
+        # DeviceGuard quarantine heal, but on the policy-builder
+        # thread) rebuilds one sharded model off-path,
+        # parity-probes it against the single-card fallback, and flips
+        # the retained sharded wrappers back in one pointer pass.
+        self._mesh_reprobe_last = 0.0
+        self._mesh_reprobe_inflight = False
+        self.mesh_repromotions = 0
+        # Demotion-era engines re-sharded by the heal's
+        # queued rebinds (status surface; see _run_mesh_rebuild).
+        self.mesh_rebind_rebuilds = 0
         self.vec_batches = 0
         self.vec_entries = 0
         # Blob-lane chunks issued (one K16 row build each).
@@ -1543,6 +1606,16 @@ class VerdictService:
                     self._run_swap(job)
                 elif kind == "rebind":
                     self._run_rebind(*job)
+                elif kind == "mesh_reprobe":
+                    self._run_mesh_ladder(immediate=False)
+                elif kind == "mesh_reshape":
+                    # Queued by _demote_mesh right at the fault: walk
+                    # DOWN the width ladder around the attributed dead
+                    # devices (never up — promotion is owned by the
+                    # paced re-probe above).
+                    self._run_mesh_ladder(immediate=True)
+                elif kind == "mesh_rebuild":
+                    self._run_mesh_rebuild(*job)
                 elif kind == "grants":
                     # Grant delivery queued off the dispatcher: the
                     # blocking client.send must never run inside the
@@ -2577,9 +2650,18 @@ class VerdictService:
 
                 model = SeamProbe(device=self._exec_device)
             else:
-                model = build_r2d2_model(
-                    policy, ingress, port, device=self._exec_device
-                )
+                mesh = self._serving_mesh()
+                if mesh is not None:
+                    # Multi-card build: rule rows split-balanced and
+                    # padded across RULE_AXIS, single-card fallback
+                    # built alongside (the slot-loss rung).
+                    from ..parallel.rulesharding import mesh_r2d2_model
+
+                    model = mesh_r2d2_model(policy, ingress, port, mesh)
+                else:
+                    model = build_r2d2_model(
+                        policy, ingress, port, device=self._exec_device
+                    )
             eng = R2d2BatchEngine(
                 model,
                 capacity=self.config.batch_flows,
@@ -2592,13 +2674,20 @@ class VerdictService:
         if proto == "dns":
             # The DNS engine rung: same scalar contract as r2d2 (the
             # flagship FlowState machinery, subclassed with the
-            # length-prefix framing hooks).
+            # length-prefix framing hooks), mesh-aware build with the
+            # single-card fallback built alongside.
             from ..models.dns import build_dns_model
             from ..runtime.dnsengine import DnsBatchEngine
 
-            model = build_dns_model(
-                policy, ingress, port, device=self._exec_device
-            )
+            mesh = self._serving_mesh()
+            if mesh is not None:
+                from ..parallel.rulesharding import mesh_dns_model
+
+                model = mesh_dns_model(policy, ingress, port, mesh)
+            else:
+                model = build_dns_model(
+                    policy, ingress, port, device=self._exec_device
+                )
             eng = DnsBatchEngine(
                 model,
                 capacity=self.config.batch_flows,
@@ -2624,9 +2713,15 @@ class VerdictService:
         elif proto == "http":
             from ..models.http import build_http_model_for_port
 
-            model = build_http_model_for_port(
-                policy, ingress, port, device=self._exec_device
-            )
+            mesh = self._serving_mesh()
+            if mesh is not None:
+                from ..parallel.rulesharding import mesh_http_model
+
+                model = mesh_http_model(policy, ingress, port, mesh)
+            else:
+                model = build_http_model_for_port(
+                    policy, ingress, port, device=self._exec_device
+                )
             cls = HttpSidecarEngine
         else:
             from ..models.memcached import build_memcache_model
@@ -3697,6 +3792,12 @@ class VerdictService:
         self.guard.record_stall("dispatch-stall")
         metrics.DeviceStalls.inc()
         self.recorder.record_overload("stall_deposal", len(items))
+        # A wedged round on a mesh is indistinguishable here from a
+        # lost mesh slot: drop to the single-card rung BEFORE the
+        # quarantine ladder re-probes, so the heal path resumes on a
+        # model that cannot be waiting on a dead card's copy.
+        if self._mesh is not None and self._mesh_demoted is None:
+            self._demote_mesh("device-stall")
         for it in items:
             if it[0] == "close":
                 # Re-queue for the replacement worker; never lost.
@@ -3740,6 +3841,7 @@ class VerdictService:
         deadline or queue age passed while queued, pace quarantine
         re-probes, and sample queue-depth telemetry."""
         self.guard.maybe_reprobe(self._device_probe)
+        self._maybe_mesh_reprobe()
         metrics.SidecarQueueDepth.set(float(self.dispatcher.pending_weight))
         now = time.monotonic()
         kept = []
@@ -4254,32 +4356,852 @@ class VerdictService:
     # shape).
     SHAPE_CACHE_MAX = 64
 
-    # -- multi-chip mesh rung (not ported: one card) ----------------------
+    # -- multi-card mesh rung ----------------------------------------------
+
+    def _resolve_mesh(self):
+        """The service's (flows, rules) device mesh, or None when
+        multi-card serving is off.  The slots are
+        ``parallel.mesh.local_devices`` of the verdict device.  'auto'
+        requires two or more distinct CUDA cards; 'on' forces a mesh at
+        any slot count (the CPU tests and the card's virtual-slot smoke).
+        The flow extent is floored to a power of two so every
+        power-of-two dispatch bucket divides it, and capped at the
+        smallest bucket."""
+        if self._mesh_resolved:
+            return self._mesh
+        with self._mesh_lock:
+            if self._mesh_resolved:
+                return self._mesh
+            mesh = None
+            if self.config.mesh != "off":
+                from ..parallel import mesh as mesh_mod
+                from ..parallel.mesh import FLOW_AXIS, RULE_AXIS
+
+                with self._device_ctx():
+                    mesh = mesh_mod.serving_mesh(
+                        self.config.mesh,
+                        self.config.mesh_rule_shards,
+                        self.config.mesh_flow_shards,
+                        devices=mesh_mod.local_devices(self._exec_device),
+                        max_flow=self.MIN_BUCKET_GREEDY,
+                    )
+                if mesh is not None:
+                    log.info(
+                        "mesh serving: %d device(s) as (flows=%d, "
+                        "rules=%d)", mesh.size,
+                        mesh.shape[FLOW_AXIS], mesh.shape[RULE_AXIS],
+                    )
+                    # An EXPLICIT flow extent beyond the
+                    # smallest dispatch bucket grows the minimum
+                    # bucket to the extent, so >32-device pods shard
+                    # the flow axis fully and every padded batch
+                    # still divides across the mesh.
+                    base = (
+                        self.MIN_BUCKET_GREEDY if self._inline_complete
+                        else self.MIN_BUCKET
+                    )
+                    fl = mesh.shape[FLOW_AXIS]
+                    if fl > base:
+                        self._mesh_min_bucket = fl
+                        log.info(
+                            "mesh flow extent %d grows the minimum "
+                            "dispatch bucket (%d -> %d)", fl, base, fl,
+                        )
+                elif self.config.mesh == "on":
+                    log.warning(
+                        "mesh=on but no (flows=%s, rules=%s) mesh "
+                        "fits the available devices; serving "
+                        "single-card",
+                        self.config.mesh_flow_shards or "auto",
+                        max(self.config.mesh_rule_shards, 1),
+                    )
+            self._mesh = mesh
+            self._mesh_resolved = True
+            if mesh is not None and self._handoff_mesh:
+                self._adopt_handoff_mesh(mesh)
+            self._handoff_mesh = None
+            metrics.MeshActive.set(
+                1.0 if mesh is not None and self._mesh_demoted is None
+                else 0.0
+            )
+            self._publish_mesh_capacity()
+        return mesh
+
+    def _adopt_handoff_mesh(self, mesh) -> None:
+        """Resume the predecessor's ladder rung (under _mesh_lock, at
+        resolution): its attributed dead devices that still exist in
+        OUR mesh are marked lost up front, and serving starts directly
+        on the reshaped rung — a successor never re-probes a
+        known-dead card through a fault.  Device ids that no longer
+        resolve are dropped (the backend was re-enumerated; the paced
+        re-probe re-adjudicates)."""
+        from ..parallel.mesh import FLOW_AXIS, RULE_AXIS, reshape_mesh
+
+        ho = self._handoff_mesh or {}
+        mesh_ids = {d.id for d in mesh.devices.flat}
+        lost = {int(x) for x in ho.get("lost") or ()} & mesh_ids
+        self.mesh_reshapes = int(ho.get("reshapes") or 0)
+        if not lost:
+            return
+        self._mesh_lost = set(lost)
+        already = set(self.guard.lost_devices())
+        for dev_id in sorted(lost):
+            if str(dev_id) not in already:
+                self.guard.record_device_fault(dev_id, "handoff")
+        metrics.MeshLostDevices.set(float(len(lost)))
+        survivors = [d for d in mesh.devices.flat if d.id not in lost]
+        target = None
+        if self.config.mesh_reshape:
+            with self._device_ctx():
+                target = reshape_mesh(
+                    survivors, mesh.shape[RULE_AXIS],
+                    max_flow=mesh.shape[FLOW_AXIS],
+                )
+        if target is not None:
+            with blackbox.annotate(reason="handoff-resume"):
+                MESH_LADDER_PROTOCOL.advance(self._mesh_rung(),
+                                             MESH_RESHAPED)
+            self._mesh_serving = target
+            log.warning(
+                "mesh resumes RESHAPED from handoff: %d device(s) "
+                "lost %s, serving (flows=%d, rules=%d)", len(lost),
+                sorted(lost), target.shape[FLOW_AXIS],
+                target.shape[RULE_AXIS],
+            )
+        else:
+            with blackbox.annotate(reason="handoff-degraded"):
+                MESH_LADDER_PROTOCOL.advance(self._mesh_rung(),
+                                             MESH_FALLBACK)
+            self._mesh_demoted = "handoff-degraded"
+            self.mesh_demotions["handoff-degraded"] = (
+                self.mesh_demotions.get("handoff-degraded", 0) + 1
+            )
+            metrics.MeshDemotions.inc("handoff-degraded")
+            log.warning(
+                "mesh handoff carried %d lost device(s) and no "
+                "reshaped width fits: serving single-card", len(lost),
+            )
 
     def _serving_mesh(self):
-        """Mesh for new engine builds: always None, the port serves on
-        one card (``DaemonConfig.validate`` rejects ``mesh="on"``)."""
-        return None
+        """Mesh for NEW engine builds: the current rung's mesh — the
+        reshaped survivor mesh while degraded, None once demoted to
+        the fallback rung (every model compiled there is
+        single-card)."""
+        mesh = self._resolve_mesh()
+        if self._mesh_demoted is not None:
+            return None
+        return self._mesh_serving or mesh
 
     def _live_model(self, model):
-        """The model a dispatch runs: the model itself (the reference
-        swaps in a sharded model's single-chip fallback here)."""
+        """Mesh-rung resolution for one dispatch: a demoted service
+        serves every sharded model's single-card fallback executable
+        (bit-identical by the sharding parity contract)."""
+        fb = getattr(model, "fallback", None)
+        if fb is not None and self._mesh_demoted is not None:
+            return fb
         return model
 
-    def _mesh_guarded(self, model, call):
-        """Issue one device dispatch (the reference retries a failed
-        sharded dispatch on its single-chip fallback; the port has no
-        sharded model, so a failure propagates to the round's typed
-        containment)."""
-        return call(model)
+    # Device-id attribution over a fault's text: runtimes name the
+    # failing device ("cuda:1", "device 2", "cpu:1") in transfer and
+    # copy errors; the match is intersected with the mesh's own slot
+    # id set so a stray number never marks a slot.  Slots of a virtual
+    # mesh share one card, so there attribution comes from
+    # ``failed_devices`` alone.
+    _DEV_ID_RE = re.compile(
+        r"(?:cpu|tpu|gpu|cuda|device)[ _:]{0,2}(\d+)", re.IGNORECASE
+    )
 
-    def _mesh_status(self) -> dict:
-        """Mesh-rung status surface: one card, rung "single"."""
+    def _attribute_fault_devices(self, exc) -> set:
+        """Which mesh devices did this fault name?  Three sources, all
+        intersected with the full mesh's device ids: an explicit
+        ``failed_devices`` attribute on the exception, device ids
+        parsed from the message text, and devices that VANISHED from
+        the backend's device set (unplugged card).  Empty when the
+        fault is not attributable to a card — the demotion then holds
+        for the paced re-probe to adjudicate."""
+        mesh = self._mesh
+        if mesh is None:
+            return set()
+        ids: set = set()
+        if exc is not None:
+            for d in getattr(exc, "failed_devices", ()) or ():
+                try:
+                    ids.add(int(getattr(d, "id", d)))
+                except (TypeError, ValueError):
+                    continue
+            for m in self._DEV_ID_RE.finditer(str(exc)):
+                ids.add(int(m.group(1)))
+        mesh_ids = {d.id for d in mesh.devices.flat}
+        try:
+            from ..parallel import mesh as mesh_mod
+
+            live = {d.id for d in mesh_mod.local_devices(self._exec_device)}
+            ids |= mesh_ids - live
+        except Exception:  # noqa: BLE001 — a dead backend attributes nothing
+            pass
+        return ids & mesh_ids
+
+    def _probe_mesh_device(self, dev) -> bool:
+        """One tiny copy to a slot's device and back: True when it
+        answers.  Runs off-path (builder thread / probe pool) only."""
+        t = torch.arange(8, dtype=torch.int32).to(dev.device)
+        return int(_to_host(t).sum()) == 28
+
+    def _probe_mesh_devices(self, devices) -> set:
+        """Probe every full-mesh device in a disposable bounded pool
+        (a HUNG device must cost one timeout, not wedge the builder
+        thread serially per card) and return the dead id set; each
+        failure is recorded in the guard's per-device health table.
+        ``_device_probe_fn`` is the test seam."""
+        dead: set = set()
+        probe = self._device_probe_fn or self._probe_mesh_device
+        timeout = self.guard.timeout_s or 5.0
+        ex = ThreadPoolExecutor(
+            max_workers=min(max(len(devices), 1), 8),
+            thread_name_prefix="mesh-probe",
+        )
+        try:
+            futs = [(ex.submit(probe, d), d) for d in devices]
+            for fut, dev in futs:
+                try:
+                    ok = bool(fut.result(timeout))
+                except Exception:  # noqa: BLE001 — raise/timeout == dead
+                    ok = False
+                if not ok:
+                    dead.add(dev.id)
+                    self.guard.record_device_fault(
+                        dev.id, "probe-failed"
+                    )
+        finally:
+            ex.shutdown(wait=False)
+        return dead
+
+    def _publish_mesh_capacity(self) -> None:
+        """Publish the current rung's capacity fraction and scale
+        admission by it: the dispatcher's global queue cap and the DRR
+        credit numerator (_drr_share) both shrink to the degraded
+        width, so a half-width mesh sheds typed at its ACTUAL capacity
+        instead of queueing into deadline-shed p99 explosions."""
+        full = self._mesh
+        if full is None or full.size <= 0:
+            frac = 1.0
+        elif self._mesh_demoted is not None:
+            frac = 1.0 / float(full.size)
+        elif self._mesh_serving is not None:
+            frac = float(self._mesh_serving.size) / float(full.size)
+        else:
+            frac = 1.0
+        self._mesh_capacity = frac
+        metrics.MeshCapacity.set(frac)
+        entries = self.config.shed_queue_entries
+        if entries:
+            # Floor deep degradation at session_share_min so the cap
+            # never starves admission entirely — but the floor must
+            # never RAISE a small configured cap above its full-width
+            # value (the operator's bound wins at frac=1.0).
+            self.dispatcher.scale_admission(
+                min(entries,
+                    max(int(entries * frac),
+                        self.config.session_share_min))
+            )
+        # Invalidate the lazy DRR share so the very next admission
+        # sees the new fraction (not up to 50ms later).
+        self._share_ts = 0.0
+
+    def _mesh_rung(self) -> str:
+        """The CURRENT width-ladder rung, derived from the two mesh
+        pointers (the ladder is a ``derived``-kind typestate: no single
+        stored field, so flip sites validate their edge through
+        MESH_LADDER_PROTOCOL.advance against this derivation)."""
+        if self._mesh_demoted is not None:
+            return MESH_FALLBACK
+        if self._mesh_serving is not None:
+            return MESH_RESHAPED
+        return MESH_FULL
+
+    def _demote_mesh(self, reason: str, exc=None) -> None:
+        """The mesh rung: a lost/erroring mesh device demotes
+        the whole service to the single-card executables — one pointer
+        pass under _lock, typed (mesh_demotions_total{reason}) and
+        counted, never a wedged round.  The dispatch path never
+        resumes collectives on its own: the fault is attributed to its
+        device(s) (health table + _mesh_lost) and an IMMEDIATE
+        off-path reshape job walks the width ladder down around them
+        (_run_mesh_ladder) — the fallback rung covers only the rebuild
+        window; un-attributable faults hold demoted until the timed
+        re-probe re-adjudicates.  With mesh_reprobe_interval_s = 0 the
+        demotion stays sticky until restart."""
+        attributed = self._attribute_fault_devices(exc)
+        swapped = 0
+        first = False
+        with self._lock:
+            # Fold the attribution in even when already demoted (a
+            # second card dying on the fallback rung still belongs in
+            # the health table and the next reshape's dead set).
+            self._mesh_lost |= attributed
+            if self._mesh_demoted is None:
+                first = True
+                with blackbox.annotate(reason=reason):
+                    MESH_LADDER_PROTOCOL.advance(self._mesh_rung(),
+                                                 MESH_FALLBACK)
+                self._mesh_demoted = reason
+                self._mesh_serving = None
+                self._mesh_fault_at = time.monotonic()
+                # Pace the first re-probe one full interval after the
+                # demotion (a device that just failed rarely heals
+                # instantly).
+                self._mesh_reprobe_last = self._mesh_fault_at
+                for eng in self._engines.values():
+                    m = getattr(eng, "model", None)
+                    fb = getattr(m, "fallback", None)
+                    if fb is not None:
+                        # Retain the sharded wrapper for
+                        # re-promotion: its tables are
+                        # host-rebuildable state, and a flip back
+                        # after a successful probe is one pointer
+                        # pass.  A demotion FROM the reshaped rung
+                        # keeps the earlier FULL-width retained
+                        # wrapper (the reshaped model is rebuilt,
+                        # never retained).  If the devices are still
+                        # bad, the next sharded dispatch demotes
+                        # again, typed — never a crashed round.
+                        if getattr(eng, "_mesh_model", None) is None:
+                            eng._mesh_model = m
+                        eng.model = fb
+                        # Sharded models are shape-keyed
+                        # (dispatch_bare), so no per-id cache entry
+                        # exists to drop; the compiled mesh
+                        # executables stay in the shape cache as
+                        # inert entries (demoted dispatch resolves
+                        # through _live_model before any lookup).
+                        swapped += 1
+        for dev_id in sorted(attributed):
+            self.guard.record_device_fault(dev_id, reason)
+        if not first:
+            return
+        self.mesh_demotions[reason] = (
+            self.mesh_demotions.get(reason, 0) + 1
+        )
+        metrics.MeshDemotions.inc(reason)
+        metrics.MeshActive.set(0.0)
+        metrics.MeshLostDevices.set(float(len(self._mesh_lost)))
+        self._publish_mesh_capacity()
+        log.error(
+            "mesh serving demoted to single-card executables (%s): "
+            "%d engine(s) flipped, %d device(s) attributed", reason,
+            swapped, len(attributed),
+        )
+        # Walk the ladder DOWN off-path right away (no paced wait):
+        # with attributed/probed-dead devices the builder rebuilds a
+        # reshaped mesh over the survivors and the fallback rung lasts
+        # only the rebuild window.
+        if self.config.mesh_reshape and self.config.mesh_reprobe_interval_s:
+            self._build_queue.put(("mesh_reshape", None))
+
+    def _maybe_mesh_reprobe(self) -> None:
+        """Traffic-driven re-promotion pacing (called once per dispatch
+        round, like guard.maybe_reprobe): while BELOW the full rung
+        (demoted or reshaped), queue at most one off-path ladder walk
+        per mesh_reprobe_interval_s onto the policy-builder thread —
+        the walk promotes back up (reshaped -> full, fallback ->
+        reshaped/full) as devices heal.  0 disables (sticky)."""
+        interval = self.config.mesh_reprobe_interval_s
+        if not interval or (
+            self._mesh_demoted is None and self._mesh_serving is None
+        ):
+            return
+        if self.guard.quarantined:
+            # Never queue a compile+dispatch against a quarantined
+            # device: a HUNG device (the case quarantine exists for)
+            # would wedge the builder thread — and with it every
+            # future swap/rebind — behind the probe.  The pacing
+            # clock retries after the guard's own re-probe heals.
+            return
+        now = time.monotonic()
+        with self._lock:
+            if self._mesh_reprobe_inflight:
+                return
+            if now - self._mesh_reprobe_last < interval:
+                return
+            self._mesh_reprobe_inflight = True
+            self._mesh_reprobe_last = now
+        self._build_queue.put(("mesh_reprobe", None))
+
+    # Probe rows for the re-promotion parity check: a remote-gated
+    # literal row, a regex row, and an always-match row — enough to
+    # exercise the stacked tables, the cross-shard attribution reduce,
+    # and the padding rows of an unbalanced split.
+    _MESH_PROBE_ROWS = (
+        (frozenset({7}), "READ", "/public/.*"),
+        (frozenset(), "HALT", ""),
+        (frozenset({9}), "", ""),
+    )
+
+    def _mesh_probe_batch(self):
+        """Probe batch shared by every ladder parity/materialization
+        check: five frames covering remote-gated literal, regex,
+        always-match and padding rows."""
+        b = max(self.MIN_BUCKET_GREEDY, self._mesh_min_bucket)
+        width = self.config.batch_width
+        data = np.zeros((b, width), np.uint8)
+        lens = np.zeros(b, np.int32)
+        rems = np.zeros(b, np.int32)
+        cases = [
+            (b"READ /public/app\r\n", 7),
+            (b"READ /public/app\r\n", 8),
+            (b"HALT\r\n", 3),
+            (b"WRITE /x\r\n", 9),
+            (b"RESET\r\n", 9),
+        ]
+        for i, (frame, rem) in enumerate(cases):
+            row = np.frombuffer(frame, np.uint8)
+            data[i, : len(row)] = row
+            lens[i] = len(row)
+            rems[i] = rem
+        return data, lens, rems
+
+    def _mesh_parity_probe(self, mesh) -> bool:
+        """Rebuild ONE sharded probe wrapper from scratch against
+        ``mesh``, run it beside its single-card twin over the probe
+        batch, and require bit-identical (allow, rule) output — the
+        gate EVERY ladder flip (reshape or re-promotion) must pass
+        before any engine pointer moves."""
+        from ..parallel.rulesharding import mesh_model_from_family_rows
+
+        rows = list(self._MESH_PROBE_ROWS)
+        with self._device_ctx():
+            # lint: disable=R23 -- parity-probe twin: built, compared, and discarded in this function — never a resident serving model, so ledgering it would inflate the compile census with probe noise
+            probe = mesh_model_from_family_rows("r2d2", rows, mesh)
+        data, lens, rems = self._mesh_probe_batch()
+        fb = probe.fallback
+        with self._device_ctx():
+            _, _, a_s, r_s = probe.verdicts_attr(data, lens, rems)
+            _, _, a_f, r_f = fb.verdicts_attr(data, lens, rems)
+        return bool(
+            np.array_equal(_to_host(a_s), _to_host(a_f))
+            and np.array_equal(_to_host(r_s), _to_host(r_f))
+        )
+
+    def _reshape_failed(self, reason: str) -> None:
+        self.mesh_reshape_failures[reason] = (
+            self.mesh_reshape_failures.get(reason, 0) + 1
+        )
+
+    def _run_mesh_ladder(self, immediate: bool) -> None:
+        """Builder-thread walk of the mesh width ladder: adjudicate
+        the dead device set (per-device probes + the attributed
+        _mesh_lost), pick the target rung (full when nothing is dead,
+        else the widest bucketable mesh over the survivors), parity-
+        gate it against the single-card twin, and flip every engine
+        onto it in one pointer pass.  ``immediate`` is the post-fault
+        job _demote_mesh queues: it only walks DOWN (a fault with no
+        attributable dead device holds the fallback rung for the
+        paced walk to adjudicate — transient runtime errors must not
+        promote themselves).  A second fault racing the walk aborts
+        the flip typed and falls through to the rung ITS demotion
+        chose.  Failure anywhere leaves the current rung in place and
+        the pacing clock owns the retry."""
+        try:
+            full = self._mesh
+            if full is None:
+                return
+            with self._lock:
+                demoted = self._mesh_demoted
+                serving = self._mesh_serving
+                prev_lost = set(self._mesh_lost)
+            if demoted is None and serving is None:
+                return  # full rung — stale job
+            # Re-checked on the builder thread: quarantine may have
+            # latched between queueing and execution (same hung-device
+            # hazard _maybe_mesh_reprobe gates against).
+            if self.guard.quarantined:
+                return
+            from ..parallel.mesh import FLOW_AXIS, RULE_AXIS, reshape_mesh
+
+            # -- adjudicate the dead set -------------------------------
+            dead = self._probe_mesh_devices(list(full.devices.flat))
+            if immediate:
+                dead |= prev_lost
+                if not dead:
+                    return
+            else:
+                for dev_id in sorted(prev_lost - dead):
+                    self.guard.mark_device_ok(dev_id)
+            with self._lock:
+                self._mesh_lost = set(dead)
+            metrics.MeshLostDevices.set(float(len(dead)))
+            if demoted is None and serving is not None and dead == prev_lost:
+                return  # reshaped rung already matches the dead set
+            # -- pick the target rung ----------------------------------
+            d0 = sum(self.mesh_demotions.values())
+            target = None
+            if not dead:
+                target = full
+            elif self.config.mesh_reshape:
+                survivors = [
+                    d for d in full.devices.flat if d.id not in dead
+                ]
+                with self._device_ctx():
+                    target = reshape_mesh(
+                        survivors, full.shape[RULE_AXIS],
+                        max_flow=full.shape[FLOW_AXIS],
+                    )
+            if target is None:
+                reason = (
+                    "below-min-width" if self.config.mesh_reshape
+                    else "reshape-disabled"
+                )
+                self._reshape_failed(reason)
+                if demoted is None:
+                    # Serving reshaped but the dead set grew past any
+                    # bucketable width: drop to the fallback rung via
+                    # the typed pointer pass, never a raw state write.
+                    self._demote_mesh(reason)
+                return
+            # -- parity-gate the target --------------------------------
+            if not self._mesh_parity_probe(target):
+                self._reshape_failed("parity")
+                log.warning(
+                    "mesh ladder parity mismatch at (flows=%d, "
+                    "rules=%d); rung holds",
+                    target.shape[FLOW_AXIS], target.shape[RULE_AXIS],
+                )
+                return
+            if target is full and serving is None:
+                self._promote_mesh_classic(d0)
+                return
+            # -- rebuild + flip (reshape down, or reshaped -> full) ----
+            with ledger_mod.cause_scope(
+                ledger_mod.CAUSE_REPROMOTION if target is full
+                else ledger_mod.CAUSE_MESH_RESHAPE,
+                epoch=self.policy_epoch,
+            ):
+                builds = self._rebuild_engines_on(target)
+            flipped = 0
+            with self._lock:
+                if sum(self.mesh_demotions.values()) != d0:
+                    # A second fault raced this walk: abort the flip
+                    # typed — the new demotion queued its own
+                    # immediate job, which re-walks the ladder with
+                    # the grown dead set (the next rung down).
+                    self._reshape_failed("raced-fault")
+                    return
+                for key, (eng, built, epoch0, old) in builds.items():
+                    cur = self._engines.get(key)
+                    if (
+                        cur is not eng
+                        or getattr(eng, "epoch", 0) != epoch0
+                        or eng.model is not old
+                    ):
+                        continue  # swapped mid-build: the swap built
+                        # against _serving_mesh already
+                    eng.model = built
+                    if target is full:
+                        eng._mesh_model = None
+                    flipped += 1
+                with blackbox.annotate(
+                    reason="repromote" if target is full else "reshape"
+                ):
+                    MESH_LADDER_PROTOCOL.advance(
+                        self._mesh_rung(),
+                        MESH_FULL if target is full else MESH_RESHAPED,
+                    )
+                self._mesh_serving = None if target is full else target
+                self._mesh_demoted = None
+            if target is full:
+                self.mesh_repromotions += 1
+                metrics.MeshRepromotions.inc()
+                log.info(
+                    "mesh serving re-promoted to full width after "
+                    "off-path parity probe (%d engine(s) rebuilt)",
+                    flipped,
+                )
+            else:
+                self.mesh_reshapes += 1
+                metrics.MeshReshapes.inc()
+                if serving is None and self._mesh_fault_at:
+                    self.mesh_reshape_window_ms = (
+                        time.monotonic() - self._mesh_fault_at
+                    ) * 1e3
+                log.warning(
+                    "mesh RESHAPED around %d dead device(s) %s: "
+                    "serving (flows=%d, rules=%d), %d engine(s) "
+                    "flipped", len(dead), sorted(dead),
+                    target.shape[FLOW_AXIS], target.shape[RULE_AXIS],
+                    flipped,
+                )
+            metrics.MeshActive.set(1.0)
+            self._publish_mesh_capacity()
+        except Exception:  # noqa: BLE001 — rung holds, retry paced
+            log.exception("mesh ladder walk failed; rung holds")
+        finally:
+            with self._lock:
+                self._mesh_reprobe_inflight = False
+
+    def _promote_mesh_classic(self, d0: int) -> None:
+        """Fallback -> full promotion when every device answers: the
+        retained sharded wrappers flip back in one pointer pass under
+        _lock (typed, counted); engines built DURING the demotion get
+        their sharded rebuilds queued instead of waiting
+        for the next epoch swap."""
+        data, lens, rems = self._mesh_probe_batch()
+        # Probe one RETAINED wrapper too: its device buffers must
+        # still answer (a restarted device may have dropped them —
+        # then the flip-back would only re-demote, typed, so this
+        # probe keeps that churn off the dispatch path).
+        with self._lock:
+            retained = [
+                getattr(e, "_mesh_model", None)
+                for e in self._engines.values()
+            ]
+        retained = [m for m in retained if m is not None]
+        if retained:
+            with self._device_ctx():
+                out = retained[0](data, lens, rems)
+                _to_host(out[-1])
+        promoted = 0
+        rebuilds: list = []
+        with self._lock:
+            if self._mesh_demoted is None:
+                return  # raced a concurrent heal
+            if sum(self.mesh_demotions.values()) != d0:
+                return  # raced a concurrent fault
+            for eng in self._engines.values():
+                mm = getattr(eng, "_mesh_model", None)
+                if mm is not None:
+                    eng.model = mm
+                    eng._mesh_model = None
+                    promoted += 1
+            with blackbox.annotate(reason="probe-heal"):
+                MESH_LADDER_PROTOCOL.advance(self._mesh_rung(),
+                                             MESH_FULL)
+            self._mesh_demoted = None
+            self._mesh_serving = None
+            # Engines BUILT while demoted hold plain
+            # single-card models (no retained wrapper, no
+            # fallback attr) — queue their sharded rebuilds so
+            # they heal too instead of waiting for the next epoch
+            # swap.  (Re-promoted engines above now expose
+            # .fallback and drop out of this scan.)
+            if not self.config.seam_probe:
+                for key, eng in self._engines.items():
+                    m = getattr(eng, "model", None)
+                    if (
+                        key[4] in ("r2d2", "http", "dns")
+                        and getattr(eng, "_mesh_model", None) is None
+                        and m is not None
+                        and not isinstance(m, ConstVerdict)
+                        and getattr(m, "fallback", None) is None
+                    ):
+                        rebuilds.append(
+                            (key, getattr(eng, "epoch", 0))
+                        )
+        for job in rebuilds:
+            self._build_queue.put(("mesh_rebuild", job))
+        self.mesh_repromotions += 1
+        metrics.MeshRepromotions.inc()
+        metrics.MeshActive.set(1.0)
+        self._publish_mesh_capacity()
+        log.info(
+            "mesh serving re-promoted after off-path parity probe "
+            "(%d engine(s) flipped back)", promoted,
+        )
+
+    def _rebuild_engines_on(self, mesh) -> dict:
+        """Off-path rebuild of every meshable engine's model against
+        ``mesh`` (the reshape fan-out): returns {key: (engine, built,
+        epoch0, old_model)} for the flip pass to apply under _lock
+        with staleness checks (engine replaced, epoch moved, model
+        pointer moved — any of which means an epoch swap already
+        rebuilt it against _serving_mesh)."""
+        with self._lock:
+            snap = [
+                (key, eng, getattr(eng, "epoch", 0),
+                 getattr(eng, "model", None))
+                for key, eng in self._engines.items()
+            ]
+        builds: dict = {}
+        for key, eng, epoch0, old in snap:
+            if key[4] not in ("r2d2", "http", "dns"):
+                continue
+            if old is None or isinstance(old, ConstVerdict):
+                continue
+            built = self._build_mesh_model_for(key, mesh)
+            if built is not None:
+                builds[key] = (eng, built, epoch0, old)
+        return builds
+
+    def _run_mesh_rebuild(self, key: tuple, epoch0: int) -> None:
+        """Builder-thread half of the demotion-era heal: rebuild ONE
+        demotion-era engine's model against the live mesh and flip the
+        pointer in — only if the engine is still registered under the
+        same key, its epoch has not moved (a swap would have rebuilt
+        it sharded already), and the mesh is still promoted.  Verdicts
+        are bit-identical across the flip by the sharding parity
+        contract (same policy rows, same flattened order), so a
+        mid-round flip is as safe as the demotion flip itself."""
+        with self._lock:
+            eng = self._engines.get(key)
+        if (
+            eng is None
+            or self._mesh_demoted is not None
+            or self.guard.quarantined
+            or getattr(eng, "epoch", 0) != epoch0
+        ):
+            return
+        model = getattr(eng, "model", None)
+        if (
+            model is None
+            or isinstance(model, ConstVerdict)
+            or getattr(model, "fallback", None) is not None
+        ):
+            return  # already sharded (or nothing to shard)
+        # The CURRENT rung's mesh: a rebind while the service runs
+        # reshaped must shard onto the survivor mesh, never the full
+        # layout a dead card would fault.
+        mesh = self._serving_mesh()
+        if mesh is None:
+            return
+        # A demotion-era engine healing onto the promoted mesh is the
+        # tail of the repromotion, so its build books under that cause.
+        with ledger_mod.cause_scope(ledger_mod.CAUSE_REPROMOTION,
+                                    epoch=self.policy_epoch):
+            built = self._build_mesh_model_for(key, mesh)
+        if built is None:
+            return
+        with self._lock:
+            if (
+                self._engines.get(key) is eng
+                and self._mesh_demoted is None
+                and getattr(eng, "epoch", 0) == epoch0
+                and eng.model is model
+            ):
+                eng.model = built
+                self.mesh_rebind_rebuilds += 1
+                metrics.MeshRebindRebuilds.inc()
+                log.info(
+                    "mesh rebind: demotion-era engine %r re-serving "
+                    "sharded", key,
+                )
+
+    def _build_mesh_model_for(self, key: tuple, mesh):
+        """Off-path build of ONE engine's sharded model against
+        ``mesh`` (the single assembly seam shared by the rebind heal
+        and the reshape fan-out): resolve the engine's policy through
+        the module registry, build the family's sharded wrapper with
+        its single-card twin, and materialize one probe call so a
+        broken mesh fails HERE (typed, demotion path) and never on
+        dispatch.  None when the policy folded to a constant, the
+        module is gone, or the build/probe fails — the engine then
+        keeps its current model."""
+        module_id, policy_name, ingress, port, proto = key
+        if proto not in ("r2d2", "http", "dns"):
+            return None
+        ins = pl.find_instance(module_id)
+        if ins is None:
+            return None
+        policy = ins.policy_map().get(policy_name)
+        t0 = time.perf_counter()
+        try:
+            with self._device_ctx():
+                # lint: disable=R12 -- off-path builder-thread rebuild (the mesh-heal/reshape rung), never the dispatch loop
+                if proto == "r2d2":
+                    from ..parallel.rulesharding import mesh_r2d2_model
+
+                    built = mesh_r2d2_model(policy, ingress, port, mesh)
+                elif proto == "dns":
+                    from ..parallel.rulesharding import mesh_dns_model
+
+                    built = mesh_dns_model(policy, ingress, port, mesh)
+                else:
+                    from ..parallel.rulesharding import mesh_http_model
+
+                    built = mesh_http_model(policy, ingress, port, mesh)
+                if getattr(built, "fallback", None) is None:
+                    return None  # folded to a constant: nothing to flip
+                b = max(self.MIN_BUCKET_GREEDY, self._mesh_min_bucket)
+                w = self.config.batch_width
+                out = built(
+                    np.zeros((b, w), np.uint8),
+                    np.zeros(b, np.int32),
+                    np.zeros(b, np.int32),
+                )
+                _to_host(out[-1])
+        except Exception:  # noqa: BLE001 — engine keeps its model
+            log.exception("mesh model build failed for %r", key)
+            return None
+        # Cause rides the caller's scope: mesh-reshape from the ladder
+        # walk, repromotion from the full-width flip / 1c heal.
+        try:
+            self.ledger.record_compile(
+                proto, time.perf_counter() - t0,
+                shape=self._model_shape_key(built),
+                rules=self._rule_bucket_of(built),
+                mesh=tuple(sorted(
+                    (getattr(mesh, "shape", None) or {}).items()
+                )),
+                kind=ledger_mod.KIND_ENGINE_BUILD, epoch=self.policy_epoch,
+            )
+        except Exception:  # noqa: BLE001 — ledger must not cost the build
+            pass
+        return built
+
+    def _mesh_guarded(self, model, call):
+        """Issue one device dispatch; when a SHARDED dispatch raises
+        (lost mesh device, failed collective, transfer error), demote
+        the mesh rung typed and reissue on the single-card fallback so
+        the round is answered instead of crashed."""
+        try:
+            return call(model)
+        except Exception as exc:
+            fb = getattr(model, "fallback", None)
+            if fb is None:
+                raise
+            log.exception(
+                "sharded dispatch failed; demoting to single-card"
+            )
+            # The exception text carries the fault attribution (which
+            # shard/device raised) — the reshape ladder walks down
+            # around exactly those devices.
+            self._demote_mesh("device-call", exc=exc)
+            return call(fb)
+
+    def _mesh_status(self) -> dict | None:
+        """Mesh-rung status surface: None while unresolved (no engine
+        built yet) or when multi-card serving is off."""
+        if not self._mesh_resolved or self._mesh is None:
+            return None
+        from ..parallel.mesh import FLOW_AXIS, RULE_AXIS
+
+        serving = self._mesh_serving
+        if self._mesh_demoted is not None:
+            rung = "fallback"
+        elif serving is not None:
+            rung = "reshaped"
+        else:
+            rung = "full"
         return {
-            "rung": "single",
-            "devices": 1,
-            "mode": self.config.mesh,
-            "active": False,
+            "devices": int(self._mesh.size),
+            "flow_shards": int(self._mesh.shape[FLOW_AXIS]),
+            "rule_shards": int(self._mesh.shape[RULE_AXIS]),
+            "active": self._mesh_demoted is None,
+            "demoted": self._mesh_demoted,
+            "demotions": dict(self.mesh_demotions),
+            "repromotions": self.mesh_repromotions,
+            "rebind_rebuilds": self.mesh_rebind_rebuilds,
+            # Width-ladder state: the current rung, the width actually
+            # serving, the attributed dead set, and the admission
+            # coupling — the operator's one look at "how degraded".
+            "rung": rung,
+            "serving_devices": (
+                1 if rung == "fallback"
+                else int((serving or self._mesh).size)
+            ),
+            "lost_devices": sorted(self._mesh_lost),
+            "reshapes": self.mesh_reshapes,
+            "reshape_failures": dict(self.mesh_reshape_failures),
+            "capacity_frac": self._mesh_capacity,
+            "reshape_window_ms": self.mesh_reshape_window_ms,
         }
 
     def _model_call(self, model, data, lens, remotes, use_jit=None):
@@ -4297,7 +5219,7 @@ class VerdictService:
 
         def call(m):
             with self._device_ctx():
-                if graphs and not isinstance(m, ConstVerdict):
+                if graphs and not isinstance(m, ConstVerdict) and not _spans_cards(m):
                     fn = self._jit_for(
                         self._jit_cache, m,
                         functools.partial(_call_model, m),
@@ -4327,7 +5249,8 @@ class VerdictService:
 
         def call(m):
             with self._device_ctx():
-                if self._graphs_on and not isinstance(m, ConstVerdict):
+                if (self._graphs_on and not isinstance(m, ConstVerdict)
+                        and not _spans_cards(m)):
                     jfn = self._jit_for(
                         self._jit_attr, m,
                         functools.partial(_call_model_attr, m),
@@ -4851,7 +5774,7 @@ class VerdictService:
                 return _gather_model(m, bl, o, ln, r, width, attr)
 
             with self._device_ctx():
-                if self._graphs_on:
+                if self._graphs_on and not _spans_cards(m):
                     return self._jit_for(self._jit_gather, m, fn)(
                         blob_dev, offs, lens, remotes
                     )
@@ -5046,6 +5969,11 @@ class VerdictService:
                 log.error("device readback stalled; quarantining")
                 self.guard.record_stall("readback-stall")
                 metrics.DeviceStalls.inc()
+                if self._mesh is not None and self._mesh_demoted is None:
+                    # Same reasoning as the dispatch-stall demotion: a
+                    # readback that never lands on a mesh means a
+                    # slot's card dropped out.
+                    self._demote_mesh("device-stall")
                 vals = [None] * n_futs
             except Exception:  # noqa: BLE001
                 self._readback_failed()

@@ -105,11 +105,6 @@ class OptionMap:
             return out
 
 
-class MeshUnavailable(ValueError):
-    """``DaemonConfig.mesh="on"`` asked for multi-chip sharded serving,
-    which the port does not have yet (ROADMAP Queue 1 item 7)."""
-
-
 @dataclass
 class DaemonConfig:
     """Typed config snapshot (reference: pkg/option/config.go:168)."""
@@ -251,10 +246,38 @@ class DaemonConfig:
     session_reconnect_storm: int = 8
     session_reconnect_window_s: float = 10.0
 
-    # Multi-chip sharded verdict serving is not ported (ROADMAP Queue 1
-    # item 7): 'auto' and 'off' serve on one card, and validate()
-    # rejects 'on' with MeshUnavailable.
-    mesh: str = "auto"  # auto | off
+    # Multi-card sharded verdict serving (parallel/rulesharding.py).
+    # 'auto' builds a (flows, rules) device mesh at first engine bind
+    # when the host has two or more distinct CUDA cards (never on the
+    # CPU, and never as virtual slots of one card — those share one
+    # card's SMs and a cross-shard reduce only adds work); 'on' forces
+    # the mesh at any device count (how the CPU tests and the card's
+    # virtual-slot smoke run); 'off' keeps the single-card models.
+    mesh: str = "auto"  # auto | on | off
+    # RULE_AXIS extent: rule tables split-balanced and padded across
+    # this many shards (HBM capacity for 100k+-rule tables; per-shard
+    # NFA delta shrinks ~quadratically).  0 = 1 (no rule sharding).
+    mesh_rule_shards: int = 0
+    # FLOW_AXIS extent: batch axes shard across this many devices for
+    # throughput.  0 = devices // rule_shards, floored to a power of
+    # two (so every power-of-two dispatch bucket divides it) and
+    # capped at the smallest bucket.  An EXPLICIT value may exceed the
+    # smallest dispatch bucket: the service grows its
+    # minimum bucket to the flow extent so >32-device pods shard the
+    # flow axis fully.
+    mesh_flow_shards: int = 0
+    # Width-ladder reshape: after a partial device loss the policy
+    # builder thread rebuilds the sharded wrappers over the surviving
+    # devices at the next bucketable width (fallback covers only the
+    # rebuild window).  False keeps a binary ladder:
+    # any mesh fault demotes straight to the single-card fallback.
+    mesh_reshape: bool = True
+    # Guarded mesh re-promotion: after a mesh demotion, the policy
+    # builder thread re-probes the mesh off-path at most once per this
+    # interval (rebuild one sharded executable, parity-probe it against
+    # the single-card fallback, re-promote typed on success).  0 keeps
+    # a demotion sticky until restart.
+    mesh_reprobe_interval_s: float = 5.0
 
     # Established-flow verdict cache (sidecar/service.py + client.py +
     # policy/invariance.py): per-flow decisions keyed (conn, direction,
@@ -407,14 +430,12 @@ class DaemonConfig:
             raise ValueError("flowlog_ring must be positive")
         if self.timeline_ring <= 0:
             raise ValueError("timeline_ring must be positive")
-        if self.mesh == "on":
-            raise MeshUnavailable(
-                "mesh='on': multi-chip sharded serving is not ported yet "
-                "(ROADMAP Queue 1 item 7); use mesh='auto' or 'off' to "
-                "serve on one card"
-            )
-        if self.mesh not in ("auto", "off"):
+        if self.mesh not in ("auto", "on", "off"):
             raise ValueError(f"invalid mesh {self.mesh!r}")
+        if self.mesh_rule_shards < 0 or self.mesh_flow_shards < 0:
+            raise ValueError("mesh shard counts must be non-negative")
+        if self.mesh_reprobe_interval_s < 0:
+            raise ValueError("mesh_reprobe_interval_s must be >= 0")
         if self.flow_cache_entries < 0:
             raise ValueError("flow_cache_entries must be >= 0")
         if self.handoff_deadline_s < 0:

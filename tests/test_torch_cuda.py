@@ -1197,3 +1197,123 @@ def test_seam_probe_service_on_the_card_matches_cpu(cuda, tmp_path, dispatch_mod
                                               "readback", "respond"}
     assert status["containment"]["refused_entries"] == {}
     assert status["containment"]["readback_failures"] == 0
+
+
+# --- the eighth slice: K21 / K22, the sharded search and the mesh service --------
+
+
+@pytest.mark.parametrize("r", [1, 3, 8])
+@pytest.mark.parametrize("f", [1, 1000, 65537])
+def test_shard_reduce_kernel_matches_plain(cuda, r, f):
+    """K21 in both forms, with rows allowed by a shard that names no row
+    (the INT32_MAX case)."""
+    from cilium_tpu_torch.parallel import rulesharding as rs_mod
+    from cilium_tpu_torch.parallel.rulesharding import shard_reduce, shard_reduce_plain
+
+    rng = np.random.default_rng(10 * r + f)
+    allow = rng.random((r, f)) < 0.3
+    rule = np.where(allow, rng.integers(0, 500, (r, f)), -1).astype(np.int32)
+    ghost = rng.random((r, f)) < 0.05
+    allow |= ghost
+    rule[ghost] = -1
+    offsets = np.sort(rng.integers(0, 10_000, r)).astype(np.int32)
+    a, ru, off = _to(cuda, allow, rule, offsets)
+    launches = rs_mod._SHARD_REDUCE.launches
+    assert torch.equal(shard_reduce(a).cpu(), shard_reduce_plain(*_to("cpu", allow)))
+    got = shard_reduce(a, ru, off)
+    want = shard_reduce_plain(*_to("cpu", allow, rule, offsets))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert rs_mod._SHARD_REDUCE.launches == launches + 2
+
+
+@pytest.mark.parametrize("r,f", [(1, 1), (2, 4099), (4, 65536)])
+def test_kafka_shard_combine_kernel_matches_plain(cuda, r, f):
+    """K22 with overflow rows and topic counts 0, 8 and past 8."""
+    from cilium_tpu_torch.parallel.rulesharding import (
+        kafka_shard_combine,
+        kafka_shard_combine_plain,
+    )
+
+    rng = np.random.default_rng(r * 7 + f)
+    simple = rng.random((r, f)) < 0.1
+    cover = rng.random((r, f, 8)) < 0.7
+    topic_count = rng.integers(0, 10, f).astype(np.int32)
+    topic_count[: min(f, 3)] = [0, 8, 9][: min(f, 3)]
+    overflow = rng.random(f) < 0.1
+    args = (simple, cover, topic_count, overflow)
+    got = kafka_shard_combine(*_to(cuda, *args))
+    assert torch.equal(got.cpu(), kafka_shard_combine_plain(*_to("cpu", *args)))
+
+
+def test_seqdfa_search_sharded_on_eight_slots_matches_k18(cuda):
+    from cilium_tpu_torch.entry import seqdfa_batch, seqdfa_tables
+    from cilium_tpu_torch.ops.seqdfa import SEQ_AXIS, seqdfa_search_sharded
+    from cilium_tpu_torch.parallel import Mesh, virtual_devices
+
+    tables = seqdfa_tables()
+    data, lengths = seqdfa_batch(256, 4096, 8)
+    d, ln = _to(cuda, data, lengths)
+    dfa_abs = device_dfa_absorbing(tables, cuda)
+    mesh = Mesh(np.array(virtual_devices(8, cuda), dtype=object), (SEQ_AXIS,))
+    got = seqdfa_search_sharded(dfa_abs, d, ln, mesh)
+    assert torch.equal(got, seqdfa_search_batch(dfa_abs, d, ln, 1))
+    assert torch.equal(got, dfa_search_batch(device_dfa(tables, cuda), d, ln))
+
+
+@pytest.mark.parametrize("dispatch_mode", ["eager", "jit"])
+def test_mesh_service_on_four_slots_matches_cpu(cuda, tmp_path, monkeypatch, dispatch_mode):
+    """A mesh="on", mesh_rule_shards=2 service on 4 slots of the card (a
+    2 x 2 virtual mesh) answers as the same service on 4 CPU slots, in
+    eager and CUDA-graph dispatch; K21 launches (or replays) on its path."""
+    from cilium_tpu_torch.parallel import mesh as mesh_mod
+    from cilium_tpu_torch.parallel import rulesharding as rs_mod
+    from cilium_tpu_torch.parallel.mesh import virtual_devices
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.proxylib.types import FilterResult
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    pol = NetworkPolicy(name="p", policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=80, rules=[
+            PortNetworkPolicyRule(remote_policies=[1, 3], l7_proto="r2d2",
+                                  l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}]),
+            PortNetworkPolicyRule(l7_proto="r2d2", l7_rules=[{"cmd": "WRITE", "file": "^/tmp/"}]),
+        ])])
+    traffic = [(b"READ /public/a.txt\r\n", 1), (b"READ /secret\r\n", 1), (b"HALT\r\n", 3),
+               (b"HALT\r\n", 9), (b"WRITE /tmp/x\r\n", 9), (b"WRITE /etc/x\r\n", 1)] * 5
+
+    def serve(device, mode):
+        monkeypatch.setattr(mesh_mod, "local_devices",
+                            lambda d=None: virtual_devices(4, device))
+        inst.reset_module_registry()
+        kw = dict(verdict_device="cpu") if device == "cpu" else {}
+        svc = VerdictService(str(tmp_path / f"{device}-{mode}.sock"), DaemonConfig(
+            dispatch_mode=mode, mesh="on", mesh_rule_shards=2, batch_timeout_ms=0.0,
+            batch_flows=256, **kw)).start()
+        client = SidecarClient(svc.socket_path, timeout=120.0)
+        try:
+            mod = client.open_module([])
+            assert client.policy_update(mod, [pol]) == int(FilterResult.OK)
+            outs = []
+            for i, (frame, remote) in enumerate(traffic):
+                res, shim = client.new_connection(mod, "r2d2", 100 + i, True, remote, 2,
+                                                  "1.1.1.1:1", "2.2.2.2:80", "p")
+                assert res == int(FilterResult.OK)
+                outs.append(shim.on_io(False, frame))
+                shim.close()
+            st = svc.status()
+            assert st["mesh"]["rung"] == "full" and st["mesh"]["devices"] == 4
+            assert st["containment"]["refused_entries"] == {}
+            eng = next(iter(svc._engines.values()))
+            assert isinstance(eng.model, rs_mod.ShardedVerdictModel)
+            return outs
+        finally:
+            client.close()
+            svc.stop()
+            inst.reset_module_registry()
+
+    k21 = rs_mod._SHARD_REDUCE
+    before = k21.launches + k21.replayed
+    card = serve(cuda, dispatch_mode)
+    assert k21.launches + k21.replayed > before
+    assert card == serve("cpu", "eager")

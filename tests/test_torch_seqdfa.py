@@ -24,6 +24,7 @@ from cilium_tpu_torch.convert import dfa_from_leaves
 from cilium_tpu_torch.entry import SEQDFA_PATTERNS, seqdfa_batch, seqdfa_tables
 from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
 from cilium_tpu_torch.ops.seqdfa import (
+    SEQ_AXIS,
     device_dfa_absorbing,
     make_absorbing,
     seqdfa_apply,
@@ -31,6 +32,7 @@ from cilium_tpu_torch.ops.seqdfa import (
     seqdfa_fold_plain,
     seqdfa_search_batch,
     seqdfa_search_batch_plain,
+    seqdfa_search_sharded,
 )
 from cilium_tpu_torch.regex.dfa import DfaBlowupError, compile_pattern_dfas
 
@@ -160,3 +162,94 @@ def test_inputs_are_checked(tables):
         seqdfa_search_batch(dfa_abs, d, torch.zeros(4, dtype=torch.int64), 2)
     with pytest.raises(ValueError):
         seqdfa_search_batch(dfa_abs, d.t(), torch.zeros(32, dtype=torch.int32), 2)
+
+
+# --- the sequence-sharded search (slots of a ("seq",) mesh) --------------------
+
+
+def _seq_mesh(n):
+    from cilium_tpu_torch.parallel import Mesh, virtual_devices
+
+    return Mesh(np.array(virtual_devices(n, CPU), dtype=object), (SEQ_AXIS,))
+
+
+def _ref_seq_mesh(n):
+    from jax.sharding import Mesh as RefMesh
+
+    return RefMesh(np.array(jax.devices()[:n]), (ref_seqdfa.SEQ_AXIS,))
+
+
+def test_seq_sharded_matches_serial_on_mesh(tables):
+    """8-slot sequence mesh: each slot folds its byte slice, the maps are
+    gathered in slot order for one apply — identical to the serial scan
+    and to the JAX package's search on its 8-device mesh."""
+    rng = random.Random(6)
+    data, lengths = _batch(rng, 32, 64)  # 8 bytes per slot
+    d, l = _t(data, torch.uint8), _t(lengths, torch.int32)
+    want = dfa_search_batch(device_dfa(tables, CPU), d, l)
+    got = seqdfa_search_sharded(device_dfa_absorbing(tables, CPU), d, l, _seq_mesh(8))
+    assert torch.equal(got, want)
+    ref_abs = ref_seqdfa.device_dfa_absorbing(ref_compile(PATTERNS))
+    ref = ref_seqdfa.seqdfa_search_sharded(ref_abs, data, lengths, _ref_seq_mesh(8))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_seq_sharded_wide_frames(tables):
+    """Frames of 1,024 bytes on 8 slots, a match straddling a chunk
+    boundary, spans ending mid-chunk."""
+    rng = random.Random(7)
+    data, lengths = _batch(rng, 8, 1024)
+    data[0, :] = 0
+    payload = b"x" * 124 + b"/public/deep" + b"y" * 12
+    data[0, : len(payload)] = np.frombuffer(payload, np.uint8)
+    lengths[0] = len(payload)
+    d, l = _t(data, torch.uint8), _t(lengths, torch.int32)
+    want = dfa_search_batch(device_dfa(tables, CPU), d, l)
+    got = seqdfa_search_sharded(device_dfa_absorbing(tables, CPU), d, l, _seq_mesh(8))
+    assert torch.equal(got, want)
+    assert got[0, PATTERNS.index(r"/public/.*")]
+    ref_abs = ref_seqdfa.device_dfa_absorbing(ref_compile(PATTERNS))
+    ref = ref_seqdfa.seqdfa_search_sharded(ref_abs, data, lengths, _ref_seq_mesh(8))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("end", ["before", "inside", "after"])
+def test_slot_lengths_fold_what_the_reference_t0_folds(tables, end):
+    """Slot k folds its slice with lengths clamp(lengths - k*lc, 0, lc)
+    where the reference passes t0 = k*lc to ``_fold_chunk``: the two give
+    the same state map for a span that ends before, inside and after the
+    chunk."""
+    import jax.numpy as jnp
+
+    n, lc = 4, 16
+    rng = random.Random({"before": 1, "inside": 2, "after": 3}[end])
+    data, _ = _batch(rng, 12, n * lc)
+    k = 2
+    lo, hi = k * lc, (k + 1) * lc
+    span = {"before": (0, lo - 1), "inside": (lo + 1, hi - 1), "after": (hi, n * lc + 1)}[end]
+    lengths = np.asarray([rng.randrange(*span) for _ in range(12)], np.int32)
+    dfa_abs = device_dfa_absorbing(tables, CPU)
+    d = _t(data[:, lo:hi], torch.uint8)
+    ln = (_t(lengths, torch.int32) - lo).clamp(0, lc)
+    got = seqdfa_fold(dfa_abs, d, ln.to(torch.int32), 1)[:, :, 0, :]
+    ref_abs = ref_seqdfa.device_dfa_absorbing(ref_compile(PATTERNS))
+    one_hot = ref_seqdfa._fold_chunk(
+        ref_abs, jnp.asarray(data[:, lo:hi]), jnp.int32(lo),
+        jnp.zeros(12, jnp.int32), jnp.asarray(lengths),
+    )
+    want = np.asarray(one_hot).argmax(axis=-1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    ident = np.arange(tables.n_states)
+    if end == "before":
+        assert (got.numpy() == ident).all()
+
+
+def test_seq_sharded_raises_the_references_errors(tables):
+    dfa_abs = device_dfa_absorbing(tables, CPU)
+    mesh = _seq_mesh(4)
+    with pytest.raises(ValueError, match="width"):
+        seqdfa_search_sharded(dfa_abs, torch.zeros((8, 30), dtype=torch.uint8),
+                              torch.zeros(8, dtype=torch.int32), mesh)
+    with pytest.raises(ValueError, match="flow count"):
+        seqdfa_search_sharded(dfa_abs, torch.zeros((6, 32), dtype=torch.uint8),
+                              torch.zeros(6, dtype=torch.int32), mesh)

@@ -46,7 +46,7 @@ from cilium_tpu_torch.proxylib.types import DROP, PASS, FilterResult
 from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
 from cilium_tpu_torch.sidecar import wire
 from cilium_tpu_torch.sidecar import service as port_service_mod
-from cilium_tpu_torch.utils.option import DaemonConfig, MeshUnavailable
+from cilium_tpu_torch.utils.option import DaemonConfig
 
 # --- (a) wire encodings ------------------------------------------------------
 
@@ -885,16 +885,29 @@ def test_readback_failure_is_counted_and_trips_the_guard(tmp_path, monkeypatch):
         port_inst.reset_module_registry()
 
 
-# --- (g) no mesh, and no silent CPU ----------------------------------------------
+# --- (g) the mesh rung on one CPU slot, and no silent CPU ---------------------------
 
 
 def test_mesh_on_raises_typed(tmp_path):
-    with pytest.raises(MeshUnavailable, match="item 7"):
-        VerdictService(str(tmp_path / "m.sock"), port_cfg(mesh="on"))
+    """``mesh="on"`` is accepted: on one CPU slot it resolves a 1 x 1
+    mesh at rung "full"; "auto" (no two cards) and "off" resolve none,
+    and the status surface is None then, as the reference's."""
+    svc = VerdictService(str(tmp_path / "on.sock"), port_cfg(mesh="on"))
+    try:
+        assert svc._mesh_status() is None  # unresolved until the first build
+        mesh = svc._resolve_mesh()
+        assert mesh is not None and mesh.shape == {"flows": 1, "rules": 1}
+        st = svc._mesh_status()
+        assert st["rung"] == "full" and st["devices"] == 1 and st["active"] is True
+    finally:
+        svc.stop()
     for mode in ("auto", "off"):
         svc = VerdictService(str(tmp_path / f"{mode}.sock"), port_cfg(mesh=mode))
-        assert svc._mesh_status()["rung"] == "single"
-        svc.stop()
+        try:
+            assert svc._resolve_mesh() is None
+            assert svc._mesh_status() is None
+        finally:
+            svc.stop()
 
 
 def test_default_device_needs_a_card(tmp_path, monkeypatch):
