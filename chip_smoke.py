@@ -108,7 +108,9 @@ which fails the run on any mismatch:
    for bit against the single-device models, each slot's kernels and K21
    ``shard_reduce`` / K22 ``kafka_shard_combine`` launched as many times
    as the layout says); rules_100k (100,000 HTTP rules on 4 rule shards,
-   F = 2,048) against the unsharded table with p99, rate and table bytes;
+   F = 2,048) against the unsharded table with p99, rate and table bytes,
+   and K6 / K7 at shard 0 and unsharded against their plain versions,
+   with their bounds, timed;
    multichip_scaling at 1, 2 and 4 flow slots; ``seqdfa_search_sharded``
    at 8 slots on the seqdfa-32k and -4k shapes against K18's serial
    search; a ``VerdictService`` with ``mesh="on"``,
@@ -116,7 +118,8 @@ which fails the run on any mismatch:
    traffic equal to the host oracle through a fault on slot 1, the
    reshape onto the survivors and the re-promotion; then K21 (both
    forms) and K22 against their plain versions at F = 65,536, R = 1, 2,
-   4, 8, timed beside the library calls.  The rules_100k budget and the
+   4, 8, timed beside the library calls (K21's plain form against
+   ``torch.any`` in turns, three readings each).  The rules_100k budget and the
    scaling floor are asserted only on 4 distinct cards.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
@@ -3602,15 +3605,20 @@ def mesh_slots(dev, n):
 
 
 def mesh_table_bytes(models) -> int:
-    """Bytes of every tensor of the models (automata included)."""
+    """Bytes of every tensor of the models (automata and the per-rule CSR
+    tables included)."""
+    def size(ts):
+        return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
     total = 0
     for m in models:
         for v in vars(m).values():
             if isinstance(v, torch.Tensor):
-                total += v.numel() * v.element_size()
+                total += size([v])
+            elif isinstance(v, dict):
+                total += size(v.values())
             elif hasattr(v, "n_states"):
-                total += sum(t.numel() * t.element_size()
-                             for t in vars(v).values() if isinstance(t, torch.Tensor))
+                total += size(vars(v).values())
     return total
 
 
@@ -3864,17 +3872,46 @@ def _mesh_runs(dev, card, kerns, tmp):
         f"{MESH_100K_BUDGET_MS} ms (asserted on 4 cards only); table bytes on the card: shards "
         f"{sh_bytes:,} ({sh_bytes // 4:,} a slot), unsharded {un_bytes:,}; host builds "
         f"sharded + fallback {t_sh100k:.1f} s, unsharded {t_ref100k:.1f} s [{card}]")
-    from cilium_tpu_torch.models.http import http_frame, http_hits, http_lit
+    from cilium_tpu_torch.models.http import (
+        http_frame,
+        http_hits,
+        http_hits_plain,
+        http_lit,
+        http_lit_plain,
+    )
 
-    for label, m in (("shard 0", sharded100k.stacked[0]), ("unsharded", ref100k)):
-        frame = http_frame(in100k[0], in100k[1])
-        lit = http_lit(m, in100k[0], frame)
-        t6 = graph_ms(lambda: http_lit(m, in100k[0], frame), iters=3, replays=3)
-        t7 = graph_ms(lambda: http_hits(m, frame.complete, *lit, None, None, None, in100k[2]),
-                      iters=3, replays=3)
-        log(f"mesh-rules-100k {label} ({m.n_rules} rules, literal rows "
-            f"{m.m_needle.shape[0]} + {m.p_needle.shape[0]}): K6 http_lit {t6:.4f} ms, "
-            f"K7 http_hits {t7:.4f} ms [{card}]")
+    # K6 and K7 at rules_100k: shard 0 (the shape the counted run launched
+    # on each of the 4 slots) and the unsharded table, against their plain
+    # versions, then timed beside their bounds.
+    report = {"http_lit": {}, "http_hits": {}, "shard_reduce": {}, "kafka_shard_combine": {}}
+    timed = {}
+    data100k = in100k[0]
+    frame = http_frame(data100k, in100k[1])
+    for label, shape, m in (("shard 0", "mesh-rules-100k", sharded100k.stacked[0]),
+                            ("unsharded", "mesh-rules-100k-unsharded", ref100k)):
+        lit = http_lit(m, data100k, frame)
+        args = (frame.complete, *lit, None, None, None, in100k[2])
+        hits = http_hits(m, *args)
+        report["http_lit"][shape] = max_abs_err(lit, http_lit_plain(m, data100k, frame))
+        report["http_hits"][shape] = max_abs_err(hits, http_hits_plain(m, *args))
+        k6 = lambda: http_lit(m, data100k, frame)  # noqa: E731
+        k7 = lambda: http_hits(m, *args)  # noqa: E731
+        rows = {
+            "http_lit": dict(ms=graph_ms(k6, iters=10, replays=5), call_ms=cuda_ms(k6, 10),
+                             plain_ms=cuda_ms(lambda: http_lit_plain(m, data100k, frame), 1),
+                             **lit_counts(m, frame)),
+            "http_hits": dict(ms=graph_ms(k7, iters=10, replays=5), call_ms=cuda_ms(k7, 10),
+                              plain_ms=cuda_ms(lambda: http_hits_plain(m, *args), 1),
+                              **hits_counts(m, args, hits)),
+        }
+        timed[shape] = dict(rows=rows)
+        runs.setdefault(shape, dict.fromkeys(kerns, 0))
+        log(f"{shape} ({label}: {m.n_rules} rules, literal rows {m.m_needle.shape[0]} + "
+            f"{m.p_needle.shape[0]}, F={MESH_100K_F}): max |kernel - plain| K6 "
+            f"{report['http_lit'][shape]}, K7 {report['http_hits'][shape]}; main-path launches "
+            f"K6 {runs[shape]['http_lit']}, K7 {runs[shape]['http_hits']} [{card}]")
+        for kname, row in rows.items():
+            log_row(shape, kname, bound(row))
     if real100k and n_cards >= 4 and sh_p99 > MESH_100K_BUDGET_MS:
         raise AssertionError(f"rules_100k sharded p99 {sh_p99:.3f} ms over the budget")
     ref = build_r2d2_model(scale_pol, True, 80, device=dev)
@@ -3901,8 +3938,6 @@ def _mesh_runs(dev, card, kerns, tmp):
 
     # 13a. K21 and K22 against their plain versions, then timed.
     log("== K21 / K22 vs plain and timed")
-    report = {"shard_reduce": {}, "kafka_shard_combine": {}}
-    timed = {}
     g = torch.Generator(device="cpu").manual_seed(13)
     nomatch = torch.iinfo(torch.int32).max
     for r in MESH_K_RULES:
@@ -3931,13 +3966,21 @@ def _mesh_runs(dev, card, kerns, tmp):
         runs[f"mesh-k21-R{r}"] = dict.fromkeys(kerns, 0)
         log_row(f"mesh-k21-R{r}", "shard_reduce", row)
         k21p = lambda: rs.shard_reduce(allow)  # noqa: E731
-        prow = dict(ms=graph_ms(k21p), call_ms=cuda_ms(k21p, 50),
+        anyp = lambda: allow.any(dim=0)  # noqa: E731
+        # K21's plain form and torch.any in turns (k, a, a, k, k, a): the
+        # spread of each is the spread of its three readings
+        turns = {"k": [], "a": []}
+        for who in "kaakka":
+            turns[who].append(graph_ms(k21p if who == "k" else anyp))
+        prow = dict(ms=min(turns["k"]), call_ms=cuda_ms(k21p, 50),
                     plain_ms=cuda_ms(lambda: rs.shard_reduce_plain(allow), 20),
-                    library_ms=graph_ms(lambda: allow.any(dim=0)),
-                    bytes=r * f + f, ops=r * f)
+                    library_ms=min(turns["a"]), bytes=r * f + f, ops=r * f)
         timed[f"mesh-k21plain-R{r}"] = dict(rows={"shard_reduce": bound(prow)})
         runs[f"mesh-k21plain-R{r}"] = dict.fromkeys(kerns, 0)
         log_row(f"mesh-k21plain-R{r}", "shard_reduce", prow)
+        log(f"mesh-k21plain-R{r}: K21 plain form "
+            + ", ".join(f"{t:.5f}" for t in turns["k"]) + " ms against torch.any "
+            + ", ".join(f"{t:.5f}" for t in turns["a"]) + f" ms (in turns k a a k k a) [{card}]")
 
         simple = (torch.rand((r, f), generator=g) < 0.1).to(dev)
         cover = (torch.rand((r, f, 8), generator=g) < 0.7).to(dev)
@@ -3963,7 +4006,7 @@ def _mesh_runs(dev, card, kerns, tmp):
         rows={"kafka_shard_combine": timed["mesh-k22-R4"]["rows"]["kafka_shard_combine"]})
     log("max |kernel - plain|:", json.dumps(report))
     if any(v for per in report.values() for v in per.values()):
-        raise AssertionError("K21 / K22 disagree with their plain versions")
+        raise AssertionError("K6 / K7 / K21 / K22 disagree with their plain versions")
     return launches, runs, report, timed
 
 
@@ -4163,6 +4206,83 @@ def span_bytes(start, end, l):
     s = start.clamp(0, l)
     e = end.clamp(0, l)
     return int((e - s).clamp(min=0).sum())
+
+
+def lit_counts(model, frame):
+    """K6's bytes and ops: the span bytes it compares (at most LIT_W a
+    slot), the spans, the literal tables once and the two [F, R] outputs;
+    one op per needle byte of every live row whose length test passes."""
+    from cilium_tpu_torch.models.http import LIT_W
+
+    f, r = frame.sp1.shape[0], model.n_rules
+    m_len = frame.sp1.clamp(min=0)
+    p_len = (frame.sp2 - frame.p_start).clamp(min=0)
+    ops = 0
+    for slen, slot in ((m_len, "m"), (p_len, "p")):
+        nlen = getattr(model, f"{slot}_len").to(torch.int64)
+        live = getattr(model, f"{slot}_live")
+        pre = getattr(model, f"{slot}_prefix")
+        for f0 in range(0, f, 256):  # [256, N] at a time: N is 100,000 at rules_100k
+            sl = slen[f0:f0 + 256, None]
+            ok = torch.where(pre[None, :], sl >= nlen[None, :], sl == nlen[None, :]) & live[None, :]
+            ops += int((ok * nlen[None, :]).sum())
+    read = int(m_len.clamp(max=LIT_W).sum() + p_len.clamp(max=LIT_W).sum())
+    tables = sum(getattr(model, f"{s}_needle").numel() + 10 * getattr(model, f"{s}_len").numel()
+                 for s in ("m", "p")) + 2 * r
+    return dict(bytes=read + 16 * f + tables + 2 * f * r, ops=ops)
+
+
+def hits_counts(model, args, hits):
+    """K7's bytes and ops over the rows its walk must visit (up to the
+    first that holds, all of them where none does, none on an incomplete
+    head): the method_ok bytes of those rows, the path_ok bytes where the
+    method holds, the automaton hit columns, the [F] inputs and outputs,
+    and each rule's table entries once where the walk reads them (its
+    method or path pattern list where that byte is false and the patterns
+    are given, its head list and count where method and path hold, its
+    remote flag where all three hold and its remote set where that flag
+    is false); two tests a row visited, the 32 remote compares only where
+    method, path and head hold."""
+    from cilium_tpu_torch.models.http import _scatter_or
+
+    complete, method_ok, path_ok, rx_m, rx_p, head_hits, _ = args
+    f, r = method_ok.shape
+    m_byte, p_byte = method_ok, path_ok
+    is_m = model.line_slot == 0
+    if rx_m is not None:
+        method_ok = method_ok | _scatter_or(rx_m & is_m[None, :], model.line_rule, r)
+    if rx_p is not None:
+        path_ok = path_ok | _scatter_or(rx_p & ~is_m[None, :], model.line_rule, r)
+    need = torch.where(hits[0], hits[1] + 1, torch.where(
+        complete, torch.full_like(hits[1], r), torch.zeros_like(hits[1])))
+    walked = torch.arange(r, device=need.device)[None, :] < need[:, None]
+    m_walked = walked & method_ok
+    mph = m_walked & path_ok
+    if head_hits is not None:
+        per_rule = torch.zeros((f, r), dtype=torch.int32, device=head_hits.device)
+        per_rule.index_add_(1, model.head_rule.long(), head_hits.to(torch.int32))
+        mph &= per_rule >= model.head_count[None, :]
+    cols = sum(t.shape[1] for t in (rx_m, rx_p, head_hits) if t is not None)
+    n_walked, n_m, n_mph = int(walked.sum()), int(m_walked.sum()), int(mph.sum())
+
+    def lists(rows, ptr):  # the rules some flow reads: a pointer and the indices each
+        rules = rows.any(0)
+        return 4 * int(rules.sum()) + 4 * int((ptr[1:] - ptr[:-1])[rules].sum())
+
+    tables = 0
+    if rx_m is not None:
+        tables += lists(walked & ~m_byte, model.csr["m_ptr"])
+    if rx_p is not None:
+        tables += lists(m_walked & ~p_byte, model.csr["p_ptr"])
+    if head_hits is not None:
+        mp = m_walked & path_ok
+        tables += lists(mp, model.csr["h_ptr"]) + 4 * int(mp.any(0).sum())
+    held = mph.any(0)
+    tables += int(held.sum()) + 4 * 32 * int((held & ~model.any_remote).sum())
+    return dict(
+        bytes=n_walked + n_m + f * cols + f + 4 * f + 5 * f + tables,
+        ops=2 * n_walked + 32 * n_mph + f * cols,
+    )
 
 
 def main() -> int:
@@ -4595,7 +4715,6 @@ def main() -> int:
         data, lengths, rem, frame, lit, spans, rx, hits = hinputs[name]
         model = c["model"]
         f, l = data.shape
-        r = model.n_rules
         rows = {}
         # K5: each row's sectors up to min(head_len, len) and the lengths
         # once, eight [F] outputs (seven int32, one bool)
@@ -4607,26 +4726,11 @@ def main() -> int:
             bytes=sector_bytes(need, l) + 4 * f + 29 * f,
             ops=int(need.clamp(0, l).sum()),
         )
-        # K6: the span bytes it compares (at most LIT_W a slot), the spans,
-        # the literal tables once and two [F, R] outputs; one op per needle
-        # byte of every live row whose length test passes
-        m_len = (frame.sp1).clamp(min=0)
-        p_len = (frame.sp2 - frame.p_start).clamp(min=0)
-        ops = 0
-        for slen, slot in ((m_len, "m"), (p_len, "p")):
-            nlen = getattr(model, f"{slot}_len")
-            ok = torch.where(getattr(model, f"{slot}_prefix")[None, :],
-                             slen[:, None] >= nlen[None, :], slen[:, None] == nlen[None, :])
-            ok &= getattr(model, f"{slot}_live")[None, :]
-            ops += int((ok * nlen[None, :]).sum())
-        read = int(m_len.clamp(max=http_mod.LIT_W).sum() + p_len.clamp(max=http_mod.LIT_W).sum())
-        tables = sum(getattr(model, f"{s}_needle").numel() + 10 * getattr(model, f"{s}_len").numel()
-                     for s in ("m", "p")) + 2 * r
         k6 = lambda: http_lit(model, data, frame)
         rows["http_lit"] = dict(
             ms=graph_ms(k6), call_ms=cuda_ms(k6, 50),
             plain_ms=cuda_ms(lambda: http_lit_plain(model, data, frame), 10),
-            bytes=read + 16 * f + tables + 2 * f * r, ops=ops,
+            **lit_counts(model, frame),
         )
         # the automata on the HTTP spans
         for span, (tab, s, e) in spans.items():
@@ -4634,17 +4738,12 @@ def main() -> int:
             row = scan_row(scans[kname], tab, data, s, e, span_bytes(s, e, l))
             row["span"] = span
             rows[f"{kname}:{span}"] = row
-        # K7: the hit matrices in, [F] out, rows walked
         args = (frame.complete, *lit, rx.get("method"), rx.get("path"), rx.get("head"), rem)
-        cols = sum(t.shape[1] for t in rx.values())
-        walked = torch.where(hits[0], hits[1] + 1,
-                             torch.where(frame.complete, torch.full_like(hits[1], r), 0))
         k7 = lambda: http_hits(model, *args)
         rows["http_hits"] = dict(
             ms=graph_ms(k7), call_ms=cuda_ms(k7, 50),
             plain_ms=cuda_ms(lambda: http_hits_plain(model, *args), 10),
-            bytes=2 * f * r + f * cols + f + 4 * f + 5 * f + r * (4 + 4 * 4 + 128 + 1),
-            ops=int(walked.sum()) * (2 + 32) + f * cols,
+            **hits_counts(model, args, hits),
         )
         host = c["host"]
         timed[name] = dict(rows=rows, **pass_times(

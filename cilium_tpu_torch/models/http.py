@@ -67,8 +67,8 @@ _HTTP_FRAME = kernels.CudaKernel(
 )
 _HTTP_LIT = kernels.CudaKernel(
     "http_lit", "http_lit",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,
 )
 _HTTP_HITS = kernels.CudaKernel(
@@ -247,8 +247,9 @@ def lit_arrays(rows: list, n_pad: int | None = None,
 
 
 def _csr(owner: torch.Tensor, n_rules: int, keep: torch.Tensor | None = None):
-    """(ptr [R + 1] int32, idx [n] int32): the pattern indices each rule
-    owns, in pattern order, for K7's per-rule walk."""
+    """(ptr [R + 1] int32, idx [n] int32): the row indices each rule owns
+    (those ``keep`` selects), in row order: rule r's rows are
+    idx[ptr[r]:ptr[r + 1]], for K6's and K7's per-rule walks."""
     owner = owner.cpu().long()
     sel = torch.arange(owner.shape[0])
     if keep is not None:
@@ -301,6 +302,10 @@ class HttpBatchModel(VerdictModel):
     # K7's per-rule pattern lists, derived from line_rule/line_slot and
     # head_rule once, here.
     csr: dict = field(init=False, repr=False)
+    # K6's per-rule lists of the live literal rows of each slot
+    # (m_ptr, m_idx, p_ptr, p_idx), derived from m_rule/m_live and
+    # p_rule/p_live once, here.
+    lit_csr: dict = field(init=False, repr=False)
 
     def __post_init__(self):
         # The kernels read these tables as they are: check them once,
@@ -344,16 +349,23 @@ class HttpBatchModel(VerdictModel):
             t = getattr(self, name)
             if t.numel() and (int(t.min()) < 0 or int(t.max()) >= hi):
                 raise ValueError(f"{name}: values must lie in [0, {hi})")
+
+        def on_device(parts):
+            return {
+                f"{k}_{name}": t.to(device)
+                for k, pair in parts.items() for name, t in zip(("ptr", "idx"), pair)
+            }
+
         is_m = self.line_slot == 0
-        parts = {
+        self.csr = on_device({
             "m": _csr(self.line_rule, r, is_m),
             "p": _csr(self.line_rule, r, ~is_m),
             "h": _csr(self.head_rule, r),
-        }
-        self.csr = {
-            f"{k}_{name}": t.to(device)
-            for k, pair in parts.items() for name, t in zip(("ptr", "idx"), pair)
-        }
+        })
+        self.lit_csr = on_device({
+            slot: _csr(getattr(self, f"{slot}_rule"), r, getattr(self, f"{slot}_live"))
+            for slot in ("m", "p")
+        })
 
     @property
     def device(self) -> torch.device:
@@ -612,19 +624,18 @@ def http_lit(model: HttpBatchModel, data, frame: HttpFrame):
     if kernels.on_cpu(device):
         return http_lit_plain(model, data, frame)
     r = model.n_rules
-    nm, wm = model.m_needle.shape
-    np_, wp = model.p_needle.shape
     method_ok = torch.empty((f, r), dtype=torch.bool, device=device)
     path_ok = torch.empty((f, r), dtype=torch.bool, device=device)
     if f:
         p = kernels.p
+        c = model.lit_csr
         _HTTP_LIT.launch(
             device, p(data), p(frame.sp1), p(frame.sp2),
             p(frame.last_nl_m), p(frame.last_nl_p),
             p(model.m_needle), p(model.m_len), p(model.m_prefix),
-            p(model.m_rule), p(model.m_live), nm, wm,
+            p(c["m_ptr"]), p(c["m_idx"]), model.m_needle.shape[1],
             p(model.p_needle), p(model.p_len), p(model.p_prefix),
-            p(model.p_rule), p(model.p_live), np_, wp,
+            p(c["p_ptr"]), p(c["p_idx"]), model.p_needle.shape[1],
             p(model.method_any), p(model.path_any), f, l, r,
             p(method_ok), p(path_ok),
         )

@@ -1317,3 +1317,196 @@ def test_mesh_service_on_four_slots_matches_cpu(cuda, tmp_path, monkeypatch, dis
     card = serve(cuda, dispatch_mode)
     assert k21.launches + k21.replayed > before
     assert card == serve("cpu", "eager")
+
+
+# --- the ninth slice: K6 / K7 on a (flow, rule) grid and a lane group a flow --------
+
+LIT_ALPHABET = np.frombuffer(b"GETPOSab/\n", np.uint8)
+
+
+def _lit_model(rng, r, w, dev):
+    """An HttpBatchModel of ``r`` rules straight from random tables: 0 to
+    3 literal rows a rule and slot in no rule order, dead rows (as the
+    padded shards have), exact and prefix rows of 0 to ``w`` bytes over a
+    small alphabet (so they meet the spans), wildcard flags, method and
+    path pattern columns, head patterns and remote sets."""
+    tabs = {}
+    for slot in ("m", "p"):
+        n = max(1, int(r * rng.uniform(0.3, 2.0)))
+        nlen = np.minimum(rng.geometric(0.25, n) - 1, w).astype(np.int32)
+        needle = rng.choice(LIT_ALPHABET, (n, w)).astype(np.uint8)
+        needle[np.arange(w)[None, :] >= nlen[:, None]] = 0
+        tabs.update({
+            f"{slot}_needle": needle, f"{slot}_len": nlen,
+            f"{slot}_prefix": rng.random(n) < 0.3,
+            f"{slot}_rule": rng.integers(0, r, n).astype(np.int32),
+            f"{slot}_live": rng.random(n) < 0.85,
+        })
+    pl, p = max(1, r // 3), max(1, r // 4)
+    head_rule = rng.integers(0, r, p).astype(np.int32)
+    head_count = np.bincount(head_rule, minlength=r).astype(np.int32)
+    head_count -= (rng.random(r) < 0.2).astype(np.int32) * (head_count > 0)
+    remote_ids = np.where(rng.random((r, 32)) < 0.05, rng.integers(1, 6, (r, 32)), 0)
+    tabs.update(
+        method_any=rng.random(r) < 0.05, path_any=rng.random(r) < 0.05,
+        line_rule=rng.integers(0, r, pl).astype(np.int32),
+        line_slot=rng.integers(0, 2, pl).astype(np.int32),
+        head_rule=head_rule, head_count=head_count,
+        remote_ids=remote_ids.astype(np.int32), any_remote=rng.random(r) < 0.3,
+    )
+    return http_mod.HttpBatchModel(
+        **{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in tabs.items()},
+        line_nfa=None, head_nfa=None, n_rules=r)
+
+
+def _lit_batch(rng, model, f, l=160):
+    """Request lines whose method and path are the model's needles (the
+    prefix rows' with a tail, an LF after the needle in some), empty
+    spans and paths longer than LIT_W, then random bytes."""
+    host = {k: getattr(model, k).cpu().numpy() for k in ("m_needle", "m_len", "p_needle", "p_len")}
+    data = rng.choice(LIT_ALPHABET, (f, l)).astype(np.uint8)
+    lengths = np.zeros((f,), np.int32)
+
+    def token(slot):
+        k = rng.integers(0, host[f"{slot}_len"].shape[0])
+        tok = bytes(host[f"{slot}_needle"][k, : host[f"{slot}_len"][k]])
+        roll = rng.random()
+        if roll < 0.15:
+            tok += bytes(rng.choice(LIT_ALPHABET, rng.integers(1, 6)))
+        elif roll < 0.25:
+            tok += b"a\nb"
+        elif roll < 0.3:
+            tok = b""
+        elif roll < 0.35:
+            tok = bytes(rng.choice(LIT_ALPHABET, rng.integers(60, 90)))
+        return tok
+
+    for i in range(f):
+        head = token("m") + b" " + token("p") + b" HTTP/1.1\r\n\r\n"
+        head = head[:l]
+        data[i, : len(head)] = np.frombuffer(head, np.uint8)
+        lengths[i] = len(head)
+    return data, lengths
+
+
+@pytest.mark.parametrize("r", [1, 5, 31, 32, 33, 257, 4097, 25000])
+@pytest.mark.parametrize("f", [1, 127, 3001])
+def test_http_lit_grid_matches_plain(cuda, r, f):
+    """K6 on its (flow tile, rule tile) grid equals the plain version byte
+    for byte, at R on both sides of every tile width and F on both sides
+    of a flow tile; one launch a call."""
+    rng = np.random.default_rng(r * 31 + f)
+    model = _lit_model(rng, r, 16 if r > 4096 else 64, cuda)
+    d, n = _to(cuda, *_lit_batch(rng, model, f))
+    frame = http_frame(d, n)
+    before = http_mod._HTTP_LIT.launches
+    got = http_lit(model, d, frame)
+    torch.cuda.synchronize()
+    assert http_mod._HTTP_LIT.launches == before + 1
+    want = http_lit_plain(model, d, frame)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if f > 1:
+        assert bool(want[0].any()) and bool(want[1].any())
+
+
+def _long_path_batch(rng, model, f, l=448):
+    """Request lines whose path is one of the model's path needles and a
+    tail to 255 bytes or more: 256 + the needle's length (which a length
+    byte without the clamp at 255 would take for the needle's length), or
+    255 to 320, an LF in the tail of some."""
+    host = {k: getattr(model, k).cpu().numpy() for k in ("m_needle", "m_len", "p_needle", "p_len")}
+    data = rng.choice(LIT_ALPHABET, (f, l)).astype(np.uint8)
+    lengths = np.zeros((f,), np.int32)
+    no_lf = LIT_ALPHABET[LIT_ALPHABET != ord("\n")]
+    for i in range(f):
+        k = rng.integers(0, host["m_len"].shape[0])
+        method = bytes(host["m_needle"][k, : host["m_len"][k]])
+        k = rng.integers(0, host["p_len"].shape[0])
+        path = bytes(host["p_needle"][k, : host["p_len"][k]])
+        n = 256 + len(path) if rng.random() < 0.5 else int(rng.integers(255, 321))
+        tail = rng.choice(no_lf, n - len(path))
+        if rng.random() < 0.2:
+            tail[rng.integers(0, tail.shape[0])] = ord("\n")
+        head = method + b" " + path + bytes(tail) + b" HTTP/1.1\r\n\r\n"
+        data[i, : len(head)] = np.frombuffer(head, np.uint8)
+        lengths[i] = len(head)
+    return data, lengths
+
+
+@pytest.mark.parametrize("r", [5, 33, 257])
+def test_http_lit_long_paths_match_plain(cuda, r):
+    """K6's length gate on paths of 255 bytes and more (the service's
+    width of 256 and up makes them): exact rows never hit, prefix rows hit
+    where no LF follows the needle, as in the plain version."""
+    rng = np.random.default_rng(r + 7)
+    model = _lit_model(rng, r, 64, cuda)
+    d, n = _to(cuda, *_long_path_batch(rng, model, 1001))
+    frame = http_frame(d, n)
+    assert int((frame.sp2 - frame.p_start).min()) >= 255
+    got = http_lit(model, d, frame)
+    want = http_lit_plain(model, d, frame)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(want[1].any())
+
+
+def _walk_inputs(rng, model, f, dev):
+    """K7's inputs with the first rule that holds spread over the table:
+    each flow's method density is drawn on a log scale, some heads are
+    incomplete."""
+    r = model.n_rules
+    dens = 10.0 ** rng.uniform(-4.5, 0.0, (f, 1))
+    method_ok = rng.random((f, r)) < dens
+    path_ok = rng.random((f, r)) < 0.6
+    pl, p = model.line_rule.shape[0], model.head_rule.shape[0]
+    rx_m = rng.random((f, pl)) < 0.02
+    rx_p = rng.random((f, pl)) < 0.3
+    head = rng.random((f, p)) < 0.7
+    complete = rng.random(f) < 0.9
+    remotes = rng.integers(0, 6, f).astype(np.int32)
+    return _to(dev, complete, method_ok, path_ok, rx_m, rx_p, head, remotes)
+
+
+@pytest.mark.parametrize("r", [1, 5, 31, 32, 33, 257, 4097, 25000])
+@pytest.mark.parametrize("f", [1, 127, 3001])
+def test_http_hits_lane_groups_match_plain(cuda, r, f):
+    """K7's lane groups equal the plain walk: allow and the first rule that
+    holds, wherever it falls (past lane 31 of the first step included),
+    with each of the pattern and head arguments present or absent."""
+    rng = np.random.default_rng(r * 17 + f)
+    model = _lit_model(rng, r, 8, cuda)
+    complete, method_ok, path_ok, rx_m, rx_p, head, remotes = _walk_inputs(rng, model, f, cuda)
+    firsts = []
+    for args in ((rx_m, rx_p, head), (None, None, None), (rx_m, None, None),
+                 (None, rx_p, None), (None, None, head)):
+        before = http_mod._HTTP_HITS.launches
+        got = http_hits(model, complete, method_ok, path_ok, *args, remotes)
+        torch.cuda.synchronize()
+        assert http_mod._HTTP_HITS.launches == before + 1
+        want = http_hits_plain(model, complete, method_ok, path_ok, *args, remotes)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        firsts.append(want[1])
+    if f == 3001 and r > 128:
+        first = torch.cat(firsts)
+        assert int(first.max()) > 128 and bool((first == -1).any())
+
+
+def test_http_lit_and_hits_at_the_rules_100k_shard(cuda):
+    """K6 and K7 on shard 0 of rules_100k (25,000 rules) at its batch of
+    2,048 flows: equal to the plain versions, the HEAD probe allowed by
+    the shard's last rule row only where that shard holds it."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.parallel.rulesharding import build_sharded_http_model
+
+    shards = build_sharded_http_model(entry.rules_100k_rows(), 4, device=cuda)
+    d, n, rem = _to(cuda, *entry.rules_100k_batch(2048))
+    frame = http_frame(d, n)
+    for model in (shards[0], shards[-1]):
+        assert model.n_rules == 25000
+        lit = http_lit(model, d, frame)
+        want = http_lit_plain(model, d, frame)
+        assert torch.equal(lit[0], want[0]) and torch.equal(lit[1], want[1])
+        got = http_hits(model, frame.complete, *lit, None, None, None, rem)
+        want = http_hits_plain(model, frame.complete, *lit, None, None, None, rem)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the HEAD rule is the table's last row: in the last shard only
+    assert bool(got[0][1]) and not bool(got[0][0])

@@ -551,6 +551,117 @@ def test_http_bench_batch_matches_reference_bench_setup():
     assert 0.2 < float(got[2].float().mean()) < 0.6
 
 
+# --- K6's literal CSR and a table of thousands of rules ---------------------------
+
+
+def _assert_lit_csr(model):
+    """model.lit_csr, expanded, lists exactly the live literal rows of each
+    rule, in row order, for both slots."""
+    for slot in ("m", "p"):
+        ptr = model.lit_csr[f"{slot}_ptr"].cpu().numpy()
+        idx = model.lit_csr[f"{slot}_idx"].cpu().numpy()
+        rule = getattr(model, f"{slot}_rule").cpu().numpy()
+        live = getattr(model, f"{slot}_live").cpu().numpy()
+        assert ptr.dtype == idx.dtype == np.int32
+        assert ptr.shape == (model.n_rules + 1,) and ptr[0] == 0 and ptr[-1] == idx.shape[0]
+        assert (np.diff(ptr) >= 0).all()
+        owner = np.repeat(np.arange(model.n_rules), np.diff(ptr))
+        rows = np.flatnonzero(live)
+        order = np.lexsort((rows, rule[rows]))
+        np.testing.assert_array_equal(owner, rule[rows][order], err_msg=slot)
+        np.testing.assert_array_equal(idx, rows[order], err_msg=slot)
+
+
+def _random_lit_tables(seed, r):
+    """A model's tables straight from random numbers: 0 to several
+    literal rows a rule in no rule order, dead rows among them."""
+    rng = np.random.default_rng(seed)
+    tabs = {}
+    for slot in ("m", "p"):
+        n = max(1, int(r * rng.uniform(0.3, 3.0)))
+        nlen = rng.integers(0, 9, n).astype(np.int32)
+        tabs.update({
+            f"{slot}_needle": rng.integers(0, 256, (n, 8)).astype(np.uint8),
+            f"{slot}_len": nlen, f"{slot}_prefix": rng.random(n) < 0.3,
+            f"{slot}_rule": rng.integers(0, r, n).astype(np.int32),
+            f"{slot}_live": rng.random(n) < 0.8,
+        })
+    tabs.update(
+        method_any=rng.random(r) < 0.1, path_any=rng.random(r) < 0.1,
+        line_rule=np.zeros((0,), np.int32), line_slot=np.zeros((0,), np.int32),
+        head_rule=np.zeros((0,), np.int32), head_count=np.zeros((r,), np.int32),
+        remote_ids=np.zeros((r, 32), np.int32), any_remote=np.ones((r,), bool),
+    )
+    return HttpBatchModel(**{k: torch.from_numpy(v) for k, v in tabs.items()},
+                          line_nfa=None, head_nfa=None, n_rules=r)
+
+
+@pytest.mark.parametrize("seed,r", [(0, 1), (1, 7), (2, 33), (3, 500)])
+def test_literal_csr_lists_the_live_rows_of_random_tables(seed, r):
+    _assert_lit_csr(_random_lit_tables(seed, r))
+
+
+@pytest.mark.parametrize("name", sorted(RULE_SETS))
+def test_literal_csr_lists_the_live_rows_of_built_models(name):
+    _, port = both_models(name, "auto", remotes=True)
+    _assert_lit_csr(port)
+
+
+def test_literal_csr_lists_the_live_rows_of_npds_and_converted_models():
+    _, policy = _both_policies(wildcard=({"http_rules": [{"method": "DELETE|PUT"}]},))
+    _assert_lit_csr(build_http_model_for_port(policy, True, 80, device="cpu"))
+    ref, _ = both_models("literals", "auto", remotes=True)
+    leaves = {k: np.asarray(getattr(ref, k)) for k in HTTP_TABLES}
+    leaves["line_nfa"] = _automaton_leaves(ref.line_nfa)
+    leaves["head_nfa"] = _automaton_leaves(ref.head_nfa)
+    _assert_lit_csr(http_model_from_numpy(
+        leaves, device="cpu", n_rules=ref.n_rules, has_method_rx=ref.has_method_rx,
+        has_path_rx=ref.has_path_rx))
+
+
+def test_literal_csr_lists_the_live_rows_of_rule_shards():
+    """The padded shards of rules_100k's table: dead rows and dead rules."""
+    from cilium_tpu_torch.entry import rules_100k_rows
+    from cilium_tpu_torch.parallel.rulesharding import build_sharded_http_model
+
+    shards = build_sharded_http_model(rules_100k_rows(2001), 4, device="cpu")
+    assert [m.n_rules for m in shards] == [501] * 4
+    for m in shards:
+        _assert_lit_csr(m)
+    assert int(shards[-1].lit_csr["p_ptr"][-1]) < int(shards[-1].p_live.numel())
+
+
+def test_thousands_of_rules_first_match_mid_table_matches_reference():
+    """3,001 literal rules (R not a multiple of 32), remote sets on most;
+    requests whose first rule that holds lies anywhere in the table, past
+    the first 32 and 128 rows included, or nowhere: verdicts and
+    attribution equal to the JAX package's, tolerance 0."""
+    rng = random.Random(21)
+    verbs = ("GET", "POST", "PUT", "DELETE")
+    rr = []
+    for j in range(3000):
+        path = f"/p{j:05d}" if j % 7 else f"/q{j % 50:02d}/.*"
+        remotes = frozenset(rng.sample(range(1, 9), rng.randrange(0, 3)))
+        rr.append((remotes, dict(method=verbs[j % 4], path=path)))
+    rr.append((frozenset(), dict(method="HEAD")))
+    ref = ref_http.build_http_model([(rs, RefRule(**kw)) for rs, kw in rr])
+    port = build_http_model([(rs, PortRuleHTTP(**kw)) for rs, kw in rr], device="cpu")
+    reqs = []
+    for j in [5, 31, 32, 33, 127, 129, 700, 1500, 2345, 2999] + [rng.randrange(3000) for _ in range(40)]:
+        reqs.append(req(verbs[j % 4], f"/p{j:05d}" if j % 7 else f"/q{j % 50:02d}/x"))
+    reqs += [req("HEAD", "/x"), req("PATCH", "/p00005"), req("GET", "/q07/a\nb"),
+             b"GET /p00008 HTTP/1.1\r\n"]
+    data, lengths = encode(reqs, width=64)
+    for src in (1, 4, 8):
+        remotes = np.full((len(reqs),), src, np.int32)
+        got = http_verdicts_attr(port, data, lengths, remotes)
+        want = ref_http.http_verdicts_attr(ref, data, lengths, remotes)
+        for g, w in zip(got, want):
+            _eq(g, w, f"remote {src}")
+        rule = got[3].numpy()
+        assert (rule > 128).any() and (rule == -1).any()
+
+
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
