@@ -5,6 +5,8 @@ DFA search, its seam benchmarks and its sharded verdicts on a mesh on one
 CUDA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline-csrc DIR   # also time K18's fold and K21
+                                                # beside DIR's (a parent's csrc)
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them.  It builds
 the kernels from ``cilium_tpu_torch/csrc`` and runs these phases, each of
@@ -84,9 +86,13 @@ which fails the run on any mismatch:
 11. the chunk-folded DFA search, counted in a run of its own:
    ``seqdfa_search_batch`` (K18 ``seqdfa_fold`` then ``seqdfa_apply``) on
    tests/test_seqdfa.py's 9 patterns at F = 2,048 x W = 32,768 and F = 256
-   x W = 4,096, n_chunks 1, 8 and 64; bit-equal to K2 ``dfa_search_batch``
-   on the non-absorbing tables, fold and apply to their plain versions
-   at 4,096 and at 32,768 with 64 chunks, and timed beside K2;
+   x W = 4,096, n_chunks 1, 8 and 64, and two counters on frames of one
+   byte (seqdfa-32k-adv, n_chunks 1 and 64: the fold's slow branch);
+   bit-equal to K2 ``dfa_search_batch`` on the non-absorbing tables, fold
+   and apply to their plain versions at 4,096 and at 32,768 with 64
+   chunks, the fold's branch counts to ``seqdfa_fold_branches_plain``
+   (both branches must run), and timed beside K2 (and beside the
+   baseline's fold in turns, given --baseline-csrc);
 12. the seam benchmarks, counted in a run of their own (a launch here is a
    wrapper launch or a CUDA-graph replay): ``measure_device_rtt_ms`` (K20
    ``rtt_tick`` + a blocking readback) and ``measure_uplink_mbps``;
@@ -119,7 +125,8 @@ which fails the run on any mismatch:
    reshape onto the survivors and the re-promotion; then K21 (both
    forms) and K22 against their plain versions at F = 65,536, R = 1, 2,
    4, 8, timed beside the library calls (K21's plain form against
-   ``torch.any`` in turns, three readings each).  The rules_100k budget and the
+   ``torch.any`` in turns, three readings each; both forms against the
+   baseline's K21 in turns, given --baseline-csrc).  The rules_100k budget and the
    scaling floor are asserted only on 4 distinct cards.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
@@ -2911,42 +2918,141 @@ SEQ_CHUNKS = (1, 8, 64)
 # (shape, flows, width): the engines' capacity at the HTTP engine's
 # MAX_WIDTH, and a narrower batch the plain version can follow quickly
 SEQ_SHAPES = (("seqdfa-32k", 2048, 32768), ("seqdfa-4k", 256, 4096))
+# The adversarial shape: counters modulo 13 and 11 on frames of their one
+# byte, so no two start states of a group merge and K18's fold runs its
+# slow branch (one thread a live start state) everywhere.
+SEQ_ADV = ("seqdfa-32k-adv", 2048, 32768, (1, 64))
+SEQ_ADV_PATTERNS = ("^(a{13})*b", "^(a{11})*c")
+# PR 9's kernel libraries (a parent checkout's csrc, --baseline-csrc), for
+# timing K18's fold and K21 beside them in turns; empty without the flag.
+BASELINE: dict = {}
+
+
+def seqdfa_adv_batch(f, width):
+    """Frames of 'a' with lengths near the width; each ends in 'b' (even
+    flows) or 'c' (odd), so the counters accept where the count fits."""
+    lengths = (width - (np.arange(f) * 7919) % 97).astype(np.int32)
+    data = np.full((f, width), ord("a"), np.uint8)
+    data[np.arange(f), lengths - 1] = np.where(np.arange(f) % 2 == 0, ord("b"), ord("c"))
+    data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    return data, lengths
+
+
+def build_baseline(csrc):
+    """Build ``seqdfa.cu`` and ``shard_reduce.cu`` from ``csrc`` (PR 9's
+    sources, with its launchers' signatures) into _build/baseline, one
+    ``nvcc`` each, together; fills BASELINE with callables."""
+    import ctypes
+    from pathlib import Path
+
+    from cilium_tpu_torch import kernels
+
+    csrc = Path(csrc).resolve()
+    out = kernels.BUILD / "baseline"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for stem in ("seqdfa", "shard_reduce"):
+        cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-o", str(out / f"{stem}.so"),
+               str(csrc / f"{stem}.cu")]
+        procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for stem, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"baseline {stem}.cu failed to build:\n{text}")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fold = ctypes.CDLL(str(out / "seqdfa.so")).seqdfa_fold
+    fold.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 2
+    fold.restype = ci
+    red = ctypes.CDLL(str(out / "shard_reduce.so")).shard_reduce
+    red.argtypes = [vp] * 3 + [ci] * 2 + [vp] * 3
+    red.restype = ci
+
+    def ptr(t):
+        return vp(None) if t is None else vp(t.data_ptr())
+
+    def check(err, name):
+        if err:
+            raise RuntimeError(f"baseline {name}: CUDA error {err}")
+
+    def seqdfa_fold_pr9(dfa, d, ln, k):
+        f, width = d.shape
+        r, s, c = dfa.n_patterns, dfa.n_states, dfa.n_classes
+        maps = torch.empty((f, r, k, s), dtype=torch.uint8, device=d.device)
+        check(fold(ptr(d), ptr(ln), ptr(dfa.classmap), ptr(dfa.delta), f, width, r, s, c, k,
+                   ptr(maps), vp(torch.cuda.current_stream().cuda_stream)), "seqdfa_fold")
+        return maps
+
+    def shard_reduce_pr9(allow_parts, rule_parts=None, offsets=None):
+        r, f = allow_parts.shape
+        allow = torch.empty((f,), dtype=torch.bool, device=allow_parts.device)
+        rule = None if rule_parts is None else torch.empty((f,), dtype=torch.int32,
+                                                          device=allow_parts.device)
+        check(red(ptr(allow_parts), ptr(rule_parts), ptr(offsets), r, f, ptr(allow), ptr(rule),
+                  vp(torch.cuda.current_stream().cuda_stream)), "shard_reduce")
+        return allow if rule is None else (allow, rule)
+
+    BASELINE.update(seqdfa_fold=seqdfa_fold_pr9, shard_reduce=shard_reduce_pr9, csrc=str(csrc))
+
+
+def in_turns(new, old, **graph):
+    """CUDA-graph ms of ``new`` and ``old`` read in turns, n o o n n o:
+    {"n": [three readings], "o": [three readings]}."""
+    turns = {"n": [], "o": []}
+    for who in "noonno":
+        turns[who].append(graph_ms(new if who == "n" else old, **graph))
+    return turns
 
 
 def seqdfa_slice(dev, card, kerns):
     """Phase 11, the chunk-folded DFA search on the card, counted in a run
     of its own: seqdfa-32k (F = 2,048, the engines' capacity, x W =
     32,768, the HTTP engine's MAX_WIDTH) and seqdfa-4k (F = 256 x W =
-    4,096), tests/test_seqdfa.py's 9 patterns, n_chunks 1, 8 and 64.  K18
-    is held against K2 ``dfa_search_batch`` on the non-absorbing tables
-    (every case), its fold and apply against their plain versions where
-    the plain fold is quick enough (``plain_case``), and timed beside K2.
-    Returns (launches, runs, report, timed)."""
+    4,096), tests/test_seqdfa.py's 9 patterns, n_chunks 1, 8 and 64; and
+    seqdfa-32k-adv (two counters on frames of one byte, n_chunks 1 and
+    64), where K18's fold takes its slow branch.  K18 is held against K2
+    ``dfa_search_batch`` on the non-absorbing tables (every case), its
+    fold and apply against their plain versions where the plain fold is
+    quick enough (``plain_case``), its branch counters against
+    ``seqdfa_fold_branches_plain``, and it is timed beside K2 (and beside
+    PR 9's fold in turns, given --baseline-csrc).  Returns (launches,
+    runs, report, timed)."""
     from cilium_tpu_torch.entry import seqdfa_batch, seqdfa_tables
     from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
     from cilium_tpu_torch.ops.seqdfa import (
+        FOLD_DMAX,
+        FOLD_PROBE,
         device_dfa_absorbing,
         seqdfa_apply,
         seqdfa_apply_plain,
         seqdfa_fold,
+        seqdfa_fold_branches_plain,
         seqdfa_fold_plain,
         seqdfa_search_batch,
+        fold_segment,
     )
+    from cilium_tpu_torch.regex.dfa import compile_pattern_dfas
 
     log("== seqdfa slice")
     t_phase = time.monotonic()
-    tables = seqdfa_tables()
-    dfa = device_dfa(tables, dev)
-    dfa_abs = device_dfa_absorbing(tables, dev)
-    r, s, c = dfa_abs.n_patterns, dfa_abs.n_states, dfa_abs.n_classes
+    tabs = {}
+    for name, tables in (("seq9", seqdfa_tables()), ("adv", compile_pattern_dfas(list(SEQ_ADV_PATTERNS)))):
+        tabs[name] = (device_dfa(tables, dev), device_dfa_absorbing(tables, dev))
     cases = {}
-    for label, f, width in SEQ_SHAPES:
-        data, lengths = seqdfa_batch(f, width, max(SEQ_CHUNKS))
+    shapes = [(label, f, width, SEQ_CHUNKS, "seq9") for label, f, width in SEQ_SHAPES]
+    shapes.append((*SEQ_ADV, "adv"))
+    for label, f, width, chunks, tname in shapes:
+        make = seqdfa_adv_batch if tname == "adv" else lambda f, w: seqdfa_batch(f, w, max(SEQ_CHUNKS))
+        data, lengths = make(f, width)
         d = torch.from_numpy(data).to(dev)
         l = torch.from_numpy(lengths).to(dev)
-        for k in SEQ_CHUNKS:
-            cases[f"{label}-k{k}"] = dict(d=d, l=l, k=k, f=f, width=width, base=label)
-        log(f"{label}: F={f} W={width} R={r} S={s} C={c} mean length {float(lengths.mean()):.0f}")
+        dfa, dfa_abs = tabs[tname]
+        for k in chunks:
+            cases[f"{label}-k{k}"] = dict(d=d, l=l, k=k, f=f, width=width, base=label, dfa=dfa,
+                                          abs=dfa_abs)
+        log(f"{label}: F={f} W={width} R={dfa_abs.n_patterns} S={dfa_abs.n_states} "
+            f"C={dfa_abs.n_classes} mean length {float(lengths.mean()):.0f}; K18 fold segments of "
+            f"{fold_segment(f, width)} bytes")
+    log(f"K18 fold: probe {FOLD_PROBE} bytes, at most {FOLD_DMAX} distinct states a fast group")
 
     log("== seqdfa main path (counted)")
 
@@ -2961,7 +3067,7 @@ def seqdfa_slice(dev, card, kerns):
     runs, outs = {}, {}
     for name, cs in cases.items():
         before = counts()
-        outs[name] = seqdfa_search_batch(dfa_abs, cs["d"], cs["l"], cs["k"])
+        outs[name] = seqdfa_search_batch(cs["abs"], cs["d"], cs["l"], cs["k"])
         runs[name] = delta(before)
     torch.cuda.synchronize()
     launches = counts()
@@ -2980,14 +3086,15 @@ def seqdfa_slice(dev, card, kerns):
     def plain_case(cs):
         return cs["base"] == "seqdfa-4k" or cs["k"] == max(SEQ_CHUNKS)
 
-    # against K2 on the non-absorbing tables (every case) and the plain
-    # fold and apply (the plain cases), bit for bit
+    # against K2 on the non-absorbing tables (every case), the plain fold
+    # and apply (the plain cases), bit for bit, and the branch counters
     log("== K18 vs K2 and plain")
     report = {"seqdfa_fold": {}, "seqdfa_apply": {}}
-    serial = {}
+    serial, branches = {}, {}
     for name, cs in cases.items():
+        dfa_abs = cs["abs"]
         if cs["base"] not in serial:
-            serial[cs["base"]] = dfa_search_batch(dfa, cs["d"], cs["l"])
+            serial[cs["base"]] = dfa_search_batch(cs["dfa"], cs["d"], cs["l"])
         if not torch.equal(outs[name], serial[cs["base"]]):
             raise AssertionError(f"{name}: K18 != K2 on {int((outs[name] != serial[cs['base']]).sum())} "
                                  f"(flow, pattern) pairs")
@@ -2999,42 +3106,74 @@ def seqdfa_slice(dev, card, kerns):
             report["seqdfa_apply"][name] = max_abs_err([seqdfa_apply(dfa_abs, maps)], [want])
             if not torch.equal(outs[name], want):
                 raise AssertionError(f"{name}: K18 != its plain version")
+            if BASELINE and not torch.equal(BASELINE["seqdfa_fold"](dfa_abs, cs["d"], cs["l"], cs["k"]),
+                                            want_maps):
+                raise AssertionError(f"{name}: PR 9's fold != the plain fold")
+        dbg = torch.zeros(3, dtype=torch.int64, device=dev)
+        seqdfa_fold(dfa_abs, cs["d"], cs["l"], cs["k"], debug=dbg)
+        got = [int(x) for x in dbg.cpu()]
+        want_b = [int(x) for x in seqdfa_fold_branches_plain(dfa_abs, cs["d"], cs["l"], cs["k"]).cpu()]
+        if got != want_b:
+            raise AssertionError(f"{name}: fold branch counts {got} != plain {want_b}")
+        branches[name] = got
+        groups, chains, slow = got
+        log(f"{name:18s} fold groups {groups} (flow, pattern, segment); chains walked past the probe "
+            f"{chains} ({chains / max(groups, 1):.4f} a group); slow branch {slow} groups, share "
+            f"{slow / max(groups, 1):.6f}")
     hits = serial["seqdfa-32k"]
     log(f"K18 == K2 at every n_chunks; 32k match share per pattern "
-        f"{[round(float(x), 3) for x in hits.float().mean(dim=0)]}")
+        f"{[round(float(x), 3) for x in hits.float().mean(dim=0)]}; adv match share "
+        f"{[round(float(x), 3) for x in serial[SEQ_ADV[0]].float().mean(dim=0)]}")
     log("max |kernel - plain|:", json.dumps(report))
     if any(v for per in report.values() for v in per.values()):
         raise AssertionError("K18 disagrees with its plain version")
+    # the fast branch: chains walked with no slow group; the slow branch:
+    # every adversarial case
+    fast_ran = any(b[1] > 0 and b[2] == 0 for n, b in branches.items() if cases[n]["base"] != SEQ_ADV[0])
+    slow_ran = all(b[2] > 0 for n, b in branches.items() if cases[n]["base"] == SEQ_ADV[0])
+    if not (fast_ran and slow_ran):
+        raise AssertionError("K18's fold did not run both branches")
 
     # times: fold and apply apart, the pair against K2 at the same width
     log("== seqdfa times on", card)
     timed = {}
     for name, cs in cases.items():
-        d, l, k, f, width = cs["d"], cs["l"], cs["k"], cs["f"], cs["width"]
+        d, l, k, f, width, dfa_abs = cs["d"], cs["l"], cs["k"], cs["f"], cs["width"], cs["abs"]
+        r, s, c = dfa_abs.n_patterns, dfa_abs.n_states, dfa_abs.n_classes
         active = int(l.clamp(0, width).sum())
         maps = seqdfa_fold(dfa_abs, d, l, k)
-        fold = lambda: seqdfa_fold(dfa_abs, d, l, k)
-        apply_ = lambda: seqdfa_apply(dfa_abs, maps)
+        fold = lambda: seqdfa_fold(dfa_abs, d, l, k)  # noqa: E731
+        apply_ = lambda: seqdfa_apply(dfa_abs, maps)  # noqa: E731
         plain = plain_case(cs)
         rows = {
+            # the bound: one table step per active (flow, pattern, byte)
             "seqdfa_fold": dict(
                 ms=graph_ms(fold, iters=5, replays=4), call_ms=cuda_ms(fold, 10),
                 plain_ms=cuda_ms(lambda: seqdfa_fold_plain(dfa_abs, d, l, k), 2) if plain else None,
                 library_ms=None, bytes=active + 4 * f + f * r * k * s + 256 + r * s * c,
-                ops=active * r * s),
+                ops=active * r),
             "seqdfa_apply": dict(
                 ms=graph_ms(apply_), call_ms=cuda_ms(apply_, 50),
                 plain_ms=cuda_ms(lambda: seqdfa_apply_plain(dfa_abs, maps), 10),
                 library_ms=None, bytes=f * r * k + f * r + r + r * s, ops=f * r * k),
         }
+        if BASELINE and cs["base"] != "seqdfa-4k":
+            old = lambda: BASELINE["seqdfa_fold"](dfa_abs, d, l, k)  # noqa: E731
+            turns = in_turns(fold, old, iters=5, replays=4)
+            rows["seqdfa_fold"]["pr9_ms"] = sorted(turns["o"])[1]
+            log(f"{name:18s} K18 fold {', '.join(f'{t:.5f}' for t in turns['n'])} ms against PR 9's "
+                f"fold {', '.join(f'{t:.5f}' for t in turns['o'])} ms (in turns n o o n n o; "
+                f"median ratio {sorted(turns['n'])[1] / sorted(turns['o'])[1]:.3f}) [{card}]")
         for kname, row in rows.items():
             bound(row)
             log_row(name, kname, row)
-        k2 = lambda: dfa_search_batch(dfa, d, l)
+        log(f"{name:18s} seqdfa_fold S-fold count (every start state through every byte): "
+            f"{active * r * s} ops, {active * r * s / INT32_OPS_PER_S * 1e3:.6f} ms")
+        k2 = lambda: dfa_search_batch(cs["dfa"], d, l)  # noqa: E731
         k2_ms = graph_ms(k2, iters=5, replays=4)
         timed[name] = dict(rows=rows, k2_ms=k2_ms)
         pair = rows["seqdfa_fold"]["ms"] + rows["seqdfa_apply"]["ms"]
-        log(f"{name:15s} K18 fold + apply {pair:.5f} ms against K2 dfa_scan {k2_ms:.5f} ms "
+        log(f"{name:18s} K18 fold + apply {pair:.5f} ms against K2 dfa_scan {k2_ms:.5f} ms "
             f"(K18 / K2 = {pair / k2_ms:.3f}) [{card}]")
     log(f"seqdfa slice: {time.monotonic() - t_phase:.1f} s")
     return launches, runs, report, timed
@@ -3969,9 +4108,8 @@ def _mesh_runs(dev, card, kerns, tmp):
         anyp = lambda: allow.any(dim=0)  # noqa: E731
         # K21's plain form and torch.any in turns (k, a, a, k, k, a): the
         # spread of each is the spread of its three readings
-        turns = {"k": [], "a": []}
-        for who in "kaakka":
-            turns[who].append(graph_ms(k21p if who == "k" else anyp))
+        turns = in_turns(k21p, anyp)
+        turns = {"k": turns["n"], "a": turns["o"]}
         prow = dict(ms=min(turns["k"]), call_ms=cuda_ms(k21p, 50),
                     plain_ms=cuda_ms(lambda: rs.shard_reduce_plain(allow), 20),
                     library_ms=min(turns["a"]), bytes=r * f + f, ops=r * f)
@@ -3980,7 +4118,21 @@ def _mesh_runs(dev, card, kerns, tmp):
         log_row(f"mesh-k21plain-R{r}", "shard_reduce", prow)
         log(f"mesh-k21plain-R{r}: K21 plain form "
             + ", ".join(f"{t:.5f}" for t in turns["k"]) + " ms against torch.any "
-            + ", ".join(f"{t:.5f}" for t in turns["a"]) + f" ms (in turns k a a k k a) [{card}]")
+            + ", ".join(f"{t:.5f}" for t in turns["a"]) + f" ms (in turns k a a k k a; medians "
+            + f"{sorted(turns['k'])[1]:.5f} / {sorted(turns['a'])[1]:.5f}) [{card}]")
+        if BASELINE:
+            old = BASELINE["shard_reduce"]
+            if not (torch.equal(old(allow), got_p) and all(
+                    torch.equal(a, b) for a, b in zip(old(allow, rule, off), (got_a, got_r)))):
+                raise AssertionError(f"mesh-k21-R{r}: PR 9's K21 != this K21")
+            for form, new_fn, old_fn, row_ in (
+                    ("plain", k21p, lambda: old(allow), prow),
+                    ("attributed", k21, lambda: old(allow, rule, off), row)):
+                t = in_turns(new_fn, old_fn)
+                row_["pr9_ms"] = sorted(t["o"])[1]
+                log(f"mesh-k21-R{r} {form}: K21 " + ", ".join(f"{x:.5f}" for x in t["n"])
+                    + " ms against PR 9's K21 " + ", ".join(f"{x:.5f}" for x in t["o"])
+                    + f" ms (in turns n o o n n o) [{card}]")
 
         simple = (torch.rand((r, f), generator=g) < 0.1).to(dev)
         cover = (torch.rand((r, f, 8), generator=g) < 0.7).to(dev)
@@ -4286,6 +4438,13 @@ def hits_counts(model, args, hits):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one CUDA card and check it.")
+    ap.add_argument("--baseline-csrc", metavar="DIR",
+                    help="PR 9's cilium_tpu_torch/csrc (an unpacked parent commit): time K18's "
+                    "fold and K21 beside its kernels, in turns")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
@@ -4332,6 +4491,9 @@ def main() -> int:
     t0 = time.monotonic()
     libs = kernels.build_all()
     log(f"built {len(libs)} kernel libraries in {time.monotonic() - t0:.1f} s")
+    if args.baseline_csrc:
+        build_baseline(args.baseline_csrc)
+        log(f"built PR 9's seqdfa and shard_reduce from {BASELINE['csrc']}")
     for src in kernels.sources():
         for line in kernels.ptxas_log(src).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -4880,7 +5042,7 @@ def main() -> int:
         "kafka_shard_combine": ("cilium_tpu_torch/csrc/shard_reduce.cu",
                                 "cilium_tpu/parallel/rulesharding.py:503", "mesh-kafka-1x4"),
     }
-    fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "pr9_ms")
     kernels_line = []
     for kname, (source, ref, shape) in replaces.items():
         row = timed[shape]["rows"][kname]
@@ -4888,7 +5050,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source, "replaces": ref,
             "launches": launches[kname], "max_abs_err": max(report[kname].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"), "shape": shape,
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            "pr9_ms": row.get("pr9_ms"), "shape": shape,
             "shape_launches": runs[shape][kname], "call_ms": row["call_ms"],
         }
         others = {}

@@ -6,85 +6,365 @@
 // one per byte by one-hot matmuls and composed by matmul.  A state map
 // is a function, so here it is the target of each start state.
 //
-// seqdfa_fold: one thread per (flow f, pattern r, chunk k, start state s0)
-// runs the absorbing DFA from s0 over chunk k's active bytes (positions
-// below lengths[f]; the rest are the identity) and writes
-// maps[f, r, k, s0] (uint8: the host keeps S <= 128).  Consecutive
-// threads hold consecutive s0, so the maps are written coalesced and a
-// warp's threads read the same data byte (a broadcast).  The classmap
-// and, where it fits, the delta table [R, S, C] live in shared memory;
-// a larger table is read through L1.  Padded states are folded like any
-// other (their targets are valid ids) and never selected by the apply.
+// seqdfa_fold writes maps[f, r, k, s0] (uint8: the host keeps S <= 128),
+// the state pattern r reaches from s0 over chunk k's active bytes
+// (positions below lengths[f]; the rest are the identity).
+//
+// Bound on the H100: operations, one table step per active (flow,
+// pattern, byte); the bytes are the active data read once and the maps
+// [F, R, K, S] written once.  Stepping every start state through every
+// byte, as the first version did, costs S times that bound.  The design
+// avoids it with three facts:
+//   * A DFA step is a function: two start states that reach one state go
+//     on together.  Each (flow, pattern, segment) group walks all S start
+//     states over the segment's first `probe` bytes only, merges the
+//     states that coincide and walks just the distinct ones (at most
+//     kDmax, held as one packed word: the fast branch) over the rest.
+//     A group still holding more than kDmax distinct states (data that
+//     keeps the states apart, such as a counter on one byte) takes the
+//     slow branch in the same launch: one thread a live start state.
+//   * A sink (a state that self-loops on every class: an absorbing
+//     accept, a dead state) maps to itself: it is never walked, and a walk
+//     that reaches one stops (checked every 16 bytes).
+//   * Segments (`seg` bytes, longer on larger batches: the host picks)
+//     are short, so a long chunk is many independent walks; a block
+//     composes its segment maps into chunk maps in order, across passes
+//     where a chunk is longer than one pass.
+// A block holds one flow, a tile of patterns and either whole chunks (one
+// pass) or one chunk (passes of at most kMaxSegs segments).  It stages
+// the bytes as class ids in shared memory, each byte classified once, in
+// rows of an odd number of 16-byte units, so lanes on different segments
+// read one 16-byte word of 16 classes each without a bank conflict; and
+// the pattern tile's delta table transposed to [rt, C, sp] with
+// sp % 8 == 4 (an odd number of words a row), so lanes of one pattern on
+// one class read within one row and lanes on different classes mostly
+// fall on different banks.  The walk items of a pass (fast groups'
+// distinct states, slow groups' live start states) are laid out in group
+// order by a block scan and drained by all threads together.
 //
 // seqdfa_apply: one thread per (f, r) walks s = start[r];
 // s = maps[f, r, k, s] for k in chunk order and writes accept_final[r, s].
-//
-// Bound on the H100: operations.  The fold does S table steps per active
-// (flow, pattern, byte) where the serial scan (K2) does one, for K*S
-// times the parallelism; the bytes are the batch once, the maps
-// [F, R, K, S] written and read once and the [F, R] output.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxStates = 128;
-// Dynamic shared memory for the delta table; larger tables are read from
-// device memory through L1.
-constexpr size_t kMaxSmemTable = 160 * 1024;
+constexpr int kMaxGroups = kThreads;  // one thread classifies each group
+constexpr int kMaxSegs = 32;          // segments staged in one pass
+constexpr int kDmax = 4;              // distinct states a fast group walks
+constexpr int kTableBudget = 16 * 1024;
+constexpr uint32_t kFinal = 0x80;     // marks a map entry that is final
 
-__global__ void seqdfa_fold_kernel(const uint8_t* __restrict__ data,
-                                   const int32_t* __restrict__ lengths,
-                                   const uint8_t* __restrict__ classmap,
-                                   const uint8_t* __restrict__ delta, int F,
-                                   int W, int R, int S, int C, int K,
-                                   bool smem_table,
-                                   uint8_t* __restrict__ maps) {
-  extern __shared__ uint8_t smem[];
-  uint8_t* cls_s = smem;
-  uint8_t* delta_s = smem + 256;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) cls_s[i] = classmap[i];
-  if (smem_table) {
-    const int n = R * S * C;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) delta_s[i] = delta[i];
+struct FoldPlan {
+  int W, R, S, C, K;
+  int lc;          // chunk bytes
+  int seg;         // segment bytes (a multiple of 16, at most lc)
+  int spc;         // segments a chunk
+  int probe;       // bytes every start state walks before the merge
+  int multi;       // 1: a block folds cpb whole chunks in one pass
+  int cpb;         // chunks a block
+  int pass_bytes;  // bytes a pass (multi: cpb * lc)
+  int rt;          // patterns a block
+  int sp;          // table row stride, >= S, sp % 8 == 4
+  int cstr;        // class row stride of a segment, an odd number of 16s
+  int n_kb, n_rt;  // blocks along the chunks and the patterns
+  int vec;         // rows and segments 16-byte aligned: stage 16 at a time
+  int o_tab, o_sink, o_cls, o_tp, o_run, o_fin, o_rep, o_items, o_slow,
+      o_seglen, o_misc;
+};
+
+// s stepped over the classes cls[j0, j1) of one segment (cls is 16-byte
+// aligned); returns early at a sink.
+__device__ __forceinline__ int walk(const uint8_t* cls, int j0, int j1,
+                                    const uint8_t* tab, const uint8_t* sink,
+                                    int sp, int s) {
+  int j = j0;
+  for (; j < j1 && (j & 15); ++j) s = tab[cls[j] * sp + s];
+  for (; j + 16 <= j1; j += 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(cls + j);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s = tab[((w[i] >> (8 * b)) & 0xff) * sp + s];
+    }
+    if (sink[s]) return s;
+  }
+  for (; j < j1; ++j) s = tab[cls[j] * sp + s];
+  return s;
+}
+
+__device__ __forceinline__ uint32_t classify4(const uint8_t* cmap, uint32_t w) {
+  return cmap[w & 0xff] | (cmap[(w >> 8) & 0xff] << 8) |
+         (cmap[(w >> 16) & 0xff] << 16) | (cmap[w >> 24] << 24);
+}
+
+// Exclusive scan of v over the block; *total gets the sum.  Every thread
+// calls it.
+__device__ uint32_t block_scan(uint32_t v, uint32_t* warp_sum, uint32_t* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t n = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += n;
+  }
+  if (lane == 31) warp_sum[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    uint32_t y = lane < kThreads / 32 ? warp_sum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kThreads / 32; o <<= 1) {
+      const uint32_t n = __shfl_up_sync(0xffffffffu, y, o);
+      if (lane >= o) y += n;
+    }
+    if (lane < kThreads / 32) warp_sum[lane] = y;
+  }
+  __syncthreads();
+  *total = warp_sum[kThreads / 32 - 1];
+  return x - v + (w > 0 ? warp_sum[w - 1] : 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    seqdfa_fold_kernel(const uint8_t* __restrict__ data,
+                       const int32_t* __restrict__ lengths,
+                       const uint8_t* __restrict__ classmap,
+                       const uint8_t* __restrict__ delta, const FoldPlan p,
+                       uint8_t* __restrict__ maps,
+                       unsigned long long* __restrict__ debug) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* cmap = smem;
+  uint8_t* tab = smem + p.o_tab;      // [rt, C, sp]
+  uint8_t* sink = smem + p.o_sink;    // [rt, sp]
+  uint8_t* cls = smem + p.o_cls;      // [segments, cstr]
+  uint8_t* tp = smem + p.o_tp;        // [groups, sp] probe states, then maps
+  uint8_t* run = smem + p.o_run;      // [rt, sp] a chunk's map so far
+  uint8_t* fin = smem + p.o_fin;      // [groups, kDmax] fast groups' targets
+  uint32_t* rep = reinterpret_cast<uint32_t*>(smem + p.o_rep);  // [groups]
+  uint16_t* items = reinterpret_cast<uint16_t*>(smem + p.o_items);
+  uint8_t* slow = smem + p.o_slow;    // slow groups, in order
+  int32_t* seglen = reinterpret_cast<int32_t*>(smem + p.o_seglen);
+  uint32_t* misc = reinterpret_cast<uint32_t*>(smem + p.o_misc);
+  uint32_t* warp_sum = misc;          // [kThreads / 32]
+  uint32_t* counts = misc + kThreads / 32;  // groups, chains, slow groups
+
+  const int tid = threadIdx.x;
+  const int S = p.S, C = p.C, sp = p.sp;
+  const int blk = blockIdx.x / p.n_rt;
+  const int rti = blockIdx.x % p.n_rt;
+  const int kb = blk % p.n_kb;
+  const int f = blk / p.n_kb;
+  const int r0 = rti * p.rt, nr = min(p.rt, p.R - r0);
+  const int k0 = kb * p.cpb, nk = min(p.cpb, p.K - k0);
+  const int base = k0 * p.lc, span = nk * p.lc;
+  const int len = min(max(lengths[f], 0), p.W);
+  const int active = min(max(len - base, 0), span);
+  uint8_t* out = maps + (static_cast<size_t>(f) * p.R + r0) * p.K * S +
+                 static_cast<size_t>(k0) * S;
+  // Thread t serves start state t % S in the loops over (item, s0).
+  const int s_mine = tid % S, per = kThreads / S, q_mine = tid / S;
+
+  if (active == 0) {  // nothing active: identity maps
+    for (int q = q_mine; q < nr * nk && q_mine < per; q += per) {
+      const int rr = q / nk, kk = q - rr * nk;
+      out[(static_cast<size_t>(rr) * p.K + kk) * S + s_mine] = s_mine;
+    }
+    return;
+  }
+
+  if (tid < 64) {
+    reinterpret_cast<uint32_t*>(cmap)[tid] =
+        reinterpret_cast<const uint32_t*>(classmap)[tid];
+  }
+  if (tid < 3) counts[tid] = 0;
+  // The tile's table, transposed, and its sinks: one thread a (pattern, state).
+  for (int i = tid; i < nr * S; i += kThreads) {
+    const int rr = i / S, s = i - rr * S;
+    const uint8_t* src = delta + (static_cast<size_t>(r0) * S + i) * C;
+    uint8_t* dst = tab + rr * C * sp + s;
+    bool sk = true;
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      const uint8_t v = src[c];
+      dst[c * sp] = v;
+      sk &= v == s;
+    }
+    sink[rr * sp + s] = sk;
   }
   __syncthreads();
 
-  const long long total = static_cast<long long>(F) * R * K * S;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int s0 = static_cast<int>(idx % S);
-  long long q = idx / S;
-  const int k = static_cast<int>(q % K);
-  q /= K;
-  const int r = static_cast<int>(q % R);
-  const int f = static_cast<int>(q / R);
+  const uint8_t* row = data + static_cast<size_t>(f) * p.W + base;
+  for (int pb0 = 0; pb0 < active; pb0 += p.pass_bytes) {
+    const int nb = min(p.pass_bytes, span - pb0);
+    const int nact = min(nb, active - pb0);
+    // A piece is a whole chunk (multi) or the pass's part of one chunk.
+    const int plen = p.multi ? p.lc : nb;
+    const int spp = p.multi ? p.spc : (nb + p.seg - 1) / p.seg;
+    const int npieces = p.multi ? nk : 1;
+    const int full = nact / plen;
+    const int n_act = full * spp + (nact - full * plen + p.seg - 1) / p.seg;
+    const int G = nr * n_act;  // groups: g = rr * n_act + m
 
-  const int lc = W / K;
-  const int t0 = k * lc;
-  const int end = min(lc, lengths[f] - t0);  // < 0: nothing active
-  const uint8_t* row = data + static_cast<size_t>(f) * W + t0;
-  const uint8_t* tab =
-      (smem_table ? delta_s : delta) + static_cast<size_t>(r) * S * C;
+    for (int m = tid; m < n_act; m += kThreads) {
+      const int pi = m / spp, mi = m - pi * spp;
+      const int st = pi * plen + mi * p.seg;
+      seglen[m] = min(min(p.seg, plen - mi * p.seg), nact - st);
+    }
+    if (p.vec) {
+      for (int q = tid * 16; q < nact; q += kThreads * 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(row + pb0 + q);
+        const int pi = q / plen, rem = q - pi * plen;
+        const int mi = rem / p.seg, j = rem - mi * p.seg;
+        uint4 o;
+        o.x = classify4(cmap, v.x);
+        o.y = classify4(cmap, v.y);
+        o.z = classify4(cmap, v.z);
+        o.w = classify4(cmap, v.w);
+        *reinterpret_cast<uint4*>(cls + (pi * spp + mi) * p.cstr + j) = o;
+      }
+    } else {
+      for (int q = tid; q < nact; q += kThreads) {
+        const int pi = q / plen, rem = q - pi * plen;
+        const int mi = rem / p.seg, j = rem - mi * p.seg;
+        cls[(pi * spp + mi) * p.cstr + j] = cmap[row[pb0 + q]];
+      }
+    }
+    __syncthreads();
 
-  int s = s0;
-  int j = 0;
-  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
-    for (; j + 16 <= end; j += 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + j);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          s = tab[s * C + cls_s[(w[i] >> (8 * b)) & 0xff]];
+    // 1. Probe: every start state over the segment's first bytes.  An
+    // entry is final (kFinal) at a sink or where the probe ends the segment.
+    // Two groups a round, both probed before either is stored.
+    if (q_mine < per) {
+      const auto probe = [&](int rr, int m) -> uint32_t {
+        const uint8_t* sk = sink + rr * sp;
+        const int sl = seglen[m];
+        int s = s_mine;
+        if (!sk[s]) {
+          s = walk(cls + m * p.cstr, 0, min(p.probe, sl), tab + rr * C * sp, sk, sp, s);
+        }
+        return s | (sk[s] || sl <= p.probe ? kFinal : 0);
+      };
+      const int dr = per / n_act, dm = per - dr * n_act;
+      int rr = q_mine / n_act, m = q_mine - rr * n_act;
+      for (int g = q_mine; g < G; g += 2 * per) {
+        int rr2 = rr + dr, m2 = m + dm;
+        if (m2 >= n_act) m2 -= n_act, ++rr2;
+        const bool two = g + per < G;
+        const uint32_t a = probe(rr, m);
+        const uint32_t b = two ? probe(rr2, m2) : 0;
+        tp[g * sp + s_mine] = a;
+        if (two) tp[(g + per) * sp + s_mine] = b;
+        rr = rr2 + dr, m = m2 + dm;
+        if (m >= n_act) m -= n_act, ++rr;
+      }
+    }
+    __syncthreads();
+
+    // 2. Merge: group tid's distinct live states, up to kDmax of them
+    // packed in one word; more make the group slow.
+    uint32_t reps = 0xffffffffu;
+    int d_n = 0, live = 0;
+    if (tid < G) {
+      const uint32_t* e = reinterpret_cast<const uint32_t*>(tp + tid * sp);
+      for (int w = 0; w < (S + 3) / 4; ++w) {
+        const uint32_t word = e[w];
+        for (int b = 0; b < 4 && 4 * w + b < S; ++b) {
+          const uint32_t v = (word >> (8 * b)) & 0xff;
+          if (v & kFinal) continue;
+          ++live;
+          if (d_n <= kDmax && !__vcmpeq4(reps, v * 0x01010101u)) {
+            if (d_n < kDmax) reps = (reps & ~(0xffu << (8 * d_n))) | (v << (8 * d_n));
+            ++d_n;
+          }
         }
       }
     }
+    const bool is_slow = d_n > kDmax;
+    uint32_t total;
+    const uint32_t off = block_scan(
+        tid < G ? (is_slow ? 1u << 16 : static_cast<uint32_t>(d_n)) : 0u,
+        warp_sum, &total);
+    if (tid < G) {
+      rep[tid] = is_slow ? 0xffffffffu : reps;
+      if (is_slow) {
+        slow[off >> 16] = static_cast<uint8_t>(tid);
+      } else {
+        for (int d = 0; d < d_n; ++d) items[(off & 0xffff) + d] = tid | (d << 8);
+      }
+      if (debug != nullptr) {
+        atomicAdd(&counts[0], 1u);
+        atomicAdd(&counts[1], static_cast<uint32_t>(is_slow ? live : d_n));
+        if (is_slow) atomicAdd(&counts[2], 1u);
+      }
+    }
+    __syncthreads();
+
+    // 3. Walk the rest of each segment: fast groups' distinct states, then
+    // slow groups' live start states, in group order.
+    const int n_fast = total & 0xffff, n_slow = total >> 16;
+    for (int i = tid; i < n_fast + n_slow * S; i += kThreads) {
+      int g, s;
+      uint8_t* dst;
+      if (i < n_fast) {
+        const uint32_t it = items[i];
+        g = it & 0xff;
+        const int d = it >> 8;
+        s = (rep[g] >> (8 * d)) & 0xff;
+        dst = fin + g * kDmax + d;
+      } else {
+        const int j = i - n_fast, js = j / S;
+        g = slow[js];
+        dst = tp + g * sp + (j - js * S);
+        const uint32_t v = *dst;
+        if (v & kFinal) continue;
+        s = v;
+      }
+      const int rr = g / n_act, m = g - rr * n_act;
+      s = walk(cls + m * p.cstr, p.probe, seglen[m], tab + rr * C * sp,
+               sink + rr * sp, sp, s);
+      *dst = s | kFinal;
+    }
+    __syncthreads();
+
+    // 4. Compose the pass's segment maps into the chunk maps, in order: a
+    // block of whole chunks writes them out, a chunk in passes keeps its
+    // map so far in run.
+    if (q_mine < per) {
+      for (int q = q_mine; q < nr * npieces; q += per) {
+        const int rr = q / npieces, pi = q - rr * npieces;
+        uint8_t* rp = run + rr * sp + s_mine;
+        int s = pb0 == 0 ? s_mine : *rp;
+        const int m_end = min((pi + 1) * spp, n_act);
+        for (int m = pi * spp; m < m_end; ++m) {
+          const int g = rr * n_act + m;
+          uint32_t v = tp[g * sp + s];
+          if (!(v & kFinal)) {
+            const uint32_t hit = __vcmpeq4(rep[g], v * 0x01010101u);
+            v = fin[g * kDmax + (__ffs(hit) - 1) / 8];
+          }
+          s = v & 0x7f;
+        }
+        if (p.multi) {
+          out[(static_cast<size_t>(rr) * p.K + pi) * S + s_mine] = s;
+        } else {
+          *rp = s;
+        }
+      }
+    }
+    // The next pass writes tp only after its staging barrier.
   }
-  for (; j < end; ++j) s = tab[s * C + cls_s[row[j]]];
-  maps[idx] = static_cast<uint8_t>(s);
+  if (!p.multi) {
+    __syncthreads();
+    for (int rr = q_mine; rr < nr && q_mine < per; rr += per) {
+      out[static_cast<size_t>(rr) * p.K * S + s_mine] = run[rr * sp + s_mine];
+    }
+  }
+  if (debug != nullptr && tid == 0) {
+    atomicAdd(&debug[0], static_cast<unsigned long long>(counts[0]));
+    atomicAdd(&debug[1], static_cast<unsigned long long>(counts[1]));
+    atomicAdd(&debug[2], static_cast<unsigned long long>(counts[2]));
+  }
 }
 
 __global__ void seqdfa_apply_kernel(const uint8_t* __restrict__ maps,
@@ -102,30 +382,66 @@ __global__ void seqdfa_apply_kernel(const uint8_t* __restrict__ maps,
   out[idx] = accept_final[r * S + s];
 }
 
+int align16(int n) { return (n + 15) & ~15; }
+
 }  // namespace
 
+// seg: segment bytes (a multiple of 16); probe: bytes every start state
+// walks before the merge; debug: null, or three uint64 counters the
+// launch adds to (groups, chains walked past the probe, slow groups).
 CILIUM_EXPORT int seqdfa_fold(const void* data, const void* lengths,
                               const void* classmap, const void* delta, int F,
-                              int W, int R, int S, int C, int K, void* maps,
+                              int W, int R, int S, int C, int K, int seg,
+                              int probe, void* maps, void* debug,
                               void* stream) {
-  if (K < 1 || W % K != 0 || S < 1 || S > kMaxStates || C < 1) {
+  if (K < 1 || W < 0 || W % K != 0 || S < 1 || S > kMaxStates || C < 1 ||
+      C > 256 || seg < 16 || seg % 16 != 0 || probe < 0 || F < 0 || R < 0) {
     return cudaErrorInvalidValue;
   }
   const long long total = static_cast<long long>(F) * R * K * S;
   if (total <= 0) return cudaSuccess;
-  const size_t table = static_cast<size_t>(R) * S * C;
-  const bool smem_table = table <= kMaxSmemTable;
-  const size_t smem = 256 + (smem_table ? table : 0);
+  FoldPlan p{};
+  p.W = W, p.R = R, p.S = S, p.C = C, p.K = K;
+  p.lc = W / K;
+  p.seg = std::min(seg, std::max(p.lc, 1));
+  p.spc = p.lc > 0 ? (p.lc + p.seg - 1) / p.seg : 1;
+  p.probe = probe;
+  p.sp = S + (12 - S % 8) % 8;
+  p.rt = std::max(1, std::min({R, kMaxGroups, kTableBudget / (C * p.sp)}));
+  const int nseg = std::min(kMaxSegs, kMaxGroups / p.rt);
+  p.multi = p.spc <= nseg;
+  p.cpb = p.multi ? std::min(K, nseg / p.spc) : 1;
+  p.pass_bytes = p.multi ? p.cpb * p.lc : nseg * p.seg;
+  p.n_kb = (K + p.cpb - 1) / p.cpb;
+  p.n_rt = (R + p.rt - 1) / p.rt;
+  int units = (p.seg + 15) / 16;
+  if (units % 2 == 0) ++units;
+  p.cstr = 16 * units;
+  p.vec = reinterpret_cast<uintptr_t>(data) % 16 == 0 && p.lc % 16 == 0;
+  const int groups = p.rt * nseg;
+  int o = 256;
+  p.o_tab = o, o += align16(p.rt * C * p.sp);
+  p.o_sink = o, o += align16(p.rt * p.sp);
+  p.o_cls = o, o += nseg * p.cstr;
+  p.o_tp = o, o += align16(groups * p.sp);
+  p.o_run = o, o += align16(p.rt * p.sp);
+  p.o_fin = o, o += align16(groups * kDmax);
+  p.o_rep = o, o += align16(groups * 4);
+  p.o_items = o, o += align16(groups * kDmax * 2);
+  p.o_slow = o, o += align16(groups);
+  p.o_seglen = o, o += align16(nseg * 4);
+  p.o_misc = o, o += 64;
+  const size_t smem = static_cast<size_t>(o);
+  const long long blocks = static_cast<long long>(F) * p.n_kb * p.n_rt;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(seqdfa_fold_kernel, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (total + kThreads - 1) / kThreads;
   seqdfa_fold_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data),
-      static_cast<const int32_t*>(lengths),
+      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
       static_cast<const uint8_t*>(classmap),
-      static_cast<const uint8_t*>(delta), F, W, R, S, C, K, smem_table,
-      static_cast<uint8_t*>(maps));
+      static_cast<const uint8_t*>(delta), p, static_cast<uint8_t*>(maps),
+      static_cast<unsigned long long*>(debug));
   return cudaGetLastError();
 }
 

@@ -23,13 +23,22 @@
 //                 and topic_count[f] > 0
 //   allow[f]    = (simple[f] | covered[f]) & !overflow[f]
 //
-// Bound on the H100: bytes.  Each flow reads R bytes (and 8R more for the
+// Bound on the H100: bytes.  Each flow reads R bytes (and 4R more for the
 // attributed form, TR more for K22) and writes one or five; there is one
-// compare or min per byte read.  At F = 65,536 and R = 4 that is well under
-// a microsecond at 3.35 TB/s, so the launch sets the time.  Design: one
-// thread per flow, a grid-stride loop, a loop over R inside; neighbouring
-// threads read neighbouring bytes of each shard's row, so every load of a
-// warp is one coalesced segment.
+// OR or min per byte read.  At F = 65,536 and R = 4 that is well under a
+// microsecond at 3.35 TB/s, so the launch and one load round trip set the
+// time.  K21's design keeps it at one round trip: each thread takes 16
+// flows (the plain form: one 16-byte load a shard) or 4 (the attributed
+// form: one 4-byte allow load and one 16-byte rule load a shard), issues
+// every shard's loads before it combines any (R is a template argument up
+// to 8), and ORs whole words: torch bools are 0 or 1, so the OR of the
+// bytes is the OR of the bools, with no branch.  The min is a select on
+// each lane.  Rows whose pointers or width do not allow the vector loads
+// (a sliced view, F not a multiple of the width) take 4-byte words or
+// single flows; a scalar tail takes F past the last whole vector.  The
+// grid is sized to the work.  K22 runs one thread a flow in a grid-stride
+// loop, a loop over R inside; neighbouring threads read neighbouring bytes
+// of each shard's row, so every load of a warp is one coalesced segment.
 #include "common.cuh"
 
 namespace {
@@ -37,25 +46,98 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int32_t kNoMatch = 0x7fffffff;
 
-__global__ void shard_reduce_kernel(const bool* __restrict__ allow_parts,
-                                    const int32_t* __restrict__ rule_parts,
-                                    const int32_t* __restrict__ offsets,
-                                    int R, int F, bool* __restrict__ allow,
-                                    int32_t* __restrict__ rule) {
-  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < F;
-       f += gridDim.x * blockDim.x) {
-    bool a = false;
-    int32_t cand = kNoMatch;
-    for (int j = 0; j < R; ++j) {
-      const size_t at = static_cast<size_t>(j) * F + f;
-      a = a || allow_parts[at];
-      if (rule_parts != nullptr) {
-        const int32_t r = rule_parts[at];
-        if (r >= 0) cand = min(cand, r + offsets[j]);
+// The OR of two words, byte by byte.
+__device__ __forceinline__ uint4 or_words(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ __forceinline__ uint32_t or_words(uint32_t a, uint32_t b) { return a | b; }
+__device__ __forceinline__ uint8_t or_words(uint8_t a, uint8_t b) { return a | b; }
+
+// One shard's offset-biased candidate row, INT32_MAX where it has none.
+__device__ __forceinline__ int32_t shard_cand(int32_t r, int32_t off) {
+  return r >= 0 ? r + off : kNoMatch;
+}
+
+// Plain form: allow[f] = OR_j allow_parts[j, f], sizeof(Word) flows a
+// thread.  RT > 0: R == RT, every load issued before the ORs; RT == 0:
+// any R, eight loads in flight at a time.
+template <typename Word, int RT>
+__global__ void shard_any_kernel(const uint8_t* __restrict__ parts, int R,
+                                 int F, uint8_t* __restrict__ allow) {
+  constexpr int V = sizeof(Word);
+  const int nvec = F / V;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nvec) {
+    const Word* src = reinterpret_cast<const Word*>(parts) + i;
+    Word acc{};
+    if (RT > 0) {
+      Word v[RT > 0 ? RT : 1];
+#pragma unroll
+      for (int j = 0; j < RT; ++j) v[j] = __ldg(src + static_cast<size_t>(j) * nvec);
+#pragma unroll
+      for (int j = 0; j < RT; ++j) acc = or_words(acc, v[j]);
+    } else {
+#pragma unroll 8
+      for (int j = 0; j < R; ++j) acc = or_words(acc, __ldg(src + static_cast<size_t>(j) * nvec));
+    }
+    reinterpret_cast<Word*>(allow)[i] = acc;
+  }
+  const int f = nvec * V + i;  // the scalar tail
+  if (V > 1 && f < F) {
+    uint8_t a = 0;
+    for (int j = 0; j < R; ++j) a |= parts[static_cast<size_t>(j) * F + f];
+    allow[f] = a;
+  }
+}
+
+// Attributed form, V = 4 flows a thread (a 4-byte allow word and an int4
+// of rules a shard) or V = 1.
+template <int V, int RT>
+__global__ void shard_attr_kernel(const uint8_t* __restrict__ parts,
+                                  const int32_t* __restrict__ rule_parts,
+                                  const int32_t* __restrict__ offsets, int R,
+                                  int F, uint8_t* __restrict__ allow,
+                                  int32_t* __restrict__ rule) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (V == 4) {
+    const int nvec = F / 4;
+    if (i < nvec) {
+      const uint32_t* a_src = reinterpret_cast<const uint32_t*>(parts) + i;
+      const int4* r_src = reinterpret_cast<const int4*>(rule_parts) + i;
+      uint32_t a = 0;
+      int4 c = make_int4(kNoMatch, kNoMatch, kNoMatch, kNoMatch);
+      const int n = RT > 0 ? RT : R;
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) {
+        const size_t at = static_cast<size_t>(j) * nvec;
+        const uint32_t aj = __ldg(a_src + at);
+        const int4 rj = __ldg(r_src + at);
+        const int32_t off = __ldg(offsets + j);
+        a |= aj;
+        c.x = min(c.x, shard_cand(rj.x, off));
+        c.y = min(c.y, shard_cand(rj.y, off));
+        c.z = min(c.z, shard_cand(rj.z, off));
+        c.w = min(c.w, shard_cand(rj.w, off));
       }
+      reinterpret_cast<uint32_t*>(allow)[i] = a;
+      reinterpret_cast<int4*>(rule)[i] = make_int4(
+          a & 0xff ? c.x : -1, a & 0xff00 ? c.y : -1,
+          a & 0xff0000 ? c.z : -1, a & 0xff000000u ? c.w : -1);
+    }
+  }
+  const int f = (V == 4 ? (F / 4) * 4 : 0) + i;  // V == 1, or the tail
+  if (f < F) {
+    uint8_t a = 0;
+    int32_t c = kNoMatch;
+    const int n = RT > 0 ? RT : R;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const size_t at = static_cast<size_t>(j) * F + f;
+      a |= parts[at];
+      c = min(c, shard_cand(rule_parts[at], __ldg(offsets + j)));
     }
     allow[f] = a;
-    if (rule != nullptr) rule[f] = a ? cand : -1;
+    rule[f] = a ? c : -1;
   }
 }
 
@@ -88,6 +170,71 @@ int blocks_for(int n) {
   return want < 132 * 8 ? want : 132 * 8;
 }
 
+constexpr int kReduceThreads = 128;
+
+unsigned grid_for(int n) {
+  return static_cast<unsigned>((std::max(n, 1) + kReduceThreads - 1) / kReduceThreads);
+}
+
+template <typename Word, int RT>
+void launch_any(const uint8_t* parts, int R, int F, uint8_t* allow,
+                cudaStream_t stream) {
+  constexpr int V = sizeof(Word);
+  const int threads = std::max(F / V, V > 1 ? F % V : 0);
+  shard_any_kernel<Word, RT><<<grid_for(threads), kReduceThreads, 0, stream>>>(
+      parts, R, F, allow);
+}
+
+template <int V, int RT>
+void launch_attr(const uint8_t* parts, const int32_t* rule_parts,
+                 const int32_t* offsets, int R, int F, uint8_t* allow,
+                 int32_t* rule, cudaStream_t stream) {
+  const int threads = V == 4 ? std::max(F / 4, F % 4) : F;
+  shard_attr_kernel<V, RT><<<grid_for(threads), kReduceThreads, 0, stream>>>(
+      parts, rule_parts, offsets, R, F, allow, rule);
+}
+
+// Dispatch on R: 1..8 as a template argument, any other R at run time.
+template <template <int> class Launch, typename... Args>
+void by_r(int R, Args... args) {
+  switch (R) {
+    case 1: Launch<1>::run(args...); break;
+    case 2: Launch<2>::run(args...); break;
+    case 3: Launch<3>::run(args...); break;
+    case 4: Launch<4>::run(args...); break;
+    case 5: Launch<5>::run(args...); break;
+    case 6: Launch<6>::run(args...); break;
+    case 7: Launch<7>::run(args...); break;
+    case 8: Launch<8>::run(args...); break;
+    default: Launch<0>::run(args...); break;
+  }
+}
+
+template <typename Word>
+struct AnyLaunch {
+  template <int RT>
+  struct At {
+    static void run(const uint8_t* parts, int R, int F, uint8_t* allow,
+                    cudaStream_t stream) {
+      launch_any<Word, RT>(parts, R, F, allow, stream);
+    }
+  };
+};
+
+template <int V>
+struct AttrLaunch {
+  template <int RT>
+  struct At {
+    static void run(const uint8_t* parts, const int32_t* rule_parts,
+                    const int32_t* offsets, int R, int F, uint8_t* allow,
+                    int32_t* rule, cudaStream_t stream) {
+      launch_attr<V, RT>(parts, rule_parts, offsets, R, F, allow, rule, stream);
+    }
+  };
+};
+
+bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
 }  // namespace
 
 // rule_parts, offsets and rule are all null (the plain form) or none is.
@@ -100,9 +247,23 @@ CILIUM_EXPORT int shard_reduce(const bool* allow_parts, const int32_t* rule_part
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (F > 0) {
-    shard_reduce_kernel<<<blocks_for(F), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        allow_parts, rule_parts, offsets, R, F, allow, rule);
+    const auto* parts = reinterpret_cast<const uint8_t*>(allow_parts);
+    auto* out = reinterpret_cast<uint8_t*>(allow);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (rule_parts == nullptr) {
+      if (F % 16 == 0 && aligned(parts, 16) && aligned(out, 16)) {
+        by_r<AnyLaunch<uint4>::At>(R, parts, R, F, out, st);
+      } else if (F % 4 == 0 && aligned(parts, 4) && aligned(out, 4)) {
+        by_r<AnyLaunch<uint32_t>::At>(R, parts, R, F, out, st);
+      } else {
+        by_r<AnyLaunch<uint8_t>::At>(R, parts, R, F, out, st);
+      }
+    } else if (F % 4 == 0 && aligned(parts, 4) && aligned(out, 4) &&
+               aligned(rule_parts, 16) && aligned(rule, 16)) {
+      by_r<AttrLaunch<4>::At>(R, parts, rule_parts, offsets, R, F, out, rule, st);
+    } else {
+      by_r<AttrLaunch<1>::At>(R, parts, rule_parts, offsets, R, F, out, rule, st);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,9 +19,15 @@ dependent steps per (flow, pattern).  Chunk folding replaces that chain:
 The reference carries each map as an [S, S] one-hot int8 matrix and
 composes by matmul.  A state map is a function, so here it is the target
 of each start state, ``maps [F, R, K, S]`` uint8: K18 ``seqdfa_fold``
-writes it (one thread per (flow, pattern, chunk, start state)) and K18
-``seqdfa_apply`` walks ``s = maps[f, r, k, s]`` over k and tests
-``accept_final`` (one thread per (flow, pattern)).  The result is
+writes it and K18 ``seqdfa_apply`` walks ``s = maps[f, r, k, s]`` over k
+and tests ``accept_final`` (one thread per (flow, pattern)).  The fold
+cuts each chunk into segments (``fold_segment``); each (flow, pattern,
+segment) group walks all S start states over the first ``FOLD_PROBE``
+bytes only, merges the states that coincide (a DFA step is a function)
+and walks the distinct ones over the rest, at most ``FOLD_DMAX`` of them
+(the fast branch) or, where more stay apart, every live start state (the
+slow branch); sinks (``sink_states``) are never walked.  The kernel then
+composes the segment maps in order (``csrc/seqdfa.cu``).  The result is
 bit-identical for every ``n_chunks`` and equal to K2 ``dfa_search_batch``
 on the non-absorbing tables.  The sequence-sharded form
 (``seqdfa_search_sharded``) runs one chunk on each slot of a ("seq",)
@@ -42,10 +48,18 @@ from ..regex.dfa import DfaTables
 from .dfa import DeviceDfa, device_dfa
 
 SEQ_AXIS = "seq"
+# K18 fold's segment bytes (multiples of 16, tried longest first), the
+# (flow, segment) pieces a batch must keep to take a longer segment, the
+# bytes every start state walks before the merge, and the distinct states
+# a fast group walks (fixed in csrc/seqdfa.cu: one packed word).
+FOLD_SEGS = (1024, 512, 256)
+FOLD_MIN_PIECES = 16384
+FOLD_PROBE = 2
+FOLD_DMAX = 4
 
 _SEQDFA_FOLD = kernels.CudaKernel(
     "seqdfa", "seqdfa_fold",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2,
 )
 _SEQDFA_APPLY = kernels.CudaKernel(
     "seqdfa", "seqdfa_apply",
@@ -121,12 +135,76 @@ def seqdfa_search_batch_plain(dfa: DeviceDfa, data, lengths, n_chunks: int = 1) 
     return seqdfa_apply_plain(dfa, seqdfa_fold_plain(dfa, data, lengths, n_chunks))
 
 
-def seqdfa_fold(dfa: DeviceDfa, data, lengths, n_chunks: int) -> torch.Tensor:
+def fold_segment(n_flows: int, width: int) -> int:
+    """K18 fold's segment bytes for an [n_flows, width] batch: the longest
+    of FOLD_SEGS that still cuts it into FOLD_MIN_PIECES (flow, segment)
+    pieces (longer segments merge and compose less often; shorter ones keep
+    a small batch's warps busy), else the shortest."""
+    for seg in FOLD_SEGS:
+        if n_flows * -(-width // seg) >= FOLD_MIN_PIECES:
+            return seg
+    return FOLD_SEGS[-1]
+
+
+def sink_states(dfa: DeviceDfa) -> torch.Tensor:
+    """[R, S] bool: the states that step to themselves on every class (an
+    absorbing accept, a dead state).  K18's fold never walks them."""
+    s = dfa.n_states
+    own = torch.arange(s, device=dfa.delta.device)[None, :, None]
+    return (dfa.delta.long() == own).all(dim=2)
+
+
+def seqdfa_fold_branches_plain(dfa: DeviceDfa, data, lengths, n_chunks: int,
+                               seg: int | None = None, probe: int | None = None) -> torch.Tensor:
+    """What K18's fold adds to its ``debug`` counters for this call, from
+    the same segments: [3] int64 — the (flow, pattern, segment) groups with
+    active bytes; the chains walked past the probe (a fast group's distinct
+    live states, a slow group's live start states); the slow groups (more
+    than ``FOLD_DMAX`` distinct live states after the probe).  A state is
+    live unless it is a sink or the probe reached the segment's end."""
+    _check_fold(dfa, data, lengths, n_chunks)
+    dev = data.device
+    f, width = data.shape
+    seg = fold_segment(f, width) if seg is None else seg
+    probe = FOLD_PROBE if probe is None else probe
+    r, s = dfa.n_patterns, dfa.n_states
+    lc = width // n_chunks
+    sl = min(seg, max(lc, 1))
+    spc = -(-lc // sl) if lc else 1
+    i = torch.arange(spc, device=dev)
+    starts = (torch.arange(n_chunks, device=dev)[:, None] * lc + i[None, :] * sl).reshape(-1)
+    nominal = (lc - i * sl).clamp(max=sl).repeat(n_chunks)
+    seg_len = (lengths.long().clamp(0, width)[:, None] - starts[None, :]).clamp(min=0)
+    seg_len = torch.minimum(seg_len, nominal[None, :])  # [F, NS]
+    cls = dfa.classmap.long()[data.long()]
+    delta = dfa.delta.long()
+    ridx = torch.arange(r, device=dev)[None, None, :, None]
+    state = torch.arange(s, device=dev).expand(f, len(starts), r, s).clone()
+    for j in range(min(probe, sl) if width else 0):
+        c = cls[:, (starts + j).clamp(max=width - 1)]
+        nxt = delta[ridx, state, c[:, :, None, None]]
+        state = torch.where((j < seg_len)[:, :, None, None], nxt, state)
+    live = ~(sink_states(dfa)[ridx, state] | (seg_len <= probe)[:, :, None, None])
+    v = torch.where(live, state, s).sort(dim=3).values
+    distinct = ((v[..., 1:] != v[..., :-1]) & (v[..., 1:] < s)).sum(dim=3) + (v[..., 0] < s)
+    is_slow = distinct > FOLD_DMAX
+    chains = torch.where(is_slow, live.sum(dim=3), distinct)
+    active = (seg_len > 0)[:, :, None].expand(f, len(starts), r)
+    return torch.stack([active.sum(), chains[active].sum(), is_slow[active].sum()]).to(torch.int64)
+
+
+def seqdfa_fold(dfa: DeviceDfa, data, lengths, n_chunks: int, debug=None) -> torch.Tensor:
     """K18 fold: maps [F, R, K, S] uint8 of ``data[f, :lengths[f]]`` cut
-    into ``n_chunks`` chunks of equal width; all on the tables' device."""
+    into ``n_chunks`` chunks of equal width; all on the tables' device.
+    ``debug``, a [3] int64 tensor there, gets this call's branch counts
+    added (``seqdfa_fold_branches_plain``); nothing is read back."""
     _check_fold(dfa, data, lengths, n_chunks)
     device = dfa.device
+    if debug is not None:
+        kernels.check(debug, "debug", torch.int64, (3,), device)
     if kernels.on_cpu(device):
+        if debug is not None:
+            debug += seqdfa_fold_branches_plain(dfa, data, lengths, n_chunks)
         return seqdfa_fold_plain(dfa, data, lengths, n_chunks)
     f, width = data.shape
     r, s, c = dfa.n_patterns, dfa.n_states, dfa.n_classes
@@ -135,7 +213,8 @@ def seqdfa_fold(dfa: DeviceDfa, data, lengths, n_chunks: int) -> torch.Tensor:
         p = kernels.p
         _SEQDFA_FOLD.launch(
             device, p(data), p(lengths), p(dfa.classmap), p(dfa.delta),
-            f, width, r, s, c, n_chunks, p(maps),
+            f, width, r, s, c, n_chunks, fold_segment(f, width), FOLD_PROBE, p(maps),
+            ctypes.c_void_p(None) if debug is None else p(debug),
         )
     return maps
 

@@ -76,6 +76,7 @@ from cilium_tpu_torch.ops.seqdfa import (
     device_dfa_absorbing,
     seqdfa_apply,
     seqdfa_fold,
+    seqdfa_fold_branches_plain,
     seqdfa_fold_plain,
     seqdfa_search_batch,
     seqdfa_search_batch_plain,
@@ -1066,6 +1067,98 @@ def test_seqdfa_rejects_bad_inputs(cuda):
         seqdfa_apply(dfa_abs, seqdfa_fold(dfa_abs, d, l, 4).transpose(0, 2).contiguous().transpose(0, 2))
 
 
+# K18 fold's two branches: the counters keep every start state apart (slow),
+# test_seqdfa's patterns merge (fast); a set near 128 states keeps many apart.
+SEQ_COUNTERS = ["^(a{13})*b", "^(a{11})*c"]
+SEQ_WIDE = ["(a|b)*a(a|b)(a|b)(a|b)(a|b)(a|b)", "a{124}", "x[ab]{40}y"]
+
+
+def _edge_batch(rng, alphabet, f, width):
+    """Frames over ``alphabet`` with lengths 0, the width, and one byte
+    either side of every chunk edge of n_chunks 1, 8 and 64 and of every
+    segment edge of K18's fold."""
+    edges = {0, width}
+    for step in {width // 8, width // 64, seqdfa_mod.fold_segment(f, width)}:
+        for e in range(step, width, step):
+            edges.update((e - 1, e, e + 1))
+    edges = sorted(edges)
+    lengths = rng.integers(0, width + 1, size=f).astype(np.int32)
+    lengths[: len(edges)] = edges[:f]
+    data = rng.choice(np.frombuffer(alphabet, np.uint8), size=(f, width)).astype(np.uint8)
+    data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    return data, lengths
+
+
+def _fold_checked(dfa, dfa_abs, d, l, n_chunks):
+    """K18's fold with its branch counts: equal to the plain fold, K2 and
+    the plain branch counts; one launch each.  Returns the counts."""
+    dbg = torch.zeros(3, dtype=torch.int64, device=d.device)
+    before = seqdfa_mod._SEQDFA_FOLD.launches
+    maps = seqdfa_fold(dfa_abs, d, l, n_chunks, debug=dbg)
+    torch.cuda.synchronize()
+    assert seqdfa_mod._SEQDFA_FOLD.launches == before + 1
+    assert torch.equal(maps, seqdfa_fold_plain(dfa_abs, d, l, n_chunks))
+    assert torch.equal(seqdfa_apply(dfa_abs, maps), dfa_search_batch(dfa, d, l))
+    counts = dbg.tolist()
+    assert counts == seqdfa_fold_branches_plain(dfa_abs, d, l, n_chunks).tolist()
+    return counts
+
+
+@pytest.mark.parametrize("n_chunks", [1, 8, 64])
+@pytest.mark.parametrize("which", ["counters", "near-128", "patterns"])
+def test_seqdfa_fold_branches_match_plain_and_serial(cuda, which, n_chunks):
+    """K18's fold against the plain fold and K2 at lengths on every chunk
+    and segment edge; the counters run the slow branch only, the patterns
+    the fast branch only, the set near 128 states both."""
+    patterns, alphabet = {"counters": (SEQ_COUNTERS, b"a" * 63 + b"b"),
+                          "near-128": (SEQ_WIDE, b"ababababababx"),
+                          "patterns": (SEQ_PATTERNS, bytes(SEQ_ALPHABET))}[which]
+    tables = compile_pattern_dfas(patterns)
+    assert which != "near-128" or tables.n_states > 120
+    data, lengths = _edge_batch(np.random.default_rng(n_chunks), alphabet, 256, 2048)
+    d, l = _to(cuda, data, lengths)
+    groups, chains, slow = _fold_checked(device_dfa(tables, cuda), device_dfa_absorbing(tables, cuda),
+                                         d, l, n_chunks)
+    assert groups > 0 and chains > 0
+    if which == "counters":
+        assert slow > 0.8 * groups
+    elif which == "patterns":
+        assert slow == 0
+    else:
+        assert 0 < slow < groups
+
+
+@pytest.mark.parametrize("probe", ["none", "one byte", "past the segment"])
+def test_seqdfa_fold_probe_lengths_match_plain(cuda, monkeypatch, probe):
+    """No probe (every group with more than FOLD_DMAX live start states is
+    slow), a one-byte probe, and a probe past the segment (the probe is
+    the whole fold): the maps do not change."""
+    f, width = 128, 1024
+    past = seqdfa_mod.fold_segment(f, width) + 1
+    monkeypatch.setattr(seqdfa_mod, "FOLD_PROBE", {"none": 0, "one byte": 1, "past the segment": past}[probe])
+    tables = compile_pattern_dfas(SEQ_PATTERNS)
+    data, lengths = _edge_batch(np.random.default_rng(len(probe)), bytes(SEQ_ALPHABET), f, width)
+    d, l = _to(cuda, data, lengths)
+    for n_chunks in (1, 8):
+        groups, chains, slow = _fold_checked(device_dfa(tables, cuda), device_dfa_absorbing(tables, cuda),
+                                             d, l, n_chunks)
+        assert (slow > 0) == (probe == "none") and (chains == 0) == (probe == "past the segment")
+
+
+@pytest.mark.parametrize("width,n_chunks,offset", [(1000, 8, 0), (1024, 4, 1), (96, 96, 3), (4096, 1, 0)])
+def test_seqdfa_fold_odd_widths_and_views_match_plain(cuda, width, n_chunks, offset):
+    """Chunks that are not a multiple of 16 bytes, one-byte chunks, a data
+    view at a byte offset (staged a byte at a time) and a chunk longer
+    than one pass of segments."""
+    tables = compile_pattern_dfas(SEQ_PATTERNS)
+    data, lengths = _seq_batch(np.random.default_rng(width), 67, width, n_chunks)
+    flat = torch.zeros(offset + data.size, dtype=torch.uint8, device=cuda)
+    flat[offset:] = torch.from_numpy(data.reshape(-1)).to(cuda)
+    d = flat[offset:].view(data.shape)
+    l = torch.from_numpy(lengths).to(cuda)
+    _fold_checked(device_dfa(tables, cuda), device_dfa_absorbing(tables, cuda), d, l, n_chunks)
+
+
 # --- K19 seam_probe and K20 rtt_tick ---------------------------------------------
 
 
@@ -1222,6 +1315,37 @@ def test_shard_reduce_kernel_matches_plain(cuda, r, f):
     assert torch.equal(shard_reduce(a).cpu(), shard_reduce_plain(*_to("cpu", allow)))
     got = shard_reduce(a, ru, off)
     want = shard_reduce_plain(*_to("cpu", allow, rule, offsets))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert rs_mod._SHARD_REDUCE.launches == launches + 2
+
+
+@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("f", [1, 15, 17, 65537])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_shard_reduce_vector_widths_and_views_match_plain(cuda, r, f, offset):
+    """K21 in both forms where F is not a multiple of its vector width and
+    on views at a byte offset (rows that no vector load fits)."""
+    from cilium_tpu_torch.parallel import rulesharding as rs_mod
+    from cilium_tpu_torch.parallel.rulesharding import shard_reduce, shard_reduce_plain
+
+    rng = np.random.default_rng(100 * r + f + offset)
+    allow = rng.random((r, f)) < 0.3
+    rule = np.where(allow, rng.integers(0, 500, (r, f)), -1).astype(np.int32)
+    ghost = rng.random((r, f)) < 0.05
+    allow |= ghost
+    rule[ghost] = -1
+    offsets = np.sort(rng.integers(0, 10_000, r)).astype(np.int32)
+    flat = torch.zeros(offset + r * f, dtype=torch.bool, device=cuda)
+    flat[offset:] = torch.from_numpy(allow.reshape(-1)).to(cuda)
+    a = flat[offset:].view(r, f)
+    rflat = torch.zeros(offset + r * f, dtype=torch.int32, device=cuda)
+    rflat[offset:] = torch.from_numpy(rule.reshape(-1)).to(cuda)
+    ru = rflat[offset:].view(r, f)
+    off = torch.from_numpy(offsets).to(cuda)
+    launches = rs_mod._SHARD_REDUCE.launches
+    want = shard_reduce_plain(*_to("cpu", allow, rule, offsets))
+    assert torch.equal(shard_reduce(a).cpu(), want[0])
+    got = shard_reduce(a, ru, off)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     assert rs_mod._SHARD_REDUCE.launches == launches + 2
 

@@ -24,15 +24,18 @@ from cilium_tpu_torch.convert import dfa_from_leaves
 from cilium_tpu_torch.entry import SEQDFA_PATTERNS, seqdfa_batch, seqdfa_tables
 from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
 from cilium_tpu_torch.ops.seqdfa import (
+    FOLD_DMAX,
     SEQ_AXIS,
     device_dfa_absorbing,
     make_absorbing,
     seqdfa_apply,
     seqdfa_fold,
+    seqdfa_fold_branches_plain,
     seqdfa_fold_plain,
     seqdfa_search_batch,
     seqdfa_search_batch_plain,
     seqdfa_search_sharded,
+    sink_states,
 )
 from cilium_tpu_torch.regex.dfa import DfaBlowupError, compile_pattern_dfas
 
@@ -253,3 +256,126 @@ def test_seq_sharded_raises_the_references_errors(tables):
     with pytest.raises(ValueError, match="flow count"):
         seqdfa_search_sharded(dfa_abs, torch.zeros((6, 32), dtype=torch.uint8),
                               torch.zeros(6, dtype=torch.int32), mesh)
+
+
+# --- K18 fold's merge: sinks and branch counts -----------------------------------
+
+COUNTERS = ["^(a{13})*b", "^(a{11})*c"]
+
+
+def _counter_batch(f, width):
+    """Frames of 'a' ending in 'b' (even flows) or 'c' (odd), lengths near
+    the width: the counters' start states never merge."""
+    lengths = (width - np.arange(f) % 29).astype(np.int32)
+    data = np.full((f, width), ord("a"), np.uint8)
+    data[np.arange(f), lengths - 1] = np.where(np.arange(f) % 2 == 0, ord("b"), ord("c"))
+    data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    return data, lengths
+
+
+@pytest.mark.parametrize("patterns", [PATTERNS, COUNTERS])
+def test_sink_states_match_the_reference_absorbing_tables(patterns):
+    """sink_states on the JAX package's make_absorbing tables: exactly the
+    states whose every class steps to themselves, every accept state
+    among them."""
+    ref = ref_seqdfa.make_absorbing(ref_compile(patterns))
+    delta = np.asarray(ref.delta)
+    got = sink_states(device_dfa(ref, CPU)).numpy()
+    r, s, _ = delta.shape
+    want = np.array([[(delta[i, j] == j).all() for j in range(s)] for i in range(r)])
+    np.testing.assert_array_equal(got, want)
+    assert got[np.asarray(ref.accept)].all()
+    assert torch.equal(sink_states(device_dfa_absorbing(compile_pattern_dfas(patterns), CPU)),
+                       torch.from_numpy(got))
+
+
+def _branches_by_hand(dfa, data, lengths, n_chunks, seg, probe):
+    """seqdfa_fold_branches_plain's counts, one group at a time."""
+    delta = dfa.delta.numpy()
+    cls = dfa.classmap.numpy()[data]
+    sink = sink_states(dfa).numpy()
+    r, s, _ = delta.shape
+    width = data.shape[1]
+    lc = width // n_chunks
+    sl = min(seg, lc)
+    groups = chains = slow = 0
+    for f in range(data.shape[0]):
+        for k in range(n_chunks):
+            for a in range(k * lc, (k + 1) * lc, sl):
+                n = min(sl, (k + 1) * lc - a, max(0, int(lengths[f]) - a))
+                if n <= 0:
+                    continue
+                for p in range(r):
+                    ends = []
+                    for s0 in range(s):
+                        st = s0
+                        for j in range(min(probe, n)):
+                            st = delta[p, st, cls[f, a + j]]
+                        ends.append(st)
+                    live = [e for e in ends if not sink[p, e] and n > probe]
+                    distinct = len(set(live))
+                    groups += 1
+                    slow += distinct > FOLD_DMAX
+                    chains += len(live) if distinct > FOLD_DMAX else distinct
+    return [groups, chains, slow]
+
+
+@pytest.mark.parametrize("seg,probe", [(16, 2), (32, 0), (16, 1), (16, 20)])
+def test_fold_branch_counts_match_a_walk_by_hand(tables, seg, probe):
+    """The branch counts K18's fold reports, computed per group by hand,
+    on test_seqdfa's patterns and on the counters."""
+    data, lengths = _batch(random.Random(seg + probe), 5, 96)
+    for tabs, (d, ln) in ((tables, (data, lengths)), (compile_pattern_dfas(COUNTERS), _counter_batch(4, 96))):
+        dfa_abs = device_dfa_absorbing(tabs, CPU)
+        for k in (1, 3):
+            got = seqdfa_fold_branches_plain(dfa_abs, _t(d, torch.uint8), _t(ln, torch.int32), k,
+                                             seg=seg, probe=probe)
+            assert got.tolist() == _branches_by_hand(dfa_abs, d, ln, k, seg, probe)
+
+
+def test_counters_take_the_slow_branch_and_the_patterns_the_fast(tables):
+    """On frames of one byte the counters keep every start state apart:
+    every group is slow.  test_seqdfa's patterns on seqdfa_batch's frames
+    merge to a few states after the default probe: no group is slow."""
+    d, ln = _counter_batch(6, 512)
+    dfa_abs = device_dfa_absorbing(compile_pattern_dfas(COUNTERS), CPU)
+    groups, chains, slow = seqdfa_fold_branches_plain(dfa_abs, _t(d, torch.uint8), _t(ln, torch.int32), 4).tolist()
+    assert groups == slow > 0 and chains > FOLD_DMAX * slow
+    data, lengths = seqdfa_batch(16, 1024, 8)
+    dfa_abs = device_dfa_absorbing(tables, CPU)
+    groups, chains, slow = seqdfa_fold_branches_plain(dfa_abs, _t(data, torch.uint8),
+                                                      _t(lengths, torch.int32), 8).tolist()
+    assert groups > 0 and chains > 0 and slow == 0
+
+
+def test_counters_match_the_reference(tables):
+    """The counters' search on their one-byte frames: the port's chunk fold
+    equals the serial scan and the JAX package's search."""
+    data, lengths = _counter_batch(30, 64)
+    d, l = _t(data, torch.uint8), _t(lengths, torch.int32)
+    counters = compile_pattern_dfas(COUNTERS)
+    serial = dfa_search_batch(device_dfa(counters, CPU), d, l)
+    ref_abs = ref_seqdfa.device_dfa_absorbing(ref_compile(COUNTERS))
+    for k in (1, 4, 16):
+        got = seqdfa_search_batch(device_dfa_absorbing(counters, CPU), d, l, k)
+        assert torch.equal(got, serial)
+        want = np.asarray(ref_seqdfa.seqdfa_search_batch(ref_abs, data, lengths, n_chunks=k))
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert serial.any() and not serial.all()
+
+
+def test_fold_debug_counts_on_the_cpu(tables):
+    """seqdfa_fold's debug tensor gets the branch counts added (the plain
+    version's on the CPU) and is checked like every kernel argument."""
+    data, lengths = seqdfa_batch(8, 512, 4)
+    d, l = _t(data, torch.uint8), _t(lengths, torch.int32)
+    dfa_abs = device_dfa_absorbing(tables, CPU)
+    dbg = torch.zeros(3, dtype=torch.int64)
+    maps = seqdfa_fold(dfa_abs, d, l, 4, debug=dbg)
+    seqdfa_fold(dfa_abs, d, l, 4, debug=dbg)
+    assert torch.equal(maps, seqdfa_fold_plain(dfa_abs, d, l, 4))
+    assert torch.equal(dbg, 2 * seqdfa_fold_branches_plain(dfa_abs, d, l, 4))
+    with pytest.raises(TypeError):
+        seqdfa_fold(dfa_abs, d, l, 4, debug=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        seqdfa_fold(dfa_abs, d, l, 4, debug=torch.zeros(2, dtype=torch.int64))
