@@ -5,8 +5,8 @@ DFA search, its seam benchmarks and its sharded verdicts on a mesh on one
 CUDA card and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --baseline-csrc DIR   # also time K18's fold and K21
-                                                # beside DIR's (a parent's csrc)
+    python3 chip_smoke.py --baseline-csrc DIR   # also time K2 and K3 beside
+                                                # DIR's (a parent's csrc)
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them.  It builds
 the kernels from ``cilium_tpu_torch/csrc`` and runs these phases, each of
@@ -35,7 +35,11 @@ which fails the run on any mismatch:
 6. times: CUDA events around each kernel, its plain version and each
    verdict pass, bounds from the run's own data, and the engines on the
    host clock and under the profiler, with the card's name and power
-   limit;
+   limit; K2 again at the r2d2 engine's own batch shape (the largest
+   search one engine run makes, its inputs recorded); given
+   --baseline-csrc, every K2 and K3 reading here and in phase 7 also
+   runs the parent's kernel on the same inputs, held equal and timed in
+   turns (n o o n n o, medians of three);
 7. the third slice, counted in a run of its own (every count set to 0
    just before it, read just after): ``dns_verdicts(_attr)`` on bench_dns's
    policy and bench_stress's DNS policy 0, ``cassandra_verdicts`` and
@@ -91,8 +95,8 @@ which fails the run on any mismatch:
    bit-equal to K2 ``dfa_search_batch`` on the non-absorbing tables, fold
    and apply to their plain versions at 4,096 and at 32,768 with 64
    chunks, the fold's branch counts to ``seqdfa_fold_branches_plain``
-   (both branches must run), and timed beside K2 (and beside the
-   baseline's fold in turns, given --baseline-csrc);
+   (both branches must run), and timed beside K2 (and K2 beside the
+   parent's K2 in turns on seqdfa-32k and -4k, given --baseline-csrc);
 12. the seam benchmarks, counted in a run of their own (a launch here is a
    wrapper launch or a CUDA-graph replay): ``measure_device_rtt_ms`` (K20
    ``rtt_tick`` + a blocking readback) and ``measure_uplink_mbps``;
@@ -125,9 +129,8 @@ which fails the run on any mismatch:
    reshape onto the survivors and the re-promotion; then K21 (both
    forms) and K22 against their plain versions at F = 65,536, R = 1, 2,
    4, 8, timed beside the library calls (K21's plain form against
-   ``torch.any`` in turns, three readings each; both forms against the
-   baseline's K21 in turns, given --baseline-csrc).  The rules_100k budget and the
-   scaling floor are asserted only on 4 distinct cards.
+   ``torch.any`` in turns, three readings each).  The rules_100k budget
+   and the scaling floor are asserted only on 4 distinct cards.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -287,6 +290,26 @@ def engine_feeds(rng, n_flows):
         for rnd, chunk in zip(rounds, (stream[:cut1], stream[cut1:cut2], stream[cut2:] + tail)):
             rnd.append((fid, chunk, 1 if fid % 5 else 2))
     return rounds
+
+
+def engine_scan_calls(model, rounds):
+    """The automaton searches one ``run_engine`` makes, in call order, as
+    (tables, data, start, end) with the tensors copied at the call."""
+    from cilium_tpu_torch.models import r2d2 as r2d2_mod
+
+    calls = []
+    search = r2d2_mod.automaton_search_spans
+
+    def record(tab, data, start, end):
+        calls.append((tab, data.clone(), start.clone(), end.clone()))
+        return search(tab, data, start, end)
+
+    r2d2_mod.automaton_search_spans = record
+    try:
+        run_engine(model, rounds)
+    finally:
+        r2d2_mod.automaton_search_spans = search
+    return calls
 
 
 def run_engine(model, rounds):
@@ -2923,8 +2946,8 @@ SEQ_SHAPES = (("seqdfa-32k", 2048, 32768), ("seqdfa-4k", 256, 4096))
 # slow branch (one thread a live start state) everywhere.
 SEQ_ADV = ("seqdfa-32k-adv", 2048, 32768, (1, 64))
 SEQ_ADV_PATTERNS = ("^(a{13})*b", "^(a{11})*c")
-# PR 9's kernel libraries (a parent checkout's csrc, --baseline-csrc), for
-# timing K18's fold and K21 beside them in turns; empty without the flag.
+# The parent's K2 and K3 (a parent checkout's csrc, --baseline-csrc), for
+# timing the redesigned scans beside them in turns; empty without the flag.
 BASELINE: dict = {}
 
 
@@ -2939,9 +2962,10 @@ def seqdfa_adv_batch(f, width):
 
 
 def build_baseline(csrc):
-    """Build ``seqdfa.cu`` and ``shard_reduce.cu`` from ``csrc`` (PR 9's
-    sources, with its launchers' signatures) into _build/baseline, one
-    ``nvcc`` each, together; fills BASELINE with callables."""
+    """Build ``dfa_scan.cu`` and ``nfa_scan.cu`` from ``csrc`` (the parent's
+    sources: K2 and K3 before their redesign, whose launchers read the
+    tables' dense fields) into _build/baseline, one ``nvcc`` each,
+    together; fills BASELINE with callables of the wrappers' arguments."""
     import ctypes
     from pathlib import Path
 
@@ -2951,7 +2975,7 @@ def build_baseline(csrc):
     out = kernels.BUILD / "baseline"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for stem in ("seqdfa", "shard_reduce"):
+    for stem in ("dfa_scan", "nfa_scan"):
         cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-o", str(out / f"{stem}.so"),
                str(csrc / f"{stem}.cu")]
         procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2960,38 +2984,57 @@ def build_baseline(csrc):
         if proc.returncode != 0:
             raise RuntimeError(f"baseline {stem}.cu failed to build:\n{text}")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fold = ctypes.CDLL(str(out / "seqdfa.so")).seqdfa_fold
-    fold.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 2
-    fold.restype = ci
-    red = ctypes.CDLL(str(out / "shard_reduce.so")).shard_reduce
-    red.argtypes = [vp] * 3 + [ci] * 2 + [vp] * 3
-    red.restype = ci
+    dfa = ctypes.CDLL(str(out / "dfa_scan.so")).dfa_scan
+    dfa.argtypes = [vp] * 8 + [ci] * 5 + [vp] * 2
+    dfa.restype = ci
+    nfa = ctypes.CDLL(str(out / "nfa_scan.so")).nfa_scan
+    nfa.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 2
+    nfa.restype = ci
 
     def ptr(t):
-        return vp(None) if t is None else vp(t.data_ptr())
+        return vp(t.data_ptr())
 
     def check(err, name):
         if err:
             raise RuntimeError(f"baseline {name}: CUDA error {err}")
 
-    def seqdfa_fold_pr9(dfa, d, ln, k):
-        f, width = d.shape
-        r, s, c = dfa.n_patterns, dfa.n_states, dfa.n_classes
-        maps = torch.empty((f, r, k, s), dtype=torch.uint8, device=d.device)
-        check(fold(ptr(d), ptr(ln), ptr(dfa.classmap), ptr(dfa.delta), f, width, r, s, c, k,
-                   ptr(maps), vp(torch.cuda.current_stream().cuda_stream)), "seqdfa_fold")
-        return maps
+    def stream():
+        return vp(torch.cuda.current_stream().cuda_stream)
 
-    def shard_reduce_pr9(allow_parts, rule_parts=None, offsets=None):
-        r, f = allow_parts.shape
-        allow = torch.empty((f,), dtype=torch.bool, device=allow_parts.device)
-        rule = None if rule_parts is None else torch.empty((f,), dtype=torch.int32,
-                                                          device=allow_parts.device)
-        check(red(ptr(allow_parts), ptr(rule_parts), ptr(offsets), r, f, ptr(allow), ptr(rule),
-                  vp(torch.cuda.current_stream().cuda_stream)), "shard_reduce")
-        return allow if rule is None else (allow, rule)
+    def dfa_scan_parent(tab, d, s, e):
+        f, l = d.shape
+        r = tab.n_patterns
+        res = torch.empty((f, r), dtype=torch.bool, device=d.device)
+        check(dfa(ptr(d), ptr(s), ptr(e), ptr(tab.classmap), ptr(tab.delta), ptr(tab.start),
+                  ptr(tab.accept), ptr(tab.accept_final), f, l, r, tab.n_states, tab.n_classes,
+                  ptr(res), stream()), "dfa_scan")
+        return res
 
-    BASELINE.update(seqdfa_fold=seqdfa_fold_pr9, shard_reduce=shard_reduce_pr9, csrc=str(csrc))
+    def nfa_scan_parent(tab, d, s, e):
+        f, l = d.shape
+        r = tab.n_patterns
+        res = torch.empty((f, r), dtype=torch.bool, device=d.device)
+        check(nfa(ptr(d), ptr(s), ptr(e), ptr(tab.classmap), ptr(tab.delta_bits),
+                  ptr(tab.start_bits), ptr(tab.accept_bits), ptr(tab.accept_final_bits), f, l, r,
+                  tab.n_states, ptr(res), stream()), "nfa_scan")
+        return res
+
+    BASELINE.update(dfa_scan=dfa_scan_parent, nfa_scan=nfa_scan_parent, csrc=str(csrc))
+
+
+def parent_turns(kname, new, tab, data, start, end, row, **graph):
+    """With --baseline-csrc: the parent's K2 or K3 on the same inputs,
+    held equal to ``new``'s output and timed beside it in turns; the
+    median of each side goes into ``row`` (``turns_ms`` / ``parent_ms``),
+    the readings into ``row["turns"]``."""
+    if not BASELINE:
+        return row
+    old = lambda: BASELINE[kname](tab, data, start, end)  # noqa: E731
+    if not torch.equal(old(), new()):
+        raise AssertionError(f"{kname}: the parent's kernel and this one disagree")
+    turns = in_turns(new, old, **graph)
+    row.update(turns=turns, turns_ms=sorted(turns["n"])[1], parent_ms=sorted(turns["o"])[1])
+    return row
 
 
 def in_turns(new, old, **graph):
@@ -3013,9 +3056,9 @@ def seqdfa_slice(dev, card, kerns):
     ``dfa_search_batch`` on the non-absorbing tables (every case), its
     fold and apply against their plain versions where the plain fold is
     quick enough (``plain_case``), its branch counters against
-    ``seqdfa_fold_branches_plain``, and it is timed beside K2 (and beside
-    PR 9's fold in turns, given --baseline-csrc).  Returns (launches,
-    runs, report, timed)."""
+    ``seqdfa_fold_branches_plain``, and it is timed beside K2 (and K2
+    beside the parent's K2 in turns on each frame shape, given
+    --baseline-csrc).  Returns (launches, runs, report, timed)."""
     from cilium_tpu_torch.entry import seqdfa_batch, seqdfa_tables
     from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
     from cilium_tpu_torch.ops.seqdfa import (
@@ -3106,9 +3149,6 @@ def seqdfa_slice(dev, card, kerns):
             report["seqdfa_apply"][name] = max_abs_err([seqdfa_apply(dfa_abs, maps)], [want])
             if not torch.equal(outs[name], want):
                 raise AssertionError(f"{name}: K18 != its plain version")
-            if BASELINE and not torch.equal(BASELINE["seqdfa_fold"](dfa_abs, cs["d"], cs["l"], cs["k"]),
-                                            want_maps):
-                raise AssertionError(f"{name}: PR 9's fold != the plain fold")
         dbg = torch.zeros(3, dtype=torch.int64, device=dev)
         seqdfa_fold(dfa_abs, cs["d"], cs["l"], cs["k"], debug=dbg)
         got = [int(x) for x in dbg.cpu()]
@@ -3157,13 +3197,6 @@ def seqdfa_slice(dev, card, kerns):
                 plain_ms=cuda_ms(lambda: seqdfa_apply_plain(dfa_abs, maps), 10),
                 library_ms=None, bytes=f * r * k + f * r + r + r * s, ops=f * r * k),
         }
-        if BASELINE and cs["base"] != "seqdfa-4k":
-            old = lambda: BASELINE["seqdfa_fold"](dfa_abs, d, l, k)  # noqa: E731
-            turns = in_turns(fold, old, iters=5, replays=4)
-            rows["seqdfa_fold"]["pr9_ms"] = sorted(turns["o"])[1]
-            log(f"{name:18s} K18 fold {', '.join(f'{t:.5f}' for t in turns['n'])} ms against PR 9's "
-                f"fold {', '.join(f'{t:.5f}' for t in turns['o'])} ms (in turns n o o n n o; "
-                f"median ratio {sorted(turns['n'])[1] / sorted(turns['o'])[1]:.3f}) [{card}]")
         for kname, row in rows.items():
             bound(row)
             log_row(name, kname, row)
@@ -3172,6 +3205,11 @@ def seqdfa_slice(dev, card, kerns):
         k2 = lambda: dfa_search_batch(cs["dfa"], d, l)  # noqa: E731
         k2_ms = graph_ms(k2, iters=5, replays=4)
         timed[name] = dict(rows=rows, k2_ms=k2_ms)
+        if BASELINE and cs["base"] in ("seqdfa-32k", "seqdfa-4k") and cs["k"] == max(SEQ_CHUNKS):
+            # K2 does not depend on n_chunks: once a frame shape
+            k2_row = parent_turns("dfa_scan", k2, cs["dfa"], d, torch.zeros_like(l), l, {},
+                                  iters=5, replays=4)
+            log(f"{cs['base']:18s} K2 dfa_scan {turns_text(k2_row['turns'])} [{card}]")
         pair = rows["seqdfa_fold"]["ms"] + rows["seqdfa_apply"]["ms"]
         log(f"{name:18s} K18 fold + apply {pair:.5f} ms against K2 dfa_scan {k2_ms:.5f} ms "
             f"(K18 / K2 = {pair / k2_ms:.3f}) [{card}]")
@@ -3997,6 +4035,24 @@ def _mesh_runs(dev, card, kerns, tmp):
         t_one = graph_ms(lambda: ref_model.verdicts_attr(*inp))
         log(f"{run}: attributed pass device {t_mesh:.5f} ms against the single-card model's "
             f"{t_one:.5f} ms (x{t_mesh / t_one:.2f}) [{card}]")
+        if BASELINE and "nfa_scan" in fam_kernels[run.split("-")[1]]:
+            # the same sharded pass with the parent's K3 in place of this
+            # one (the name rxsearch's dispatch looks up), in turns
+            from cilium_tpu_torch.ops import rxsearch
+
+            def with_parent_k3():
+                own = rxsearch.nfa_search_spans
+                rxsearch.nfa_search_spans = BASELINE["nfa_scan"]
+                try:
+                    return model.verdicts_attr(*inp)
+                finally:
+                    rxsearch.nfa_search_spans = own
+
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(with_parent_k3(),
+                                                           model.verdicts_attr(*inp))):
+                raise AssertionError(f"{run}: the pass with the parent's K3 differs")
+            turns = in_turns(lambda: model.verdicts_attr(*inp), with_parent_k3)
+            log(f"{run}: attributed pass {turns_text(turns)} with the parent's K3 [{card}]")
     mesh_equal("mesh-rules-100k", got100k, ref100k(*in100k))
     if not (bool(got100k[2][1]) and not bool(got100k[2][0])):
         raise AssertionError("mesh-rules-100k: the HEAD probe must pass and PATCH fail")
@@ -4120,19 +4176,6 @@ def _mesh_runs(dev, card, kerns, tmp):
             + ", ".join(f"{t:.5f}" for t in turns["k"]) + " ms against torch.any "
             + ", ".join(f"{t:.5f}" for t in turns["a"]) + f" ms (in turns k a a k k a; medians "
             + f"{sorted(turns['k'])[1]:.5f} / {sorted(turns['a'])[1]:.5f}) [{card}]")
-        if BASELINE:
-            old = BASELINE["shard_reduce"]
-            if not (torch.equal(old(allow), got_p) and all(
-                    torch.equal(a, b) for a, b in zip(old(allow, rule, off), (got_a, got_r)))):
-                raise AssertionError(f"mesh-k21-R{r}: PR 9's K21 != this K21")
-            for form, new_fn, old_fn, row_ in (
-                    ("plain", k21p, lambda: old(allow), prow),
-                    ("attributed", k21, lambda: old(allow, rule, off), row)):
-                t = in_turns(new_fn, old_fn)
-                row_["pr9_ms"] = sorted(t["o"])[1]
-                log(f"mesh-k21-R{r} {form}: K21 " + ", ".join(f"{x:.5f}" for x in t["n"])
-                    + " ms against PR 9's K21 " + ", ".join(f"{x:.5f}" for x in t["o"])
-                    + f" ms (in turns n o o n n o) [{card}]")
 
         simple = (torch.rand((r, f), generator=g) < 0.1).to(dev)
         cover = (torch.rand((r, f, 8), generator=g) < 0.7).to(dev)
@@ -4442,8 +4485,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card and check it.")
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="PR 9's cilium_tpu_torch/csrc (an unpacked parent commit): time K18's "
-                    "fold and K21 beside its kernels, in turns")
+                    help="a parent commit's cilium_tpu_torch/csrc (unpacked): time K2 and K3 "
+                    "beside its dfa_scan and nfa_scan, in turns, at every shape that times them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4493,7 +4536,7 @@ def main() -> int:
     log(f"built {len(libs)} kernel libraries in {time.monotonic() - t0:.1f} s")
     if args.baseline_csrc:
         build_baseline(args.baseline_csrc)
-        log(f"built PR 9's seqdfa and shard_reduce from {BASELINE['csrc']}")
+        log(f"built the parent's dfa_scan and nfa_scan from {BASELINE['csrc']}")
     for src in kernels.sources():
         for line in kernels.ptxas_log(src).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -4926,6 +4969,18 @@ def main() -> int:
     engine_times(f"http engine: {frames} requests of {len(hfeeds[0])} flows", frames, card,
                  lambda: run_http_engine(hcases["http-graft"]["model"], hfeeds, FlowLog(capacity=1 << 20)))
 
+    # K2 at the r2d2 engine's own batch shape: the largest search one
+    # engine run makes, its inputs recorded and timed alone.
+    e_tab, e_data, e_s, e_e = max(engine_scan_calls(cases["graft"]["model"], feeds),
+                                  key=lambda call: call[1].numel())
+    kname = scan_kernel(e_tab)
+    row = bound(scan_row(scans[kname], e_tab, e_data, e_s, e_e,
+                         span_bytes(e_s, e_e, e_data.shape[1])))
+    timed["engine"] = dict(rows={kname: row})
+    log(f"engine: the largest of its searches is F={e_data.shape[0]} L={e_data.shape[1]} "
+        f"R={e_tab.n_patterns}")
+    log_row("engine", kname, row)
+
     # The third slice's paths, counted in their own run.
     launches3, runs3, span_runs3, report3, timed3 = l7_slice(dev, card, kerns, scans, scan_kernel,
                                                              tile_heads)
@@ -5042,7 +5097,8 @@ def main() -> int:
         "kafka_shard_combine": ("cilium_tpu_torch/csrc/shard_reduce.cu",
                                 "cilium_tpu/parallel/rulesharding.py:503", "mesh-kafka-1x4"),
     }
-    fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "pr9_ms")
+    fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "turns_ms",
+              "parent_ms")
     kernels_line = []
     for kname, (source, ref, shape) in replaces.items():
         row = timed[shape]["rows"][kname]
@@ -5051,7 +5107,7 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": max(report[kname].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-            "pr9_ms": row.get("pr9_ms"), "shape": shape,
+            "turns_ms": row.get("turns_ms"), "parent_ms": row.get("parent_ms"), "shape": shape,
             "shape_launches": runs[shape][kname], "call_ms": row["call_ms"],
         }
         others = {}
@@ -5090,11 +5146,21 @@ def scan_row(scan_pair, tab, data, start, end, sb):
         tables = 4 * (tab.delta_bits.numel() + tab.start_bits.numel()
                       + 2 * tab.accept_bits.numel()) + 256
         ops = sb * tab.delta_bits.shape[2]  # one word op per state word per byte
-    return dict(
+    row = dict(
         ms=graph_ms(run), call_ms=cuda_ms(run, 50),
         plain_ms=cuda_ms(lambda: plain(tab, data, start, end), 3),
         bytes=sb + 8 * f + tables + f * r, ops=ops,
     )
+    return parent_turns("dfa_scan" if isinstance(tab, DeviceDfa) else "nfa_scan", run, tab, data,
+                        start, end, row)
+
+
+def turns_text(turns):
+    """The readings of ``in_turns`` as one log phrase."""
+    n, o = sorted(turns["n"])[1], sorted(turns["o"])[1]
+    return (", ".join(f"{t:.5f}" for t in turns["n"]) + " ms against the parent's "
+            + ", ".join(f"{t:.5f}" for t in turns["o"])
+            + f" ms (in turns n o o n n o; medians {n:.5f} / {o:.5f} = {n / o:.3f})")
 
 
 def pass_times(on_card, from_numpy):
@@ -5115,6 +5181,8 @@ def log_row(name, kname, row):
     log(f"{name:15s} {kname:14s} device {row['ms']:.5f} ms  per call {row['call_ms']:.5f} ms  "
         f"plain {plain}  bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
         f"{row['bytes']} bytes, {row['ops']} ops)")
+    if "turns" in row:
+        log(f"{name:15s} {kname:14s} {turns_text(row['turns'])}")
 
 
 def log_pass(name, fn, t, card):

@@ -3,15 +3,17 @@
 Counterpart of ``cilium_tpu/ops/nfa.py``, the fallback automaton when a
 pattern's DFA exceeds the 128-state guard.  The union NFA's transition
 relation is uploaded as state bitsets: ``delta_bits[c, s]`` holds the W =
-ceil(S/32) words of states reachable from state ``s`` on byte class ``c``.
-On a CUDA tensor ``nfa_search_spans`` launches ``csrc/nfa_scan.cu``, on a
-CPU tensor it runs ``nfa_scan_plain``, and on anything else it raises.
+ceil(S/32) words of states reachable from state ``s`` on byte class ``c``;
+K3 reads those rows up to 256 states and, past that, their near form
+(``near_rows``) with the sparse one (``sparse_rows``), built beside them.  On a CUDA tensor
+``nfa_search_spans`` launches ``csrc/nfa_scan.cu``, on a CPU tensor it
+runs ``nfa_scan_plain``, and on anything else it raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -26,7 +28,7 @@ MAX_STATES = 32 * 32
 
 _NFA_SCAN = kernels.CudaKernel(
     "nfa_scan", "nfa_scan",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 )
 
 
@@ -43,10 +45,81 @@ class DeviceNfa:
     n_classes: int
     n_states: int
     n_patterns: int
+    # K3's other forms of delta_bits (``near_rows``, ``sparse_rows``; the
+    # kernel walks them where the dense rows are too large for shared
+    # memory) and the union of the accept sets, built here, so every
+    # builder and every copy to another device has them.
+    scan_near: torch.Tensor = field(init=False, repr=False)  # [C*S, 2] int32
+    scan_far: torch.Tensor = field(init=False, repr=False)  # [C, W] int32
+    scan_rows: torch.Tensor = field(init=False, repr=False)  # [C*S, 2] int32
+    scan_targets: torch.Tensor = field(init=False, repr=False)  # [E + 1] int16
+    scan_has: torch.Tensor = field(init=False, repr=False)  # [C, W] int32
+    scan_any: torch.Tensor = field(init=False, repr=False)  # [2, W] int32
+
+    def __post_init__(self):
+        self.scan_near, self.scan_far = near_rows(self.delta_bits, self.n_states)
+        self.scan_rows, self.scan_targets, self.scan_has = sparse_rows(
+            self.delta_bits, self.n_states)
+        # the union of every pattern's accept (row 0) and accept_final (row 1)
+        w = 32 * self.delta_bits.shape[2]
+        self.scan_any = _words(torch.stack([
+            unpack_bits(self.accept_bits, w).any(0),
+            unpack_bits(self.accept_final_bits, w).any(0),
+        ]))
 
     @property
     def device(self) -> torch.device:
         return self.delta_bits.device
+
+
+def _words(bits: torch.Tensor) -> torch.Tensor:
+    """Bool [..., 32 W] -> int32 words [..., W] (bit s % 32 of word s // 32)."""
+    w = bits.reshape(*bits.shape[:-1], -1, 32).long()
+    v = (w << torch.arange(32, device=bits.device)).sum(-1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def near_rows(delta_bits: torch.Tensor, s: int):
+    """K3's near form of the transition relation, on delta_bits' device.
+
+    near [C*S, 2] int32: row (c, s)'s words j and j + 1 (j = s // 32; the
+    second zero past the last word); far [C, W] int32: bit s of row c set
+    where state s has a target on class c in any other word (the kernel
+    walks those through ``sparse_rows``)."""
+    c, _, w = delta_bits.shape
+    dev = delta_bits.device
+    rows = delta_bits[:, :s]  # [C, S, W]
+    j = torch.arange(s, device=dev) // 32
+    nxt = torch.cat([rows, rows.new_zeros((c, s, 1))], dim=2)  # word W reads zero
+    lo = torch.gather(nxt, 2, j.expand(c, s)[..., None])[..., 0]
+    hi = torch.gather(nxt, 2, (j + 1).expand(c, s)[..., None])[..., 0]
+    k = torch.arange(w, device=dev)
+    other = (k[None, :] != j[:, None]) & (k[None, :] != j[:, None] + 1)  # [S, W]
+    far = torch.zeros((c, 32 * w), dtype=torch.bool, device=dev)
+    far[:, :s] = ((rows != 0) & other[None]).any(2)
+    return torch.stack([lo, hi], 2).reshape(c * s, 2).contiguous(), _words(far)
+
+
+def sparse_rows(delta_bits: torch.Tensor, s: int):
+    """K3's form of the transition relation, on delta_bits' device.
+
+    rows [C*S, 2] int32: for row (c, s), the offset of its targets in
+    ``targets`` and (count | first target << 16), so a row with one
+    target needs no second read; targets [E + 1] int16, each row's in
+    ascending order, then a zero; has [C, W] int32: bit s of row c set
+    where state s has a target on class c.  Exactly the relation of
+    delta_bits."""
+    c, _, w = delta_bits.shape
+    dense = unpack_bits(delta_bits, s).reshape(c * s, s)
+    count = dense.sum(1).to(torch.int64)
+    begin = torch.cumsum(count, 0) - count
+    # one zero past the last target: begin == E for trailing empty rows
+    tgt = torch.cat([torch.nonzero(dense)[:, 1], count.new_zeros(1)])
+    first = torch.where(count > 0, tgt[begin], 0)
+    rows = torch.stack([begin, count | (first << 16)], 1).to(torch.int32)
+    has = torch.zeros((c, 32 * w), dtype=torch.bool, device=delta_bits.device)
+    has[:, :s] = (count > 0).reshape(c, s)
+    return rows, tgt.to(torch.int16), _words(has)
 
 
 def pack_bits(sets: np.ndarray) -> np.ndarray:
@@ -150,9 +223,10 @@ def nfa_search_spans(nfa: DeviceNfa, data, span_start, span_end) -> torch.Tensor
         return out
     p = kernels.p
     _NFA_SCAN.launch(
-        device, p(data), p(span_start), p(span_end), p(nfa.classmap),
-        p(nfa.delta_bits), p(nfa.start_bits), p(nfa.accept_bits),
-        p(nfa.accept_final_bits), f, l, r, nfa.n_states, p(out),
+        device, p(data), p(span_start), p(span_end), p(nfa.classmap), p(nfa.delta_bits),
+        p(nfa.scan_near), p(nfa.scan_far), p(nfa.scan_rows), p(nfa.scan_targets),
+        p(nfa.scan_has), p(nfa.start_bits), p(nfa.accept_bits), p(nfa.accept_final_bits),
+        p(nfa.scan_any), f, l, r, nfa.n_states, nfa.n_classes, p(out),
     )
     return out
 

@@ -67,8 +67,8 @@ from cilium_tpu_torch.models.r2d2 import (
 )
 from cilium_tpu_torch.ops import dfa as dfa_mod
 from cilium_tpu_torch.ops import nfa as nfa_mod
-from cilium_tpu_torch.ops.dfa import device_dfa, dfa_scan_plain, dfa_search_spans
-from cilium_tpu_torch.ops.nfa import device_nfa, nfa_scan_plain, nfa_search_spans
+from cilium_tpu_torch.ops.dfa import device_dfa, dfa_from_arrays, dfa_scan_plain, dfa_search_spans
+from cilium_tpu_torch.ops.nfa import device_nfa, nfa_from_dense, nfa_scan_plain, nfa_search_spans
 from cilium_tpu_torch.ops.rxsearch import automaton_search_spans
 from cilium_tpu_torch.ops import seqdfa as seqdfa_mod
 from cilium_tpu_torch.ops.dfa import dfa_search_batch
@@ -190,6 +190,117 @@ def test_nfa_kernel_matches_plain(cuda):
     assert nfa_mod._NFA_SCAN.launches == before + 1
     want = nfa_scan_plain(nfa, d, s, e)
     assert torch.equal(got, want) and bool(want[:, 0].any())
+
+
+def _random_dfa(rng, dev, r, s, c):
+    """R random DFAs of S states over C classes, about 1 state in 10
+    accepting (at least one a pattern)."""
+    classmap = rng.integers(0, c, 256)
+    classmap[:c] = np.arange(c)
+    accept = rng.random((r, s)) < 0.1
+    accept[np.arange(r), rng.integers(0, s, r)] = True
+    return dfa_from_arrays(classmap, rng.integers(0, s, (r, s, c)), rng.integers(0, s, r),
+                           accept, accept | (rng.random((r, s)) < 0.05), dev)
+
+
+def _scan_batch(rng, dev, f, l, view=False):
+    """Random bytes and spans: start >= end, start < 0 and end > L
+    included; ``view`` puts the rows at a 3-byte offset into a larger
+    buffer (a contiguous view whose rows are not 16-byte aligned)."""
+    data = rng.integers(0, 256, (f, l)).astype(np.uint8)
+    start = rng.integers(-2, l + 1, f).astype(np.int32)
+    end = rng.integers(0, l + 9, f).astype(np.int32)
+    start[:6] = [0, 0, 5, 3, l, -1]
+    end[:6] = [l, 0, 2, l + 8, l, l]
+    d = torch.from_numpy(data).to(dev)
+    if view:
+        buf = torch.zeros(f * l + 3, dtype=torch.uint8, device=dev)
+        buf[3:] = d.reshape(-1)
+        d = buf[3:].view(f, l)
+        assert d.is_contiguous() and d.data_ptr() % 16 == 3
+    return d, torch.from_numpy(start).to(dev), torch.from_numpy(end).to(dev)
+
+
+def _one_launch(kernel, fn, *args):
+    before = kernel.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("r,s,c,es,tiles", [
+    (1, 19, 9, 1, 1), (8, 19, 9, 1, 1), (33, 45, 19, 1, 1), (64, 45, 19, 1, 1),
+    (9, 40, 20, 1, 1),
+    (300, 128, 40, 1, 10),  # the tables exceed shared memory: 10 pattern tiles
+    (5, 128, 256, 1, 2),    # S = 128 at C = 256: four lanes a flow, 2 tiles
+    (200, 100, 5, 2, 2),    # 500 rows a tile: two-byte entries
+])
+@pytest.mark.parametrize("l", [64, 61])  # 61: the one-byte loads
+def test_dfa_kernel_variants_match_plain(cuda, r, s, c, es, tiles, l):
+    rng = np.random.default_rng(r * 1000 + s + l)
+    dfa = _random_dfa(rng, cuda, r, s, c)
+    assert dfa.scan_geom[3:] == (es, tiles)
+    d, st, en = _scan_batch(rng, cuda, 2051 if r < 100 else 517, l)
+    got = _one_launch(dfa_mod._DFA_SCAN, dfa_search_spans, dfa, d, st, en)
+    want = dfa_scan_plain(dfa, d, st, en)
+    assert torch.equal(got, want) and 0 < float(want.float().mean()) < 1
+
+
+@pytest.mark.parametrize("r", [8, 64])
+def test_dfa_kernel_row_view_matches_plain(cuda, r):
+    rng = np.random.default_rng(40 + r)
+    dfa = _random_dfa(rng, cuda, r, 45, 19)
+    d, st, en = _scan_batch(rng, cuda, 1500, 64, view=True)
+    got = _one_launch(dfa_mod._DFA_SCAN, dfa_search_spans, dfa, d, st, en)
+    assert torch.equal(got, dfa_scan_plain(dfa, d, st, en))
+
+
+def _random_nfa(rng, dev, c, s, r, edges):
+    """A union NFA of S states over C classes with about ``edges`` random
+    edges (about one a (class, state) row keeps the live set from dying
+    out or filling up), 4 start states and 3 accepting states a pattern."""
+    delta = np.zeros((c, s, s), bool)
+    delta[rng.integers(0, c, edges), rng.integers(0, s, edges), rng.integers(0, s, edges)] = True
+    classmap = rng.integers(0, c, 256)
+    classmap[:c] = np.arange(c)
+    accept = rng.random((r, s)) < 3 / s
+    return nfa_from_dense(classmap, delta, rng.random(s) < 4 / s, accept,
+                          accept | (rng.random((r, s)) < 1 / s), dev)
+
+
+def _nfa_variant(nfa):
+    """Which K3 variant csrc/nfa_scan.cu's dispatch takes for ``nfa``."""
+    c, s = nfa.n_classes, nfa.n_states
+    w = -(-s // 32)
+    budget = 200 * 1024
+    if w <= 2 and c * s * w * 4 <= budget:
+        return "dense"
+    if c * s * 8 + c * w * 4 <= budget:
+        return "near"
+    return "sparse"
+
+
+@pytest.mark.parametrize("c,s,r,edges,variant", [
+    (5, 30, 3, 150, "dense"),       # W = 1
+    (12, 64, 8, 700, "dense"),      # W = 2, the mesh's DNS shards' size
+    (60, 256, 4, 15000, "near"),    # W = 8, dense rows past shared memory
+    (19, 320, 8, 6000, "near"),     # W = 10, the nfa shape's size (random
+    (7, 1024, 5, 7000, "near"),     # targets: most walk their sparse rows)
+    (40, 1024, 4, 40000, "sparse"),  # W = 32, near rows past shared memory
+    (6, 60, 3, 0, "dense"),         # every (class, state) row empty
+    (6, 100, 3, 0, "near"),         # the same, W = 4
+    (256, 100, 3, 0, "sparse"),     # every row empty, no form in shared memory
+])
+@pytest.mark.parametrize("l", [64, 61])
+def test_nfa_kernel_variants_match_plain(cuda, c, s, r, edges, variant, l):
+    rng = np.random.default_rng(c * s + edges + l)
+    nfa = _random_nfa(rng, cuda, c, s, r, edges)
+    assert _nfa_variant(nfa) == variant
+    d, st, en = _scan_batch(rng, cuda, 1031, l, view=(l == 64 and c == 19))
+    got = _one_launch(nfa_mod._NFA_SCAN, nfa_search_spans, nfa, d, st, en)
+    want = nfa_scan_plain(nfa, d, st, en)
+    assert torch.equal(got, want) and (edges == 0 or bool(want.any()))
 
 
 def test_hits_kernel_matches_plain(cuda):
