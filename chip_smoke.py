@@ -5,8 +5,9 @@ DFA search, its seam benchmarks and its sharded verdicts on a mesh on one
 CUDA card and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --baseline-csrc DIR   # also time K2 and K3 beside
-                                                # DIR's (a parent's csrc)
+    python3 chip_smoke.py --baseline-csrc DIR   # also time the kernels whose
+                                                # sources differ from DIR's (a
+                                                # parent's csrc) beside them
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them.  It builds
 the kernels from ``cilium_tpu_torch/csrc`` and runs these phases, each of
@@ -31,15 +32,22 @@ which fails the run on any mismatch:
    and, for HTTP, against the streaming ``HttpParser``'s, and the HTTP
    flow records against the CPU engine's;
 5. kernels against their plain PyTorch versions on the card, at the main
-   path's inputs (exact equality: every output is bool or int);
+   path's inputs (exact equality: every output is bool or int), and K1 /
+   K5 on tests/frame_cases.py's boundary batches at widths that take
+   every variant of their launchers (row bases 16-byte aligned and 5 bytes
+   into the storage) and on the 64 x 32,768 bucket around LONG_HEAD;
 6. times: CUDA events around each kernel, its plain version and each
    verdict pass, bounds from the run's own data, and the engines on the
    host clock and under the profiler, with the card's name and power
    limit; K2 again at the r2d2 engine's own batch shape (the largest
-   search one engine run makes, its inputs recorded); given
-   --baseline-csrc, every K2 and K3 reading here and in phase 7 also
-   runs the parent's kernel on the same inputs, held equal and timed in
-   turns (n o o n n o, medians of three);
+   search one engine run makes, its inputs recorded), K1 at its largest
+   frame call, K5 at the HTTP engine's widest frame call and on the
+   LONG_HEAD bucket; given --baseline-csrc, every reading of a kernel
+   whose source differs from the parent's (K1 and K5 before their redesign)
+   here and in phases 7, 11 and 13, and each pass that runs one (here
+   and phase 13's mesh passes), also runs with the parent's kernel on the
+   same inputs, held equal and timed in turns (n o o n n o, medians of
+   three; per call, the better of two each);
 7. the third slice, counted in a run of its own (every count set to 0
    just before it, read just after): ``dns_verdicts(_attr)`` on bench_dns's
    policy and bench_stress's DNS policy 0, ``cassandra_verdicts`` and
@@ -96,7 +104,8 @@ which fails the run on any mismatch:
    and apply to their plain versions at 4,096 and at 32,768 with 64
    chunks, the fold's branch counts to ``seqdfa_fold_branches_plain``
    (both branches must run), and timed beside K2 (and K2 beside the
-   parent's K2 in turns on seqdfa-32k and -4k, given --baseline-csrc);
+   parent's K2 in turns on seqdfa-32k and -4k, given --baseline-csrc and a
+   parent whose dfa_scan.cu differs);
 12. the seam benchmarks, counted in a run of their own (a launch here is a
    wrapper launch or a CUDA-graph replay): ``measure_device_rtt_ms`` (K20
    ``rtt_tick`` + a blocking readback) and ``measure_uplink_mbps``;
@@ -292,23 +301,22 @@ def engine_feeds(rng, n_flows):
     return rounds
 
 
-def engine_scan_calls(model, rounds):
-    """The automaton searches one ``run_engine`` makes, in call order, as
-    (tables, data, start, end) with the tensors copied at the call."""
-    from cilium_tpu_torch.models import r2d2 as r2d2_mod
-
+def recorded_calls(module, name, run):
+    """The calls ``run()`` makes to ``module.<name>`` (an automaton search,
+    K1 or K5), in call order, each as its arguments with the tensors
+    copied at the call."""
     calls = []
-    search = r2d2_mod.automaton_search_spans
+    fn = getattr(module, name)
 
-    def record(tab, data, start, end):
-        calls.append((tab, data.clone(), start.clone(), end.clone()))
-        return search(tab, data, start, end)
+    def record(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return fn(*args)
 
-    r2d2_mod.automaton_search_spans = record
+    setattr(module, name, record)
     try:
-        run_engine(model, rounds)
+        run()
     finally:
-        r2d2_mod.automaton_search_spans = search
+        setattr(module, name, fn)
     return calls
 
 
@@ -444,9 +452,6 @@ def tile_heads(reqs, remotes, f, width):
     )
 
 
-LONG_HEAD = b"GET /private/" + b"y" * 33000 + b" HTTP/1.1\r\nHost: svc.local\r\n\r\n"
-
-
 def http_engine_feeds(rng, n_flows):
     """Three rounds of (flow, chunk, remote) on the http-graft policy:
     several requests per buffer, Content-Length bodies, partial heads,
@@ -469,7 +474,7 @@ def http_engine_feeds(rng, n_flows):
                 headers += "X-Pad: " + "p" * rng.randrange(560, 2960) + "\r\n"
             stream += f"{method} {path} HTTP/1.1\r\n{headers}\r\n".encode() + body
         if fid == 7:
-            stream += LONG_HEAD
+            stream += frame_cases().LONG_HEAD
         cut1 = rng.randrange(0, len(stream) + 1)
         cut2 = rng.randrange(cut1, len(stream) + 1)
         for rnd, chunk in zip(rounds, (stream[:cut1], stream[cut1:cut2], stream[cut2:])):
@@ -2946,8 +2951,9 @@ SEQ_SHAPES = (("seqdfa-32k", 2048, 32768), ("seqdfa-4k", 256, 4096))
 # slow branch (one thread a live start state) everywhere.
 SEQ_ADV = ("seqdfa-32k-adv", 2048, 32768, (1, 64))
 SEQ_ADV_PATTERNS = ("^(a{13})*b", "^(a{11})*c")
-# The parent's K2 and K3 (a parent checkout's csrc, --baseline-csrc), for
-# timing the redesigned scans beside them in turns; empty without the flag.
+# The parent's kernels (a parent checkout's csrc, --baseline-csrc): for each
+# source that differs from the parent's, {symbol: the parent's C launcher
+# bound with the current wrapper's argtypes}; empty without the flag.
 BASELINE: dict = {}
 
 
@@ -2962,20 +2968,38 @@ def seqdfa_adv_batch(f, width):
 
 
 def build_baseline(csrc):
-    """Build ``dfa_scan.cu`` and ``nfa_scan.cu`` from ``csrc`` (the parent's
-    sources: K2 and K3 before their redesign, whose launchers read the
-    tables' dense fields) into _build/baseline, one ``nvcc`` each,
-    together; fills BASELINE with callables of the wrappers' arguments."""
+    """Build each ``<stem>.cu`` that differs from ``csrc``'s (the parent's
+    sources; a source differs when its text or a header it includes does)
+    from ``csrc`` into _build/baseline, one ``nvcc`` each, together, and
+    bind every launcher of those sources with the current ``CudaKernel``'s
+    argtypes: their C interfaces must be the parent's, so that the
+    wrappers' own argument packing drives both (``parent_kernels`` swaps
+    them in).  Returns the stems."""
     import ctypes
+    import re
     from pathlib import Path
 
     from cilium_tpu_torch import kernels
 
     csrc = Path(csrc).resolve()
+
+    def read_or_none(path):
+        return path.read_bytes() if path.exists() else None
+
+    stems = []
+    for src in kernels.sources():
+        deps, todo = set(), [src.name]
+        while todo:  # the source and the headers it includes, transitively
+            name = todo.pop()
+            if name not in deps and (kernels.CSRC / name).exists():
+                deps.add(name)
+                todo += re.findall(r'#include "([^"]+)"', (kernels.CSRC / name).read_text())
+        if any(read_or_none(kernels.CSRC / d) != read_or_none(csrc / d) for d in deps):
+            stems.append(src.stem)
     out = kernels.BUILD / "baseline"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for stem in ("dfa_scan", "nfa_scan"):
+    for stem in stems:
         cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-o", str(out / f"{stem}.so"),
                str(csrc / f"{stem}.cu")]
         procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2983,57 +3007,67 @@ def build_baseline(csrc):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"baseline {stem}.cu failed to build:\n{text}")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    dfa = ctypes.CDLL(str(out / "dfa_scan.so")).dfa_scan
-    dfa.argtypes = [vp] * 8 + [ci] * 5 + [vp] * 2
-    dfa.restype = ci
-    nfa = ctypes.CDLL(str(out / "nfa_scan.so")).nfa_scan
-    nfa.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 2
-    nfa.restype = ci
-
-    def ptr(t):
-        return vp(t.data_ptr())
-
-    def check(err, name):
-        if err:
-            raise RuntimeError(f"baseline {name}: CUDA error {err}")
-
-    def stream():
-        return vp(torch.cuda.current_stream().cuda_stream)
-
-    def dfa_scan_parent(tab, d, s, e):
-        f, l = d.shape
-        r = tab.n_patterns
-        res = torch.empty((f, r), dtype=torch.bool, device=d.device)
-        check(dfa(ptr(d), ptr(s), ptr(e), ptr(tab.classmap), ptr(tab.delta), ptr(tab.start),
-                  ptr(tab.accept), ptr(tab.accept_final), f, l, r, tab.n_states, tab.n_classes,
-                  ptr(res), stream()), "dfa_scan")
-        return res
-
-    def nfa_scan_parent(tab, d, s, e):
-        f, l = d.shape
-        r = tab.n_patterns
-        res = torch.empty((f, r), dtype=torch.bool, device=d.device)
-        check(nfa(ptr(d), ptr(s), ptr(e), ptr(tab.classmap), ptr(tab.delta_bits),
-                  ptr(tab.start_bits), ptr(tab.accept_bits), ptr(tab.accept_final_bits), f, l, r,
-                  tab.n_states, ptr(res), stream()), "nfa_scan")
-        return res
-
-    BASELINE.update(dfa_scan=dfa_scan_parent, nfa_scan=nfa_scan_parent, csrc=str(csrc))
+        lib = ctypes.CDLL(str(out / f"{stem}.so"))
+        bound = {}
+        for k in kernels.ALL:
+            if k.stem == stem:
+                fn = getattr(lib, k.symbol)
+                fn.argtypes = [*k.argtypes, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                bound[k.symbol] = fn
+        if not bound:
+            raise RuntimeError(f"baseline {stem}: no kernel of the port has that source")
+        BASELINE[stem] = bound
+    BASELINE["csrc"] = str(csrc)
+    return stems
 
 
-def parent_turns(kname, new, tab, data, start, end, row, **graph):
-    """With --baseline-csrc: the parent's K2 or K3 on the same inputs,
-    held equal to ``new``'s output and timed beside it in turns; the
-    median of each side goes into ``row`` (``turns_ms`` / ``parent_ms``),
-    the readings into ``row["turns"]``."""
-    if not BASELINE:
+class parent_kernels:
+    """Inside ``with parent_kernels(stems)``, the wrappers of those sources
+    launch the parent's kernels (``BASELINE``) with their own arguments."""
+
+    def __init__(self, stems):
+        from cilium_tpu_torch import kernels
+
+        self.held = [(k, BASELINE[k.stem][k.symbol]) for k in kernels.ALL if k.stem in stems]
+
+    def __enter__(self):
+        self.own = [(k, k._bind()) for k, _ in self.held]
+        for k, fn in self.held:
+            k._fn = fn
+
+    def __exit__(self, *exc):
+        for k, fn in self.own:
+            k._fn = fn
+
+
+def _outputs(out):
+    return [out] if isinstance(out, torch.Tensor) else [t for t in out if t is not None]
+
+
+def parent_turns(stems, new, row, **graph):
+    """With --baseline-csrc and a stem of ``stems`` (a kernel name or a
+    list) built from the parent: ``new`` again with the parent's kernels
+    swapped in, held equal to ``new``'s output and timed beside it in
+    turns; the median of each side goes into ``row`` (``turns_ms`` /
+    ``parent_ms``), the readings into ``row["turns"]``."""
+    stems = [s for s in ([stems] if isinstance(stems, str) else stems) if s in BASELINE]
+    if not stems:
         return row
-    old = lambda: BASELINE[kname](tab, data, start, end)  # noqa: E731
-    if not torch.equal(old(), new()):
-        raise AssertionError(f"{kname}: the parent's kernel and this one disagree")
+
+    def old():
+        with parent_kernels(stems):
+            return new()
+
+    got, want = _outputs(old()), _outputs(new())
+    if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{'/'.join(stems)}: the parent's kernel and this one disagree")
     turns = in_turns(new, old, **graph)
-    row.update(turns=turns, turns_ms=sorted(turns["n"])[1], parent_ms=sorted(turns["o"])[1])
+    calls = {"n": [], "o": []}  # per call (host launch included), in turns n o o n
+    for who in "noon":
+        calls[who].append(cuda_ms(new if who == "n" else old, 20))
+    row.update(turns=turns, turns_ms=sorted(turns["n"])[1], parent_ms=sorted(turns["o"])[1],
+               turns_call_ms=min(calls["n"]), parent_call_ms=min(calls["o"]), parent_stems=stems)
     return row
 
 
@@ -3058,7 +3092,8 @@ def seqdfa_slice(dev, card, kerns):
     quick enough (``plain_case``), its branch counters against
     ``seqdfa_fold_branches_plain``, and it is timed beside K2 (and K2
     beside the parent's K2 in turns on each frame shape, given
-    --baseline-csrc).  Returns (launches, runs, report, timed)."""
+    --baseline-csrc and a parent whose dfa_scan.cu differs).  Returns
+    (launches, runs, report, timed)."""
     from cilium_tpu_torch.entry import seqdfa_batch, seqdfa_tables
     from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
     from cilium_tpu_torch.ops.seqdfa import (
@@ -3205,10 +3240,10 @@ def seqdfa_slice(dev, card, kerns):
         k2 = lambda: dfa_search_batch(cs["dfa"], d, l)  # noqa: E731
         k2_ms = graph_ms(k2, iters=5, replays=4)
         timed[name] = dict(rows=rows, k2_ms=k2_ms)
-        if BASELINE and cs["base"] in ("seqdfa-32k", "seqdfa-4k") and cs["k"] == max(SEQ_CHUNKS):
+        if "dfa_scan" in BASELINE and cs["base"] in ("seqdfa-32k", "seqdfa-4k") \
+                and cs["k"] == max(SEQ_CHUNKS):
             # K2 does not depend on n_chunks: once a frame shape
-            k2_row = parent_turns("dfa_scan", k2, cs["dfa"], d, torch.zeros_like(l), l, {},
-                                  iters=5, replays=4)
+            k2_row = parent_turns("dfa_scan", k2, {}, iters=5, replays=4)
             log(f"{cs['base']:18s} K2 dfa_scan {turns_text(k2_row['turns'])} [{card}]")
         pair = rows["seqdfa_fold"]["ms"] + rows["seqdfa_apply"]["ms"]
         log(f"{name:18s} K18 fold + apply {pair:.5f} ms against K2 dfa_scan {k2_ms:.5f} ms "
@@ -4035,24 +4070,12 @@ def _mesh_runs(dev, card, kerns, tmp):
         t_one = graph_ms(lambda: ref_model.verdicts_attr(*inp))
         log(f"{run}: attributed pass device {t_mesh:.5f} ms against the single-card model's "
             f"{t_one:.5f} ms (x{t_mesh / t_one:.2f}) [{card}]")
-        if BASELINE and "nfa_scan" in fam_kernels[run.split("-")[1]]:
-            # the same sharded pass with the parent's K3 in place of this
-            # one (the name rxsearch's dispatch looks up), in turns
-            from cilium_tpu_torch.ops import rxsearch
-
-            def with_parent_k3():
-                own = rxsearch.nfa_search_spans
-                rxsearch.nfa_search_spans = BASELINE["nfa_scan"]
-                try:
-                    return model.verdicts_attr(*inp)
-                finally:
-                    rxsearch.nfa_search_spans = own
-
-            if not all(torch.equal(a_, b_) for a_, b_ in zip(with_parent_k3(),
-                                                           model.verdicts_attr(*inp))):
-                raise AssertionError(f"{run}: the pass with the parent's K3 differs")
-            turns = in_turns(lambda: model.verdicts_attr(*inp), with_parent_k3)
-            log(f"{run}: attributed pass {turns_text(turns)} with the parent's K3 [{card}]")
+        # the same sharded pass with the parent's kernels of its family
+        # swapped in, in turns (--baseline-csrc)
+        row = parent_turns(fam_kernels[run.split("-")[1]], lambda: model.verdicts_attr(*inp), {})
+        if "turns" in row:
+            log(f"{run}: attributed pass {turns_text(row['turns'])} with the parent's "
+                f"{'/'.join(row['parent_stems'])} [{card}]")
     mesh_equal("mesh-rules-100k", got100k, ref100k(*in100k))
     if not (bool(got100k[2][1]) and not bool(got100k[2][0])):
         raise AssertionError("mesh-rules-100k: the HEAD probe must pass and PATCH fail")
@@ -4069,6 +4092,7 @@ def _mesh_runs(dev, card, kerns, tmp):
         f"sharded + fallback {t_sh100k:.1f} s, unsharded {t_ref100k:.1f} s [{card}]")
     from cilium_tpu_torch.models.http import (
         http_frame,
+        http_frame_plain,
         http_hits,
         http_hits_plain,
         http_lit,
@@ -4078,10 +4102,15 @@ def _mesh_runs(dev, card, kerns, tmp):
     # K6 and K7 at rules_100k: shard 0 (the shape the counted run launched
     # on each of the 4 slots) and the unsharded table, against their plain
     # versions, then timed beside their bounds.
-    report = {"http_lit": {}, "http_hits": {}, "shard_reduce": {}, "kafka_shard_combine": {}}
+    report = {"http_lit": {}, "http_hits": {}, "shard_reduce": {}, "kafka_shard_combine": {},
+              "http_frame": {}}
     timed = {}
     data100k = in100k[0]
     frame = http_frame(data100k, in100k[1])
+    # K5 as each rule shard frames its flow block (beside the parent's in
+    # turns, given --baseline-csrc)
+    report["http_frame"]["mesh-rules-100k"] = max_abs_err(frame, http_frame_plain(*in100k[:2]))
+    frame_row = k5_row(data100k, in100k[1], frame)
     for label, shape, m in (("shard 0", "mesh-rules-100k", sharded100k.stacked[0]),
                             ("unsharded", "mesh-rules-100k-unsharded", ref100k)):
         lit = http_lit(m, data100k, frame)
@@ -4099,6 +4128,8 @@ def _mesh_runs(dev, card, kerns, tmp):
                               plain_ms=cuda_ms(lambda: http_hits_plain(m, *args), 1),
                               **hits_counts(m, args, hits)),
         }
+        if label == "shard 0":
+            rows["http_frame"] = frame_row
         timed[shape] = dict(rows=rows)
         runs.setdefault(shape, dict.fromkeys(kerns, 0))
         log(f"{shape} ({label}: {m.n_rules} rules, literal rows {m.m_needle.shape[0]} + "
@@ -4485,8 +4516,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card and check it.")
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="a parent commit's cilium_tpu_torch/csrc (unpacked): time K2 and K3 "
-                    "beside its dfa_scan and nfa_scan, in turns, at every shape that times them")
+                    help="a parent commit's cilium_tpu_torch/csrc (unpacked): time the kernels "
+                    "whose sources differ from it beside the parent's, in turns, at every "
+                    "shape that times them, and the passes that run them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4535,8 +4567,9 @@ def main() -> int:
     libs = kernels.build_all()
     log(f"built {len(libs)} kernel libraries in {time.monotonic() - t0:.1f} s")
     if args.baseline_csrc:
-        build_baseline(args.baseline_csrc)
-        log(f"built the parent's dfa_scan and nfa_scan from {BASELINE['csrc']}")
+        stems = build_baseline(args.baseline_csrc)
+        log(f"built the parent's {', '.join(stems) or 'nothing (no source differs)'} from "
+            f"{BASELINE['csrc']}")
     for src in kernels.sources():
         for line in kernels.ptxas_log(src).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -4808,7 +4841,7 @@ def main() -> int:
     n_drop = sum(1 for _, ops, _ in heng_card for op, _ in ops if op == 2)
     n_inject = sum(len(inj) for _, _, inj in heng_card)
     long_ops = [ops for fid, ops, _ in heng_card if fid == 7 and ops]
-    if not any((2, len(LONG_HEAD)) in ops for ops in long_ops):
+    if not any((2, len(frame_cases().LONG_HEAD)) in ops for ops in long_ops):
         raise AssertionError("the head over 32 KB was not denied")
     log(f"http engine: {len(hfeeds[0])} flows, {n_ops} ops ({n_drop} DROP, {n_inject} inject "
         f"bytes), {len(recs)} flow records, equal on card, CPU and the streaming parser")
@@ -4860,6 +4893,39 @@ def main() -> int:
         hits = http_hits(model, *args)
         report.setdefault("http_hits", {})[name] = max_abs_err(hits, http_hits_plain(model, *args))
         hinputs[name] = (data, lengths, rem, frame, lit, spans, rx, hits)
+    # K1 and K5 on tests/frame_cases.py's boundary batches at widths and
+    # rows that take every variant of their launchers (a row base 16-byte
+    # aligned and 5 bytes into the storage; the batch's rows, 8,192 of them
+    # and slices of 1,024), and on the HTTP engine's widest bucket around
+    # LONG_HEAD.
+    fc = frame_cases()
+    variants = {}
+    long_np = fc.long_head_batch()
+    long_data, long_lengths = (torch.from_numpy(a).to(dev) for a in long_np)
+    batches = [("long-head", long_data, long_lengths),
+               ("long-head+5", fc.on_card_at(dev, long_np[0], 5), long_lengths)]
+    for l in fc.CARD_WIDTHS:
+        data, lengths = fc.frame_batch(l)
+        for rows in (len(data), 8192):
+            n = torch.from_numpy(np.resize(lengths, rows)).to(dev)
+            for offset in (0, 5):
+                batches.append((f"frame-{rows}x{l}+{offset}",
+                                fc.on_card_at(dev, np.resize(data, (rows, l)), offset), n))
+        # launches of at most 1,024 rows: a warp a row past 256 bytes
+        for s in range(0, len(data), 1024) if l > 256 else ():
+            n = torch.from_numpy(lengths[s : s + 1024]).to(dev)
+            for offset in (0, 5):
+                batches.append((f"frame-{l}[{s}:+1024]+{offset}",
+                                fc.on_card_at(dev, data[s : s + 1024], offset), n))
+    for label, d, n in batches:
+        for kname, run, plain in (("r2d2_frame", r2d2_frame, r2d2_frame_plain),
+                                  ("http_frame", http_frame, http_frame_plain)):
+            report[kname][label] = max_abs_err(run(d, n), plain(d, n))
+            variants.setdefault(kname, set()).add(kernels.frame_variant(kname, d))
+    log(f"K1 / K5 on the boundary batches of widths {fc.CARD_WIDTHS} (their rows, 8,192 and "
+        f"slices of 1,024; bases 0 and 5 bytes into their storage) and the "
+        f"{tuple(long_data.shape)} long-head bucket: "
+        f"variants (lanes, chunks, aligned) {sorted(variants['r2d2_frame'])}")
     log("max |kernel - plain|:", json.dumps(report))
     for kname, per in report.items():
         for name, err in per.items():
@@ -4870,13 +4936,6 @@ def main() -> int:
     log("== times on", card)
     timed = {}
 
-    def frame_bytes(frame, lengths, l):
-        """(bytes, sector bytes) that framing must read: each row up to and
-        including its first CRLF, all of [0, min(len, L)) where there is
-        none; the second counts the whole 32-byte sectors they lie in."""
-        need = torch.minimum(frame.crlf + 2, lengths).clamp(0, l).to(torch.int64)
-        return int(need.sum()), sector_bytes(need, l)
-
     for name in ("graft", "wide", "nfa"):
         data, lengths, rem, frame, file_ok, hits = inputs[name]
         model = cases[name]["model"]
@@ -4885,16 +4944,7 @@ def main() -> int:
         nfa = model.nfa
         sb = span_bytes(frame.file_start, frame.file_end, l)
         walked = torch.where(hits[0], hits[1] + 1, torch.full_like(hits[1], r))
-        rows = {}
-        # K1: read each row's sectors up to its first CRLF and the
-        # lengths once, write six [F] outputs
-        need, sectors = frame_bytes(frame, lengths, l)
-        k1 = lambda: r2d2_frame(data, lengths)
-        rows["r2d2_frame"] = dict(
-            ms=graph_ms(k1), call_ms=cuda_ms(k1, 50),
-            plain_ms=cuda_ms(lambda: r2d2_frame_plain(data, lengths), 10),
-            bytes=sectors + 4 * f + 21 * f, ops=need,
-        )
+        rows = {"r2d2_frame": k1_row(data, lengths, frame)}
         kname = scan_kernel(nfa)
         rows[kname] = scan_row(scans[kname], nfa, data, frame.file_start, frame.file_end, sb)
         sp = frame.sp
@@ -4907,30 +4957,18 @@ def main() -> int:
             ops=int(walked.sum()) * (8 + 32),
         )
         host = cases[name]["host"]
-        timed[name] = dict(rows=rows, **pass_times(
-            lambda: r2d2_verdicts(model, data, lengths, rem),
-            lambda: r2d2_verdicts(model, *host),
-        ))
+        on_card = lambda: r2d2_verdicts(model, data, lengths, rem)  # noqa: E731
+        timed[name] = dict(rows=rows, **pass_times(on_card, lambda: r2d2_verdicts(model, *host)))
         for kname, row in rows.items():
             bound(row)
             log_row(name, kname, row)
-        log_pass(name, "r2d2_verdicts", timed[name], card)
+        log_pass(name, "r2d2_verdicts", timed[name], card, parent_turns("r2d2_frame", on_card, {}))
 
     for name, c in hcases.items():
         data, lengths, rem, frame, lit, spans, rx, hits = hinputs[name]
         model = c["model"]
         f, l = data.shape
-        rows = {}
-        # K5: each row's sectors up to min(head_len, len) and the lengths
-        # once, eight [F] outputs (seven int32, one bool)
-        need = torch.minimum(frame.head_len, lengths)
-        k5 = lambda: http_frame(data, lengths)
-        rows["http_frame"] = dict(
-            ms=graph_ms(k5), call_ms=cuda_ms(k5, 50),
-            plain_ms=cuda_ms(lambda: http_frame_plain(data, lengths), 10),
-            bytes=sector_bytes(need, l) + 4 * f + 29 * f,
-            ops=int(need.clamp(0, l).sum()),
-        )
+        rows = {"http_frame": k5_row(data, lengths, frame)}
         k6 = lambda: http_lit(model, data, frame)
         rows["http_lit"] = dict(
             ms=graph_ms(k6), call_ms=cuda_ms(k6, 50),
@@ -4951,14 +4989,12 @@ def main() -> int:
             **hits_counts(model, args, hits),
         )
         host = c["host"]
-        timed[name] = dict(rows=rows, **pass_times(
-            lambda: http_verdicts(model, data, lengths, rem),
-            lambda: http_verdicts(model, *host),
-        ))
+        on_card = lambda: http_verdicts(model, data, lengths, rem)  # noqa: E731
+        timed[name] = dict(rows=rows, **pass_times(on_card, lambda: http_verdicts(model, *host)))
         for kname, row in rows.items():
             bound(row)
             log_row(name, kname, row)
-        log_pass(name, "http_verdicts", timed[name], card)
+        log_pass(name, "http_verdicts", timed[name], card, parent_turns("http_frame", on_card, {}))
 
     # The engines on the host clock, then once more under the profiler for
     # the device's busy share (a reading only: the profiler is no check).
@@ -4971,8 +5007,10 @@ def main() -> int:
 
     # K2 at the r2d2 engine's own batch shape: the largest search one
     # engine run makes, its inputs recorded and timed alone.
-    e_tab, e_data, e_s, e_e = max(engine_scan_calls(cases["graft"]["model"], feeds),
-                                  key=lambda call: call[1].numel())
+    e_tab, e_data, e_s, e_e = max(
+        recorded_calls(r2d2_mod, "automaton_search_spans",
+                       lambda: run_engine(cases["graft"]["model"], feeds)),
+        key=lambda call: call[1].numel())
     kname = scan_kernel(e_tab)
     row = bound(scan_row(scans[kname], e_tab, e_data, e_s, e_e,
                          span_bytes(e_s, e_e, e_data.shape[1])))
@@ -4980,6 +5018,24 @@ def main() -> int:
     log(f"engine: the largest of its searches is F={e_data.shape[0]} L={e_data.shape[1]} "
         f"R={e_tab.n_patterns}")
     log_row("engine", kname, row)
+    # K1 at the r2d2 engine's largest frame call and K5 at the HTTP engine's
+    # widest, their inputs recorded; K5 on the bucket that would hold
+    # LONG_HEAD (the engine denies a head over 32 KB without a device pass).
+    calls = recorded_calls(r2d2_mod, "r2d2_frame",
+                           lambda: run_engine(cases["graft"]["model"], feeds))
+    f_data, f_len = max(calls, key=lambda call: call[0].numel())
+    timed["engine"]["rows"]["r2d2_frame"] = k1_row(f_data, f_len, r2d2_frame(f_data, f_len))
+    calls = recorded_calls(http_mod, "http_frame", lambda: run_http_engine(
+        hcases["http-graft"]["model"], hfeeds, FlowLog(capacity=1 << 20)))
+    h_data, h_len = max(calls, key=lambda call: (call[0].shape[1], call[0].shape[0]))
+    timed["http-engine"] = dict(rows={"http_frame": k5_row(h_data, h_len, http_frame(h_data, h_len))})
+    timed["http-long-head"] = dict(rows={"http_frame": k5_row(
+        long_data, long_lengths, http_frame(long_data, long_lengths))})
+    for label, kname, shape in (("engine", "r2d2_frame", f_data.shape),
+                                ("http-engine", "http_frame", h_data.shape),
+                                ("http-long-head", "http_frame", long_data.shape)):
+        log(f"{label}: K{1 if kname == 'r2d2_frame' else 5} at F={shape[0]} L={shape[1]}")
+        log_row(label, kname, timed[label]["rows"][kname])
 
     # The third slice's paths, counted in their own run.
     launches3, runs3, span_runs3, report3, timed3 = l7_slice(dev, card, kerns, scans, scan_kernel,
@@ -5098,7 +5154,7 @@ def main() -> int:
                                 "cilium_tpu/parallel/rulesharding.py:503", "mesh-kafka-1x4"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "turns_ms",
-              "parent_ms")
+              "parent_ms", "turns_call_ms", "parent_call_ms", "variant")
     kernels_line = []
     for kname, (source, ref, shape) in replaces.items():
         row = timed[shape]["rows"][kname]
@@ -5109,6 +5165,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "turns_ms": row.get("turns_ms"), "parent_ms": row.get("parent_ms"), "shape": shape,
             "shape_launches": runs[shape][kname], "call_ms": row["call_ms"],
+            "variant": row.get("variant"),
         }
         others = {}
         for other, t in timed.items():
@@ -5116,9 +5173,10 @@ def main() -> int:
                 if other != shape and key.split(":")[0] == kname:
                     label = other if ":" not in key else f"{other}:{key.split(':')[1]}"
                     others[label] = {k: w.get(k) for k in fields}
-                    # this run's own launches on the counted main path
-                    run = span_runs[label] if ":" in label else runs[other]
-                    others[label]["launches"] = run[kname]
+                    # this run's own launches on the counted main path; null
+                    # for a shape no counted run covers (http-long-head)
+                    run = span_runs[label] if ":" in label else runs.get(other)
+                    others[label]["launches"] = None if run is None else run[kname]
         entry_["shapes"] = others
         kernels_line.append(entry_)
     log(f"total {time.monotonic() - t_start:.1f} s")
@@ -5151,8 +5209,56 @@ def scan_row(scan_pair, tab, data, start, end, sb):
         plain_ms=cuda_ms(lambda: plain(tab, data, start, end), 3),
         bytes=sb + 8 * f + tables + f * r, ops=ops,
     )
-    return parent_turns("dfa_scan" if isinstance(tab, DeviceDfa) else "nfa_scan", run, tab, data,
-                        start, end, row)
+    return parent_turns("dfa_scan" if isinstance(tab, DeviceDfa) else "nfa_scan", run, row)
+
+
+def frame_cases():
+    """tests/frame_cases.py: the framing kernels' boundary batches."""
+    from pathlib import Path
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import frame_cases as cases
+
+    return cases
+
+
+def k1_row(data, lengths, frame):
+    """K1 on [F, L]: read each row's sectors up to its first CRLF and the
+    lengths once, write six [F] outputs; times (beside the parent's in
+    turns, given --baseline-csrc), bytes, ops and the launcher's variant."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.r2d2 import r2d2_frame, r2d2_frame_plain
+
+    f, l = data.shape
+    need = torch.minimum(frame.crlf + 2, lengths).clamp(0, l).to(torch.int64)
+    run = lambda: r2d2_frame(data, lengths)  # noqa: E731
+    row = dict(
+        ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: r2d2_frame_plain(data, lengths), 10),
+        bytes=sector_bytes(need, l) + 4 * f + 21 * f, ops=int(need.sum()),
+        variant=kernels.frame_variant("r2d2_frame", data),
+    )
+    return parent_turns("r2d2_frame", run, bound(row))
+
+
+def k5_row(data, lengths, frame):
+    """K5 on [F, L]: each row's sectors up to min(head_len, len) and the
+    lengths once, eight [F] outputs (seven int32, one bool); as ``k1_row``."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.http import http_frame, http_frame_plain
+
+    f, l = data.shape
+    need = torch.minimum(frame.head_len, lengths)
+    run = lambda: http_frame(data, lengths)  # noqa: E731
+    row = dict(
+        ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: http_frame_plain(data, lengths), 10),
+        bytes=sector_bytes(need, l) + 4 * f + 29 * f, ops=int(need.clamp(0, l).sum()),
+        variant=kernels.frame_variant("http_frame", data),
+    )
+    return parent_turns("http_frame", run, bound(row))
 
 
 def turns_text(turns):
@@ -5180,16 +5286,24 @@ def log_row(name, kname, row):
     plain = "not measured" if row["plain_ms"] is None else f"{row['plain_ms']:.5f} ms"
     log(f"{name:15s} {kname:14s} device {row['ms']:.5f} ms  per call {row['call_ms']:.5f} ms  "
         f"plain {plain}  bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
-        f"{row['bytes']} bytes, {row['ops']} ops)")
+        f"{row['bytes']} bytes, {row['ops']} ops)"
+        + (" variant lanes/chunks/aligned %s" % (row["variant"],) if "variant" in row else ""))
     if "turns" in row:
-        log(f"{name:15s} {kname:14s} {turns_text(row['turns'])}")
+        log(f"{name:15s} {kname:14s} {turns_text(row['turns'])}; per call {row['turns_call_ms']:.5f} "
+            f"ms against the parent's {row['parent_call_ms']:.5f} (the better of two each)")
 
 
-def log_pass(name, fn, t, card):
+def log_pass(name, fn, t, card, parent=None):
+    """A pass's times; ``parent``: ``parent_turns``' row for the same pass
+    with the parent's kernels (empty without --baseline-csrc)."""
     log(f"{name:15s} {fn} device {t['pass_dev_ms']:.5f} ms = {F / t['pass_dev_ms'] * 1e3:.0f} "
         f"verdicts/s; per call {t['pass_ms']:.5f} ms = {F / t['pass_ms'] * 1e3:.0f} verdicts/s; "
         f"numpy in, one readback {t['host_ms']:.5f} ms = {F / t['host_ms'] * 1e3:.0f} "
         f"verdicts/s [{card}]")
+    if parent and "turns" in parent:
+        t["parent_turns"] = parent["turns"]
+        log(f"{name:15s} {fn} device {turns_text(parent['turns'])} with the parent's "
+            f"{'/'.join(parent['parent_stems'])} [{card}]")
 
 
 def engine_times(label, frames, card, run):

@@ -199,6 +199,17 @@ def arg(x, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) ->
     return x
 
 
+def frame_variant(stem: str, data: torch.Tensor) -> tuple[int, int, bool]:
+    """(lanes a row, 16-byte chunks a lane a step, 16-byte loads) that the
+    framing launcher of ``csrc/<stem>.cu`` (K1 ``r2d2_frame``, K5
+    ``http_frame``; ``csrc/frame_scan.cuh``) takes for ``data`` [F, L]."""
+    fn = library(stem).frame_variant
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    v = fn(data.shape[1], data.shape[0], data.data_ptr())
+    return v & 0xFF, (v >> 8) & 0xFF, bool(v >> 16)
+
+
 def on_cpu(device: torch.device) -> bool:
     """True for the CPU (the plain version runs), False for a CUDA device
     (the kernel runs); raises for anything else."""

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from cilium_tpu_torch import kernels
 from cilium_tpu_torch.models import cassandra as cass_mod
 from cilium_tpu_torch.models import dns as dns_mod
 from cilium_tpu_torch.models import http as http_mod
@@ -91,6 +92,8 @@ from cilium_tpu_torch.proxylib import (
 from cilium_tpu_torch.proxylib.parsers.dns import DNS_QNAME_OFF, MAX_LABELS, DnsRule, encode_dns_query
 from cilium_tpu_torch.regex import compile_patterns
 from cilium_tpu_torch.regex.dfa import compile_pattern_dfas
+from frame_cases import CARD_WIDTHS as FRAME_CARD_WIDTHS
+from frame_cases import frame_batch, long_head_batch, on_card_at
 
 pytestmark = pytest.mark.cuda
 
@@ -417,6 +420,100 @@ def test_http_frame_kernel_matches_plain(cuda, l):
     for name, g, w in zip(got._fields, got, want):
         assert torch.equal(g, w), name
     assert bool(want.complete.any()) and not bool(want.complete.all())
+
+
+# --- the framing kernels K1 and K5 on frame_cases' boundary batches -------------
+
+FRAME_KERNELS = {
+    "r2d2_frame": (r2d2_frame, r2d2_frame_plain, r2d2_mod._R2D2_FRAME),
+    "http_frame": (http_frame, http_frame_plain, http_mod._HTTP_FRAME),
+}
+def _frame_matches_plain(kernel, data, lengths):
+    run, plain, counter = FRAME_KERNELS[kernel]
+    before = counter.launches
+    got = run(data, lengths)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = plain(data, lengths)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+    return want
+
+
+def _boundary_rows(l, rows):
+    """frame_batch(l), or its rows cycled to ``rows`` (a batch of more than
+    1,024 rows takes 4 lanes a row at every width)."""
+    data, lengths = frame_batch(l)
+    if rows is None:
+        return data, lengths
+    return np.resize(data, (rows, l)), np.resize(lengths, rows)
+
+
+@pytest.mark.parametrize("rows", [None, 8192])
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("l", FRAME_CARD_WIDTHS)
+@pytest.mark.parametrize("kernel", sorted(FRAME_KERNELS))
+def test_frame_kernels_match_plain_on_boundary_batch(cuda, kernel, l, offset, rows):
+    data, lengths = _boundary_rows(l, rows)
+    d = on_card_at(cuda, data, offset)
+    assert kernels.frame_variant(kernel, d)[2] == (l % 16 == 0 and offset == 0)
+    _frame_matches_plain(kernel, d, torch.from_numpy(lengths).to(cuda))
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("l", [l for l in FRAME_CARD_WIDTHS if l > 256])
+@pytest.mark.parametrize("kernel", sorted(FRAME_KERNELS))
+def test_frame_kernels_match_plain_a_warp_a_row(cuda, kernel, l, offset):
+    """The boundary batch in launches of at most 1,024 rows, which take a
+    warp a row (and 4 chunks a lane past 2,048 bytes)."""
+    data, lengths = frame_batch(l)
+    for s in range(0, len(data), 1024):
+        d = on_card_at(cuda, data[s : s + 1024], offset)
+        assert kernels.frame_variant(kernel, d)[:2] == (32, 4 if l > 2048 else 1)
+        _frame_matches_plain(kernel, d, torch.from_numpy(lengths[s : s + 1024]).to(cuda))
+
+
+@pytest.mark.parametrize("f", [1, 3, 2048, 65536])
+@pytest.mark.parametrize("kernel", sorted(FRAME_KERNELS))
+def test_frame_kernels_at_batch_sizes(cuda, kernel, f):
+    for l in (64, 512):
+        data, lengths = frame_batch(l)
+        rows = np.random.default_rng(f + l).integers(0, len(data), f)
+        d, n = _to(cuda, np.ascontiguousarray(data[rows]), np.ascontiguousarray(lengths[rows]))
+        _frame_matches_plain(kernel, d, n)
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("kernel", sorted(FRAME_KERNELS))
+def test_frame_kernels_on_the_long_head_bucket(cuda, kernel, offset):
+    """The HTTP engine's 32,768-wide bucket around a head over 32 KB."""
+    data, lengths = long_head_batch()
+    d, n = on_card_at(cuda, data, offset), torch.from_numpy(lengths).to(cuda)
+    want = _frame_matches_plain(kernel, d, n)
+    if kernel == "http_frame":
+        assert want.complete[:3].tolist() == [False, True, True]
+        assert want.head_len[1:3].tolist() == [32768, 32767]
+
+
+def test_frame_shapes_take_every_variant(cuda):
+    """The shapes of the tests above reach every variant the launchers take
+    for 1 to 65,536 rows of 1 to 33,000 bytes, aligned or not."""
+    buf = torch.empty(33000 + 16, dtype=torch.uint8, device=cuda)
+    widths = sorted(set(range(1, 300)) | set(range(300, 33001, 16)) | set(range(301, 33001, 16)))
+    both = (0, 5)
+    shapes = [(len(frame_batch(l)[0]), l, both) for l in FRAME_CARD_WIDTHS]
+    shapes += [(8192, l, both) for l in FRAME_CARD_WIDTHS] + [(64, 32768, both)]
+    shapes += [(min(1024, len(frame_batch(l)[0])), l, both) for l in FRAME_CARD_WIDTHS if l > 256]
+    shapes += [(f, l, (0,)) for f in (1, 3, 2048, 65536) for l in (64, 512)]
+    for kernel in FRAME_KERNELS:
+        def variant(f, l, offset):
+            view = buf[offset : offset + l].as_strided((f, l), (0, 1))
+            return kernels.frame_variant(kernel, view)
+
+        every = {variant(f, l, off) for f in (1, 1500, 3000, 6000, 65536) for l in widths
+                 for off in (0, 5)}
+        tested = {variant(f, l, off) for f, l, offsets in shapes for off in offsets}
+        assert every <= tested, sorted(every - tested)
 
 
 @pytest.mark.parametrize("backend", ["auto", "nfa"])
