@@ -1,0 +1,226 @@
+#!/usr/bin/env python3
+"""Time the rule walks K4 ``r2d2_hits`` and K9 ``dns_hits`` in lane-group
+variants that their launchers do not take, beside the variant they do, on
+one CUDA card.
+
+    python3 chip_hits_variants.py [--variants 1x1,1x8,4x16,8x8,32x16,...]
+
+A variant ``GxV`` is G lanes a flow and V rows a lane a step
+(``csrc/rule_walk.cuh``).  As ``chip_frame_variants.py`` does for the
+framing kernels, the variants are built into ``_build/variants`` from one
+more translation unit a kernel that includes ``csrc/<stem>.cu`` and exports
+a launcher of the source's C interface for each variant,
+``forced_<G>_<V>``, that runs ``Launch::run<G, V>``; the sources in
+``csrc`` stay as they are.  One ``nvcc`` a kernel, both together.  Each
+variant is bound with the wrapper's own arguments, held equal to the
+launcher's own output and timed (CUDA-graph device ms), the launcher's
+pick read first and last at each shape.  The shapes, each the wrapper's
+inputs recorded on the main path: K4 at graft, wide and nfa (F = 65,536),
+the r2d2 engine's largest rule walk and rule shard 0 of mesh-r2d2 1 x 4;
+K9 at dns, dns-stress and dns-names-256 (F = 65,536), the DNS engine's
+largest rule walk and rule shard 0 of mesh-dns 1 x 4.  Prints a line a
+(shape, variant), then one JSON object with every reading and the card
+line.  Needs a CUDA card and nvcc.
+
+``build_forced`` is also what the card tests force the variants with.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import random
+import subprocess
+import sys
+
+import torch
+
+LANES = (1, 2, 4, 8, 16, 32)
+ROWS = (1, 4, 8, 16)
+EVERY = tuple(f"{g}x{v}" for g in LANES for v in ROWS)
+STEMS = ("r2d2_hits", "dns_hits")
+
+
+def parse(spec):
+    """'8x16' -> (8, 16)."""
+    g, v = (int(x) for x in spec.split("x"))
+    if g not in LANES or v not in ROWS:
+        raise ValueError(f"bad variant {spec!r}: lanes {LANES}, rows {ROWS}")
+    return g, v
+
+
+def build_forced(stems=STEMS, variants=EVERY, log=print):
+    """{(stem, lanes, rows): ctypes launcher}: one library a kernel, built
+    together, exporting forced_<G>_<V> for each variant."""
+    from cilium_tpu_torch import kernels
+
+    pairs = [parse(v) if isinstance(v, str) else v for v in variants]
+    procs = {}
+    for stem in stems:
+        k = next(k for k in kernels.ALL if k.stem == stem)
+        params = [f"{'int' if t is ctypes.c_int else 'void*'} a{i}" for i, t in enumerate(k.argtypes)]
+        names = ", ".join(f"a{i}" for i in range(len(k.argtypes)))
+        d = kernels.BUILD / "variants" / f"{stem}-forced"
+        d.mkdir(parents=True, exist_ok=True)
+        text = f'#include "{stem}.cu"\n\n'
+        for g, v in pairs:
+            text += (f"CILIUM_EXPORT int forced_{g}_{v}({', '.join(params)}, void* stream) {{\n"
+                     f"  return make_launch({names}, stream).run<{g}, {v}>();\n}}\n")
+        (d / "forced.cu").write_text(text)
+        cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
+               str(d / "forced.so"), str(d / "forced.cu")]
+        procs[stem] = (d, k, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for stem, (d, k, proc) in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{stem} variants failed to build:\n{log_text}")
+        regs = [ln.strip() for ln in log_text.splitlines() if "registers" in ln or "spill" in ln]
+        log(f"built {d.name}: " + " | ".join(regs))
+        lib = ctypes.CDLL(str(d / "forced.so"))
+        for g, v in pairs:
+            fn = getattr(lib, f"forced_{g}_{v}")
+            fn.argtypes = [*k.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[(stem, g, v)] = fn
+    return fns
+
+
+class forced:
+    """Inside ``with forced(stem, fn)``, the wrapper of ``stem`` launches
+    ``fn`` (a ``build_forced`` launcher) with its own arguments."""
+
+    def __init__(self, stem, fn):
+        from cilium_tpu_torch import kernels
+
+        self.kern = next(k for k in kernels.ALL if k.stem == stem)
+        self.fn = fn
+
+    def __enter__(self):
+        self.own = self.kern._bind()
+        self.kern._fn = self.fn
+
+    def __exit__(self, *exc):
+        self.kern._fn = self.own
+
+
+def shapes(dev):
+    """[(label, kernel stem, the wrapper's arguments)] on the card, each
+    recorded where the main path calls the wrapper."""
+    import chip_smoke as cs
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.models import dns as dns_mod
+    from cilium_tpu_torch.models import r2d2 as r2d2_mod
+    from cilium_tpu_torch.models.dns import build_dns_model, dns_verdicts_attr
+    from cilium_tpu_torch.models.r2d2 import build_r2d2_model, r2d2_verdicts_attr
+    from cilium_tpu_torch.parallel import rulesharding as rs
+    from cilium_tpu_torch.parallel.mesh import flow_mesh
+    from cilium_tpu_torch.runtime.dnsengine import DnsBatchEngine
+
+    def on_card(host):
+        return [torch.from_numpy(a).to(dev) for a in host]
+
+    def first_call(mod, stem, run):
+        return cs.recorded_calls(mod, stem, run)[0]
+
+    out = []
+    rng = random.Random(7)  # chip_smoke.main's order: graft, wide, nfa
+    graft_policy = None
+    for name, make in (("graft", cs.graft_case), ("wide", cs.wide_case), ("nfa", cs.nfa_case)):
+        policy, msgs, remotes, width = make(rng)
+        graft_policy = graft_policy or policy
+        model = build_r2d2_model(policy, True, 80)
+        inp = on_card(cs.tile(msgs, remotes, cs.F, width))
+        out.append((name, "r2d2_hits", first_call(
+            r2d2_mod, "r2d2_hits", lambda: r2d2_verdicts_attr(model, *inp))))
+    model = build_r2d2_model(graft_policy, True, 80)
+    feeds = cs.engine_feeds(random.Random(11), 3000)
+    calls = cs.recorded_calls(r2d2_mod, "r2d2_hits", lambda: cs.run_engine(model, feeds))
+    out.append(("engine", "r2d2_hits", max(calls, key=lambda c: c[3].numel())))
+
+    stress_policy, stress_frames = cs.dns_stress_case()
+    names_policy, names_frames = cs.dns_names_case()
+    for name, policy, host in (
+        ("dns", entry.dns_bench_policy(), entry.dns_batch(cs.F)),
+        ("dns-stress", stress_policy, cs.tile_heads(stress_frames, [1] * len(stress_frames), cs.F, 64)),
+        ("dns-names-256", names_policy,
+         cs.tile_heads(names_frames, [1] * len(names_frames), cs.F, cs.DNS_NAMES_WIDTH)),
+    ):
+        model = build_dns_model(policy, True, 53)
+        inp = on_card(host)
+        out.append((name, "dns_hits", first_call(
+            dns_mod, "dns_hits", lambda: dns_verdicts_attr(model, *inp))))
+    model = build_dns_model(entry.dns_bench_policy(), True, 53)
+    feeds = cs.dns_engine_feeds(random.Random(31), 3000)
+    calls = cs.recorded_calls(dns_mod, "dns_hits", lambda: cs.run_l7_engine(
+        lambda: DnsBatchEngine(model), feeds))
+    out.append(("dns-engine", "dns_hits", max(calls, key=lambda c: c[1].dotted.numel())))
+
+    mesh = flow_mesh(1, 4, cs.mesh_slots(dev, 4)[0])
+    for fam, build, pol, host, port, mod, stem in (
+        ("r2d2", rs.mesh_r2d2_model, entry.bench_policy(), entry.batch(cs.MESH_F, 64), 80,
+         r2d2_mod, "r2d2_hits"),
+        ("dns", rs.mesh_dns_model, entry.dns_bench_policy(), entry.dns_batch(cs.MESH_F), 53,
+         dns_mod, "dns_hits"),
+    ):
+        model = build(pol, True, port, mesh)
+        inp = on_card(host)
+        out.append((f"mesh-{fam}-1x4-shard0", stem, first_call(
+            mod, stem, lambda: model.verdicts_attr(*inp))))
+    return out
+
+
+def shape_of(stem, args):
+    """(F, R) of a recorded call."""
+    if stem == "r2d2_hits":
+        return tuple(args[3].shape)
+    return args[1].dotted.shape[0], args[0].n_rules
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", default=",".join(EVERY))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_hits_variants: no CUDA card is available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.dns import dns_hits
+    from cilium_tpu_torch.models.r2d2 import r2d2_hits
+
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    kernels.build_all()
+    fns = build_forced(STEMS, args.variants.split(","), log=cs.log)
+    wrappers = {"r2d2_hits": r2d2_hits, "dns_hits": dns_hits}
+    table = []
+    for label, stem, call in shapes(dev):
+        run = lambda: wrappers[stem](*call)  # noqa: E731
+        want = run()
+        pick = [cs.graph_ms(run)]
+        f, r = shape_of(stem, call)
+        variant = kernels.hits_variant(stem, r, f)
+        for (s, g, v), fn in fns.items():
+            if s != stem:
+                continue
+            with forced(stem, fn):
+                got = run()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{label}: variant {g}x{v} disagrees with the launcher's")
+                ms = cs.graph_ms(run)
+            table.append(dict(shape=label, stem=stem, lanes=g, rows=v, ms=ms, F=f, R=r))
+            cs.log(f"{label:22s} {stem} {g:2d} lanes x {v:2d} rows: {ms:.5f} ms [{card}]")
+        pick.append(cs.graph_ms(run))
+        table.append(dict(shape=label, stem=stem, pick=variant, ms=pick, F=f, R=r))
+        cs.log(f"{label:22s} {stem} the launcher's {variant}: {pick[0]:.5f} / {pick[1]:.5f} ms "
+               f"(F={f}, R={r}) [{card}]")
+    print(json.dumps({"hits_variants": table}))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,12 +42,15 @@ which fails the run on any mismatch:
    limit; K2 again at the r2d2 engine's own batch shape (the largest
    search one engine run makes, its inputs recorded), K1 at its largest
    frame call, K5 at the HTTP engine's widest frame call and on the
-   LONG_HEAD bucket; given --baseline-csrc, every reading of a kernel
-   whose source differs from the parent's (K1 and K5 before their redesign)
-   here and in phases 7, 11 and 13, and each pass that runs one (here
-   and phase 13's mesh passes), also runs with the parent's kernel on the
-   same inputs, held equal and timed in turns (n o o n n o, medians of
-   three; per call, the better of two each);
+   LONG_HEAD bucket, K4 at the r2d2 engine's largest rule walk; K4 and K9
+   with bounds that count the function's work (a test a row the
+   first-match walk visits and the bytes compared) and the launcher's lane
+   group; given --baseline-csrc, every reading of a kernel whose source
+   differs from the parent's (K4 and K9 before their redesign) here and in
+   phases 7, 11 and 13, and each pass that runs one (here, phase 7's DNS
+   passes and phase 13's mesh passes), also runs with the parent's kernel
+   on the same inputs, held equal and timed in turns (n o o n n o, medians
+   of three; per call, the better of two each);
 7. the third slice, counted in a run of its own (every count set to 0
    just before it, read just after): ``dns_verdicts(_attr)`` on bench_dns's
    policy and bench_stress's DNS policy 0, ``cassandra_verdicts`` and
@@ -57,7 +60,9 @@ which fails the run on any mismatch:
    K8-K11 launch once per call and K2/K3 once per call on the name, table
    and key spans; then phases 3-6 for these paths, the engines held
    against the CPU engines and the streaming parsers driven through the
-   port's ``Connection``;
+   port's ``Connection``; K9 at the DNS engine's largest rule walk and on
+   dns-names-256 (256 exact names of 8 to 64 bytes, bench_stress's frame
+   mix over them, F = 65,536; held against the host oracle), timed;
 8. the fourth slice, the L3/L4 datapath, counted in a run of its own (all
    F = 65,536): ``datapath_verdicts`` on bench_datapath's maps and mix
    (K14 ``datapath4``), ``datapath_verdicts6`` at the same table scale
@@ -129,7 +134,8 @@ which fails the run on any mismatch:
    as the layout says); rules_100k (100,000 HTTP rules on 4 rule shards,
    F = 2,048) against the unsharded table with p99, rate and table bytes,
    and K6 / K7 at shard 0 and unsharded against their plain versions,
-   with their bounds, timed;
+   with their bounds, timed; K4 and K9 on rule shard 0 of mesh-r2d2 and
+   mesh-dns 1 x 4, timed;
    multichip_scaling at 1, 2 and 4 flow slots; ``seqdfa_search_sharded``
    at 8 slots on the seqdfa-32k and -4k shapes against K18's serial
    search; a ``VerdictService`` with ``mesh="on"``,
@@ -614,6 +620,49 @@ def dns_stress_case():
             bad[DNS_QNAME_OFF] = 0xC0
             frames.append(bytes(bad))
     return _l7_policy("dns-stress", 53, "dns", [([], rules)]), frames
+
+
+DNS_NAMES_RULES = 256
+DNS_NAMES_WIDTH = 128
+
+
+def dns_names_case():
+    """dns-names-256: 256 matchName rules (a toFQDNs policy of hundreds of
+    names) whose names run from 8 to 64 bytes, and dns_stress_case's frame
+    mix drawn over them (random.Random(29)): exact hits, upper-case exact
+    hits, a label in front of a name and a name's suffix (misses where the
+    stress policy had wildcards), unknown names and compression pointers;
+    1,024 frames.  No pattern rows: the model has no automaton."""
+    from cilium_tpu_torch.proxylib.parsers.dns import DNS_QNAME_OFF, encode_dns_query
+
+    names = []
+    for j in range(DNS_NAMES_RULES):
+        n = 8 + j * 56 // (DNS_NAMES_RULES - 1)
+        s = f"r{j:03d}"
+        while len(s) < n:
+            s += "." if len(s) % 16 == 15 and len(s) < n - 1 else "k"
+        names.append(s)
+    rng = random.Random(29)
+    frames = []
+    for i in range(1024):
+        roll = rng.random()
+        name = names[rng.randrange(len(names))]
+        if roll < 0.30:
+            frames.append(encode_dns_query(name))
+        elif roll < 0.42:
+            frames.append(encode_dns_query(name.upper()))
+        elif roll < 0.62:
+            frames.append(encode_dns_query(f"h{i % 7}.{name}"))
+        elif roll < 0.72:
+            frames.append(encode_dns_query(name[5:] or "k"))
+        elif roll < 0.92:
+            frames.append(encode_dns_query(f"x{rng.randrange(100)}.other.local"))
+        else:
+            bad = bytearray(encode_dns_query("bad.svc.local"))
+            bad[DNS_QNAME_OFF] = 0xC0
+            frames.append(bytes(bad))
+    rules = [{"matchName": n} for n in names]
+    return _l7_policy("dns-names-256", 53, "dns", [([], rules)]), frames
 
 
 def dns_oracle(policy, frames, remotes):
@@ -1187,22 +1236,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
                 plain_ms=cuda_ms(lambda: dns_name_plain(data, lengths), 3),
                 bytes=2 * f * width + 4 * f + 14 * f, ops=f * width + labels,
             )
-            # K9: the name bytes it compares (rows whose needle length
-            # equals the span's), the [F, R] automaton hits, spans, valid,
-            # remotes, two [F] outputs and the tables; the rows it walks
-            span_len = (nm.span_end - nm.span_start).clamp(min=0)
-            need = torch.where(nm.valid & (span_len[:, None] == model.name_len[None, :]).any(dim=1),
-                               span_len, torch.zeros_like(span_len))
-            w = model.name_needle.shape[1]
-            allow, rule = inp["hits"]
-            walked = int(torch.where(allow, rule + 1, torch.full_like(rule, r)).sum())
-            k9 = lambda: dns_hits(model, nm, inp["rx"], rem)
-            rows["dns_hits"] = dict(
-                ms=graph_ms(k9), call_ms=cuda_ms(k9, 50),
-                plain_ms=cuda_ms(lambda: dns_hits_plain(model, nm, inp["rx"], rem), 10),
-                bytes=int(need.sum()) + f * r + 9 * f + 4 * f + 5 * f + r * (w + 4 + 1 + 1 + 128 + 1),
-                ops=walked * (2 + 32) + int(need.sum()),
-            )
+            rows["dns_hits"] = k9_row(model, nm, inp["rx"], rem)
             on_card = lambda: dns_verdicts(model, data, lengths, rem)
         elif c["kind"] == "cassandra":
             data, alen, tlen, nq, rem = args
@@ -1214,7 +1248,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
                 ms=graph_ms(k10), call_ms=cuda_ms(k10, 50),
                 plain_ms=cuda_ms(lambda: cassandra_hits_plain(model, data, alen, tlen, nq, inp["rx"], rem), 10),
                 bytes=need + f * r + 13 * f + f + r * (MAX_ACTION + 4 + 1 + 1 + 128 + 1),
-                ops=walked * (2 + 32) + need,
+                ops=walked + need,
             )
             on_card = lambda: (cassandra_verdicts(model, data, alen, tlen, nq, rem),)
         else:
@@ -1230,7 +1264,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
                 ms=graph_ms(k11), call_ms=cuda_ms(k11, 50),
                 plain_ms=cuda_ms(lambda: memcache_hits_plain(model, kd, klen, hk, ib, op, cid, inp["rx"], rem), 10),
                 bytes=need + f * r + 18 * f + f + r * (256 + nc + 1 + 4 + 96 + 4 + 128 + 1),
-                ops=walked * (4 + 32) + need,
+                ops=walked + need,
             )
             on_card = lambda: (memcache_verdicts(model, kd, klen, hk, ib, op, cid, rem),)
         row = scan_row(scans[kname], tab, data_s, s_, e_, span_bytes(s_, e_, width))
@@ -1241,13 +1275,46 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
         for kn, row in rows.items():
             bound(row)
             log_row(name, kn, row)
-        log_pass(name, c["kind"] + "_verdicts", timed[name], card)
+        log_pass(name, c["kind"] + "_verdicts", timed[name], card,
+                 parent_turns(DNS_PASS, on_card, {}) if c["kind"] == "dns" else None)
 
     for name, (proto, port, policy, make, feeds) in engines.items():
         out = eng_card[name][0]
         frames = sum(1 for _, ops, _ in out for op, _ in ops if op in (1, 2))
         engine_times(f"{name}: {frames} frames of {len(feeds[0])} flows", frames, card,
                      lambda: run_l7_engine(lambda: make(models[model_of[proto]][0]), feeds))
+
+    # K9 at the DNS engine's largest rule walk, its inputs recorded.
+    proto, _, _, make, feeds = engines["dns-engine"]
+    calls = recorded_calls(dns_mod, "dns_hits", lambda: run_l7_engine(
+        lambda: make(models[model_of[proto]][0]), feeds))
+    e_model, e_name, e_rx, e_rem = max(calls, key=lambda call: call[1].dotted.numel())
+    timed["dns-engine"] = dict(rows={"dns_hits": k9_row(e_model, e_name, e_rx, e_rem)})
+    log(f"dns-engine: K9 at F={e_name.dotted.shape[0]} L={e_name.dotted.shape[1]} R={e_model.n_rules}")
+    log_row("dns-engine", "dns_hits", timed["dns-engine"]["rows"]["dns_hits"])
+
+    # dns-names-256 (a reading, in no counted run): 256 exact names of 8 to
+    # 64 bytes and no automaton; the card against the host oracle, K9
+    # against its plain version, timed.
+    policy, frames = dns_names_case()
+    model = build_dns_model(policy, True, 53)
+    host = tile_rows(frames, [1] * len(frames), F, DNS_NAMES_WIDTH)
+    data, lengths, rem = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host)
+    n = len(frames)
+    got = [t.cpu() for t in dns_verdicts_attr(model, data, lengths, rem)]
+    want_o = dns_oracle(policy, frames, [1] * n)
+    bad = sum(1 for i, w in enumerate(want_o) if (bool(got[2][i]), int(got[3][i])) != w)
+    if bad or model.nfa is not None or model.n_rules != DNS_NAMES_RULES:
+        raise AssertionError(f"dns-names-256: {bad} verdicts disagree with the host oracle")
+    nm = dns_name(data, lengths)
+    report["dns_hits"]["dns-names-256"] = max_abs_err(dns_hits(model, nm, None, rem),
+                                                      dns_hits_plain(model, nm, None, rem))
+    row = k9_row(model, nm, None, rem)
+    timed["dns-names-256"] = dict(rows={"dns_hits": row})
+    log(f"dns-names-256: F={F} width={DNS_NAMES_WIDTH} R={model.n_rules} W="
+        f"{model.name_needle.shape[1]}; == host oracle on {n} distinct rows, allow share "
+        f"{float(got[2][:n].float().mean()):.3f}")
+    log_row("dns-names-256", "dns_hits", row)
     return launches, runs, span_runs, report, timed
 
 
@@ -2955,6 +3022,12 @@ SEQ_ADV_PATTERNS = ("^(a{13})*b", "^(a{11})*c")
 # source that differs from the parent's, {symbol: the parent's C launcher
 # bound with the current wrapper's argtypes}; empty without the flag.
 BASELINE: dict = {}
+# The kernels of each verdict pass: a pass runs in turns with the parent's
+# versions of those whose sources differ (parent_turns keeps those in
+# BASELINE).
+R2D2_PASS = ("r2d2_frame", "dfa_scan", "nfa_scan", "r2d2_hits")
+HTTP_PASS = ("http_frame", "http_lit", "dfa_scan", "nfa_scan", "http_hits")
+DNS_PASS = ("dns_name", "dfa_scan", "nfa_scan", "dns_hits")
 
 
 def seqdfa_adv_batch(f, width):
@@ -2976,11 +3049,20 @@ def build_baseline(csrc):
     wrappers' own argument packing drives both (``parent_kernels`` swaps
     them in).  Returns the stems."""
     import ctypes
+    import importlib
     import re
     from pathlib import Path
 
     from cilium_tpu_torch import kernels
 
+    # every module that defines a kernel, so that each source's launchers
+    # are in kernels.ALL before they are bound
+    for mod in ("models.base", "models.r2d2", "models.http", "models.dns", "models.cassandra",
+                "models.memcached", "models.kafka", "ops.dfa", "ops.nfa", "ops.gather",
+                "ops.seqdfa", "ops.lpm", "ops.maplookup", "maps.lbmap", "maps.policymap",
+                "datapath.pipeline", "datapath.ingress", "parallel.rulesharding",
+                "sidecar.latbench"):
+        importlib.import_module(f"cilium_tpu_torch.{mod}")
     csrc = Path(csrc).resolve()
 
     def read_or_none(path):
@@ -4162,6 +4244,25 @@ def _mesh_runs(dev, card, kerns, tmp):
         log(f"mesh-seq-{label}: {MESH_SEQ_SLOTS} slots == K18's serial search (and K2); device "
             f"{t_sh:.4f} ms against serial {t_serial:.4f} ms [{card}]")
 
+    # K4 and K9 as rule shard 0 of the 1 x 4 r2d2 and DNS meshes walks its
+    # rows (each slot's call recorded), against their plain versions (in
+    # k4_row / k9_row) and timed.
+    from cilium_tpu_torch.models import dns as dns_mod
+    from cilium_tpu_torch.models import r2d2 as r2d2_mod
+
+    for run, mod, stem, row_of in (("mesh-r2d2-1x4", r2d2_mod, "r2d2_hits", k4_row),
+                                   ("mesh-dns-1x4", dns_mod, "dns_hits", k9_row)):
+        model, _, inp = passes[run]
+        calls = recorded_calls(mod, stem, lambda: model.verdicts_attr(*inp))
+        if len(calls) != 4:
+            raise AssertionError(f"{run}: {len(calls)} {stem} calls, one a rule shard expected")
+        row = row_of(*calls[0])
+        timed[run] = dict(rows={stem: row})
+        log(f"{run} rule shard 0: {stem} at F={calls[0][1].shape[0]} R={calls[0][3].shape[1]}"
+            if stem == "r2d2_hits" else
+            f"{run} rule shard 0: {stem} at F={calls[0][1].dotted.shape[0]} R={calls[0][0].n_rules}")
+        log_row(run, stem, row)
+
     # 13a. K21 and K22 against their plain versions, then timed.
     log("== K21 / K22 vs plain and timed")
     g = torch.Generator(device="cpu").manual_seed(13)
@@ -4227,7 +4328,7 @@ def _mesh_runs(dev, card, kerns, tmp):
         runs[f"mesh-k22-R{r}"] = dict.fromkeys(kerns, 0)
         log_row(f"mesh-k22-R{r}", "kafka_shard_combine", krow)
     # The main path's own shapes (R = 4, F = 65,536 on the 1 x 4 mesh).
-    timed["mesh-r2d2-1x4"] = dict(rows={"shard_reduce": timed["mesh-k21-R4"]["rows"]["shard_reduce"]})
+    timed["mesh-r2d2-1x4"]["rows"]["shard_reduce"] = timed["mesh-k21-R4"]["rows"]["shard_reduce"]
     timed["mesh-kafka-1x4"] = dict(
         rows={"kafka_shard_combine": timed["mesh-k22-R4"]["rows"]["kafka_shard_combine"]})
     log("max |kernel - plain|:", json.dumps(report))
@@ -4937,32 +5038,21 @@ def main() -> int:
     timed = {}
 
     for name in ("graft", "wide", "nfa"):
-        data, lengths, rem, frame, file_ok, hits = inputs[name]
+        data, lengths, rem, frame, file_ok, _ = inputs[name]
         model = cases[name]["model"]
-        f, l = data.shape
-        r = model.cmd_len.shape[0]
         nfa = model.nfa
-        sb = span_bytes(frame.file_start, frame.file_end, l)
-        walked = torch.where(hits[0], hits[1] + 1, torch.full_like(hits[1], r))
+        sb = span_bytes(frame.file_start, frame.file_end, data.shape[1])
         rows = {"r2d2_frame": k1_row(data, lengths, frame)}
         kname = scan_kernel(nfa)
         rows[kname] = scan_row(scans[kname], nfa, data, frame.file_start, frame.file_end, sb)
-        sp = frame.sp
-        head = int(sp.clamp(0, min(l, 8)).sum())
-        k4 = lambda: r2d2_hits(model, data, sp, file_ok, rem)
-        rows["r2d2_hits"] = dict(
-            ms=graph_ms(k4), call_ms=cuda_ms(k4, 50),
-            plain_ms=cuda_ms(lambda: r2d2_hits_plain(model, data, sp, file_ok, rem), 10),
-            bytes=head + 4 * f + f * r + 4 * f + r * (8 + 4 + 1 + 128 + 1) + 5 * f,
-            ops=int(walked.sum()) * (8 + 32),
-        )
+        rows["r2d2_hits"] = k4_row(model, data, frame.sp, file_ok, rem)
         host = cases[name]["host"]
         on_card = lambda: r2d2_verdicts(model, data, lengths, rem)  # noqa: E731
         timed[name] = dict(rows=rows, **pass_times(on_card, lambda: r2d2_verdicts(model, *host)))
         for kname, row in rows.items():
             bound(row)
             log_row(name, kname, row)
-        log_pass(name, "r2d2_verdicts", timed[name], card, parent_turns("r2d2_frame", on_card, {}))
+        log_pass(name, "r2d2_verdicts", timed[name], card, parent_turns(R2D2_PASS, on_card, {}))
 
     for name, c in hcases.items():
         data, lengths, rem, frame, lit, spans, rx, hits = hinputs[name]
@@ -4994,7 +5084,7 @@ def main() -> int:
         for kname, row in rows.items():
             bound(row)
             log_row(name, kname, row)
-        log_pass(name, "http_verdicts", timed[name], card, parent_turns("http_frame", on_card, {}))
+        log_pass(name, "http_verdicts", timed[name], card, parent_turns(HTTP_PASS, on_card, {}))
 
     # The engines on the host clock, then once more under the profiler for
     # the device's busy share (a reading only: the profiler is no check).
@@ -5036,6 +5126,12 @@ def main() -> int:
                                 ("http-long-head", "http_frame", long_data.shape)):
         log(f"{label}: K{1 if kname == 'r2d2_frame' else 5} at F={shape[0]} L={shape[1]}")
         log_row(label, kname, timed[label]["rows"][kname])
+    # K4 at the r2d2 engine's largest rule walk, its inputs recorded.
+    calls = recorded_calls(r2d2_mod, "r2d2_hits", lambda: run_engine(cases["graft"]["model"], feeds))
+    e_model, *e_args = max(calls, key=lambda call: call[3].numel())
+    timed["engine"]["rows"]["r2d2_hits"] = k4_row(e_model, *e_args)
+    log(f"engine: K4 at F={e_args[0].shape[0]} L={e_args[0].shape[1]} R={e_args[2].shape[1]}")
+    log_row("engine", "r2d2_hits", timed["engine"]["rows"]["r2d2_hits"])
 
     # The third slice's paths, counted in their own run.
     launches3, runs3, span_runs3, report3, timed3 = l7_slice(dev, card, kerns, scans, scan_kernel,
@@ -5261,6 +5357,77 @@ def k5_row(data, lengths, frame):
     return parent_turns("http_frame", run, bound(row))
 
 
+def visited_rows(allow, rule, r):
+    """[F, R] bool: the rows a first-match walk must visit (up to the first
+    that holds, all R where none does)."""
+    walked = torch.where(allow, rule + 1, torch.full_like(rule, r))
+    return torch.arange(r, device=rule.device)[None, :] < walked[:, None]
+
+
+def k4_row(model, data, sp, file_ok, rem):
+    """K4 on [F, L] and R rule rows: bytes, the first min(sp, L, 8) bytes of
+    each row, sp, file_ok, remotes, the tables and two [F] outputs; ops,
+    one test a (flow, row) the first-match walk visits and the command
+    bytes compared on the visited rows whose file and command length hold
+    (the function's work, not a design's); times (beside the parent's in
+    turns, given --baseline-csrc) and the launcher's variant."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.r2d2 import r2d2_hits, r2d2_hits_plain
+
+    f, l = data.shape
+    r = model.cmd_len.shape[0]
+    allow, rule = r2d2_hits_plain(model, data, sp, file_ok, rem)
+    if max_abs_err(r2d2_hits(model, data, sp, file_ok, rem), (allow, rule)):
+        raise AssertionError(f"r2d2_hits disagrees with its plain version at F={f} L={l} R={r}")
+    visited = visited_rows(allow, rule, r)
+    s = sp.clamp(min=0)
+    compared = visited & file_ok & ~model.cmd_any[None, :] & (model.cmd_len[None, :] == s[:, None])
+    run = lambda: r2d2_hits(model, data, sp, file_ok, rem)  # noqa: E731
+    row = dict(
+        ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: r2d2_hits_plain(model, data, sp, file_ok, rem), 10),
+        bytes=int(sp.clamp(0, min(l, 8)).sum()) + 4 * f + f * r + 4 * f
+        + r * (8 + 4 + 1 + 128 + 1) + 5 * f,
+        ops=int(visited.sum()) + int((compared * s.clamp(max=8)[:, None]).sum()),
+        variant=kernels.hits_variant("r2d2_hits", r, f),
+    )
+    return parent_turns("r2d2_hits", run, bound(row))
+
+
+def k9_row(model, name, rx, rem):
+    """K9 on [F, L] and R rule rows: bytes, the dotted bytes of the names
+    it compares (rows whose needle length is the span's), the [F, R]
+    automaton hits where given, spans, valid, remotes, the tables and two
+    [F] outputs; ops, one test a (flow, row) the first-match walk visits
+    and the name bytes compared on the visited rows the automaton does not
+    decide, whose length is the span's; as ``k4_row``."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.dns import dns_hits, dns_hits_plain
+
+    f = name.dotted.shape[0]
+    r, w = model.name_needle.shape
+    allow, rule = dns_hits_plain(model, name, rx, rem)
+    if max_abs_err(dns_hits(model, name, rx, rem), (allow, rule)):
+        raise AssertionError(f"dns_hits disagrees with its plain version at F={f} R={r} W={w}")
+    visited = visited_rows(allow, rule, r)
+    span_len = (name.span_end - name.span_start).clamp(min=0)
+    same = model.name_len[None, :] == span_len[:, None]
+    need = torch.where(name.valid & same.any(dim=1), span_len, torch.zeros_like(span_len))
+    compared = visited & same & name.valid[:, None] & ~model.name_any[None, :]
+    if rx is not None:
+        compared &= ~(model.use_rx[None, :] & rx)
+    run = lambda: dns_hits(model, name, rx, rem)  # noqa: E731
+    row = dict(
+        ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: dns_hits_plain(model, name, rx, rem), 10),
+        bytes=int(need.sum()) + (f * r if rx is not None else 0) + 9 * f + 4 * f + 5 * f
+        + r * (w + 4 + 1 + 1 + 128 + 1),
+        ops=int(visited.sum()) + int((compared * span_len.clamp(max=w)[:, None]).sum()),
+        variant=kernels.hits_variant("dns_hits", r, f),
+    )
+    return parent_turns("dns_hits", run, bound(row))
+
+
 def turns_text(turns):
     """The readings of ``in_turns`` as one log phrase."""
     n, o = sorted(turns["n"])[1], sorted(turns["o"])[1]
@@ -5287,7 +5454,7 @@ def log_row(name, kname, row):
     log(f"{name:15s} {kname:14s} device {row['ms']:.5f} ms  per call {row['call_ms']:.5f} ms  "
         f"plain {plain}  bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
         f"{row['bytes']} bytes, {row['ops']} ops)"
-        + (" variant lanes/chunks/aligned %s" % (row["variant"],) if "variant" in row else ""))
+        + (" variant %s" % (row["variant"],) if "variant" in row else ""))
     if "turns" in row:
         log(f"{name:15s} {kname:14s} {turns_text(row['turns'])}; per call {row['turns_call_ms']:.5f} "
             f"ms against the parent's {row['parent_call_ms']:.5f} (the better of two each)")

@@ -210,6 +210,17 @@ def frame_variant(stem: str, data: torch.Tensor) -> tuple[int, int, bool]:
     return v & 0xFF, (v >> 8) & 0xFF, bool(v >> 16)
 
 
+def hits_variant(stem: str, r: int, f: int) -> tuple[int, int]:
+    """(lanes a flow, rows a lane a step) that the rule-walk launcher of
+    ``csrc/<stem>.cu`` (K4 ``r2d2_hits``, K9 ``dns_hits``;
+    ``csrc/rule_walk.cuh``) takes for ``r`` rule rows and ``f`` flows."""
+    fn = library(stem).hits_variant
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    v = fn(r, f)
+    return v & 0xFF, (v >> 8) & 0xFF
+
+
 def on_cpu(device: torch.device) -> bool:
     """True for the CPU (the plain version runs), False for a CUDA device
     (the kernel runs); raises for anything else."""

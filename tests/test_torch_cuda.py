@@ -94,6 +94,7 @@ from cilium_tpu_torch.regex import compile_patterns
 from cilium_tpu_torch.regex.dfa import compile_pattern_dfas
 from frame_cases import CARD_WIDTHS as FRAME_CARD_WIDTHS
 from frame_cases import frame_batch, long_head_batch, on_card_at
+import hits_cases as hc
 
 pytestmark = pytest.mark.cuda
 
@@ -1842,3 +1843,144 @@ def test_http_lit_and_hits_at_the_rules_100k_shard(cuda):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     # the HEAD rule is the table's last row: in the last shard only
     assert bool(got[0][1]) and not bool(got[0][0])
+
+
+# --- the rule walks K4 and K9 on hits_cases' boundary batches -------------------
+
+# With hits_cases.R_SIZES these row counts take every lane group the
+# launchers take (test_hits_shapes_take_every_variant); 2,100 rows are
+# staged in two tiles.
+HITS_CARD_R = hc.R_SIZES + (4, 8, 13, 100, 300, 600, 2100)
+# (W, L): needle widths of 4-byte words and of odd bytes, names past the
+# 256 bytes staged a row (the rest compared from device memory)
+DNS_CARD_WL = ((24, 64), (13, 61), (64, 40), (300, 400))
+
+
+@pytest.fixture(scope="module")
+def hits_forced():
+    """Every (lanes, rows) variant of K4 and K9, built beside csrc by
+    chip_hits_variants.build_forced (one library a kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the plain versions are tested on the CPU")
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_hits_variants
+
+    return chip_hits_variants, chip_hits_variants.build_forced(log=lambda *a: None)
+
+
+def _at(dev, a, offset):
+    """numpy ``a`` on ``dev``, ``offset`` elements into its storage (a base
+    that no 8- or 16-byte load takes, for offset 1 of a byte array)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    view = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _r2d2_hits_case(dev, r, f, l, offset):
+    t = hc.r2d2_tables(r)
+    b = hc.r2d2_batch(t, f, l)
+    model = r2d2_mod.R2d2BatchModel(nfa=None, **{k: _at(dev, v, offset) for k, v in t.items()})
+    return model, [_at(dev, b[k], offset) for k in ("data", "sp", "file_ok", "remotes")]
+
+
+def _dns_hits_case(dev, r, f, w, l, offset, rx):
+    t = hc.dns_tables(r, w=w)
+    b = hc.dns_batch(t, f, l, rx=rx)
+    tabs = {k: _at(dev, v, offset) for k, v in t.items()}
+    nfa = hc.Automaton(tabs["name_len"].device, r) if rx else None
+    model = dns_mod.DnsBatchModel(nfa=nfa, **tabs)
+    name = dns_mod.DnsName(*(_at(dev, b[k], offset) for k in ("valid", "span_start", "valid",
+                                                                "span_start", "span_end", "dotted")))
+    rx_t = _at(dev, b["rx"], offset) if rx else None
+    return model, (name, rx_t, _at(dev, b["remotes"], offset))
+
+
+def _hits_equal(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("offset", [0, 4, 1])  # 16-, 4-byte and byte loads of file_ok
+@pytest.mark.parametrize("r", HITS_CARD_R)
+def test_r2d2_hits_kernel_matches_plain_on_boundary_batches(cuda, r, offset):
+    for f in hc.F_SIZES if r < 2100 else (1031,):
+        for l in (64, 6, 67):
+            model, args = _r2d2_hits_case(cuda, r, f, l, offset)
+            got = _one_launch(r2d2_mod._R2D2_HITS, r2d2_hits, model, *args)
+            _hits_equal(got, r2d2_hits_plain(model, *args))
+
+
+@pytest.mark.parametrize("rx", [True, False], ids=["rx", "no-rx"])
+@pytest.mark.parametrize("offset", [0, 4, 1])
+@pytest.mark.parametrize("r", HITS_CARD_R)
+def test_dns_hits_kernel_matches_plain_on_boundary_batches(cuda, r, offset, rx):
+    for f in hc.F_SIZES if r < 2100 else (1031,):
+        for w, l in DNS_CARD_WL:
+            model, args = _dns_hits_case(cuda, r, f, w, l, offset, rx)
+            got = _one_launch(dns_mod._DNS_HITS, dns_hits, model, *args)
+            _hits_equal(got, dns_hits_plain(model, *args))
+
+
+HITS_VARIANTS = [f"{g}x{v}" for g in (1, 2, 4, 8, 16, 32) for v in (1, 4, 8, 16)]
+
+
+@pytest.mark.parametrize("variant", HITS_VARIANTS)
+def test_hits_variants_match_plain(cuda, hits_forced, variant):
+    """Lane groups forced, taken by the launcher or not, on the boundary
+    batches: R of every size to 300, F = 1,031 and 4,099, aligned and
+    byte-loaded rows."""
+    hv, fns = hits_forced
+    g, v = hv.parse(variant)
+    for r in hc.R_SIZES + (8, 300):
+        for f in (1031, 4099):
+            for offset in (0, 1):
+                model, args = _r2d2_hits_case(cuda, r, f, (6, 64)[offset], offset)
+                want = r2d2_hits_plain(model, *args)
+                with hv.forced("r2d2_hits", fns[("r2d2_hits", g, v)]):
+                    _hits_equal(_one_launch(r2d2_mod._R2D2_HITS, r2d2_hits, model, *args), want)
+                w, l = DNS_CARD_WL[(r + offset) % len(DNS_CARD_WL)]
+                for rx in (True, False):
+                    model, args = _dns_hits_case(cuda, r, f, w, l, offset, rx)
+                    want = dns_hits_plain(model, *args)
+                    with hv.forced("dns_hits", fns[("dns_hits", g, v)]):
+                        _hits_equal(_one_launch(dns_mod._DNS_HITS, dns_hits, model, *args), want)
+
+
+def test_hits_variants_built_cover_every_pair(hits_forced):
+    """build_forced builds every (lanes, rows) pair: the variants above
+    and the rest the timing script reads."""
+    hv, fns = hits_forced
+    assert {(g, v) for _, g, v in fns} == {hv.parse(x) for x in hv.EVERY}
+    assert sorted(HITS_VARIANTS) == sorted(hv.EVERY)
+
+
+HITS_BIG_F = (16384, 20000, 65536)
+
+
+@pytest.mark.parametrize("f", HITS_BIG_F)
+@pytest.mark.parametrize("r", HITS_CARD_R[:-1])
+def test_hits_kernels_match_plain_at_big_batches(cuda, r, f):
+    """The main path's batch size and those between it and the engines',
+    where the launchers take the fewest lanes."""
+    model, args = _r2d2_hits_case(cuda, r, f, 64, 0)
+    _hits_equal(_one_launch(r2d2_mod._R2D2_HITS, r2d2_hits, model, *args),
+                r2d2_hits_plain(model, *args))
+    model, args = _dns_hits_case(cuda, r, f, 24, 64, 0, True)
+    _hits_equal(_one_launch(dns_mod._DNS_HITS, dns_hits, model, *args),
+                dns_hits_plain(model, *args))
+
+
+def test_hits_shapes_take_every_variant(cuda):
+    """The row and flow counts of the tests above reach every variant the
+    launchers take for 1 to 5,000 rows and 1 to 65,536 flows."""
+    for stem in ("r2d2_hits", "dns_hits"):
+        every = {kernels.hits_variant(stem, r, f) for r in range(1, 5001)
+                 for f in (1, 1000, 2048, 4099, 16384, 65536)}
+        tested = {kernels.hits_variant(stem, r, f) for r in HITS_CARD_R for f in hc.F_SIZES}
+        tested |= {kernels.hits_variant(stem, r, f) for r in HITS_CARD_R[:-1] for f in HITS_BIG_F}
+        assert every <= tested, sorted(every - tested)
