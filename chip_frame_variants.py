@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the framing kernels K1 ``r2d2_frame`` and K5 ``http_frame`` in launch
-variants that their launchers do not take, beside the variant they do, on
-one CUDA card.
+"""Time the framing kernels K1 ``r2d2_frame``, K5 ``http_frame`` and K8
+``dns_name`` in launch variants that their launchers do not take, beside
+the variant they do, on one CUDA card.
 
     python3 chip_frame_variants.py [--variants 4x1,8x1,16x1,32x1,32x4,4x1e0,4x1b8]
+        [--name-variants 4x1,8x1,32x1,4x1t64] [--kernels r2d2_frame,http_frame,dns_name]
 
 A variant ``GxV[eE][bB]`` is G lanes a row, V 16-byte chunks a lane a step,
 E bytes of a row loaded before its length arrives (default 128, as built)
@@ -23,6 +24,15 @@ run at each width; K5 at http-graft, http-stress and http-head (F =
 2,048 rows of 512 and 1,024 bytes; each engine call of fewer than 1,024
 rows also cycled to 1,024 and 4,096 rows (the edges of the launcher's
 rule).
+
+K8's variants ``GxV[tT]`` (G lanes a row, V chunks a lane a step, T
+threads a block, by default the launcher's) are built as
+``chip_hits_variants.py`` builds K4's: one more translation unit that
+includes ``csrc/dns_name.cu`` and exports ``forced_<G>_<V>_<T>`` for each
+(``build_name_forced``, which the card tests force the variants with).
+K8's shapes: dns and dns-stress (65,536 x 64), dns-names-256 (65,536 x
+128), the DNS engine's largest call and the sidecar's DNS bucket
+(``chip_smoke.dns_name_shapes``).
 Prints a line a (shape, variant), then one JSON object with every reading
 and the card line.  Needs a CUDA card and nvcc.
 """
@@ -104,6 +114,68 @@ def build_variants(stems, variants):
     return fns
 
 
+NAME_VARIANTS = ("1x4", "2x2", "2x4", "4x1", "4x2", "4x4", "8x1", "8x2", "16x1", "32x1", "2x2t128",
+                 "4x1t128", "8x1t64", "16x1t64", "32x1t64")
+
+
+def parse_name(spec):
+    """'4x1t64' -> (4, 1, 64): G lanes a row, V chunks a lane, T threads a
+    block (0: the launcher's)."""
+    m = re.fullmatch(r"(\d+)x(\d+)(?:t(\d+))?", spec)
+    if not m or int(m.group(1)) not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"bad K8 variant {spec!r}")
+    return int(m.group(1)), int(m.group(2)), int(m.group(3) or 0)
+
+
+def build_name_forced(variants=NAME_VARIANTS, log=print):
+    """{(lanes, vecs, threads): ctypes launcher} of K8: one library
+    exporting forced_<G>_<V>_<T> for each variant, from a translation unit
+    that includes csrc/dns_name.cu."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models import dns as dns_mod
+
+    k = dns_mod._DNS_NAME
+    keys = [parse_name(v) if isinstance(v, str) else v for v in variants]
+    d = kernels.BUILD / "variants" / "dns_name-forced"
+    d.mkdir(parents=True, exist_ok=True)
+    outs = ", ".join(f"void* o{i}" for i in range(6))
+    names = ", ".join(f"o{i}" for i in range(6))
+    text = '#include "dns_name.cu"\n\n'
+    for g, v, t in keys:
+        text += (f"CILIUM_EXPORT int forced_{g}_{v}_{t}(const void* data, const void* lengths, "
+                 f"int F, int L, {outs}, void* stream) {{\n"
+                 f"  Launch l = make_launch(data, lengths, F, L, {names}, stream);\n"
+                 + (f"  l.geom.threads = {t};\n" if t else "")
+                 + f"  return l.geom.aligned ? l.run<{g}, {v}, true>() : l.run<{g}, {v}, false>();\n}}\n")
+    (d / "forced.cu").write_text(text)
+    cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o", str(d / "forced.so"),
+           str(d / "forced.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"dns_name variants failed to build:\n{proc.stdout}")
+    log(f"built {d.name}: " + " | ".join(
+        ln.strip() for ln in proc.stdout.splitlines() if "registers" in ln or "spill" in ln))
+    lib = ctypes.CDLL(str(d / "forced.so"))
+    fns = {}
+    for key in keys:
+        fn = getattr(lib, "forced_{}_{}_{}".format(*key))
+        fn.argtypes = [*k.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+    return fns
+
+
+def name_shapes(dev):
+    """K8's [(label, "dns_name", data, lengths)] on the card."""
+    from cilium_tpu_torch import entry
+
+    _, stress = cs.dns_stress_case()
+    out = [("dns", *entry.dns_batch(cs.F)[:2]),
+           ("dns-stress", *cs.tile_heads(stress, [1] * len(stress), cs.F, 64)[:2])]
+    out = [(n, "dns_name", *(torch.from_numpy(a).to(dev) for a in host)) for n, *host in out]
+    return out + [(n, "dns_name", d, ln) for n, d, ln in cs.dns_name_shapes(dev)]
+
+
 def largest_by_width(calls):
     """The call with the most rows at each width, widest first."""
     best = {}
@@ -155,6 +227,44 @@ def shapes(dev):
     return out + engine_shapes("http-engine", "http_frame", calls)
 
 
+def name_table(dev, card, fns, dns_name):
+    """K8's readings: each forced variant held equal to the launcher's
+    output and timed, the launcher's pick read first and last."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models import dns as dns_mod
+
+    kern = dns_mod._DNS_NAME
+    table = []
+    for label, _, data, lengths in name_shapes(dev):
+        own = kern._bind()
+        run = lambda: dns_name(data, lengths)  # noqa: E731
+        want = run()
+        pick = [cs.graph_ms(run)]
+        for (g, v, t), fn in fns.items():
+            kern._fn = fn
+            try:
+                got = run()
+                if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"{label}: K8 variant {g}x{v}t{t} disagrees with the launcher's")
+                ms = cs.graph_ms(run)
+            finally:
+                kern._fn = own
+            table.append(dict(shape=label, stem="dns_name", lanes=g, chunks=v, threads=t, ms=ms,
+                              F=data.shape[0], L=data.shape[1]))
+            cs.log(f"{label:22s} dns_name {g:2d} lanes x {v} chunks, threads {t or 'as picked'}: "
+                   f"{ms:.5f} ms [{card}]")
+        pick.append(cs.graph_ms(run))
+        variant = kernels.name_variant(data)
+        # the same bytes copied by torch: what reading and writing them costs
+        copy = torch.empty_like(data)
+        copy_ms = cs.graph_ms(lambda: copy.copy_(data))
+        table.append(dict(shape=label, stem="dns_name", pick=variant, ms=pick, F=data.shape[0],
+                          L=data.shape[1], copy_ms=copy_ms))
+        cs.log(f"{label:22s} dns_name the launcher's {variant}: {pick[0]:.5f} / {pick[1]:.5f} ms; "
+               f"torch copy of the rows {copy_ms:.5f} ms [{card}]")
+    return table
+
+
 def engine_shapes(label, stem, calls):
     """The largest of an engine's calls at each width, and those of fewer
     than 1,024 rows cycled to 1,024 and 4,096 rows (as many rows of the
@@ -172,21 +282,30 @@ def engine_shapes(label, stem, calls):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default="4x1,8x1,16x1,32x1,32x4,4x1e0,4x1e65536,4x1b8,32x4b8")
+    ap.add_argument("--name-variants", default=",".join(NAME_VARIANTS))
+    ap.add_argument("--kernels", default="r2d2_frame,http_frame,dns_name")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_frame_variants: no CUDA card is available", file=sys.stderr)
         return 2
     from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.dns import dns_name
     from cilium_tpu_torch.models.http import http_frame
     from cilium_tpu_torch.models.r2d2 import r2d2_frame
 
     dev = torch.device("cuda")
     card = cs.card_line()
     kernels.build_all()
-    stems = {"r2d2_frame": r2d2_frame, "http_frame": http_frame}
-    fns = build_variants(stems, [parse(v) for v in args.variants.split(",")])
+    chosen = args.kernels.split(",")
+    stems = {k: w for k, w in (("r2d2_frame", r2d2_frame), ("http_frame", http_frame)) if k in chosen}
+    fns = build_variants(stems, [parse(v) for v in args.variants.split(",")]) if stems else {}
     table = []
-    for label, stem, data, lengths in shapes(dev):
+    if "dns_name" in chosen:
+        table += name_table(dev, card, build_name_forced(args.name_variants.split(","), log=cs.log),
+                            dns_name)
+    for label, stem, data, lengths in shapes(dev) if stems else ():
+        if stem not in stems:
+            continue
         wrapper = stems[stem]
         kern = next(k for k in kernels.ALL if k.stem == stem)
         own = kern._bind()

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the rule walks K4 ``r2d2_hits`` and K9 ``dns_hits`` in lane-group
-variants that their launchers do not take, beside the variant they do, on
-one CUDA card.
+"""Time the rule walks K4 ``r2d2_hits``, K9 ``dns_hits`` and K17
+``kafka_hits`` in lane-group variants that their launchers do not take,
+beside the variant they do, on one CUDA card.
 
     python3 chip_hits_variants.py [--variants 1x1,1x8,4x16,8x8,32x16,...]
+        [--kafka-variants 8,16,32,8t32] [--kernels r2d2_hits,dns_hits,kafka_hits]
 
 A variant ``GxV`` is G lanes a flow and V rows a lane a step
 (``csrc/rule_walk.cuh``).  As ``chip_frame_variants.py`` does for the
@@ -18,11 +19,18 @@ pick read first and last at each shape.  The shapes, each the wrapper's
 inputs recorded on the main path: K4 at graft, wide and nfa (F = 65,536),
 the r2d2 engine's largest rule walk and rule shard 0 of mesh-r2d2 1 x 4;
 K9 at dns, dns-stress and dns-names-256 (F = 65,536), the DNS engine's
-largest rule walk and rule shard 0 of mesh-dns 1 x 4.  Prints a line a
-(shape, variant), then one JSON object with every reading and the card
-line.  Needs a CUDA card and nvcc.
+largest rule walk and rule shard 0 of mesh-dns 1 x 4.  K17's variants
+``G[tT]`` are G lanes a request (its 8 topic slots spread over them) and at most
+T rule rows staged at once (by default as many as 48 KB of shared memory
+holds), exported as ``forced_<G>_<T>`` by ``build_kafka_forced``; its
+shapes ``chip_smoke.kafka_shapes``: kafka and kafka-fuzz-1..7 (F =
+65,536), the Kafka engine's largest step and rule shard 0 of
+mesh-kafka-1x4 (``parts=True``).  Prints a line a (shape, variant), then
+one JSON object with every reading and the card line.  Needs a CUDA card
+and nvcc.
 
-``build_forced`` is also what the card tests force the variants with.
+``build_forced`` and ``build_kafka_forced`` are also what the card tests
+force the variants with.
 """
 
 from __future__ import annotations
@@ -86,6 +94,83 @@ def build_forced(stems=STEMS, variants=EVERY, log=print):
             fn.restype = ctypes.c_int
             fns[(stem, g, v)] = fn
     return fns
+
+
+KAFKA_VARIANTS = ("1", "2", "4", "8", "16", "32", "1t32", "4t32", "16t32")
+
+
+def parse_kafka(spec):
+    """'16t32' -> (16, 32); tile 0 (the launcher's) unless given."""
+    g, _, t = spec.partition("t")
+    if int(g) not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"bad K17 variant {spec!r}: 1 to 32 lanes, a power of two")
+    return int(g), int(t or 0)
+
+
+def build_kafka_forced(variants=KAFKA_VARIANTS, log=print):
+    """{(lanes, tile rows): ctypes launcher} of K17: one library exporting
+    forced_<G>_<T> for each variant, from a translation unit that includes
+    csrc/kafka_hits.cu."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models import kafka as kafka_mod
+
+    k = kafka_mod._KAFKA_HITS
+    keys = [parse_kafka(v) if isinstance(v, str) else v for v in variants]
+    params = [f"{'int' if t is ctypes.c_int else 'void*'} a{i}" for i, t in enumerate(k.argtypes)]
+    names = ", ".join(f"a{i}" for i in range(len(k.argtypes)))
+    d = kernels.BUILD / "variants" / "kafka_hits-forced"
+    d.mkdir(parents=True, exist_ok=True)
+    text = '#include "kafka_hits.cu"\n\n'
+    for g, t in keys:
+        text += (f"CILIUM_EXPORT int forced_{g}_{t}({', '.join(params)}, void* stream) {{\n"
+                 f"  Launch l = make_launch({names}, stream);\n  l.tile_cap = {t};\n"
+                 f"  return l.run<{g}>();\n}}\n")
+    (d / "forced.cu").write_text(text)
+    cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o", str(d / "forced.so"),
+           str(d / "forced.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kafka_hits variants failed to build:\n{proc.stdout}")
+    log(f"built {d.name}: " + " | ".join(
+        ln.strip() for ln in proc.stdout.splitlines() if "registers" in ln or "spill" in ln))
+    lib = ctypes.CDLL(str(d / "forced.so"))
+    fns = {}
+    for g, t in keys:
+        fn = getattr(lib, f"forced_{g}_{t}")
+        fn.argtypes = [*k.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[(g, t)] = fn
+    return fns
+
+
+def kafka_table(dev, card, fns):
+    """K17's readings: each forced variant held equal to the launcher's
+    outputs and timed, the launcher's pick read first and last."""
+    import chip_smoke as cs
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.kafka import kafka_hits
+
+    table = []
+    for label, model, b, rem, parts in cs.kafka_shapes(dev):
+        run = lambda: kafka_hits(model, b, rem, parts=parts)  # noqa: E731
+        want = cs._outputs(run())
+        pick = [cs.graph_ms(run)]
+        f, t_n = b.topic_len.shape
+        for (g, t), fn in fns.items():
+            with forced("kafka_hits", fn):
+                if not all(torch.equal(x, y) for x, y in zip(cs._outputs(run()), want)):
+                    raise AssertionError(f"{label}: K17 variant {g}t{t} disagrees with the launcher's")
+                ms = cs.graph_ms(run)
+            table.append(dict(shape=label, stem="kafka_hits", lanes=g, tile=t, ms=ms, F=f,
+                              R=model.n_rules, parts=parts))
+            cs.log(f"{label:22s} kafka_hits {g:2d} lanes, tile {t or 'as staged'}: {ms:.5f} ms [{card}]")
+        pick.append(cs.graph_ms(run))
+        variant = kernels.kafka_variant(model.n_rules, f, t_n)
+        table.append(dict(shape=label, stem="kafka_hits", pick=variant, ms=pick, F=f, R=model.n_rules,
+                          W=b.topics.shape[2], parts=parts))
+        cs.log(f"{label:22s} kafka_hits the launcher's {variant} lanes: {pick[0]:.5f} / {pick[1]:.5f} "
+               f"ms (F={f}, R={model.n_rules}, W={b.topics.shape[2]}) [{card}]")
+    return table
 
 
 class forced:
@@ -182,6 +267,8 @@ def shape_of(stem, args):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(EVERY))
+    ap.add_argument("--kafka-variants", default=",".join(KAFKA_VARIANTS))
+    ap.add_argument("--kernels", default="r2d2_hits,dns_hits,kafka_hits")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_hits_variants: no CUDA card is available", file=sys.stderr)
@@ -194,10 +281,16 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.card_line()
     kernels.build_all()
-    fns = build_forced(STEMS, args.variants.split(","), log=cs.log)
+    chosen = args.kernels.split(",")
+    stems = tuple(s for s in STEMS if s in chosen)
+    fns = build_forced(stems, args.variants.split(","), log=cs.log) if stems else {}
     wrappers = {"r2d2_hits": r2d2_hits, "dns_hits": dns_hits}
     table = []
-    for label, stem, call in shapes(dev):
+    if "kafka_hits" in chosen:
+        table += kafka_table(dev, card, build_kafka_forced(args.kafka_variants.split(","), log=cs.log))
+    for label, stem, call in shapes(dev) if stems else ():
+        if stem not in stems:
+            continue
         run = lambda: wrappers[stem](*call)  # noqa: E731
         want = run()
         pick = [cs.graph_ms(run)]

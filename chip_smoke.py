@@ -46,9 +46,10 @@ which fails the run on any mismatch:
    with bounds that count the function's work (a test a row the
    first-match walk visits and the bytes compared) and the launcher's lane
    group; given --baseline-csrc, every reading of a kernel whose source
-   differs from the parent's (K4 and K9 before their redesign) here and in
-   phases 7, 11 and 13, and each pass that runs one (here, phase 7's DNS
-   passes and phase 13's mesh passes), also runs with the parent's kernel
+   differs from the parent's (K8 and K17 before their redesign) here and in
+   phases 7, 10, 11 and 13, and each pass that runs one (here, phase 7's
+   DNS passes, phase 10's Kafka passes and phase 13's mesh passes), also
+   runs with the parent's kernel
    on the same inputs, held equal and timed in turns (n o o n n o, medians
    of three; per call, the better of two each);
 7. the third slice, counted in a run of its own (every count set to 0
@@ -62,7 +63,9 @@ which fails the run on any mismatch:
    against the CPU engines and the streaming parsers driven through the
    port's ``Connection``; K9 at the DNS engine's largest rule walk and on
    dns-names-256 (256 exact names of 8 to 64 bytes, bench_stress's frame
-   mix over them, F = 65,536; held against the host oracle), timed;
+   mix over them, F = 65,536; held against the host oracle), timed; K8 at
+   dns-names-256, the DNS engine's largest call and the sidecar's DNS
+   bucket (1,024 x 256), held to its plain version and timed;
 8. the fourth slice, the L3/L4 datapath, counted in a run of its own (all
    F = 65,536): ``datapath_verdicts`` on bench_datapath's maps and mix
    (K14 ``datapath4``), ``datapath_verdicts6`` at the same table scale
@@ -99,7 +102,7 @@ which fails the run on any mismatch:
    ``kafka_hits`` launches once a call and once a device step of the
    engine; the card against the CPU path, ``matches_rule`` on 4,096 rows
    a shape, the CPU engine and a frame-by-frame oracle, K17 against its
-   plain version, and times;
+   plain version, and times (K17 also at the engine's largest step);
 11. the chunk-folded DFA search, counted in a run of its own:
    ``seqdfa_search_batch`` (K18 ``seqdfa_fold`` then ``seqdfa_apply``) on
    tests/test_seqdfa.py's 9 patterns at F = 2,048 x W = 32,768 and F = 256
@@ -135,7 +138,7 @@ which fails the run on any mismatch:
    F = 2,048) against the unsharded table with p99, rate and table bytes,
    and K6 / K7 at shard 0 and unsharded against their plain versions,
    with their bounds, timed; K4 and K9 on rule shard 0 of mesh-r2d2 and
-   mesh-dns 1 x 4, timed;
+   mesh-dns 1 x 4, and K17 (``parts=True``) on mesh-kafka 1 x 4's, timed;
    multichip_scaling at 1, 2 and 4 flow slots; ``seqdfa_search_sharded``
    at 8 slots on the seqdfa-32k and -4k shapes against K18's serial
    search; a ``VerdictService`` with ``mesh="on"``,
@@ -310,13 +313,15 @@ def engine_feeds(rng, n_flows):
 def recorded_calls(module, name, run):
     """The calls ``run()`` makes to ``module.<name>`` (an automaton search,
     K1 or K5), in call order, each as its arguments with the tensors
-    copied at the call."""
+    copied at the call (keyword arguments, where a call has them, as one
+    dict after them)."""
     calls = []
     fn = getattr(module, name)
 
-    def record(*args):
-        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
-        return fn(*args)
+    def record(*args, **kw):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                     + ((kw,) if kw else ()))
+        return fn(*args, **kw)
 
     setattr(module, name, record)
     try:
@@ -1226,16 +1231,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
         if c["kind"] == "dns":
             data, lengths, rem = args
             nm = inp["name"]
-            # K8: every row read once and written once (the dotted copy
-            # covers the whole row), the lengths, five [F] outputs; one op
-            # a byte for the fold, one a label for the walk
-            labels = int(((nm.dotted == 0x2E) & (data != 0x2E)).sum()) + f
-            k8 = lambda: dns_name(data, lengths)
-            rows["dns_name"] = dict(
-                ms=graph_ms(k8), call_ms=cuda_ms(k8, 50),
-                plain_ms=cuda_ms(lambda: dns_name_plain(data, lengths), 3),
-                bytes=2 * f * width + 4 * f + 14 * f, ops=f * width + labels,
-            )
+            rows["dns_name"] = k8_row(data, lengths)
             rows["dns_hits"] = k9_row(model, nm, inp["rx"], rem)
             on_card = lambda: dns_verdicts(model, data, lengths, rem)
         elif c["kind"] == "cassandra":
@@ -1315,6 +1311,16 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
         f"{model.name_needle.shape[1]}; == host oracle on {n} distinct rows, allow share "
         f"{float(got[2][:n].float().mean()):.3f}")
     log_row("dns-names-256", "dns_hits", row)
+
+    # K8 at dns-names-256, the DNS engine's largest call and the sidecar's
+    # DNS bucket (readings, beside the parent's in turns given
+    # --baseline-csrc).
+    for label, data, lengths in dns_name_shapes(dev):
+        row = k8_row(data, lengths)
+        report["dns_name"][label] = 0  # k8_row raises where the kernel and its plain version differ
+        timed.setdefault(label, dict(rows={}))["rows"]["dns_name"] = row
+        log(f"{label}: K8 at F={data.shape[0]} L={data.shape[1]}")
+        log_row(label, "dns_name", row)
     return launches, runs, span_runs, report, timed
 
 
@@ -2853,12 +2859,9 @@ def kafka_slice(dev, card, kerns):
     card is held against the CPU path, ``matches_rule`` on 4,096 rows a
     shape, the CPU engine and the oracle, and K17 against its plain
     version; then timed.  Returns (launches, runs, report, timed)."""
-    from cilium_tpu_torch.entry import kafka_batch, kafka_bench_rules, kafka_requests
     from cilium_tpu_torch.kafka import matches_rule
     from cilium_tpu_torch.models.kafka import (
-        KafkaRequestBatch,
         build_kafka_model,
-        encode_requests,
         kafka_hits,
         kafka_rule_hits,
         kafka_verdicts,
@@ -2868,19 +2871,8 @@ def kafka_slice(dev, card, kerns):
 
     log("== Kafka slice")
     t_phase = time.monotonic()
-    rules = kafka_bench_rules()
-    batch, remotes = kafka_batch(F)
-    cases = {"kafka": dict(rows=[(frozenset(), r) for r in rules], reqs=kafka_requests(),
-                           batch=batch, remotes=remotes)}
-    pool = kafka_fuzz_requests(random.Random(17), 4096)
-    pb = encode_requests(pool)
-    reps = -(-F // len(pool))
-    fuzz_batch = KafkaRequestBatch(**{k: np.ascontiguousarray(np.concatenate([v] * reps)[:F])
-                                      for k, v in vars(pb).items()})
-    fuzz_rem = np.ones(F, np.int32)
-    for i, kws in enumerate(KAFKA_FUZZ_RULES, 1):
-        cases[f"kafka-fuzz-{i}"] = dict(rows=[(frozenset(), r) for r in _krules(kws)], reqs=pool,
-                                        batch=fuzz_batch, remotes=fuzz_rem)
+    cases = kafka_cases()
+    fuzz_batch = cases["kafka-fuzz-1"]["batch"]
     for name, c in cases.items():
         c["model"] = build_kafka_model(c["rows"])
         c["cpu_model"] = build_kafka_model(c["rows"], device="cpu")
@@ -2988,17 +2980,18 @@ def kafka_slice(dev, card, kerns):
     timed = {}
     for name, c in cases.items():
         model, b, rem = c["model"], c["dev"], c["rem"]
-        nbytes, ops = kafka_bound(model, b, rem)
-        k17 = lambda: kafka_hits(model, b, rem)
-        row = dict(ms=graph_ms(k17), call_ms=cuda_ms(k17, 50),
-                   plain_ms=cuda_ms(lambda: kafka_verdicts_plain(model, b, rem), 5),
-                   library_ms=None, bytes=nbytes, ops=ops)
-        bound(row)
+        row = k17_row(model, b, rem)
         nb = c["batch"]
+        on_card = lambda: (kafka_hits(model, b, rem),)  # noqa: E731
         timed[name] = dict(rows={"kafka_hits": row}, **pass_times(
-            lambda: (kafka_hits(model, b, rem),), lambda: (kafka_verdicts(model, nb, c["remotes"]),)))
+            on_card, lambda: (kafka_verdicts(model, nb, c["remotes"]),)))
         log_row(name, "kafka_hits", row)
-        log_pass(name, "kafka_verdicts", timed[name], card)
+        log_pass(name, "kafka_verdicts", timed[name], card, parent_turns("kafka_hits", on_card, {}))
+    # K17 at the engine's largest step, its inputs recorded
+    label, e_model, e_b, e_rem, _ = kafka_engine_shape(dev)
+    timed[label] = dict(rows={"kafka_hits": k17_row(e_model, e_b, e_rem)})
+    log(f"{label}: K17 at F={e_b.api_key.shape[0]} W={e_b.topics.shape[2]} R={e_model.n_rules}")
+    log_row(label, "kafka_hits", timed[label]["rows"]["kafka_hits"])
     frames = sum(1 for _, ops, _ in eng_card for op, _ in ops if op in (1, 2))
     engine_times(f"kafka-engine: {frames} frames of {len(feeds[0])} flows", frames, card,
                  lambda: run_l7_engine(lambda: KafkaBatchEngine(build_kafka_model(eng_rows),
@@ -4263,6 +4256,15 @@ def _mesh_runs(dev, card, kerns, tmp):
             f"{run} rule shard 0: {stem} at F={calls[0][1].dotted.shape[0]} R={calls[0][0].n_rules}")
         log_row(run, stem, row)
 
+    # K17 as rule shard 0 of the 1 x 4 Kafka mesh takes its rows (parts=True),
+    # against its plain versions (in k17_row) and timed.
+    _, k_model, kb, kr, parts = kafka_mesh_shape(dev)
+    row = k17_row(k_model, kb, kr, parts=parts)
+    timed.setdefault("mesh-kafka-1x4", dict(rows={}))["rows"]["kafka_hits"] = row
+    log(f"mesh-kafka-1x4 rule shard 0: kafka_hits at F={kb.api_key.shape[0]} R={k_model.n_rules}, "
+        "parts=True")
+    log_row("mesh-kafka-1x4", "kafka_hits", row)
+
     # 13a. K21 and K22 against their plain versions, then timed.
     log("== K21 / K22 vs plain and timed")
     g = torch.Generator(device="cpu").manual_seed(13)
@@ -4329,8 +4331,8 @@ def _mesh_runs(dev, card, kerns, tmp):
         log_row(f"mesh-k22-R{r}", "kafka_shard_combine", krow)
     # The main path's own shapes (R = 4, F = 65,536 on the 1 x 4 mesh).
     timed["mesh-r2d2-1x4"]["rows"]["shard_reduce"] = timed["mesh-k21-R4"]["rows"]["shard_reduce"]
-    timed["mesh-kafka-1x4"] = dict(
-        rows={"kafka_shard_combine": timed["mesh-k22-R4"]["rows"]["kafka_shard_combine"]})
+    timed["mesh-kafka-1x4"]["rows"]["kafka_shard_combine"] = timed["mesh-k22-R4"]["rows"][
+        "kafka_shard_combine"]
     log("max |kernel - plain|:", json.dumps(report))
     if any(v for per in report.values() for v in per.values()):
         raise AssertionError("K6 / K7 / K21 / K22 disagree with their plain versions")
@@ -5426,6 +5428,146 @@ def k9_row(model, name, rx, rem):
         variant=kernels.hits_variant("dns_hits", r, f),
     )
     return parent_turns("dns_hits", run, bound(row))
+
+
+def k8_row(data, lengths):
+    """K8 on [F, L]: every row read once and written once (the dotted copy
+    covers the whole row), the lengths, five [F] outputs; one op a byte for
+    the fold, one a label for the walk; held to its plain version, then
+    timed beside the parent's in turns (given --baseline-csrc), with the
+    launcher's variant."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.dns import dns_name, dns_name_plain
+
+    f, width = data.shape
+    nm = dns_name_plain(data, lengths)
+    if max_abs_err(dns_name(data, lengths), nm):
+        raise AssertionError(f"dns_name disagrees with its plain version at F={f} L={width}")
+    labels = int(((nm.dotted == 0x2E) & (data != 0x2E)).sum()) + f
+    run = lambda: dns_name(data, lengths)  # noqa: E731
+    row = dict(
+        ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: dns_name_plain(data, lengths), 3),
+        bytes=2 * f * width + 4 * f + 14 * f, ops=f * width + labels,
+        variant=kernels.name_variant(data),
+    )
+    return parent_turns("dns_name", run, bound(row))
+
+
+def k17_row(model, b, rem, parts=False):
+    """K17 on F requests and R rule rows: ``kafka_bound``'s bytes and ops
+    (with ``parts``, the [F] and [F, T] bool outputs besides); held to its
+    plain versions, then timed beside the parent's in turns (given
+    --baseline-csrc), with the launcher's lanes a request."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.kafka import kafka_hits, kafka_rule_hits, kafka_verdicts_plain
+
+    f, t_n, _ = b.topics.shape
+    want = kafka_verdicts_plain(model, b, rem)
+    got = kafka_hits(model, b, rem, parts=parts)
+    if max_abs_err(_outputs(got), [want, *kafka_rule_hits(model, b, rem)][: 3 if parts else 1]):
+        raise AssertionError(f"kafka_hits disagrees with its plain versions at F={f} R={model.n_rules}")
+    nbytes, ops = kafka_bound(model, b, rem)
+    run = lambda: kafka_hits(model, b, rem, parts=parts)  # noqa: E731
+    row = dict(ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+               plain_ms=cuda_ms(lambda: kafka_verdicts_plain(model, b, rem), 5), library_ms=None,
+               bytes=nbytes + (f + f * t_n if parts else 0), ops=ops,
+               variant=kernels.kafka_variant(model.n_rules, f, t_n))
+    return parent_turns("kafka_hits", run, bound(row))
+
+
+def dns_name_shapes(dev):
+    """K8's readings besides phase 6's dns and dns-stress, each the
+    wrapper's inputs where the main path calls it: dns-names-256 (65,536 x
+    128), the DNS engine's largest call and the sidecar's DNS bucket (its
+    1,024 DNS conns in one bucket at the service's width, 256).
+    [(label, data, lengths)] on the card."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.models import dns as dns_mod
+    from cilium_tpu_torch.models.dns import build_dns_model
+    from cilium_tpu_torch.runtime.dnsengine import DnsBatchEngine
+
+    def on_card(host):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host[:2])
+
+    _, frames = dns_names_case()
+    queries = entry.dns_queries()
+    model = build_dns_model(entry.dns_bench_policy(), True, 53)
+    calls = recorded_calls(dns_mod, "dns_name", lambda: run_l7_engine(
+        lambda: DnsBatchEngine(model), dns_engine_feeds(random.Random(31), 3000)))
+    return [
+        ("dns-names-256", *on_card(tile_heads(frames, [1] * len(frames), F, DNS_NAMES_WIDTH))),
+        ("dns-engine", *max(calls, key=lambda c: c[0].numel())),
+        (f"sidecar-dns-{SIDE_CONNS['dns']}x256",
+         *on_card(tile_heads(queries, [1] * len(queries), SIDE_CONNS["dns"], 256))),
+    ]
+
+
+def kafka_cases():
+    """Phase 10's shapes: bench_kafka's (F = 65,536, 2 rules, W = 32) and
+    the fuzz mix against tests/test_kafka.py's seven rule sets (F =
+    65,536, overflow rows included); {name: dict(rows, reqs, batch,
+    remotes)} with numpy batches."""
+    from cilium_tpu_torch.entry import kafka_batch, kafka_bench_rules, kafka_requests
+    from cilium_tpu_torch.models.kafka import KafkaRequestBatch, encode_requests
+
+    batch, remotes = kafka_batch(F)
+    cases = {"kafka": dict(rows=[(frozenset(), r) for r in kafka_bench_rules()], reqs=kafka_requests(),
+                           batch=batch, remotes=remotes)}
+    pool = kafka_fuzz_requests(random.Random(17), 4096)
+    pb = encode_requests(pool)
+    reps = -(-F // len(pool))
+    fuzz_batch = KafkaRequestBatch(**{k: np.ascontiguousarray(np.concatenate([v] * reps)[:F])
+                                      for k, v in vars(pb).items()})
+    fuzz_rem = np.ones(F, np.int32)
+    for i, kws in enumerate(KAFKA_FUZZ_RULES, 1):
+        cases[f"kafka-fuzz-{i}"] = dict(rows=[(frozenset(), r) for r in _krules(kws)], reqs=pool,
+                                        batch=fuzz_batch, remotes=fuzz_rem)
+    return cases
+
+
+def kafka_engine_shape(dev):
+    """The Kafka engine's largest step as K17 gets it: (label, model,
+    batch, remotes, parts)."""
+    from cilium_tpu_torch.models import kafka as kafka_mod
+    from cilium_tpu_torch.models.kafka import build_kafka_model
+    from cilium_tpu_torch.runtime.engines import KafkaBatchEngine
+
+    rows = kafka_engine_rows()
+    calls = recorded_calls(kafka_mod, "kafka_hits", lambda: run_l7_engine(
+        lambda: KafkaBatchEngine(build_kafka_model(rows), host_rows=rows),
+        kafka_engine_feeds(random.Random(19), 2048)))
+    return ("kafka-engine", *max(calls, key=lambda c: c[1].api_key.numel())[:3], False)
+
+
+def kafka_mesh_shape(dev):
+    """Rule shard 0 of mesh-kafka-1x4 (bench_kafka's rules and requests,
+    F = 65,536) as K17 gets it, ``parts=True``: (label, model, batch,
+    remotes, parts)."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.parallel import rulesharding as rs
+    from cilium_tpu_torch.parallel.mesh import flow_mesh
+
+    batch, rem = entry.kafka_batch(MESH_F)
+    kmodel = rs.mesh_kafka_model([(frozenset(), r) for r in entry.kafka_bench_rules()],
+                                 flow_mesh(1, 4, mesh_slots(dev, 4)[0]))
+    calls = recorded_calls(rs, "kafka_hits", lambda: kmodel(batch.to_device(dev),
+                                                            torch.from_numpy(rem).to(dev)))
+    if len(calls) != 4 or not calls[0][3].get("parts"):
+        raise AssertionError(f"mesh-kafka-1x4: {len(calls)} kafka_hits calls, one a rule shard with parts")
+    return ("mesh-kafka-1x4-shard0", *calls[0][:3], True)
+
+
+def kafka_shapes(dev):
+    """K17's readings, each the wrapper's inputs where the main path calls
+    it: kafka and kafka-fuzz-1..7 (F = 65,536), the Kafka engine's largest
+    step and rule shard 0 of mesh-kafka-1x4.  [(label, model, batch,
+    remotes, parts)] on the card."""
+    from cilium_tpu_torch.models.kafka import build_kafka_model
+
+    out = [(name, build_kafka_model(c["rows"]), c["batch"].to_device(dev),
+            torch.from_numpy(c["remotes"]).to(dev), False) for name, c in kafka_cases().items()]
+    return out + [kafka_engine_shape(dev), kafka_mesh_shape(dev)]
 
 
 def turns_text(turns):

@@ -221,6 +221,28 @@ def hits_variant(stem: str, r: int, f: int) -> tuple[int, int]:
     return v & 0xFF, (v >> 8) & 0xFF
 
 
+def name_variant(data: torch.Tensor, dotted: torch.Tensor | None = None) -> tuple[int, int, bool, int]:
+    """(lanes a row, 16-byte chunks a lane a step, 16-byte loads and
+    stores, threads a block) that K8's launcher (``csrc/dns_name.cu``)
+    takes for ``data`` [F, L] written to ``dotted`` (by default a buffer as
+    the wrapper allocates it, 16-byte aligned)."""
+    fn = library("dns_name").name_variant
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = 0 if dotted is None else dotted.data_ptr()
+    v = fn(data.shape[1], data.shape[0], data.data_ptr(), out)
+    return v & 0xFF, (v >> 8) & 0xFF, bool((v >> 16) & 1), v >> 17
+
+
+def kafka_variant(r: int, f: int, t: int = 8) -> int:
+    """Lanes a request that K17's launcher (``csrc/kafka_hits.cu``) takes
+    for ``r`` rule rows, ``f`` requests and ``t`` topic slots."""
+    fn = library("kafka_hits").kafka_variant
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(r, f, t)
+
+
 def on_cpu(device: torch.device) -> bool:
     """True for the CPU (the plain version runs), False for a CUDA device
     (the kernel runs); raises for anything else."""

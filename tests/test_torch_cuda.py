@@ -92,6 +92,8 @@ from cilium_tpu_torch.proxylib import (
 from cilium_tpu_torch.proxylib.parsers.dns import DNS_QNAME_OFF, MAX_LABELS, DnsRule, encode_dns_query
 from cilium_tpu_torch.regex import compile_patterns
 from cilium_tpu_torch.regex.dfa import compile_pattern_dfas
+import dns_name_cases as dc
+import kafka_cases as kc
 from frame_cases import CARD_WIDTHS as FRAME_CARD_WIDTHS
 from frame_cases import frame_batch, long_head_batch, on_card_at
 import hits_cases as hc
@@ -632,20 +634,35 @@ def _dns_batch(rng, f, l):
     return data, lengths
 
 
-@pytest.mark.parametrize("l", [16, 64, 67, 330])
+NAME_MANY_ROWS = 8192  # csrc/dns_name.cu kManyRows
+
+
+def _name_equal(data, lengths):
+    """K8 launched once on the card, equal to its plain version."""
+    got = _one_launch(dns_mod._DNS_NAME, dns_name, data, lengths)
+    want = dns_name_plain(data, lengths)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+    return want
+
+
+@pytest.mark.parametrize("l", dc.CARD_WIDTHS)
 def test_dns_name_kernel_matches_plain(cuda, l):
+    """Random frames, then dns_name_cases' boundary batch at every F of
+    F_SIZES and at NAME_MANY_ROWS (the launcher's pick for big batches),
+    its rows 16-byte aligned and 5 bytes into their storage."""
     rng = np.random.default_rng(l)
     data, lengths = _dns_batch(rng, 4099, l)
     d, n = _to(cuda, data, lengths)
-    before = dns_mod._DNS_NAME.launches
-    got = dns_name(d, n)
-    torch.cuda.synchronize()
-    assert dns_mod._DNS_NAME.launches == before + 1
-    want = dns_name_plain(d, n)
-    for name, g, w in zip(got._fields, got, want):
-        assert torch.equal(g, w), name
+    want = _name_equal(d, n)
     if l >= 64:
         assert bool(want.valid.any()) and not bool(want.valid.all())
+    for f in (None, *dc.F_SIZES, NAME_MANY_ROWS):
+        data, lengths = dc.name_batch(l, f)
+        for offset in dc.OFFSETS:
+            d = dc.on_card_at(cuda, data, offset)
+            assert kernels.name_variant(d)[2] == (l % 16 == 0 and offset == 0)
+            _name_equal(d, torch.from_numpy(lengths).to(cuda))
 
 
 @pytest.mark.parametrize("l", [64, 330])
@@ -1208,6 +1225,33 @@ def test_kafka_hits_kernel_matches_plain(cuda, width, f):
         want_simple, want_cover = kafka_rule_hits(model, tb, rem)
         assert torch.equal(simple, want_simple) and torch.equal(cover, want_cover)
         if len(rules) > 1:
+            assert bool(want.any()) and not bool(want.all())
+
+
+def _kafka_equal(model, batch, rem):
+    """K17 launched once a call on the card, with and without ``parts``,
+    equal to its plain versions."""
+    want = kafka_verdicts_plain(model, batch, rem)
+    want_simple, want_cover = kafka_rule_hits(model, batch, rem)
+    assert torch.equal(_one_launch(kafka_mod._KAFKA_HITS, kafka_hits, model, batch, rem), want)
+    allow, simple, cover = _one_launch(kafka_mod._KAFKA_HITS, lambda *a: kafka_hits(*a, parts=True),
+                                       model, batch, rem)
+    assert torch.equal(allow, want) and torch.equal(simple, want_simple)
+    assert torch.equal(cover, want_cover)
+    return want
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 16-byte and byte loads of the tables and batch
+@pytest.mark.parametrize("w", kc.W_SIZES)
+@pytest.mark.parametrize("r", kc.R_SIZES)
+def test_kafka_hits_kernel_matches_plain_on_boundary_batches(cuda, r, w, offset):
+    """kafka_cases' tables and batches at every F of F_SIZES."""
+    t = kc.kafka_tables(r, w)
+    model = kc.kafka_model(t, cuda, offset)
+    for f in kc.F_SIZES:
+        b, rem = kc.kafka_batch(t, f, w)
+        want = _kafka_equal(model, kc.request_batch(b, cuda, offset), kc.at(cuda, rem, offset))
+        if f >= 2048 and r > 2:
             assert bool(want.any()) and not bool(want.all())
 
 
@@ -1984,3 +2028,114 @@ def test_hits_shapes_take_every_variant(cuda):
         tested = {kernels.hits_variant(stem, r, f) for r in HITS_CARD_R for f in hc.F_SIZES}
         tested |= {kernels.hits_variant(stem, r, f) for r in HITS_CARD_R[:-1] for f in HITS_BIG_F}
         assert every <= tested, sorted(every - tested)
+
+
+# --- K8 and K17 in every launch variant ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def name_forced():
+    """Every K8 variant of chip_frame_variants.NAME_VARIANTS, built beside
+    csrc by chip_frame_variants.build_name_forced (one library)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the plain versions are tested on the CPU")
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_frame_variants
+
+    return chip_frame_variants, chip_frame_variants.build_name_forced(log=lambda *a: None)
+
+
+NAME_VARIANTS = ["1x4", "2x2", "2x4", "4x1", "4x2", "4x4", "8x1", "8x2", "16x1", "32x1", "2x2t128",
+                 "4x1t128", "8x1t64", "16x1t64", "32x1t64"]
+
+
+@pytest.mark.parametrize("variant", NAME_VARIANTS)
+def test_dns_name_variants_match_plain(cuda, name_forced, variant):
+    """K8 variants forced, taken by the launcher or not, on the boundary
+    batches at every width, 37 and 4,099 rows, aligned and byte loads."""
+    fv, fns = name_forced
+    key = fv.parse_name(variant)
+    kern = dns_mod._DNS_NAME
+    own = kern._bind()
+    kern._fn = fns[key]
+    try:
+        for l in dc.WIDTHS:
+            for f in (37, 4099):
+                data, lengths = dc.name_batch(l, f, seed=2)
+                for offset in dc.OFFSETS:
+                    _name_equal(dc.on_card_at(cuda, data, offset), torch.from_numpy(lengths).to(cuda))
+    finally:
+        kern._fn = own
+
+
+def test_name_variants_built_cover_every_pick(cuda, name_forced):
+    """The forced set holds every (lanes, chunks) the launcher takes for 1
+    to 65,536 rows of 16 to 400 bytes, and test_dns_name_kernel_matches_plain
+    launches every (lanes, chunks, aligned) pick; the variants list here is
+    the script's."""
+    fv, fns = name_forced
+    assert sorted(NAME_VARIANTS) == sorted(fv.NAME_VARIANTS)
+    buf = torch.empty(400 + 16, dtype=torch.uint8, device=cuda)
+
+    def pick(f, l, off):
+        return kernels.name_variant(buf[off: off + l].as_strided((f, l), (0, 1)))[:3]
+
+    every = {pick(f, l, off) for l in range(16, 401) for f in (1, 37, 2048, 4099, 65536)
+             for off in dc.OFFSETS}
+    tested = {pick(f, l, off) for l in dc.CARD_WIDTHS for f in (*dc.F_SIZES, NAME_MANY_ROWS)
+              for off in dc.OFFSETS}
+    assert {(g, v) for g, v, _ in every} <= {key[:2] for key in fns}
+    assert every <= tested, sorted(every - tested)
+
+
+@pytest.fixture(scope="module")
+def kafka_forced():
+    """Every K17 variant of chip_hits_variants.KAFKA_VARIANTS, built beside
+    csrc by chip_hits_variants.build_kafka_forced (one library)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the plain versions are tested on the CPU")
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_hits_variants
+
+    return chip_hits_variants, chip_hits_variants.build_kafka_forced(log=lambda *a: None)
+
+
+KAFKA_VARIANTS = ["1", "2", "4", "8", "16", "32", "1t32", "4t32", "16t32"]
+
+
+@pytest.mark.parametrize("variant", KAFKA_VARIANTS)
+def test_kafka_hits_variants_match_plain(cuda, kafka_forced, variant):
+    """K17 variants forced (lanes a request; tables staged in tiles of 32
+    rows where R > 32), parts on and off, on the boundary tables and
+    batches: every R and W, F = 37 and 4,099, aligned and byte loads."""
+    hv, fns = kafka_forced
+    key = hv.parse_kafka(variant)
+    with hv.forced("kafka_hits", fns[key]):
+        for r in kc.R_SIZES:
+            for w in kc.W_SIZES:
+                t = kc.kafka_tables(r, w, seed=1)
+                for offset in (0, 1):
+                    model = kc.kafka_model(t, cuda, offset)
+                    for f in (37, 4099):
+                        b, rem = kc.kafka_batch(t, f, w, seed=1)
+                        _kafka_equal(model, kc.request_batch(b, cuda, offset), kc.at(cuda, rem, offset))
+
+
+def test_kafka_variants_built_cover_every_pick(cuda, kafka_forced):
+    """The forced set holds every lane count the launcher takes for 1 to
+    200 rows and 1 to 65,536 requests at T = 8; the variants list here is
+    the script's."""
+    hv, fns = kafka_forced
+    assert sorted(KAFKA_VARIANTS) == sorted(hv.KAFKA_VARIANTS)
+    every = {kernels.kafka_variant(r, f, 8) for r in range(1, 201) for f in (1, 37, 2048, 4099, 65536)}
+    assert every <= {g for g, _ in fns}
