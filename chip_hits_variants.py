@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Time the rule walks K4 ``r2d2_hits``, K9 ``dns_hits`` and K17
-``kafka_hits`` in lane-group variants that their launchers do not take,
-beside the variant they do, on one CUDA card.
+"""Time the rule walks K4 ``r2d2_hits``, K9 ``dns_hits``, K10
+``cassandra_hits``, K11 ``memcache_hits`` and K17 ``kafka_hits`` in
+variants that their launchers do not take, beside the variant they do, on
+one CUDA card.
 
     python3 chip_hits_variants.py [--variants 1x1,1x8,4x16,8x8,32x16,...]
-        [--kafka-variants 8,16,32,8t32] [--kernels r2d2_hits,dns_hits,kafka_hits]
+        [--kafka-variants 8,16,32,8t32]
+        [--kernels r2d2_hits,dns_hits,cassandra_hits,memcache_hits,kafka_hits]
 
 A variant ``GxV`` is G lanes a flow and V rows a lane a step
-(``csrc/rule_walk.cuh``).  As ``chip_frame_variants.py`` does for the
+(``csrc/rule_walk.cuh``); K10 also takes ``direct``, a thread a request
+walking the rows in order with no staging (``csrc/acl_walk.cuh``, exported
+as ``forced_0_0``), and K11 has that walk alone.  As ``chip_frame_variants.py`` does for the
 framing kernels, the variants are built into ``_build/variants`` from one
 more translation unit a kernel that includes ``csrc/<stem>.cu`` and exports
 a launcher of the source's C interface for each variant,
-``forced_<G>_<V>``, that runs ``Launch::run<G, V>``; the sources in
+``forced_<G>_<V>``, that runs ``Launch::run<G, V>`` (``direct()`` for
+``forced_0_0``); the sources in
 ``csrc`` stay as they are.  One ``nvcc`` a kernel, both together.  Each
 variant is bound with the wrapper's own arguments, held equal to the
 launcher's own output and timed (CUDA-graph device ms), the launcher's
@@ -19,7 +24,12 @@ pick read first and last at each shape.  The shapes, each the wrapper's
 inputs recorded on the main path: K4 at graft, wide and nfa (F = 65,536),
 the r2d2 engine's largest rule walk and rule shard 0 of mesh-r2d2 1 x 4;
 K9 at dns, dns-stress and dns-names-256 (F = 65,536), the DNS engine's
-largest rule walk and rule shard 0 of mesh-dns 1 x 4.  K17's variants
+largest rule walk and rule shard 0 of mesh-dns 1 x 4; K10 and K11 at
+``chip_smoke.acl_main_shapes`` (cassandra, cassandra-stress and memcached,
+F = 65,536) and ``acl_engine_shapes`` (the two engines' largest calls and
+the sidecar's), and beside them, at F = 65,536, K10's direct walk
+against its lane walk at R = 2 to 40 (``acl_sweep``: where the launcher's
+threshold, ``cassandra_hits.cu``'s kDirectRows, comes from).  K17's variants
 ``G[tT]`` are G lanes a request (its 8 topic slots spread over them) and at most
 T rule rows staged at once (by default as many as 48 KB of shared memory
 holds), exported as ``forced_<G>_<T>`` by ``build_kafka_forced``; its
@@ -41,6 +51,7 @@ import json
 import random
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -48,10 +59,16 @@ LANES = (1, 2, 4, 8, 16, 32)
 ROWS = (1, 4, 8, 16)
 EVERY = tuple(f"{g}x{v}" for g in LANES for v in ROWS)
 STEMS = ("r2d2_hits", "dns_hits")
+# K10 and K11: a direct walk (variant (0, 0), "direct").
+DIRECT = ("cassandra_hits", "memcache_hits")
+# The kernels with lane-group walks (K11 has the direct walk alone).
+LANE_WALKS = STEMS + ("cassandra_hits",)
 
 
 def parse(spec):
-    """'8x16' -> (8, 16)."""
+    """'8x16' -> (8, 16); 'direct' -> (0, 0)."""
+    if spec == "direct":
+        return 0, 0
     g, v = (int(x) for x in spec.split("x"))
     if g not in LANES or v not in ROWS:
         raise ValueError(f"bad variant {spec!r}: lanes {LANES}, rows {ROWS}")
@@ -60,12 +77,19 @@ def parse(spec):
 
 def build_forced(stems=STEMS, variants=EVERY, log=print):
     """{(stem, lanes, rows): ctypes launcher}: one library a kernel, built
-    together, exporting forced_<G>_<V> for each variant."""
+    together, exporting forced_<G>_<V> for each variant the kernel has
+    (forced_0_0, the direct walk, for K10 and K11; the lane groups for
+    every kernel but K11)."""
+    import importlib
+
     from cilium_tpu_torch import kernels
 
-    pairs = [parse(v) if isinstance(v, str) else v for v in variants]
+    for mod in ("r2d2", "dns", "cassandra", "memcached"):  # their kernels into kernels.ALL
+        importlib.import_module(f"cilium_tpu_torch.models.{mod}")
+    every = [parse(v) if isinstance(v, str) else v for v in variants]
     procs = {}
     for stem in stems:
+        pairs = [(g, v) for g, v in every if stem in (LANE_WALKS if g else DIRECT)]
         k = next(k for k in kernels.ALL if k.stem == stem)
         params = [f"{'int' if t is ctypes.c_int else 'void*'} a{i}" for i, t in enumerate(k.argtypes)]
         names = ", ".join(f"a{i}" for i in range(len(k.argtypes)))
@@ -73,15 +97,16 @@ def build_forced(stems=STEMS, variants=EVERY, log=print):
         d.mkdir(parents=True, exist_ok=True)
         text = f'#include "{stem}.cu"\n\n'
         for g, v in pairs:
+            call = f"run<{g}, {v}>()" if g else "direct()"
             text += (f"CILIUM_EXPORT int forced_{g}_{v}({', '.join(params)}, void* stream) {{\n"
-                     f"  return make_launch({names}, stream).run<{g}, {v}>();\n}}\n")
+                     f"  return make_launch({names}, stream).{call};\n}}\n")
         (d / "forced.cu").write_text(text)
         cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
                str(d / "forced.so"), str(d / "forced.cu")]
-        procs[stem] = (d, k, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT, text=True))
+        procs[stem] = (d, k, pairs, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True))
     fns = {}
-    for stem, (d, k, proc) in procs.items():
+    for stem, (d, k, pairs, proc) in procs.items():
         log_text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{stem} variants failed to build:\n{log_text}")
@@ -173,6 +198,51 @@ def kafka_table(dev, card, fns):
     return table
 
 
+ACL_SWEEP_R = (2, 3, 4, 6, 8, 9, 12, 16, 24, 40)
+
+
+def acl_sweep(dev, card, fns):
+    """Where K10's direct walk stops paying: at F = 65,536 and R of
+    ``ACL_SWEEP_R`` (tests/l7_hits_cases.py's tables and batches, the
+    4,099-request batch cycled), the direct walk and the lane walk the
+    launcher would take without it (a lane a request, the fewest rows a
+    step that cover R), each forced, held to the plain version and timed."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from cilium_tpu_torch.models import cassandra as cm
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import l7_hits_cases as lc
+
+    table = []
+    stem = "cassandra_hits"
+    for r in ACL_SWEEP_R:
+        t = lc.cass_tables(r)
+        b = lc.cass_batch(t, 4099)
+        model = lc.cass_model(t, dev)
+        rx = lc.rx_hits(t, 4099)
+        grow = lambda x: torch.from_numpy(np.ascontiguousarray(np.resize(x, (cs.F, *x.shape[1:])))).to(dev)  # noqa: E731
+        args = [grow(b[k]) for k in ("data", "action_len", "table_len", "non_query")]
+        args += [None if rx is None else grow(rx), grow(b["remotes"])]
+        want = cm.cassandra_hits_plain(model, *args)
+        lane = (1, next((v for v in ROWS if v >= r), ROWS[-1]))
+        row = dict(stem=stem, R=r, F=cs.F)
+        for name, key in (("direct", (0, 0)), (f"{lane[0]}x{lane[1]}", lane)):
+            if (stem, *key) not in fns:
+                continue
+            with forced(stem, fns[(stem, *key)]):
+                if not torch.equal(cm.cassandra_hits(model, *args), want):
+                    raise AssertionError(f"{stem} R={r}: {name} disagrees with the plain version")
+                row[name] = cs.graph_ms(lambda: cm.cassandra_hits(model, *args))
+        table.append(row)
+        cs.log(f"sweep {stem} R={r:2d} F={cs.F}: " + ", ".join(
+            f"{k} {v:.5f} ms" for k, v in row.items() if isinstance(v, float)) + f" [{card}]")
+    return table
+
+
 class forced:
     """Inside ``with forced(stem, fn)``, the wrapper of ``stem`` launches
     ``fn`` (a ``build_forced`` launcher) with its own arguments."""
@@ -191,9 +261,10 @@ class forced:
         self.kern._fn = self.own
 
 
-def shapes(dev):
-    """[(label, kernel stem, the wrapper's arguments)] on the card, each
-    recorded where the main path calls the wrapper."""
+def shapes(dev, stems=STEMS + DIRECT):
+    """[(label, kernel stem, the wrapper's arguments)] on the card for the
+    kernels of ``stems``, each recorded where the main path calls the
+    wrapper."""
     import chip_smoke as cs
     from cilium_tpu_torch import entry
     from cilium_tpu_torch.models import dns as dns_mod
@@ -210,6 +281,9 @@ def shapes(dev):
     def first_call(mod, stem, run):
         return cs.recorded_calls(mod, stem, run)[0]
 
+    acl = cs.acl_main_shapes(dev) + cs.acl_engine_shapes(dev) if set(DIRECT) & set(stems) else []
+    if not {"r2d2_hits", "dns_hits"} & set(stems):
+        return acl
     out = []
     rng = random.Random(7)  # chip_smoke.main's order: graft, wide, nfa
     graft_policy = None
@@ -254,45 +328,50 @@ def shapes(dev):
         inp = on_card(host)
         out.append((f"mesh-{fam}-1x4-shard0", stem, first_call(
             mod, stem, lambda: model.verdicts_attr(*inp))))
-    return out
+    return out + acl
 
 
 def shape_of(stem, args):
     """(F, R) of a recorded call."""
     if stem == "r2d2_hits":
         return tuple(args[3].shape)
-    return args[1].dotted.shape[0], args[0].n_rules
+    if stem == "dns_hits":
+        return args[1].dotted.shape[0], args[0].n_rules
+    return args[1].shape[0], args[0].n_rules
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default=",".join(EVERY))
+    ap.add_argument("--variants", default=",".join(("direct",) + EVERY))
     ap.add_argument("--kafka-variants", default=",".join(KAFKA_VARIANTS))
-    ap.add_argument("--kernels", default="r2d2_hits,dns_hits,kafka_hits")
+    ap.add_argument("--kernels", default=",".join(STEMS + DIRECT + ("kafka_hits",)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_hits_variants: no CUDA card is available", file=sys.stderr)
         return 2
     import chip_smoke as cs
     from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.cassandra import cassandra_hits
     from cilium_tpu_torch.models.dns import dns_hits
+    from cilium_tpu_torch.models.memcached import memcache_hits
     from cilium_tpu_torch.models.r2d2 import r2d2_hits
 
     dev = torch.device("cuda")
     card = cs.card_line()
     kernels.build_all()
     chosen = args.kernels.split(",")
-    stems = tuple(s for s in STEMS if s in chosen)
+    stems = tuple(s for s in STEMS + DIRECT if s in chosen)
     fns = build_forced(stems, args.variants.split(","), log=cs.log) if stems else {}
-    wrappers = {"r2d2_hits": r2d2_hits, "dns_hits": dns_hits}
+    wrappers = {"r2d2_hits": r2d2_hits, "dns_hits": dns_hits, "cassandra_hits": cassandra_hits,
+                "memcache_hits": memcache_hits}
     table = []
     if "kafka_hits" in chosen:
         table += kafka_table(dev, card, build_kafka_forced(args.kafka_variants.split(","), log=cs.log))
-    for label, stem, call in shapes(dev) if stems else ():
+    for label, stem, call in shapes(dev, stems) if stems else ():
         if stem not in stems:
             continue
         run = lambda: wrappers[stem](*call)  # noqa: E731
-        want = run()
+        want = cs._outputs(run())
         pick = [cs.graph_ms(run)]
         f, r = shape_of(stem, call)
         variant = kernels.hits_variant(stem, r, f)
@@ -300,7 +379,7 @@ def main() -> int:
             if s != stem:
                 continue
             with forced(stem, fn):
-                got = run()
+                got = cs._outputs(run())
                 if not all(torch.equal(a, b) for a, b in zip(got, want)):
                     raise AssertionError(f"{label}: variant {g}x{v} disagrees with the launcher's")
                 ms = cs.graph_ms(run)
@@ -310,6 +389,8 @@ def main() -> int:
         table.append(dict(shape=label, stem=stem, pick=variant, ms=pick, F=f, R=r))
         cs.log(f"{label:22s} {stem} the launcher's {variant}: {pick[0]:.5f} / {pick[1]:.5f} ms "
                f"(F={f}, R={r}) [{card}]")
+    if "cassandra_hits" in stems:
+        table += acl_sweep(dev, card, fns)
     print(json.dumps({"hits_variants": table}))
     print(card)
     return 0

@@ -54,9 +54,10 @@ which fails the run on any mismatch:
    of three; per call, the better of two each);
 7. the third slice, counted in a run of its own (every count set to 0
    just before it, read just after): ``dns_verdicts(_attr)`` on bench_dns's
-   policy and bench_stress's DNS policy 0, ``cassandra_verdicts`` and
-   ``memcache_verdicts`` on bench_cassandra's and bench_memcached's (all
-   F = 65,536), then ``DnsBatchEngine``, ``CassandraBatchEngine``,
+   policy and bench_stress's DNS policy 0, ``cassandra_verdicts`` on
+   bench_cassandra's and on bench_stress's Cassandra policy and mix
+   (cassandra-stress: 40 regex rows), ``memcache_verdicts`` on
+   bench_memcached's (all F = 65,536), then ``DnsBatchEngine``, ``CassandraBatchEngine``,
    ``MemcacheBatchEngine`` and ``HttpSidecarEngine`` on 2,000-3,000 flows;
    K8-K11 launch once per call and K2/K3 once per call on the name, table
    and key spans; then phases 3-6 for these paths, the engines held
@@ -65,7 +66,10 @@ which fails the run on any mismatch:
    dns-names-256 (256 exact names of 8 to 64 bytes, bench_stress's frame
    mix over them, F = 65,536; held against the host oracle), timed; K8 at
    dns-names-256, the DNS engine's largest call and the sidecar's DNS
-   bucket (1,024 x 256), held to its plain version and timed;
+   bucket (1,024 x 256), held to its plain version and timed; K10 and
+   K11 at the Cassandra and memcache engines' largest calls and the
+   sidecar's, held to their plain versions and timed (every K10 / K11
+   reading beside the parent's in turns, given --baseline-csrc);
 8. the fourth slice, the L3/L4 datapath, counted in a run of its own (all
    F = 65,536): ``datapath_verdicts`` on bench_datapath's maps and mix
    (K14 ``datapath4``), ``datapath_verdicts6`` at the same table scale
@@ -670,6 +674,53 @@ def dns_names_case():
     return _l7_policy("dns-names-256", 53, "dns", [([], rules)]), frames
 
 
+CASS_STRESS_RULES = 40  # bench.py:840 STRESS_CASS_RULES
+
+
+def cassandra_stress_rules():
+    """bench.py:1006-1036 bench_stress's Cassandra rules: 40 rows, select
+    (even j) or insert (odd j) on the tables ``^ks\\.(tNN|tmpNN)[0-9]*$``."""
+    return [{"query_action": "select" if j % 2 == 0 else "insert",
+             "query_table": f"^ks\\.(t{j:02d}|tmp{j:02d})[0-9]*$"} for j in range(CASS_STRESS_RULES)]
+
+
+def cassandra_stress_case():
+    """cassandra-stress: bench_stress's Cassandra policy and its request
+    mix (bench.py:1145-1170, drawn from random.Random(61)): 45% rule hits
+    (the t or tmp table of a rule, a digit tail 60% of the time), 20%
+    action misses (update on a covered table), 20% unknown tables, 15%
+    keyspace misses; 1,024 (action, table, non_query) requests."""
+    rng = random.Random(61)
+    reqs = []
+    for _ in range(1024):
+        roll = rng.random()
+        j = rng.randrange(CASS_STRESS_RULES)
+        action = "select" if j % 2 == 0 else "insert"
+        if roll < 0.45:
+            base = "t" if rng.random() < 0.7 else "tmp"
+            tail = str(rng.randrange(100)) if rng.random() < 0.6 else ""
+            reqs.append((action, f"ks.{base}{j:02d}{tail}", False))
+        elif roll < 0.65:
+            reqs.append(("update", f"ks.t{j:02d}", False))
+        elif roll < 0.85:
+            reqs.append((action, f"ks.x{j:02d}", False))
+        else:
+            reqs.append((action, f"other.t{j:02d}", False))
+    policy = _l7_policy("cassandra-stress", 9042, "cassandra", [([], cassandra_stress_rules())])
+    return policy, reqs
+
+
+def cassandra_rows(reqs, f):
+    """``encode_cassandra_batch`` of ``reqs`` cycled to f rows, and remotes
+    of 1: (data, action_len, table_len, non_query, remotes) numpy arrays."""
+    from cilium_tpu_torch.models.cassandra import encode_cassandra_batch
+
+    data, alen, tlen, nq, overflow = encode_cassandra_batch([reqs[i % len(reqs)] for i in range(f)])
+    if overflow.any():
+        raise AssertionError("a request overflows the batch widths")
+    return data, alen, tlen, nq, np.ones((f,), np.int32)
+
+
 def dns_oracle(policy, frames, remotes):
     """(allow, rule) per frame from the host oracle on the parsed question
     (``parse_dns_query`` -> ``PolicyInstance.matches_at``)."""
@@ -930,7 +981,6 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
         build_cassandra_model,
         cassandra_hits,
         cassandra_hits_plain,
-        cassandra_rule_hits_plain,
         cassandra_verdicts,
     )
     from cilium_tpu_torch.models.dns import (
@@ -944,12 +994,9 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
     )
     from cilium_tpu_torch.models.http import build_http_model_for_port
     from cilium_tpu_torch.models.memcached import (
-        KEY_MODE_EXACT,
-        KEY_MODE_PREFIX,
         build_memcache_model,
         memcache_hits,
         memcache_hits_plain,
-        memcache_rule_hits_plain,
         memcache_verdicts,
     )
     from cilium_tpu_torch.proxylib.parsers.memcached import MemcacheMeta
@@ -966,6 +1013,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
 
     # the four shapes at F = 65,536 (entry.py's copies of bench.py's setups)
     stress_policy, stress_frames = dns_stress_case()
+    cass_stress_policy, cass_stress_reqs = cassandra_stress_case()
     cases = {
         "dns": dict(kind="dns", port=53, policy=dns_bench_policy(), items=dns_queries(),
                     host=dns_batch(F)),
@@ -973,6 +1021,8 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
                            host=tile_rows(stress_frames, [1] * len(stress_frames), F, 64)),
         "cassandra": dict(kind="cassandra", port=9042, policy=cassandra_bench_policy(),
                           items=cassandra_requests(), host=cassandra_batch(F)),
+        "cassandra-stress": dict(kind="cassandra", port=9042, policy=cass_stress_policy,
+                                 items=cass_stress_reqs, host=cassandra_rows(cass_stress_reqs, F)),
         "memcached": dict(kind="memcached", port=11211, policy=memcache_bench_policy(),
                           items=memcache_frames(), host=memcache_batch(F)),
     }
@@ -1191,8 +1241,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
             put(kname, f"{name}:table", [rx], [plain(tab, *span)])
             allow = cassandra_hits(model, data, alen, tlen, nq, rx, rem)
             put("cassandra_hits", name, [allow], [cassandra_hits_plain(model, data, alen, tlen, nq, rx, rem)])
-            inputs[name] = dict(span=span, rx=rx,
-                                hits=cassandra_rule_hits_plain(model, data, alen, tlen, nq, rx, rem))
+            inputs[name] = dict(span=span, rx=rx)
         else:
             kd, klen, hk, ib, op, cid, rem = args
             span = (kd, torch.zeros_like(klen), klen)
@@ -1201,8 +1250,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
             allow = memcache_hits(model, kd, klen, hk, ib, op, cid, rx, rem)
             put("memcache_hits", name, [allow],
                 [memcache_hits_plain(model, kd, klen, hk, ib, op, cid, rx, rem)])
-            inputs[name] = dict(span=span, rx=rx,
-                                hits=memcache_rule_hits_plain(model, kd, klen, hk, ib, op, cid, rx, rem))
+            inputs[name] = dict(span=span, rx=rx)
     log("max |kernel - plain|:", json.dumps(report))
     for kname, per in report.items():
         for label, err in per.items():
@@ -1212,13 +1260,6 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
     # times
     log("== DNS, Cassandra, memcached times on", card)
     timed = {}
-
-    def walked_rows(hits, r):
-        """Rule rows a first-match walk visits: up to the first hit, all R
-        where none."""
-        any_ = hits.any(dim=1)
-        first = torch.argmax(hits.to(torch.int32), dim=1)
-        return int(torch.where(any_, first + 1, torch.full_like(first, r)).sum())
 
     for name, c in cases.items():
         model, args, inp = c["model"], c["dev"], inputs[name]
@@ -1236,32 +1277,11 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
             on_card = lambda: dns_verdicts(model, data, lengths, rem)
         elif c["kind"] == "cassandra":
             data, alen, tlen, nq, rem = args
-            cmp = ((alen[:, None] == model.action_len[None, :]) & ~model.action_any[None, :]).any(dim=1)
-            need = int(torch.where(cmp, alen.clamp(0, MAX_ACTION), torch.zeros_like(alen)).sum())
-            walked = walked_rows(inp["hits"], r)
-            k10 = lambda: cassandra_hits(model, data, alen, tlen, nq, inp["rx"], rem)
-            rows["cassandra_hits"] = dict(
-                ms=graph_ms(k10), call_ms=cuda_ms(k10, 50),
-                plain_ms=cuda_ms(lambda: cassandra_hits_plain(model, data, alen, tlen, nq, inp["rx"], rem), 10),
-                bytes=need + f * r + 13 * f + f + r * (MAX_ACTION + 4 + 1 + 1 + 128 + 1),
-                ops=walked + need,
-            )
+            rows["cassandra_hits"] = k10_row(model, data, alen, tlen, nq, inp["rx"], rem)
             on_card = lambda: (cassandra_verdicts(model, data, alen, tlen, nq, rem),)
         else:
             kd, klen, hk, ib, op, cid, rem = args
-            modes = model.key_mode
-            lens = model.key_needle_len[(modes == KEY_MODE_EXACT) | (modes == KEY_MODE_PREFIX)]
-            most = int(lens.max()) if lens.numel() else 0
-            need = int(torch.where(hk, klen.clamp(0, most), torch.zeros_like(klen)).sum())
-            walked = walked_rows(inp["hits"], r)
-            nc = model.cmd_tab.shape[1]
-            k11 = lambda: memcache_hits(model, kd, klen, hk, ib, op, cid, inp["rx"], rem)
-            rows["memcache_hits"] = dict(
-                ms=graph_ms(k11), call_ms=cuda_ms(k11, 50),
-                plain_ms=cuda_ms(lambda: memcache_hits_plain(model, kd, klen, hk, ib, op, cid, inp["rx"], rem), 10),
-                bytes=need + f * r + 18 * f + f + r * (256 + nc + 1 + 4 + 96 + 4 + 128 + 1),
-                ops=walked + need,
-            )
+            rows["memcache_hits"] = k11_row(model, kd, klen, hk, ib, op, cid, inp["rx"], rem)
             on_card = lambda: (memcache_verdicts(model, kd, klen, hk, ib, op, cid, rem),)
         row = scan_row(scans[kname], tab, data_s, s_, e_, span_bytes(s_, e_, width))
         row["span"] = span_of[c["kind"]]
@@ -1272,7 +1292,7 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
             bound(row)
             log_row(name, kn, row)
         log_pass(name, c["kind"] + "_verdicts", timed[name], card,
-                 parent_turns(DNS_PASS, on_card, {}) if c["kind"] == "dns" else None)
+                 parent_turns(PASS_KERNELS[c["kind"]], on_card, {}))
 
     for name, (proto, port, policy, make, feeds) in engines.items():
         out = eng_card[name][0]
@@ -1288,6 +1308,16 @@ def l7_slice(dev, card, kerns, scans, scan_kernel, tile_rows):
     timed["dns-engine"] = dict(rows={"dns_hits": k9_row(e_model, e_name, e_rx, e_rem)})
     log(f"dns-engine: K9 at F={e_name.dotted.shape[0]} L={e_name.dotted.shape[1]} R={e_model.n_rules}")
     log_row("dns-engine", "dns_hits", timed["dns-engine"]["rows"]["dns_hits"])
+
+    # K10 and K11 at the Cassandra and memcache engines' largest calls and
+    # the sidecar's (readings, beside the parent's in turns given
+    # --baseline-csrc).
+    for label, stem, call in acl_engine_shapes(dev):
+        row = (k10_row if stem == "cassandra_hits" else k11_row)(*call)
+        report[stem][label] = row["max_abs_err"]
+        timed.setdefault(label, dict(rows={}))["rows"][stem] = row
+        log(f"{label}: {stem} at F={call[1].shape[0]} R={call[0].n_rules}")
+        log_row(label, stem, row)
 
     # dns-names-256 (a reading, in no counted run): 256 exact names of 8 to
     # 64 bytes and no automaton; the card against the host oracle, K9
@@ -3021,6 +3051,8 @@ BASELINE: dict = {}
 R2D2_PASS = ("r2d2_frame", "dfa_scan", "nfa_scan", "r2d2_hits")
 HTTP_PASS = ("http_frame", "http_lit", "dfa_scan", "nfa_scan", "http_hits")
 DNS_PASS = ("dns_name", "dfa_scan", "nfa_scan", "dns_hits")
+PASS_KERNELS = {"dns": DNS_PASS, "cassandra": ("dfa_scan", "nfa_scan", "cassandra_hits"),
+                "memcached": ("dfa_scan", "nfa_scan", "memcache_hits")}
 
 
 def seqdfa_adv_batch(f, width):
@@ -5474,6 +5506,144 @@ def k17_row(model, b, rem, parts=False):
                bytes=nbytes + (f + f * t_n if parts else 0), ops=ops,
                variant=kernels.kafka_variant(model.n_rules, f, t_n))
     return parent_turns("kafka_hits", run, bound(row))
+
+
+def walked_rows(hits, r):
+    """Rule rows a first-match walk visits over [F, R] row hits: up to the
+    first hit, all R where none."""
+    any_ = hits.any(dim=1)
+    first = torch.argmax(hits.to(torch.int32), dim=1)
+    return int(torch.where(any_, first + 1, torch.full_like(first, r)).sum())
+
+
+def k10_row(model, data, alen, tlen, nq, rx, rem):
+    """K10 on F requests and R rule rows: bytes, the action bytes of the
+    requests some row names the length of, the [F, R] automaton hits where
+    given, five [F] inputs, the tables and the [F] output; ops, one test a
+    (request, row) the first-match walk visits and those action bytes (as
+    K4 and K9 count them); held to its plain version (its max_abs_err),
+    then timed beside the parent's in turns (given --baseline-csrc), with
+    the launcher's variant."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.cassandra import (
+        MAX_ACTION,
+        cassandra_hits,
+        cassandra_hits_plain,
+        cassandra_rule_hits_plain,
+    )
+
+    f, r = data.shape[0], model.n_rules
+    args = (model, data, alen, tlen, nq, rx, rem)
+    err = max_abs_err([cassandra_hits(*args)], [cassandra_hits_plain(*args)])
+    if err:
+        raise AssertionError(f"cassandra_hits disagrees with its plain version at F={f} R={r}")
+    cmp = ((alen[:, None] == model.action_len[None, :]) & ~model.action_any[None, :]).any(dim=1)
+    need = int(torch.where(cmp, alen.clamp(0, MAX_ACTION), torch.zeros_like(alen)).sum())
+    run = lambda: cassandra_hits(*args)  # noqa: E731
+    row = dict(
+        ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: cassandra_hits_plain(*args), 10),
+        bytes=need + (f * r if rx is not None else 0) + 13 * f + f
+        + r * (MAX_ACTION + 4 + 1 + 1 + 128 + 1),
+        ops=walked_rows(cassandra_rule_hits_plain(*args), r) + need,
+        variant=kernels.hits_variant("cassandra_hits", r, f), max_abs_err=err,
+    )
+    return parent_turns("cassandra_hits", run, bound(row))
+
+
+def k11_row(model, kd, klen, hk, ib, op, cid, rx, rem):
+    """K11 on F frames and R rule rows: bytes, each keyed frame's key up to
+    the longest exact or prefix needle, the [F, R] automaton hits where
+    given, seven [F] inputs, the tables and the [F] output; ops, one test a
+    (frame, row) the first-match walk visits and those key bytes (as K4
+    and K9 count them); as ``k10_row``."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.models.memcached import (
+        KEY_MODE_EXACT,
+        KEY_MODE_PREFIX,
+        memcache_hits,
+        memcache_hits_plain,
+        memcache_rule_hits_plain,
+    )
+
+    f, r = kd.shape[0], model.n_rules
+    args = (model, kd, klen, hk, ib, op, cid, rx, rem)
+    err = max_abs_err([memcache_hits(*args)], [memcache_hits_plain(*args)])
+    if err:
+        raise AssertionError(f"memcache_hits disagrees with its plain version at F={f} R={r}")
+    modes = model.key_mode
+    lens = model.key_needle_len[(modes == KEY_MODE_EXACT) | (modes == KEY_MODE_PREFIX)]
+    most = int(lens.max()) if lens.numel() else 0
+    need = int(torch.where(hk, klen.clamp(0, most), torch.zeros_like(klen)).sum())
+    nc = model.cmd_tab.shape[1]
+    run = lambda: memcache_hits(*args)  # noqa: E731
+    row = dict(
+        ms=graph_ms(run), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: memcache_hits_plain(*args), 10),
+        bytes=need + (f * r if rx is not None else 0) + 18 * f + f
+        + r * (256 + nc + 1 + 4 + 96 + 4 + 128 + 1),
+        ops=walked_rows(memcache_rule_hits_plain(*args), r) + need,
+        variant=kernels.hits_variant("memcache_hits", r, f), max_abs_err=err,
+    )
+    return parent_turns("memcache_hits", run, bound(row))
+
+
+def acl_main_shapes(dev):
+    """K10 and K11 as phase 6 calls them at F = 65,536: cassandra,
+    cassandra-stress and memcached, each the wrapper's inputs recorded in
+    the verdict pass.  [(label, stem, args)] on the card."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.models import cassandra as cass_mod
+    from cilium_tpu_torch.models import memcached as mc_mod
+
+    def on_card(host):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host]
+
+    stress_policy, stress_reqs = cassandra_stress_case()
+    out = []
+    for label, policy, host in (("cassandra", entry.cassandra_bench_policy(), entry.cassandra_batch(F)),
+                                ("cassandra-stress", stress_policy, cassandra_rows(stress_reqs, F))):
+        model = cass_mod.build_cassandra_model(policy, True, 9042)
+        inp = on_card(host)
+        out.append((label, "cassandra_hits", recorded_calls(
+            cass_mod, "cassandra_hits", lambda: cass_mod.cassandra_verdicts(model, *inp))[0]))
+    model = mc_mod.build_memcache_model(entry.memcache_bench_policy(), True, 11211)
+    inp = on_card(entry.memcache_batch(F))
+    out.append(("memcached", "memcache_hits", recorded_calls(
+        mc_mod, "memcache_hits", lambda: mc_mod.memcache_verdicts(model, *inp))[0]))
+    return out
+
+
+def acl_engine_shapes(dev):
+    """K10 and K11 at the Cassandra and memcache engines' largest calls
+    (phase 6's engine traffic) and at the sidecar's (its 256 Cassandra or
+    memcached conns' traffic, phase 9's, through the same engine), each
+    the wrapper's inputs recorded where the engine calls it.  [(label,
+    stem, args)] on the card."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.models import cassandra as cass_mod
+    from cilium_tpu_torch.models import memcached as mc_mod
+    from cilium_tpu_torch.runtime.l7engine import CassandraBatchEngine, MemcacheBatchEngine
+
+    cpol, mpol = entry.cassandra_bench_policy(), entry.memcache_bench_policy()
+    cmodel = cass_mod.build_cassandra_model(cpol, True, 9042)
+    mmodel = mc_mod.build_memcache_model(mpol, True, 11211)
+    out = []
+    for label, mod, stem, make, feeds in (
+        ("cassandra-engine", cass_mod, "cassandra_hits",
+         lambda: CassandraBatchEngine(cpol, True, 9042, cmodel), cassandra_engine_feeds(random.Random(37), 2000)),
+        ("memcache-engine", mc_mod, "memcache_hits",
+         lambda: MemcacheBatchEngine(mpol, True, 11211, mmodel), memcache_engine_feeds(random.Random(41), 2000)),
+        (f"sidecar-cassandra-{SIDE_CONNS['cassandra']}", cass_mod, "cassandra_hits",
+         lambda: CassandraBatchEngine(cpol, True, 9042, cmodel),
+         cassandra_engine_feeds(random.Random(47), SIDE_CONNS["cassandra"])),
+        (f"sidecar-memcache-{SIDE_CONNS['memcache']}", mc_mod, "memcache_hits",
+         lambda: MemcacheBatchEngine(mpol, True, 11211, mmodel),
+         memcache_engine_feeds(random.Random(53), SIDE_CONNS["memcache"])),
+    ):
+        calls = recorded_calls(mod, stem, lambda: run_l7_engine(make, feeds))
+        out.append((label, stem, max(calls, key=lambda c: c[1].shape[0])))
+    return out
 
 
 def dns_name_shapes(dev):

@@ -212,8 +212,11 @@ def frame_variant(stem: str, data: torch.Tensor) -> tuple[int, int, bool]:
 
 def hits_variant(stem: str, r: int, f: int) -> tuple[int, int]:
     """(lanes a flow, rows a lane a step) that the rule-walk launcher of
-    ``csrc/<stem>.cu`` (K4 ``r2d2_hits``, K9 ``dns_hits``;
-    ``csrc/rule_walk.cuh``) takes for ``r`` rule rows and ``f`` flows."""
+    ``csrc/<stem>.cu`` (K4 ``r2d2_hits``, K9 ``dns_hits``, K10
+    ``cassandra_hits``, K11 ``memcache_hits``; ``csrc/rule_walk.cuh``)
+    takes for ``r`` rule rows and ``f`` flows; (0, 0) is K10's and K11's
+    direct walk, a thread a request with no staging
+    (``csrc/acl_walk.cuh``)."""
     fn = library(stem).hits_variant
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int

@@ -8,6 +8,7 @@ This file imports no JAX, so it runs where only the port is installed.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -97,6 +98,7 @@ import kafka_cases as kc
 from frame_cases import CARD_WIDTHS as FRAME_CARD_WIDTHS
 from frame_cases import frame_batch, long_head_batch, on_card_at
 import hits_cases as hc
+import l7_hits_cases as lc
 
 pytestmark = pytest.mark.cuda
 
@@ -2139,3 +2141,169 @@ def test_kafka_variants_built_cover_every_pick(cuda, kafka_forced):
     assert sorted(KAFKA_VARIANTS) == sorted(hv.KAFKA_VARIANTS)
     every = {kernels.kafka_variant(r, f, 8) for r in range(1, 201) for f in (1, 37, 2048, 4099, 65536)}
     assert every <= {g for g, _ in fns}
+
+
+# --- K10 and K11 in every launch variant ------------------------------------------
+
+ACL_STEMS = ("cassandra_hits", "memcache_hits")
+# The direct walk's last row count as the launchers take it (K10 9; K11
+# has the direct walk alone; past 8 rows it takes the rest a row at a time).
+ACL_DIRECT_ROWS = {"cassandra_hits": 9, "memcache_hits": None}
+# R of l7_hits_cases, the direct walk's rows loaded at once (8) and K10's
+# last row count and first lane walk, 17 (32 lanes at small F), rows past
+# the staged remote ids, and 4,100 rows: staged in two tiles.
+ACL_CARD_R = lc.R_SIZES + (8, 9, 10, 17, 33, 300, 4100)
+# 16-byte loads, and every table and batch a view 5 elements into its
+# storage (byte loads)
+ACL_OFFSETS = (0, 5)
+# with these at 2,048, 16,384 and 65,536 requests (the main path's size and
+# the engines') the tests reach every pick (test_acl_shapes_take_every_variant)
+ACL_BIG_R = (2, 3, 9, 10, 20, 33, 40, 70, 129, 300, 600)
+ACL_BIG_F = (2048, 16384, 65536)
+
+
+@functools.lru_cache(maxsize=None)
+def _acl_host(stem, r, f, seed=0):
+    """(tables, batch, rx) of l7_hits_cases in numpy; past 4,099 requests
+    the 4,099-request batch cycled."""
+    nc = len(TEXT_COMMANDS)
+    if stem == "cassandra_hits":
+        t = lc.cass_tables(r, seed)
+        make = lambda n: lc.cass_batch(t, n, seed)  # noqa: E731
+    else:
+        t = lc.mc_tables(r, nc, seed)
+        make = lambda n: lc.mc_batch(t, n, nc, seed)  # noqa: E731
+    b = make(min(f, 4099))
+    rx = lc.rx_hits(t, min(f, 4099))
+    if f > 4099:
+        b = {k: np.resize(v, (f, *v.shape[1:])) for k, v in b.items()}
+        rx = None if rx is None else np.resize(rx, (f, r))
+    return t, b, rx
+
+
+def _acl_case(dev, stem, r, f, offset=0, seed=0):
+    """(kernel, wrapper, plain version, model, the wrapper's arguments) on
+    the card, every tensor ``offset`` elements into its storage."""
+    t, b, rx = _acl_host(stem, r, f, seed)
+    if stem == "cassandra_hits":
+        model = lc.cass_model(t, dev, offset)
+        keys = ("data", "action_len", "table_len", "non_query")
+        kern, fn, plain = cass_mod._CASSANDRA_HITS, cassandra_hits, cassandra_hits_plain
+    else:
+        model = lc.mc_model(t, dev, offset)
+        keys = ("key_data", "key_len", "has_key", "is_binary", "opcode", "cmd_id")
+        kern, fn, plain = mc_mod._MEMCACHE_HITS, memcache_hits, memcache_hits_plain
+    args = [lc.at(dev, b[k], offset) for k in keys]
+    args += [None if rx is None else lc.at(dev, rx, offset), lc.at(dev, b["remotes"], offset)]
+    return kern, fn, plain, model, args
+
+
+@pytest.mark.parametrize("offset", ACL_OFFSETS)
+@pytest.mark.parametrize("r", ACL_CARD_R)
+@pytest.mark.parametrize("stem", ACL_STEMS)
+def test_acl_hits_match_plain_on_boundary_batches(cuda, stem, r, offset):
+    """The launcher's own pick on l7_hits_cases' tables and batches at F =
+    1 to 4,099 (1,031 at 4,100 rows), one launch a call."""
+    for f in lc.F_SIZES if r < 4100 else (1031,):
+        kern, fn, plain, model, args = _acl_case(cuda, stem, r, f, offset)
+        want = plain(model, *args)
+        assert torch.equal(_one_launch(kern, fn, model, *args), want)
+        if f >= 1031 and r <= 129:
+            assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("f", ACL_BIG_F)
+@pytest.mark.parametrize("r", ACL_BIG_R)
+@pytest.mark.parametrize("stem", ACL_STEMS)
+def test_acl_hits_match_plain_at_big_batches(cuda, stem, r, f):
+    """The main path's batch size and the engines', where the launcher
+    takes the fewest lanes."""
+    kern, fn, plain, model, args = _acl_case(cuda, stem, r, f)
+    assert torch.equal(_one_launch(kern, fn, model, *args), plain(model, *args))
+
+
+def test_acl_shapes_take_every_variant(cuda):
+    """The row and request counts of the two tests above reach every walk
+    the launchers take for 1 to 5,000 rows and 1 to 65,536 requests, and
+    the direct walk exactly up to each kernel's last row count (K11's
+    always)."""
+    for stem in ACL_STEMS:
+        every = {kernels.hits_variant(stem, r, f) for r in range(1, 5001)
+                 for f in (1, 37, 1031, 2048, 4099, 16384, 65536)}
+        tested = {kernels.hits_variant(stem, r, f) for r in ACL_CARD_R for f in lc.F_SIZES}
+        tested |= {kernels.hits_variant(stem, r, f) for r in ACL_BIG_R for f in ACL_BIG_F}
+        assert every <= tested, sorted(every - tested)
+        last = ACL_DIRECT_ROWS[stem]
+        if last is None:
+            assert every == {(0, 0)}
+            continue
+        assert kernels.hits_variant(stem, last, 65536) == (0, 0)
+        assert kernels.hits_variant(stem, last + 1, 65536) != (0, 0)
+
+
+@pytest.fixture(scope="module")
+def acl_forced():
+    """The direct walk of K10 and K11 and every (lanes, rows) variant of
+    K10, built beside csrc by chip_hits_variants.build_forced."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the plain versions are tested on the CPU")
+    hv = _root_module("chip_hits_variants")
+    return hv, hv.build_forced(hv.DIRECT, ("direct",) + hv.EVERY, log=lambda *a: None)
+
+
+def _root_module(name):
+    """A module of the repository's root (chip_smoke, the variants scripts)."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module(name)
+
+
+ACL_VARIANTS = ["direct"] + HITS_VARIANTS
+
+
+@pytest.mark.parametrize("variant", ACL_VARIANTS)
+def test_acl_hits_variants_match_plain(cuda, acl_forced, variant):
+    """Each walk a kernel has forced, taken by the launcher or not, on the
+    boundary tables and batches: R of l7_hits_cases, 9 and 300, F = 1,031
+    and 4,099, aligned and byte loads."""
+    hv, fns = acl_forced
+    g, v = hv.parse(variant)
+    for stem in ACL_STEMS:
+        if (stem, g, v) not in fns:  # K11 has no lane walk
+            continue
+        for r in lc.R_SIZES + (9, 300):
+            for f in (1031, 4099):
+                for offset in ACL_OFFSETS:
+                    kern, fn, plain, model, args = _acl_case(cuda, stem, r, f, offset)
+                    want = plain(model, *args)
+                    with hv.forced(stem, fns[(stem, g, v)]):
+                        assert torch.equal(_one_launch(kern, fn, model, *args), want)
+
+
+def test_acl_variants_built_cover_every_pair(acl_forced):
+    hv, fns = acl_forced
+    assert {(s, g, v) for s, g, v in fns} == {("cassandra_hits", *hv.parse(x)) for x in ("direct",) + hv.EVERY} | {
+        ("memcache_hits", 0, 0)}
+
+
+def test_cassandra_stress_model_card_matches_cpu(cuda):
+    """cassandra-stress (bench_stress's 40 regex rows and its mix): the
+    card's verdicts, one K10 launch a call, equal the CPU model's and the
+    host oracle's, and K10 takes the lane-group walk there."""
+    cs = _root_module("chip_smoke")
+    policy, reqs = cs.cassandra_stress_case()
+    host = cs.cassandra_rows(reqs, 4099)
+    card = build_cassandra_model(policy, True, 9042, device=cuda)
+    cpu = build_cassandra_model(policy, True, 9042, device="cpu")
+    assert card.n_rules == 40 and card.nfa is not None
+    got = _one_launch(cass_mod._CASSANDRA_HITS, card, *host).cpu()
+    assert torch.equal(got, cpu(*host))
+    want = [policy.matches(True, 9042, 1, f"/query/{a}/{t}") for a, t, _ in reqs]
+    assert got[: len(reqs)].tolist() == want
+    assert kernels.hits_variant("cassandra_hits", 40, cs.F) != (0, 0)
+
