@@ -81,7 +81,15 @@ which fails the run on any mismatch:
    established); the card is held against the CPU path on the whole
    batch, the host oracles on 2,000 packets a shape and each kernel's
    plain version, ``account_verdicts`` runs once on the card's output,
-   and everything is timed;
+   and everything is timed; K14 and K15 probe hashed indexes
+   (``ops/l34_index.py``): their build time and bytes are logged beside
+   the tables', K14 and K15 are also held to their plain versions on
+   tests/l34_index_cases.py's adversarial tables (timed too), K14 is
+   timed at the round trip's shapes (datapath-rt, datapath6-rt), the
+   whole round trip (creates applied, tables and indexes rebuilt, the
+   pass read back) is timed on the host clock, and given --baseline-csrc
+   every K14 / K15 reading and the round trip run in turns with the
+   parent's (the parent's snapshot building no index);
 9. the fifth slice, the sidecar verdict service, counted in a run of its
    own: a ``VerdictService`` at the reference's defaults (batch_flows
    2,048, batch_width 256, the card, eager dispatch) on a unix socket,
@@ -1559,6 +1567,32 @@ def prefilter_case(f):
     return ([str(n) for n in nets4 + nets6], sources(nets4, keep4, 32), sources(nets6, keep6, 128))
 
 
+# tests/l34_index_cases.py's adversarial snapshots: all rows, one row a
+# table, every row invalid
+ADV_SHAPES = {"adv": {}, "adv-one-row": {"n": 1}, "adv-invalid": {"invalid": True}}
+
+
+def l34_cases():
+    """tests/l34_index_cases.py: adversarial tables for K14 and K15."""
+    from pathlib import Path
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import l34_index_cases as cases
+
+    return cases
+
+
+def snapshot_ms(build):
+    """Host-clock ms of ``build()`` on the card, synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def l34_slice(dev, card, kerns):
     """The fourth slice's paths on the card at F = 65,536: the v4 egress
     pass on bench_datapath's maps and mix (K14 datapath4), the v6 pass
@@ -1572,6 +1606,7 @@ def l34_slice(dev, card, kerns):
     and each kernel against its plain version, and timed.  Returns
     (launches, runs, report, timed) for the kernels line."""
     import copy
+    import gc
 
     from cilium_tpu_torch.datapath import ingress as ing_mod
     from cilium_tpu_torch.datapath import pipeline as dp_mod
@@ -1587,6 +1622,8 @@ def l34_slice(dev, card, kerns):
     from cilium_tpu_torch.models import cassandra as cass_mod
     from cilium_tpu_torch.models import dns as dns_mod
     from cilium_tpu_torch.models import memcached as mc_mod
+    from cilium_tpu_torch import convert
+    from cilium_tpu_torch.ops import l34_index
     from cilium_tpu_torch.ops import lpm as lpm_mod
     from cilium_tpu_torch.ops import maplookup as ml_mod
 
@@ -1627,6 +1664,18 @@ def l34_slice(dev, card, kerns):
         f"{t6.ct.n} LB {t6.lb.valid.shape[0]} ipcache {t6.ipcache.n} policy {t6.policy.table.n}; node "
         f"ipcache {tn.ipcache_id.n} lxc {tn.lxc.n} CT {tn.ct.n} policy {tn.policy.table.n}; prefilter "
         f"{pf.device_lpm().n} v4 / {pf.device_lpm(v6=True).n} v6 prefixes")
+
+    for name, t, build in (("datapath", t4, lambda: dp_mod.build_tables(*maps4)),
+                           ("datapath6", t6, lambda: dp6_mod.build_tables6(*maps6)),
+                           ("node", tn, lambda: ing_mod.build_ingress_tables(*node))):
+        pack_ms = snapshot_ms(build)
+        ix_ms = snapshot_ms(t.__post_init__)  # the snapshot's index, built again
+        ixb = l34_index.nbytes(t.index)
+        lpms = [v for v in vars(t.index).values() if isinstance(v, l34_index.LpmIndex)]
+        log(f"{name}: tables built from the host maps in {pack_ms:.2f} ms (host clock), the hashed "
+            f"index {ix_ms:.2f} ms of it; index {ixb} bytes beside {l34_index.nbytes(t) - ixb} bytes of "
+            f"tables; CT {t.index.ct.buckets} buckets for {t.index.ct.m} rows; "
+            f"{', '.join(str(x.n_groups) for x in lpms)} LPM mask group(s) [{card}]")
 
     def maps_run(t, out, saddr_w, daddr_w, sport, dport, proto):
         """The map-level lookups on the pass's own intermediates: LB on
@@ -1698,6 +1747,7 @@ def l34_slice(dev, card, kerns):
     run("prefilter6", lambda: pf.filter_batch(words6, v6=True, flowlog=flowlogs["prefilter6"]))
     # the CT round trip: the host applies the creates, the tables are
     # rebuilt, and every created flow must come back established
+    rt_clock = time.monotonic()  # the timed round trips below see the CT as this one did
     created4 = dp_mod.apply_ct_creates(ct4_rt, outs["datapath"], pk4[0], pk4[2], pk4[4])
     created6 = dp6_mod.apply_ct_creates6(ct6_rt, outs["datapath6"], sw6, sp6, pr6)
     t4_rt = dp_mod.build_tables(ct4_rt, *maps4[1:])
@@ -1833,13 +1883,39 @@ def l34_slice(dev, card, kerns):
         put("lpm_lookup", f"{name}-maps", lpm_mod.lpm_lookup(t.ipcache, *nd), lpm_mod.lpm_lookup_plain(t.ipcache, *nd))
         put("policy_can_access", f"{name}-maps", pol_mod.policy_can_access_batch(*pol_in),
             pol_mod.policy_can_access_plain(*pol_in))
-        inputs[name] = dict(args=args, nd=nd, lb=lb_in, ct=ct_in, pol=pol_in)
+        inputs[name] = dict(args=args, fh=m["fh"])
+    for name, t, args in (("datapath-rt", t4_rt, ((d4[0],), (d4[1],), *d4[2:])), ("datapath6-rt", t6_rt, d6)):
+        put(f"datapath{4 if t.w == 1 else 6}", name, dp_mod.datapath_pass(t, *args),
+            dp_mod.datapath_pass_plain(t, *args))
     for name, mode, src in (("netdev", ing_mod.MODE_NETDEV, dsrc), ("overlay", ing_mod.MODE_OVERLAY, dvni)):
         put("ingress", name, ing_mod.ingress(tn, mode, *dn, src), ing_mod.ingress_plain(tn, mode, *dn, src))
     pf_words = {"prefilter": (on_dev(words4),), "prefilter6": tuple(on_dev(w) for w in words6)}
     for name, ws in pf_words.items():
         lpm = pf.device_lpm(v6=name == "prefilter6")
         put("lpm_lookup", name, lpm_mod.lpm_lookup(lpm, *ws), lpm_mod.lpm_lookup_plain(lpm, *ws))
+    # K14 and K15 on adversarial tables (tests/l34_index_cases.py)
+    ic = l34_cases()
+    rng = np.random.default_rng(61)
+    adv = {}
+    for label, kw in ADV_SHAPES.items():
+        for w, kname in ((1, "datapath4"), (4, "datapath6")):
+            leaves = ic.datapath_leaves(rng, w, **kw)
+            t = (convert.datapath_tables_from_numpy if w == 1 else convert.datapath_tables6_from_numpy)(
+                leaves, device=dev)
+            sw, dw, sp, dpt, pr = ic.datapath_packets(rng, leaves, w, F)
+            args = (tuple(on_dev(x) for x in sw), tuple(on_dev(x) for x in dw), on_dev(sp), on_dev(dpt),
+                    on_dev(pr))
+            name = f"{'datapath' if w == 1 else 'datapath6'}-{label}"
+            put(kname, name, dp_mod.datapath_pass(t, *args), dp_mod.datapath_pass_plain(t, *args))
+            adv[name] = (kname, t, args)
+        leaves = ic.ingress_leaves(rng, **kw)
+        t = convert.ingress_tables_from_numpy(leaves, device=dev)
+        p = ic.ingress_packets(rng, leaves, F)
+        cols_ = [on_dev(p[k]) for k in ("saddr", "daddr", "sport", "dport", "proto")]
+        for mode, mname, src in ((ing_mod.MODE_NETDEV, "netdev", "src_id"), (ing_mod.MODE_OVERLAY, "overlay", "vni")):
+            args = (mode, *cols_, on_dev(p[src]))
+            put("ingress", f"{mname}-{label}", ing_mod.ingress(t, *args), ing_mod.ingress_plain(t, *args))
+            adv[f"{mname}-{label}"] = ("ingress", t, args)
     log("max |kernel - plain|:", json.dumps(report))
     for kname, per in report.items():
         for label, err in per.items():
@@ -1944,59 +2020,190 @@ def l34_slice(dev, card, kerns):
         return bound(dict(ms=graph_ms(fn), call_ms=cuda_ms(fn, 30), plain_ms=cuda_ms(plain, plain_iters),
                           bytes=bytes_, ops=ops))
 
-    for name, t, w in (("datapath", t4, 1), ("datapath6", t6, 4)):
-        inp = inputs[name]
+    def hash_ops(words):
+        """Integer ops of one MurmurHash3 of a key of ``words`` words
+        (csrc/l34_index.cuh hash_key): 7 a word (two multiplies, two
+        rotates, an xor, a multiply-add) and 8 to finish."""
+        return 7 * words + 8
+
+    def index_row(fn, plain, bytes_, probes, walk_bytes=None, walk_ops=None):
+        """A K14 / K15 row held to the index design's bound: ``bytes_`` (the
+        inputs and outputs once, the tables and the indexes read once) and
+        the hashes each packet computes at least (``probes``: the key words
+        of each probe), beside the walk's bound (the parent's design: the
+        row walks of csrc/l34.cuh on this run's data, tables once)."""
+        r = row(fn, plain, bytes_, F * sum(hash_ops(k) for k in probes))
+        if walk_ops is not None:
+            wb = bound(dict(bytes=walk_bytes, ops=walk_ops))
+            r["walk_bound_ms"], r["walk_bound_by"] = wb["bound_ms"], wb["bound_by"]
+        return r
+
+    def index_bytes(ix):
+        """Bytes a pass may read of one index: every bucket's bounds, the
+        indexed rows' slots (not the zero slots past them) and, of an LPM's
+        group list, the groups and the zero row that ends them."""
+        if isinstance(ix, l34_index.LpmIndex):
+            return (ix.n_groups + 1) * ix.groups.shape[1] * 4 + index_bytes(ix.table)
+        return nbytes(ix.bounds) + ix.m * ix.width * 4
+
+    def k14_bytes(t, w):
+        """K14's inputs and outputs once, its four indexes and the LB
+        columns the probe still reads (counts, backends, rev NAT): the
+        keys and values of the other tables live in the index slots."""
+        lb = t.lb
+        return (2 * w + 3) * 4 * F + (w + 6) * 4 * F + 2 * F \
+            + sum(index_bytes(v) for v in vars(t.index).values()) \
+            + nbytes(lb.counts, lb.b_target_words, lb.b_port, lb.revnat)
+
+    def k15_bytes(t, netdev):
+        """K15's inputs and outputs once and the indexes its mode probes
+        (every value it reads lives in their slots)."""
+        used = ["lxc", "ct", "policy", "ipcache_tun"] + (["ipcache_id"] if netdev else [])
+        return 24 * F + 22 * F + sum(index_bytes(getattr(t.index, k)) for k in used)
+
+    for name, base, t, w in (("datapath", "datapath", t4, 1), ("datapath6", "datapath6", t6, 4),
+                             ("datapath-rt", "datapath", t4_rt, 1), ("datapath6-rt", "datapath6", t6_rt, 4)):
+        inp = inputs[base]
         args = inp["args"]
+        out = outs[name]
+        nd = (out["new_daddr"],) if w == 1 else out["new_daddr_words"]
+        saddr_w, daddr_w, sport, dport, proto = args
+        lb_in = (t.lb, daddr_w, dport, inp["fh"])
+        ct_in = (t.ct, *nd, *saddr_w, out["new_dport"], sport, proto)
+        pol_in = (t.policy, out["dst_identity"], out["new_dport"], proto, DIR_EGRESS)
         kname = f"datapath{4 if w == 1 else 6}"
-        lb_in, ct_in, pol_in = inp["lb"], inp["ct"], inp["pol"]
         ct_limit = first_rows(t.ct, [ct_in[1:]])
         ct_rows = int(ct_limit.sum())
         io = (2 * w + 3) * 4 * F + (w + 6) * 4 * F + 2 * F
-        map_ops = {"lb_select": lb_ops(t.lb, lb_in[1]), "lpm_lookup": lpm_ops(t.ipcache, inp["nd"]),
+        map_ops = {"lb_select": lb_ops(t.lb, lb_in[1]), "lpm_lookup": lpm_ops(t.ipcache, nd),
                    "policy_can_access": policy_ops(t.policy, pol_in[1])}
         ops = sum(map_ops.values()) + exact_ops(t.ct, ct_in[1:], ct_limit)
-        rows = {kname: row(lambda: dp_mod.datapath_pass(t, *args), lambda: dp_mod.datapath_pass_plain(t, *args),
-                           io + nbytes(t), ops)}
-        pt = pass_times(lambda: _flat(dp_mod.datapath_pass(t, *args)),
-                        (lambda: _flat(dp_mod.datapath_verdicts(t4, *in4))) if w == 1
-                        else (lambda: _flat(dp6_mod.datapath_verdicts6(t6, *in6))))
+        ixb = l34_index.nbytes(t.index)
+
+        def k14():
+            return _flat(dp_mod.datapath_pass(t, *args))
+
+        r = index_row(k14, lambda: dp_mod.datapath_pass_plain(t, *args), k14_bytes(t, w),
+                      [w + 1] * 4 + [2 * w + 3] + [4] * 3, io + nbytes(t) - ixb, ops)
+        rows = {kname: parent_turns("datapath", k14, r)}
+        host_t = {"datapath": t4, "datapath6": t6, "datapath-rt": t4_rt, "datapath6-rt": t6_rt}[name]
+        pt = pass_times(k14, (lambda: _flat(dp_mod.datapath_verdicts(host_t, *in4))) if w == 1
+                        else (lambda: _flat(dp6_mod.datapath_verdicts6(host_t, *in6))))
         timed[name] = dict(rows=rows, **pt)
+        log_row(name, kname, rows[kname])
+        log(f"{name}: CT {t.ct.n} rows, index {ixb} bytes; the parent's CT walk must compare "
+            f"{ct_rows / F:.1f} rows a packet (to its first match, all {t.ct.n} on a miss); walk bound "
+            f"{r['walk_bound_ms']:.6f} ms ({r['walk_bound_by']})")
+        log_pass(name, kname, timed[name], card, parent=rows[kname])
+        if name != base:
+            continue
         k_ct = 2 * w + 3
         mrows = {
             "lb_select": row(lambda: lb_mod.lb_select(*lb_in), lambda: lb_mod.lb_select_plain(*lb_in),
                              (w + 2) * 4 * F + F + (w + 2) * 4 * F + nbytes(t.lb), map_ops["lb_select"]),
             "exact_lookup": row(lambda: ml_mod.exact_lookup(*ct_in), lambda: ml_mod.exact_lookup_plain(*ct_in),
                                 k_ct * 4 * F + F + 4 * F + nbytes(t.ct), exact_ops(t.ct, ct_in[1:])),
-            "lpm_lookup": row(lambda: lpm_mod.lpm_lookup(t.ipcache, *inp["nd"]),
-                              lambda: lpm_mod.lpm_lookup_plain(t.ipcache, *inp["nd"]),
+            "lpm_lookup": row(lambda: lpm_mod.lpm_lookup(t.ipcache, *nd),
+                              lambda: lpm_mod.lpm_lookup_plain(t.ipcache, *nd),
                               w * 4 * F + 9 * F + nbytes(t.ipcache), map_ops["lpm_lookup"]),
             "policy_can_access": row(lambda: pol_mod.policy_can_access_batch(*pol_in),
                                      lambda: pol_mod.policy_can_access_plain(*pol_in),
                                      12 * F + 5 * F + nbytes(t.policy), map_ops["policy_can_access"]),
         }
         timed[f"{name}-maps"] = dict(rows=mrows)
-        for kn, r in {**rows, **mrows}.items():
-            log_row(name if kn.startswith("datapath") else f"{name}-maps", kn, r)
-        log(f"{name}: the CT lookup must compare {ct_rows / F:.1f} rows a packet (to its first match, "
-            f"all {t.ct.n} on a miss)")
-        log_pass(name, kname, timed[name], card)
+        for kn, mr in mrows.items():
+            log_row(f"{name}-maps", kn, mr)
+    # The whole CT round trip on the host clock: the creates applied to a
+    # fresh copy of the CT map, the tables (and their indexes) rebuilt and
+    # the pass read back; given --baseline-csrc, in turns with the parent's
+    # kernels and a snapshot that builds no index, as the parent's did.  The
+    # copies' clock stays at the counted round trip's, so every trip expires
+    # and creates the same entries; the collector runs before each trip and
+    # is off during it (its pauses spread the readings 3x otherwise).
+    trips = (("datapath-rt", maps4, t4,
+              lambda ct: dp_mod.apply_ct_creates(ct, outs["datapath"], pk4[0], pk4[2], pk4[4]),
+              lambda ct: dp_mod.datapath_verdicts(dp_mod.build_tables(ct, *maps4[1:]), *in4)),
+             ("datapath6-rt", maps6, t6, lambda ct: dp6_mod.apply_ct_creates6(ct, outs["datapath6"], sw6, sp6, pr6),
+              lambda ct: dp6_mod.datapath_verdicts6(dp6_mod.build_tables6(ct, *maps6[1:]), *in6)))
+    for name, maps, t, apply, rebuild_pass in trips:
+        def trip():
+            ct = copy.deepcopy(maps[0])
+            ct.clock = lambda: rt_clock
+            gc.collect()
+            gc.disable()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                apply(ct)
+                got = torch.stack([x.to(torch.int32) for x in _flat(rebuild_pass(ct))]).cpu()
+                return (time.perf_counter() - t0) * 1e3, got
+            finally:
+                gc.enable()
+
+        def parent_trip():
+            with parent_kernels(["datapath"]), parent_snapshot(t.index):
+                return trip()
+
+        readings, want = {"n": [], "o": []}, None
+        for who in "noonnoonno" if "datapath" in BASELINE else "nnnnn":
+            ms, got = trip() if who == "n" else parent_trip()
+            want = got if want is None else want
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: the timed round trips ({who}) disagree")
+            readings[who].append(ms)
+        timed[name]["round_trip"] = readings
+        log(f"{name:15s} CT round trip (creates applied, tables and indexes rebuilt, pass read back), host "
+            f"clock: " + ", ".join(f"{x:.2f}" for x in readings["n"]) + " ms"
+            + ("" if not readings["o"] else "; the parent's (its kernel, no index built): "
+               + ", ".join(f"{x:.2f}" for x in readings["o"]) + " ms (in turns n o o n n o o n n o; medians "
+               f"{sorted(readings['n'])[2]:.2f} / {sorted(readings['o'])[2]:.2f})") + f" [{card}]")
     for name, mode, src in (("netdev", ing_mod.MODE_NETDEV, dsrc), ("overlay", ing_mod.MODE_OVERLAY, dvni)):
         sa, da, sp, dp, pr = dn
+        netdev = mode == ing_mod.MODE_NETDEV
         ct_ops, ct_limit = ct_either_ops(tn.ct, sa, da, sp, dp, pr)
         ct_rows = int(ct_limit.sum())
-        ops = (lpm_ops(tn.ipcache_id, (sa,)) if mode == ing_mod.MODE_NETDEV else 0) \
+        ops = (lpm_ops(tn.ipcache_id, (sa,)) if netdev else 0) \
             + exact_ops(tn.lxc, (da,)) + ct_ops + policy_ops(tn.policy, outs[name]["src_identity"]) \
             + lpm_ops(tn.ipcache_tun, (da,))
-        tabs = [tn.lxc, tn.ct, tn.policy, tn.ipcache_tun] + ([tn.ipcache_id] if mode == ing_mod.MODE_NETDEV else [])
-        rows = {"ingress": row(lambda: ing_mod.ingress(tn, mode, *dn, src),
-                               lambda: ing_mod.ingress_plain(tn, mode, *dn, src),
-                               24 * F + 22 * F + nbytes(*tabs), ops)}
-        host_src = npk["src_id"] if mode == ing_mod.MODE_NETDEV else npk["vni"]
-        timed[name] = dict(rows=rows, **pass_times(lambda: _flat(ing_mod.ingress(tn, mode, *dn, src)),
-                                                   lambda: _flat(ing_mod.ingress(tn, mode, *cols, host_src))))
+        used = ["lxc", "ct", "policy", "ipcache_tun"] + (["ipcache_id"] if netdev else [])
+        tbytes = nbytes(*[getattr(tn, k) for k in used])
+        ixb = sum(l34_index.nbytes(getattr(tn.index, k)) for k in used)
+
+        def k15():
+            return _flat(ing_mod.ingress(tn, mode, *dn, src))
+
+        r = index_row(k15, lambda: ing_mod.ingress_plain(tn, mode, *dn, src), k15_bytes(tn, netdev),
+                      ([2, 2] if netdev else []) + [1, 5, 5, 2, 2, 4, 4, 4], 24 * F + 22 * F + tbytes, ops)
+        rows = {"ingress": parent_turns("ingress", k15, r)}
+        host_src = npk["src_id"] if netdev else npk["vni"]
+        timed[name] = dict(rows=rows, **pass_times(k15, lambda: _flat(ing_mod.ingress(tn, mode, *cols, host_src))))
         log_row(name, "ingress", rows["ingress"])
-        log(f"{name}: the CT lookup must compare {ct_rows / F:.1f} rows a packet (either orientation)")
-        log_pass(name, "ingress", timed[name], card)
+        log(f"{name}: index {ixb} bytes; the parent's CT walk must compare {ct_rows / F:.1f} rows a packet "
+            f"(either orientation); walk bound {r['walk_bound_ms']:.6f} ms ({r['walk_bound_by']})")
+        log_pass(name, "ingress", timed[name], card, parent=rows["ingress"])
+    for name, (kname, t, args) in adv.items():
+        if not name.endswith("-adv"):
+            continue
+        if kname == "ingress":
+            netdev = args[0] == ing_mod.MODE_NETDEV
+
+            def fn():
+                return _flat(ing_mod.ingress(t, *args))
+
+            r = index_row(fn, lambda: ing_mod.ingress_plain(t, *args), k15_bytes(t, netdev),
+                          ([2, 2] if netdev else []) + [1, 5, 5, 2, 2, 4, 4, 4])
+        else:
+            w = t.w
+
+            def fn():
+                return _flat(dp_mod.datapath_pass(t, *args))
+
+            r = index_row(fn, lambda: dp_mod.datapath_pass_plain(t, *args), k14_bytes(t, w),
+                          [w + 1] * 4 + [2 * w + 3] + [4] * 3)
+        timed[name] = dict(rows={kname: parent_turns(kname if kname == "ingress" else "datapath", fn, r)})
+        groups = [v.n_groups for v in vars(t.index).values() if isinstance(v, l34_index.LpmIndex)]
+        log_row(name, kname, r)
+        log(f"{name}: {groups} LPM mask group(s), index {l34_index.nbytes(t.index)} bytes")
     for name, ws in pf_words.items():
         v6 = name == "prefilter6"
         lpm = pf.device_lpm(v6=v6)
@@ -3146,6 +3353,29 @@ class parent_kernels:
     def __exit__(self, *exc):
         for k, fn in self.own:
             k._fn = fn
+
+
+class parent_snapshot:
+    """Inside ``with parent_snapshot(index)``, ``DatapathTables`` build no
+    index, as the parent's snapshot did, and carry ``index``'s parts in its
+    place (the parent's kernels never read them)."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def __enter__(self):
+        from cilium_tpu_torch.datapath import pipeline as dp
+
+        ix = self.index
+        self.own = dp.lb_index, dp.exact_index, dp.lpm_index
+        dp.lb_index = lambda lb: ix.lb
+        dp.exact_index = lambda table, nv: ix.ct if nv == 0 else ix.policy
+        dp.lpm_index = lambda lpm: ix.ipcache
+
+    def __exit__(self, *exc):
+        from cilium_tpu_torch.datapath import pipeline as dp
+
+        dp.lb_index, dp.exact_index, dp.lpm_index = self.own
 
 
 def _outputs(out):
@@ -5284,7 +5514,7 @@ def main() -> int:
                                 "cilium_tpu/parallel/rulesharding.py:503", "mesh-kafka-1x4"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "turns_ms",
-              "parent_ms", "turns_call_ms", "parent_call_ms", "variant")
+              "parent_ms", "turns_call_ms", "parent_call_ms", "variant", "walk_bound_ms")
     kernels_line = []
     for kname, (source, ref, shape) in replaces.items():
         row = timed[shape]["rows"][kname]
@@ -5295,7 +5525,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "turns_ms": row.get("turns_ms"), "parent_ms": row.get("parent_ms"), "shape": shape,
             "shape_launches": runs[shape][kname], "call_ms": row["call_ms"],
-            "variant": row.get("variant"),
+            "variant": row.get("variant"), "walk_bound_ms": row.get("walk_bound_ms"),
         }
         others = {}
         for other, t in timed.items():

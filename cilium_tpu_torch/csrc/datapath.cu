@@ -8,20 +8,18 @@
 // compares for the LB, CT, LPM and policy tables, each a separate
 // broadcast-and-reduce.
 //
-// Bound on the H100: operations.  Per packet the pass compares VIP word 0
-// of every LB row, the sport of every CT row up to its first match (all
-// of them on a miss), word 0 of every prefix (a mask and a compare) and
-// the identity column of every policy row (against the identity and 0),
-// and a row's other key columns only where that first one passed; the
-// bytes are 4 * (2W + 3) * F in, (W + 6) * 4 * F + 2 * F out, and the
-// tables once.  Design: one thread a packet runs the
-// four walks of l34.cuh in turn, so the post-DNAT tuple, the destination
-// identity and the policy answer never leave its registers; every table
-// row is a warp-uniform broadcast load.  Threads past F run the walks on
-// zeros (the CT walk's early exit votes across the whole warp) and store
-// nothing.  Hashing or sorting the CT and prefix tables is the lever a
-// later change can pull.
-#include "l34.cuh"
+// Bound on the H100: bytes, 4 * (2W + 3) * F in, (W + 6) * 4 * F + 2 * F
+// out, the indexes and the LB's counts, backends and rev NAT once (the
+// other tables' keys and values live in the index slots).  Design: one
+// thread a packet probes the hashed indexes of l34_index.cuh
+// (ops/l34_index.py builds them with the tables), so a lookup reads one
+// bucket, not every row, and the post-DNAT tuple, the destination
+// identity and the policy answer never leave its registers: two LB
+// probes, then the CT probe and the first pair of LPM mask groups issued
+// together, then the policy cascade's three probes.  Each step's loads
+// are issued before any of them is tested.  Threads past F store
+// nothing.  A launch without the indexes is refused.
+#include "l34_index.cuh"
 
 struct DpArgs {
   l34::LbTab lb;
@@ -37,6 +35,11 @@ struct DpArgs {
   int32_t* out;  // [W + 6, F]: verdict, new daddr words, new dport,
                  // dst identity, proxy port, rev nat, tunnel endpoint
   bool* flags;   // [2, F]: established, needs_ct_create
+  // The hashed indexes (ops/l34_index.py), after the parent's fields.
+  l34x::HashIx lb_ix;
+  l34x::HashIx ct_ix;
+  l34x::LpmIx ipc_ix;
+  l34x::HashIx pol_ix;
 };
 
 namespace {
@@ -47,29 +50,32 @@ constexpr int kDirEgress = 1;                          // maps/policymap.py
 template <int W>
 __global__ void __launch_bounds__(l34::kThreads) datapath_kernel(const DpArgs a) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = f < a.f;
+  if (f >= a.f) return;
   int32_t sw[W], dw[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    sw[w] = active ? a.saddr[w][f] : 0;
-    dw[w] = active ? a.daddr[w][f] : 0;
+    sw[w] = a.saddr[w][f];
+    dw[w] = a.daddr[w][f];
   }
-  const int32_t sport = active ? a.sport[f] : 0;
-  const int32_t dport = active ? a.dport[f] : 0;
-  const int32_t proto = active ? a.proto[f] : 0;
+  const int32_t sport = a.sport[f];
+  const int32_t dport = a.dport[f];
+  const int32_t proto = a.proto[f];
 
   // 1. service translation
   const uint32_t fh = l34::flow_hash_w<W>(sw, dw, sport, dport, proto);
   bool svc;
   int32_t be[W], be_port, rev;
-  l34::lb_walk<W>(a.lb, dw, dport, fh, svc, be, be_port, rev);
+  l34x::lb_probe<W>(a.lb, a.lb_ix, dw, dport, fh, svc, be, be_port, rev);
   int32_t nd[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) nd[w] = svc ? be[w] : dw[w];
   const int32_t ndport = svc ? be_port : dport;
 
   // 2. conntrack on the post-DNAT tuple (daddr, saddr, dport, sport, proto)
-  int32_t key[2 * W + 3];
+  // and 3. the destination identity, their probes issued together
+  constexpr int kCtK = 2 * W + 3;
+  constexpr int kCtS = l34x::slot_words(kCtK + 1);
+  int32_t key[kCtK];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     key[w] = nd[w];
@@ -78,20 +84,26 @@ __global__ void __launch_bounds__(l34::kThreads) datapath_kernel(const DpArgs a)
   key[2 * W] = ndport;
   key[2 * W + 1] = sport;
   key[2 * W + 2] = proto;
-  const bool est = l34::exact_found<2 * W + 3>(a.ct, key);
-
-  // 3. destination identity; unknown -> world
+  l34x::Probe<kCtS> ct;
+  l34x::LpmPair<W> ip;
+  l34x::start<kCtK, kCtS>(a.ct_ix, key, ct);
+  l34x::lpm_start<W>(a.ipc_ix, nd, 0, ip);
+  l34x::first(a.ct_ix, ct);
+  l34x::lpm_first<W>(a.ipc_ix, ip);
+  const bool est = l34x::found<kCtK, kCtS>(a.ct_ix, ct, key);
   bool ip_found;
   int32_t ident, plen;
-  l34::lpm_walk<W>(a.ipc, nd, ip_found, ident, plen);
+  l34x::lpm_finish<W>(a.ipc_ix, nd, ip, ip_found, ident, plen);
   const int32_t dst = ip_found ? ident : l34::kWorldId;
 
   // 4. policy cascade
+  l34x::PolicyProbe pp;
+  l34x::policy_start(a.pol_ix, dst, ndport, proto, kDirEgress, pp);
+  l34x::policy_first(a.pol_ix, pp);
   bool allowed;
   int32_t proxy;
-  l34::policy_walk(a.pol, dst, ndport, proto, kDirEgress, allowed, proxy);
+  l34x::policy_finish(a.pol_ix, pp, allowed, proxy);
 
-  if (!active) return;
   const bool pass = est || allowed;
   const int verdict = pass ? ((proxy > 0 && !est) ? kToProxy : kForward) : kDrop;
   const size_t F = static_cast<size_t>(a.f);
@@ -113,6 +125,10 @@ int launch(const DpArgs* args, void* stream) {
   const DpArgs a = *args;
   if (a.f <= 0) return cudaSuccess;
   if (a.lb.w != W || a.ipc.w != W || a.ct.k != 2 * W + 3 || a.pol.k != 4 || a.pol.v < 1)
+    return cudaErrorInvalidValue;
+  if (!l34x::usable(a.lb_ix, l34x::LbKey<W>::S) ||
+      !l34x::usable(a.ct_ix, l34x::slot_words(2 * W + 4)) || !l34x::usable<W>(a.ipc_ix) ||
+      !l34x::usable(a.pol_ix, l34x::kPolS))
     return cudaErrorInvalidValue;
   datapath_kernel<W><<<l34::blocks_for(a.f), l34::kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(a);

@@ -8,16 +8,16 @@
 // reference ran two LPMs, three exact lookups (the endpoint table and
 // both CT orientations) and the policy cascade as dense [F, N] compares.
 //
-// Bound on the H100: operations.  Per packet: the identity LPM over every
-// prefix (netdev only), the address of every endpoint row, the sport of
-// every CT row up to the first match of either orientation (against both
-// ports), the identity column of every policy row and the tunnel LPM
-// over every prefix, each reading a row's other columns only where its
-// first passed; the bytes are 24 * F in, 22 * F out and the tables once.  Design: as K14,
-// one thread a packet runs the walks of l34.cuh in turn with every row a
-// warp-uniform broadcast load; the two CT orientations share one read of
-// each row.  Tunnel endpoints at or above 2^31 ride as int32 bit patterns.
-#include "l34.cuh"
+// Bound on the H100: bytes, 24 * F in, 22 * F out, and the indexes once
+// (every value read lives in their slots).  Design: as K14, one thread a packet probes the
+// hashed indexes of l34_index.cuh: the identity LPM's first pair of mask
+// groups (netdev only), the endpoint, the CT in both orientations and the
+// tunnel LPM's first pair are issued together before any is tested, then
+// the policy cascade's three probes on the source identity.  The mode is
+// a template argument, so neither body branches on it.  Threads past F
+// store nothing.  Tunnel endpoints at or above 2^31 ride as int32 bit
+// patterns.  A launch without the indexes is refused.
+#include "l34_index.cuh"
 
 struct IngArgs {
   l34::LpmTab ipc_id;
@@ -35,6 +35,12 @@ struct IngArgs {
   int32_t f;
   int32_t* out;  // [5, F]: verdict, src identity, lxc id, tunnel endpoint, proxy port
   bool* flags;   // [2, F]: established, needs_ct_create
+  // The hashed indexes (ops/l34_index.py), after the parent's fields.
+  l34x::LpmIx id_ix;
+  l34x::LpmIx tun_ix;
+  l34x::HashIx lxc_ix;
+  l34x::HashIx ct_ix;
+  l34x::HashIx pol_ix;
 };
 
 namespace {
@@ -44,79 +50,73 @@ constexpr int kHostId = 1, kReservedMax = 255;  // datapath/ingress.py
 constexpr int kDirIngress = 0;                  // maps/policymap.py
 constexpr int kHostFlag = 1;                    // maps/lxcmap.py ENDPOINT_F_HOST
 
-// The CT table (daddr, saddr, dport, sport, proto) in both orientations:
-// the forward key, and the reply to an entry the egress pass created.
-// Reads only `found`, so a warp leaves once all its lanes have found.
-__device__ __forceinline__ bool ct_either(const l34::ExactTab& t, int32_t sa,
-                                          int32_t da, int32_t sp, int32_t dp,
-                                          int32_t pr) {
-  const int n = t.n;
-  bool found = false;
-  const int32_t* col3 = t.keys + 3 * n;  // sport: one of the two ports
-  for (int base = 0; base < n; base += 32) {
-    if (__all_sync(l34::kFull, found)) break;
-    const int end = min(base + 32, n);
-    for (int r0 = base; r0 < end; r0 += l34::kUnroll) {
-      int32_t c3[l34::kUnroll];
-#pragma unroll
-      for (int u = 0; u < l34::kUnroll; ++u) c3[u] = r0 + u < end ? l34::ld(col3 + r0 + u) : sp;
-#pragma unroll
-      for (int u = 0; u < l34::kUnroll; ++u) {
-        const int r = r0 + u;
-        if ((c3[u] != sp && c3[u] != dp) || r >= end) continue;
-        if (!l34::ldb(t.valid + r) || l34::ld(t.keys + 4 * n + r) != pr) continue;
-        const int32_t c0 = l34::ld(t.keys + r);
-        const int32_t c1 = l34::ld(t.keys + n + r);
-        const int32_t c2 = l34::ld(t.keys + 2 * n + r);
-        found |= (c0 == da && c1 == sa && c2 == dp && c3[u] == sp) ||
-                 (c0 == sa && c1 == da && c2 == sp && c3[u] == dp);
-      }
-    }
-  }
-  return found;
-}
+constexpr int kCtS = l34x::slot_words(5 + 1);   // the CT key, row id
+constexpr int kLxcS = l34x::slot_words(1 + 3);  // addr, (lxc id, flags), row id
 
+template <int kMode>
 __global__ void __launch_bounds__(l34::kThreads) ingress_kernel(const IngArgs a) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = f < a.f;
-  const int32_t saddr = active ? a.saddr[f] : 0;
-  const int32_t daddr = active ? a.daddr[f] : 0;
-  const int32_t sport = active ? a.sport[f] : 0;
-  const int32_t dport = active ? a.dport[f] : 0;
-  const int32_t proto = active ? a.proto[f] : 0;
-  const int32_t src = active ? a.src[f] : 0;
+  if (f >= a.f) return;
+  const int32_t saddr = a.saddr[f];
+  const int32_t daddr = a.daddr[f];
+  const int32_t sport = a.sport[f];
+  const int32_t dport = a.dport[f];
+  const int32_t proto = a.proto[f];
+  const int32_t src = a.src[f];
+
+  // The probes that need no other answer, issued together: the identity
+  // LPM on saddr (netdev), the endpoint on daddr, the CT forward key and
+  // the reply to an entry the egress pass created, the tunnel LPM on daddr.
+  const int32_t sa[1] = {saddr};
+  const int32_t da[1] = {daddr};
+  const int32_t kf[5] = {daddr, saddr, dport, sport, proto};
+  const int32_t kr[5] = {saddr, daddr, sport, dport, proto};
+  l34x::LpmPair<1> idp, tunp;
+  l34x::Probe<kLxcS> lx;
+  l34x::Probe<kCtS> cf, cr;
+  if (kMode == 0) l34x::lpm_start<1>(a.id_ix, sa, 0, idp);
+  l34x::start<1, kLxcS>(a.lxc_ix, da, lx);
+  l34x::start<5, kCtS>(a.ct_ix, kf, cf);
+  l34x::start<5, kCtS>(a.ct_ix, kr, cr);
+  l34x::lpm_start<1>(a.tun_ix, da, 0, tunp);
+  if (kMode == 0) l34x::lpm_first<1>(a.id_ix, idp);
+  l34x::first(a.lxc_ix, lx);
+  l34x::first(a.ct_ix, cf);
+  l34x::first(a.ct_ix, cr);
+  l34x::lpm_first<1>(a.tun_ix, tunp);
 
   int32_t src_id = src;
-  if (a.mode == 0) {  // netdev: refine a reserved identity from the ipcache
+  if (kMode == 0) {  // netdev: refine a reserved identity from the ipcache
     const bool reserved = src >= 0 && src <= kReservedMax;
-    const int32_t sa[1] = {saddr};
     bool found;
     int32_t sec, plen;
-    l34::lpm_walk<1>(a.ipc_id, sa, found, sec, plen);
+    l34x::lpm_finish<1>(a.id_ix, sa, idp, found, sec, plen);
     if (reserved && found && sec != 0 && sec != kHostId) {
       src_id = sec;
     } else if (reserved && src == 0) {
       src_id = l34::kWorldId;
     }
   }
+  l34x::PolicyProbe pp;
+  l34x::policy_start(a.pol_ix, src_id, dport, proto, kDirIngress, pp);
 
   // Local endpoint demux: the lxc table keyed by address, values summed.
-  const int32_t dq[1] = {daddr};
   int32_t lxc[2] = {0, 0};  // endpoint id, flags
-  const bool is_local = l34::exact_sum<1>(a.lxc, dq, 2, lxc);
+  const bool is_local = l34x::sum<1, kLxcS, 2>(a.lxc_ix, lx, da, lxc);
   const int32_t lxc_id = lxc[0], lxc_flags = lxc[1];
   const bool is_host = is_local && (lxc_flags & kHostFlag) != 0;
+  const bool est_f = l34x::found<5, kCtS>(a.ct_ix, cf, kf);
+  const bool est_r = l34x::found<5, kCtS>(a.ct_ix, cr, kr);
+  const bool est = est_f || est_r;
+  bool tun_found;
+  int32_t tunnel, tplen;
+  l34x::lpm_finish<1>(a.tun_ix, da, tunp, tun_found, tunnel, tplen);
 
-  const bool est = ct_either(a.ct, saddr, daddr, sport, dport, proto);
+  l34x::policy_first(a.pol_ix, pp);
   bool allowed;
   int32_t proxy;
-  l34::policy_walk(a.pol, src_id, dport, proto, kDirIngress, allowed, proxy);
-  const int32_t da[1] = {daddr};
-  bool tun_found;
-  int32_t tunnel, plen;
-  l34::lpm_walk<1>(a.ipc_tun, da, tun_found, tunnel, plen);
+  l34x::policy_finish(a.pol_ix, pp, allowed, proxy);
 
-  if (!active) return;
   const bool pass = est || allowed;
   const int local = pass ? ((proxy > 0 && !est) ? kToProxy : kForward) : kDrop;
   const int remote = (tun_found && tunnel != 0) ? kToOverlay : kForward;
@@ -141,7 +141,13 @@ CILIUM_EXPORT int ingress(const IngArgs* args, void* stream) {
   if (a.ipc_id.w != 1 || a.ipc_tun.w != 1 || a.lxc.k != 1 || a.lxc.v < 2 ||
       a.ct.k != 5 || a.pol.k != 4 || a.pol.v < 1 || (a.mode != 0 && a.mode != 1))
     return cudaErrorInvalidValue;
-  ingress_kernel<<<l34::blocks_for(a.f), l34::kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a);
+  if (!l34x::usable<1>(a.id_ix) || !l34x::usable<1>(a.tun_ix) || !l34x::usable(a.lxc_ix, kLxcS) ||
+      !l34x::usable(a.ct_ix, kCtS) || !l34x::usable(a.pol_ix, l34x::kPolS))
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.mode == 0)
+    ingress_kernel<0><<<l34::blocks_for(a.f), l34::kThreads, 0, st>>>(a);
+  else
+    ingress_kernel<1><<<l34::blocks_for(a.f), l34::kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }

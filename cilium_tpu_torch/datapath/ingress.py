@@ -23,15 +23,15 @@ pipeline created).  New flows run the {remote identity, dport, proto,
 INGRESS} cascade with proxy redirection (reference: bpf/bpf_lxc.c:875,1008
 tail_ipv6/ipv4_policy).  On the card both programs are kernel K15
 (``csrc/ingress.cu``, one launcher with a netdev/overlay mode): one
-thread a packet runs the identity LPM (netdev only), the endpoint
-lookup, both CT orientations in one walk, the policy cascade and the
-tunnel LPM.
+thread a packet probes the hashed indexes (``ops/l34_index.py``, built
+with every ``IngressTables``) for the identity LPM (netdev only), the
+endpoint, both CT orientations, the policy cascade and the tunnel LPM.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -41,6 +41,7 @@ from ..maps.ctmap import CtKey4, CtMap
 from ..maps.ipcache import IpcacheMap
 from ..maps.lxcmap import ENDPOINT_F_HOST, LxcMap
 from ..maps.policymap import DIR_INGRESS, DevicePolicyMap, PolicyMap, policy_can_access_plain
+from ..ops.l34_index import HashIndex, HashIx, LpmIndex, LpmIx, exact_index, lpm_index
 from ..ops.lpm import DeviceLpm, LpmTab, lpm_lookup_plain
 from ..ops.maplookup import DeviceTable, ExactTab, exact_lookup_plain
 from .pipeline import DROP, FORWARD, TO_PROXY, WORLD_ID, pack_ct
@@ -57,14 +58,27 @@ MODE_OVERLAY = 1
 
 
 @dataclass
+class IngressIndex:
+    """K15's hashed indexes of one table snapshot (``ops/l34_index.py``)."""
+
+    ipcache_id: LpmIndex
+    ipcache_tun: LpmIndex
+    lxc: HashIndex  # addr -> (lxc_id, flags)
+    ct: HashIndex
+    policy: HashIndex
+
+
+@dataclass
 class IngressTables:
-    """Device snapshot of the maps the node-ingress programs read."""
+    """Device snapshot of the maps the node-ingress programs read, and the
+    hashed indexes K15 probes (built here, so every constructor has them)."""
 
     ipcache_id: DeviceLpm  # prefix -> sec_label
     ipcache_tun: DeviceLpm  # prefix -> tunnel_endpoint
     lxc: DeviceTable  # addr -> (lxc_id, flags)
     ct: DeviceTable  # (daddr, saddr, dport, sport, proto)
     policy: DevicePolicyMap  # the destination endpoint's policy
+    index: IngressIndex = field(init=False, repr=False)
 
     def __post_init__(self):
         if self.ipcache_id.w != 1 or self.ipcache_tun.w != 1:
@@ -77,6 +91,10 @@ class IngressTables:
         for name in ("ipcache_id", "ipcache_tun", "lxc", "ct", "policy"):
             if getattr(self, name).device != device:
                 raise ValueError(f"ingress tables: {name} is not on {device}")
+        self.index = IngressIndex(ipcache_id=lpm_index(self.ipcache_id),
+                                  ipcache_tun=lpm_index(self.ipcache_tun),
+                                  lxc=exact_index(self.lxc, 2), ct=exact_index(self.ct, 0),
+                                  policy=exact_index(self.policy.table, 1))
 
     @property
     def device(self) -> torch.device:
@@ -111,6 +129,8 @@ class IngArgs(ctypes.Structure):
         ("sport", ctypes.c_void_p), ("dport", ctypes.c_void_p), ("proto", ctypes.c_void_p),
         ("src", ctypes.c_void_p), ("mode", ctypes.c_int), ("f", ctypes.c_int),
         ("out", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+        ("id_ix", LpmIx), ("tun_ix", LpmIx), ("lxc_ix", HashIx), ("ct_ix", HashIx),
+        ("pol_ix", HashIx),
     ]
 
 
@@ -186,6 +206,7 @@ def ingress(tables: IngressTables, mode: int, saddr, daddr, sport, dport, proto,
         ("proto", proto), ("src", src))]
     if kernels.on_cpu(device):
         return ingress_plain(tables, mode, *ins)
+    ix = tables.index
     out = torch.empty((5, f), dtype=torch.int32, device=device)
     flags = torch.empty((2, f), dtype=torch.bool, device=device)
     if f:
@@ -193,6 +214,7 @@ def ingress(tables: IngressTables, mode: int, saddr, daddr, sport, dport, proto,
             tables.ipcache_id.abi(), tables.ipcache_tun.abi(), tables.lxc.abi(),
             tables.ct.abi(), tables.policy.table.abi(), *[t.data_ptr() for t in ins],
             mode, f, out.data_ptr(), flags.data_ptr(),
+            ix.ipcache_id.abi(), ix.ipcache_tun.abi(), ix.lxc.abi(), ix.ct.abi(), ix.policy.abi(),
         )
         _INGRESS.launch(device, ctypes.addressof(args))
     return {

@@ -18,10 +18,11 @@ bpf/bpf_lxc.c:684-760 handle_ipv4_from_lxc).  One pass takes [F] packet
      needs_ct_create for allowed new flows (the host applies them).
 
 On the card the whole pass is kernel K14 (``csrc/datapath.cu``): one
-thread a packet runs the four table walks of ``csrc/l34.cuh`` in turn,
-so no intermediate leaves the registers.  The v4 and v6 passes share it
-(``datapath4`` and ``datapath6``, one body templated on the address
-width W); ``datapath_pass_plain`` is its plain PyTorch version, the
+thread a packet probes the hashed indexes of the four tables
+(``ops/l34_index.py``, built with every ``DatapathTables``; the probes
+are ``csrc/l34_index.cuh``), so no intermediate leaves the registers.
+The v4 and v6 passes share it (``datapath4`` and ``datapath6``, one body
+templated on the address width W); ``datapath_pass_plain`` is its plain PyTorch version, the
 composition of K12's and K13's plain versions, as the reference composed
 its own functions.
 """
@@ -29,7 +30,7 @@ its own functions.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -40,6 +41,7 @@ from ..maps.ctmap import CtKey4, CtMap
 from ..maps.ipcache import IpcacheMap
 from ..maps.lbmap import LbMap, LbTab, _DeviceLb, lb_select_plain
 from ..maps.policymap import DIR_EGRESS, DevicePolicyMap, PolicyMap, policy_can_access_plain
+from ..ops.l34_index import HashIndex, HashIx, LpmIndex, LpmIx, exact_index, lb_index, lpm_index
 from ..ops.lpm import DeviceLpm, LpmTab, lpm_lookup_plain
 from ..ops.maplookup import DeviceTable, ExactTab, exact_lookup_plain, pack_table, u32_to_i32, wrap32
 
@@ -81,13 +83,26 @@ def flow_hash32(saddr, daddr, sport, dport, proto):
 
 
 @dataclass
+class DatapathIndex:
+    """K14's hashed indexes of one table snapshot (``ops/l34_index.py``)."""
+
+    lb: HashIndex  # (VIP words, port) -> row id
+    ct: HashIndex  # the CT key
+    ipcache: LpmIndex
+    policy: HashIndex  # (identity, dport, proto, direction) -> value column 0
+
+
+@dataclass
 class DatapathTables:
-    """One device-resident snapshot of the maps the pipeline reads."""
+    """One device-resident snapshot of the maps the pipeline reads, and
+    the hashed indexes K14 probes (built here, so every constructor has
+    them)."""
 
     ct: DeviceTable  # keys (daddr, saddr, dport, sport, proto)
     lb: _DeviceLb
     ipcache: DeviceLpm
     policy: DevicePolicyMap
+    index: DatapathIndex = field(init=False, repr=False)
 
     def __post_init__(self):
         w = self.lb.w
@@ -97,6 +112,9 @@ class DatapathTables:
         for name in ("lb", "ipcache", "policy"):
             if getattr(self, name).device != device:
                 raise ValueError(f"tables: {name} is not on {device}")
+        self.index = DatapathIndex(lb=lb_index(self.lb), ct=exact_index(self.ct, 0),
+                                   ipcache=lpm_index(self.ipcache),
+                                   policy=exact_index(self.policy.table, 1))
 
     @property
     def device(self) -> torch.device:
@@ -156,6 +174,7 @@ class DpArgs(ctypes.Structure):
         ("saddr", ctypes.c_void_p * 4), ("daddr", ctypes.c_void_p * 4),
         ("sport", ctypes.c_void_p), ("dport", ctypes.c_void_p), ("proto", ctypes.c_void_p),
         ("f", ctypes.c_int), ("out", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+        ("lb_ix", HashIx), ("ct_ix", HashIx), ("ipc_ix", LpmIx), ("pol_ix", HashIx),
     ]
 
 
@@ -233,6 +252,7 @@ def datapath_pass(tables: DatapathTables, saddr_w, daddr_w, sport, dport, proto)
             for name, a in (("sport", sport), ("dport", dport), ("proto", proto))]
     if kernels.on_cpu(device):
         return datapath_pass_plain(tables, sw, dw, *rest)
+    ix = tables.index
     out = torch.empty((w + 6, f), dtype=torch.int32, device=device)
     flags = torch.empty((2, f), dtype=torch.bool, device=device)
     if f:
@@ -241,6 +261,7 @@ def datapath_pass(tables: DatapathTables, saddr_w, daddr_w, sport, dport, proto)
             tables.lb.abi(), tables.ct.abi(), tables.ipcache.abi(), tables.policy.table.abi(),
             arr(*[t.data_ptr() for t in sw]), arr(*[t.data_ptr() for t in dw]),
             *[t.data_ptr() for t in rest], f, out.data_ptr(), flags.data_ptr(),
+            ix.lb.abi(), ix.ct.abi(), ix.ipcache.abi(), ix.policy.abi(),
         )
         _DATAPATH[w].launch(device, ctypes.addressof(args))
     return _split(out, flags, w)

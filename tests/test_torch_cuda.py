@@ -807,7 +807,9 @@ def test_l7_models_card_match_cpu(cuda):
 import random  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
+import l34_index_cases as ic  # noqa: E402
 import l34_worlds as worlds  # noqa: E402
+from cilium_tpu_torch import convert  # noqa: E402
 from cilium_tpu_torch.datapath import ingress as ing_mod  # noqa: E402
 from cilium_tpu_torch.datapath import pipeline as dp_mod  # noqa: E402
 from cilium_tpu_torch.datapath.ingress import (  # noqa: E402
@@ -999,6 +1001,121 @@ def test_ingress_kernel_matches_plain(cuda, mode, f):
     torch.cuda.synchronize()
     assert ing_mod._INGRESS.launches == before + 1
     _equal_dicts(got, ingress_plain(tables, mode, *args))
+
+
+# K14 / K15 probe hashed indexes (csrc/l34_index.cuh): adversarial tables
+# (duplicate keys, all-zero keys beside padding, keys >= 2^31, irregular
+# masks, plen -1 / INT32_MAX, one row, every row invalid) from
+# tests/l34_index_cases.py, at F past a block's edge and at 65,536.
+L34_SHAPES = {"adversarial": {}, "one-row": {"n": 1}, "all-invalid": {"invalid": True}}
+
+
+@pytest.mark.parametrize("f", [4099, 65536])
+@pytest.mark.parametrize("source", list(L34_SHAPES))
+@pytest.mark.parametrize("w", [1, 4])
+def test_datapath_kernel_matches_plain_on_adversarial_tables(cuda, w, source, f):
+    rng = np.random.default_rng(100 * w + f % 97)
+    leaves = ic.datapath_leaves(rng, w, **L34_SHAPES[source])
+    conv = convert.datapath_tables_from_numpy if w == 1 else convert.datapath_tables6_from_numpy
+    tables = conv(leaves, device=cuda)
+    sw, dw, sport, dport, proto = ic.datapath_packets(rng, leaves, w, f)
+    args = [tuple(torch.from_numpy(a).to(cuda) for a in sw), tuple(torch.from_numpy(a).to(cuda) for a in dw),
+            *(torch.from_numpy(a).to(cuda) for a in (sport, dport, proto))]
+    kern = dp_mod._DATAPATH[w]
+    before = kern.launches
+    got = datapath_pass(tables, *args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _equal_dicts(got, datapath_pass_plain(tables, *args))
+    if source == "adversarial":
+        assert bool(got["established"].any()) and bool((got["rev_nat"] != 0).any())
+
+
+@pytest.mark.parametrize("f", [4099, 65536])
+@pytest.mark.parametrize("source", list(L34_SHAPES))
+@pytest.mark.parametrize("mode", [MODE_NETDEV, MODE_OVERLAY])
+def test_ingress_kernel_matches_plain_on_adversarial_tables(cuda, mode, source, f):
+    rng = np.random.default_rng(200 + 10 * mode + f % 89)
+    leaves = ic.ingress_leaves(rng, **L34_SHAPES[source])
+    tables = convert.ingress_tables_from_numpy(leaves, device=cuda)
+    p = ic.ingress_packets(rng, leaves, f)
+    src = p["src_id"] if mode == MODE_NETDEV else p["vni"]
+    args = [torch.from_numpy(p[k]).to(cuda) for k in ("saddr", "daddr", "sport", "dport", "proto")]
+    args.append(torch.from_numpy(src).to(cuda))
+    before = ing_mod._INGRESS.launches
+    got = ingress(tables, mode, *args)
+    torch.cuda.synchronize()
+    assert ing_mod._INGRESS.launches == before + 1
+    _equal_dicts(got, ingress_plain(tables, mode, *args))
+    if source == "adversarial":
+        assert bool(got["established"].any()) and len(torch.unique(got["verdict"])) >= 4
+
+
+def test_l34_launchers_refuse_tables_without_index(cuda):
+    """The C launchers refuse arguments that carry no index: neither walks
+    the rows."""
+    import ctypes
+
+    from cilium_tpu_torch.ops.l34_index import HashIx
+
+    rng = np.random.default_rng(7)
+    leaves = ic.datapath_leaves(rng, 1)
+    tables = convert.datapath_tables_from_numpy(leaves, device=cuda)
+    sw, dw, sport, dport, proto = ic.datapath_packets(rng, leaves, 1, 256)
+    args = [tuple(torch.from_numpy(a).to(cuda) for a in sw), tuple(torch.from_numpy(a).to(cuda) for a in dw),
+            *(torch.from_numpy(a).to(cuda) for a in (sport, dport, proto))]
+    ix = tables.index
+    out = torch.empty((7, 256), dtype=torch.int32, device=cuda)
+    flags = torch.empty((2, 256), dtype=torch.bool, device=cuda)
+    arr = ctypes.c_void_p * 4
+    raw = dp_mod.DpArgs(tables.lb.abi(), tables.ct.abi(), tables.ipcache.abi(), tables.policy.table.abi(),
+                        arr(args[0][0].data_ptr()), arr(args[1][0].data_ptr()),
+                        *[t.data_ptr() for t in args[2:]], 256, out.data_ptr(), flags.data_ptr(),
+                        ix.lb.abi(), HashIx(), ix.ipcache.abi(), ix.policy.abi())
+    before = dp_mod._DATAPATH[1].launches
+    with pytest.raises(RuntimeError):
+        dp_mod._DATAPATH[1].launch(cuda, ctypes.addressof(raw))
+    assert dp_mod._DATAPATH[1].launches == before
+    nleaves = ic.ingress_leaves(rng)
+    ntables = convert.ingress_tables_from_numpy(nleaves, device=cuda)
+    p = ic.ingress_packets(rng, nleaves, 256)
+    nargs = [torch.from_numpy(p[k]).to(cuda) for k in ("saddr", "daddr", "sport", "dport", "proto", "src_id")]
+    nix = ntables.index
+    out5 = torch.empty((5, 256), dtype=torch.int32, device=cuda)
+    raw = ing_mod.IngArgs(ntables.ipcache_id.abi(), ntables.ipcache_tun.abi(), ntables.lxc.abi(),
+                          ntables.ct.abi(), ntables.policy.table.abi(), *[t.data_ptr() for t in nargs],
+                          MODE_NETDEV, 256, out5.data_ptr(), flags.data_ptr(),
+                          nix.ipcache_id.abi(), nix.ipcache_tun.abi(), nix.lxc.abi(), HashIx(), nix.policy.abi())
+    with pytest.raises(RuntimeError):
+        ing_mod._INGRESS.launch(cuda, ctypes.addressof(raw))
+
+
+@pytest.mark.parametrize("source", ["datapath", "datapath6", "ingress"])
+def test_l34_index_build_waits_for_nothing(cuda, source):
+    """A snapshot's indexes build on the card with no op that waits for
+    the device (torch's sync debug mode raises on one), so a table rebuilt
+    after a CT round trip costs its launches and nothing more."""
+    rng = np.random.default_rng(9)
+    if source == "ingress":
+        tables = convert.ingress_tables_from_numpy(ic.ingress_leaves(rng), device=cuda)
+    else:
+        w = 1 if source == "datapath" else 4
+        conv = convert.datapath_tables_from_numpy if w == 1 else convert.datapath_tables6_from_numpy
+        tables = conv(ic.datapath_leaves(rng, w), device=cuda)
+    built = tables.index
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tables.__post_init__()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name, ix in vars(tables.index).items():
+        for a, b in zip(_index_tensors(ix), _index_tensors(getattr(built, name))):
+            assert torch.equal(a, b), name
+
+
+def _index_tensors(ix):
+    return [ix.groups, ix.table.bounds, ix.table.slots] if hasattr(ix, "groups") else [ix.bounds, ix.slots]
 
 
 def test_l34_wrappers_reject_bad_inputs(cuda):
