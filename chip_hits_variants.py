@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Time the rule walks K4 ``r2d2_hits``, K9 ``dns_hits``, K10
-``cassandra_hits``, K11 ``memcache_hits`` and K17 ``kafka_hits`` in
-variants that their launchers do not take, beside the variant they do, on
-one CUDA card.
+``cassandra_hits``, K11 ``memcache_hits`` and K17 ``kafka_hits``, and K12
+``lpm_lookup``, in variants that their launchers do not take, beside the
+variant they do, on one CUDA card.
 
     python3 chip_hits_variants.py [--variants 1x1,1x8,4x16,8x8,32x16,...]
-        [--kafka-variants 8,16,32,8t32]
-        [--kernels r2d2_hits,dns_hits,cassandra_hits,memcache_hits,kafka_hits]
+        [--kafka-variants 8,16,32,8t32] [--lpm-variants 1x2,4x1,walk,...]
+        [--kernels r2d2_hits,dns_hits,cassandra_hits,memcache_hits,kafka_hits,lpm_lookup]
 
 A variant ``GxV`` is G lanes a flow and V rows a lane a step
 (``csrc/rule_walk.cuh``); K10 also takes ``direct``, a thread a request
@@ -39,8 +39,19 @@ mesh-kafka-1x4 (``parts=True``).  Prints a line a (shape, variant), then
 one JSON object with every reading and the card line.  Needs a CUDA card
 and nvcc.
 
-``build_forced`` and ``build_kafka_forced`` are also what the card tests
-force the variants with.
+K12's variants ``LxG`` are the index probe with L lanes an address and
+G mask groups a round (``forced_<L>x<G>``), and ``walk`` the row walk
+(``forced_walk``), built by ``build_lpm_forced`` from a
+translation unit that includes ``csrc/lpm.cu``; its shapes are
+prefilter, prefilter6 and the ipcache at datapath-maps / datapath6-maps
+(the main path's K12 calls, F = 65,536), then ``LPM_SWEEP``:
+``tests/l34_index_cases.py`` tables of every prefix length (25 v4 groups,
+up to 97 v6) at N rows, with the prefilter's mix of sources, where the
+launcher's picks (``lpm.cu``'s ``Pick``: lanes, groups a round and the
+walk's threshold ``kWalkRowsPerGroup``) come from.
+
+``build_forced``, ``build_kafka_forced`` and ``build_lpm_forced`` are also
+what the card tests force the variants with.
 """
 
 from __future__ import annotations
@@ -166,6 +177,124 @@ def build_kafka_forced(variants=KAFKA_VARIANTS, log=print):
         fn.restype = ctypes.c_int
         fns[(g, t)] = fn
     return fns
+
+
+LPM_VARIANTS = ("1x1", "1x2", "1x4", "1x8", "1x16", "2x1", "2x2", "2x4", "4x1", "4x2", "4x4", "8x1", "8x2",
+                "8x4", "walk")
+# (W, N) of the threshold sweep, F = 65,536
+LPM_SWEEP = ((1, 32), (1, 64), (1, 128), (1, 256), (1, 1024), (4, 128), (4, 256), (4, 512),
+             (4, 1024), (4, 2048))
+
+
+def build_lpm_forced(variants=LPM_VARIANTS, log=print):
+    """{variant: ctypes launcher} of K12: ``forced_<L>x<G>`` probes the
+    index with L lanes an address and G mask groups a round (at W = 1 and
+    4), ``forced_walk`` walks the rows; one library from a translation unit
+    that includes csrc/lpm.cu."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.ops import lpm as lpm_mod
+
+    k = lpm_mod._LPM
+    d = kernels.BUILD / "variants" / "lpm-forced"
+    d.mkdir(parents=True, exist_ok=True)
+    text = '#include "lpm.cu"\n\n'
+    for v in variants:
+        if v == "walk":
+            call = "launch<1, 1, 1, 1, lpmk::kWalk>"
+        else:
+            lanes, g = (int(x) for x in v.split("x"))
+            call = f"launch<{lanes}, {g}, {lanes}, {g}, lpmk::kProbe>"
+        text += (f"CILIUM_EXPORT int forced_{v}(const LpmArgs* args, void* stream) {{\n"
+                 f"  return lpmk::{call}(args, stream);\n}}\n")
+    (d / "forced.cu").write_text(text)
+    cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o", str(d / "forced.so"),
+           str(d / "forced.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"lpm variants failed to build:\n{proc.stdout}")
+    log(f"built {d.name}: " + " | ".join(
+        ln.strip() for ln in proc.stdout.splitlines() if "Compiling" in ln or "registers" in ln
+        or "spill" in ln))
+    lib = ctypes.CDLL(str(d / "forced.so"))
+    fns = {}
+    for v in variants:
+        fn = getattr(lib, f"forced_{v}")
+        fn.argtypes = [*k.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[v] = fn
+    return fns
+
+
+def lpm_shapes(dev):
+    """[(label, DeviceLpm, address word tensors)]: K12's calls on the main
+    path (chip_smoke.py phase 8), F = 65,536."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from cilium_tpu_torch.datapath import pipeline as dp
+    from cilium_tpu_torch.datapath import pipeline6 as dp6
+    from cilium_tpu_torch.datapath.prefilter import PreFilter
+    from cilium_tpu_torch.entry import datapath_batch, datapath_bench_maps
+    from cilium_tpu_torch.ops.lpm import ipv6_to_words
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cidrs, src4, src6 = cs.prefilter_case(cs.F)
+    pf = PreFilter(dev)
+    pf.insert(1, cidrs)
+    out = [("prefilter", pf.device_lpm(), (on(cs._i32(src4)),)),
+           ("prefilter6", pf.device_lpm(v6=True), tuple(on(w) for w in ipv6_to_words(src6)))]
+    pk = datapath_batch(cs.F)
+    t4 = dp.build_tables(*datapath_bench_maps(), device=dev)
+    out.append(("datapath-maps", t4.ipcache, (dp.datapath_verdicts(t4, *pk)["new_daddr"],)))
+    maps6, (_, _, sw, dw, sp, dpt, pr) = cs.datapath6_case(cs.F)
+    t6 = dp6.build_tables6(*maps6, device=dev)
+    out.append(("datapath6-maps", t6.ipcache, tuple(dp6.datapath_verdicts6(t6, sw, dw, sp, dpt, pr)[
+        "new_daddr_words"])))
+    return out
+
+
+def lpm_table(dev, card, fns):
+    """K12's readings: the launcher's pick and each forced variant, held to
+    the plain version and timed, at the main path's shapes and the sweep's."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from cilium_tpu_torch.ops.lpm import lpm_from_arrays, lpm_lookup, lpm_lookup_plain
+
+    ic = cs.l34_cases()
+    rng = np.random.default_rng(71)
+    shapes = lpm_shapes(dev)
+    for w, n in LPM_SWEEP:
+        t = ic.many_group_lpm(rng, w, n)
+        ws = tuple(torch.from_numpy(x).to(dev) for x in ic.lpm_sources(rng, t[0], t[1], cs.F))
+        shapes.append((f"sweep-w{w}-n{n}", lpm_from_arrays(*t, device=dev), ws))
+    table = []
+    for label, lpm, ws in shapes:
+        def run():
+            return lpm_lookup(lpm, *ws)
+
+        want = cs._outputs(lpm_lookup_plain(lpm, *ws))
+        row = dict(shape=label, stem="lpm_lookup", W=lpm.w, N=lpm.n, groups=lpm.index.n_groups,
+                   F=ws[0].shape[0])
+        pick = [cs.graph_ms(run)]
+        for v, fn in [(None, None), *fns.items()]:
+            if fn is None:
+                got = cs._outputs(run())
+            else:
+                with forced("lpm", fn):
+                    got = cs._outputs(run())
+                    row[v] = cs.graph_ms(run)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{label}: K12 {v or 'pick'} disagrees with the plain version")
+        pick.append(cs.graph_ms(run))
+        row["pick"] = pick
+        table.append(row)
+        cs.log(f"{label:16s} lpm_lookup W={lpm.w} N={lpm.n} groups={row['groups']}: pick "
+               f"{pick[0]:.5f} / {pick[1]:.5f} ms; " + ", ".join(
+                   f"{v} {row[v]:.5f}" for v in fns) + f" ms [{card}]")
+    return table
 
 
 def kafka_table(dev, card, fns):
@@ -344,7 +473,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(("direct",) + EVERY))
     ap.add_argument("--kafka-variants", default=",".join(KAFKA_VARIANTS))
-    ap.add_argument("--kernels", default=",".join(STEMS + DIRECT + ("kafka_hits",)))
+    ap.add_argument("--lpm-variants", default=",".join(LPM_VARIANTS))
+    ap.add_argument("--kernels", default=",".join(STEMS + DIRECT + ("kafka_hits", "lpm_lookup")))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_hits_variants: no CUDA card is available", file=sys.stderr)
@@ -367,6 +497,8 @@ def main() -> int:
     table = []
     if "kafka_hits" in chosen:
         table += kafka_table(dev, card, build_kafka_forced(args.kafka_variants.split(","), log=cs.log))
+    if "lpm_lookup" in chosen:
+        table += lpm_table(dev, card, build_lpm_forced(args.lpm_variants.split(","), log=cs.log))
     for label, stem, call in shapes(dev, stems) if stems else ():
         if stem not in stems:
             continue

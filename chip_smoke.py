@@ -81,15 +81,20 @@ which fails the run on any mismatch:
    established); the card is held against the CPU path on the whole
    batch, the host oracles on 2,000 packets a shape and each kernel's
    plain version, ``account_verdicts`` runs once on the card's output,
-   and everything is timed; K14 and K15 probe hashed indexes
-   (``ops/l34_index.py``): their build time and bytes are logged beside
-   the tables', K14 and K15 are also held to their plain versions on
-   tests/l34_index_cases.py's adversarial tables (timed too), K14 is
-   timed at the round trip's shapes (datapath-rt, datapath6-rt), the
-   whole round trip (creates applied, tables and indexes rebuilt, the
-   pass read back) is timed on the host clock, and given --baseline-csrc
-   every K14 / K15 reading and the round trip run in turns with the
-   parent's (the parent's snapshot building no index);
+   and everything is timed; K12-K15 probe the hashed index each table
+   builds when it is made (``ops/l34_index.py``): the build times and
+   bytes are logged beside the tables', and each K12 table's mask groups
+   and the launcher's pick (G groups a round, or the walk); K12-K15 are
+   also held to their plain versions on tests/l34_index_cases.py's
+   adversarial tables (K14 / K15 timed there too) and on tables with
+   more value columns (16-word slots of values, or slots of row ids), K12
+   on tables of many mask groups and K13 on a wide table; K12 / K13 rows
+   carry the index design's bound beside the walk's and the smaller as
+   their bound; K14 is timed at the round trip's shapes (datapath-rt,
+   datapath6-rt), the whole round trip (creates applied, tables and
+   indexes rebuilt, the pass read back) is timed on the host clock five
+   times, and given --baseline-csrc every K12-K15 reading runs in turns
+   with the parent's;
 9. the fifth slice, the sidecar verdict service, counted in a run of its
    own: a ``VerdictService`` at the reference's defaults (batch_flows
    2,048, batch_width 256, the card, eager dispatch) on a unix socket,
@@ -1593,6 +1598,38 @@ def snapshot_ms(build):
     return (time.perf_counter() - t0) * 1e3
 
 
+def rebuild_indexes(tables):
+    """Build the hashed index of each table of a snapshot again (each table
+    builds its own; the snapshot only gathers them)."""
+    from cilium_tpu_torch.maps.policymap import DevicePolicyMap
+
+    for name in vars(tables.index):
+        part = getattr(tables, name)
+        (part.table if isinstance(part, DevicePolicyMap) else part).__post_init__()
+    tables.__post_init__()
+
+
+def lpm_pick(w, n, groups):
+    """K12's launcher's path for a table, as text: 'LxG' (L lanes an
+    address, G mask groups a round) or 'walk'."""
+    from cilium_tpu_torch import kernels
+
+    lanes, g = kernels.lpm_variant(w, n, groups)
+    return f"{lanes}x{g}" if g else "walk"
+
+
+def table_bytes(*objs):
+    """Bytes of the tensors of tables (dataclasses, nested), not counting
+    the hashed indexes they carry."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        else:
+            total += table_bytes(*[v for k, v in vars(o).items() if k != "index"])
+    return total
+
+
 def l34_slice(dev, card, kerns):
     """The fourth slice's paths on the card at F = 65,536: the v4 egress
     pass on bench_datapath's maps and mix (K14 datapath4), the v6 pass
@@ -1669,13 +1706,25 @@ def l34_slice(dev, card, kerns):
                            ("datapath6", t6, lambda: dp6_mod.build_tables6(*maps6)),
                            ("node", tn, lambda: ing_mod.build_ingress_tables(*node))):
         pack_ms = snapshot_ms(build)
-        ix_ms = snapshot_ms(t.__post_init__)  # the snapshot's index, built again
+        ix_ms = snapshot_ms(lambda: rebuild_indexes(t))  # the tables' indexes, built again
         ixb = l34_index.nbytes(t.index)
         lpms = [v for v in vars(t.index).values() if isinstance(v, l34_index.LpmIndex)]
         log(f"{name}: tables built from the host maps in {pack_ms:.2f} ms (host clock), the hashed "
-            f"index {ix_ms:.2f} ms of it; index {ixb} bytes beside {l34_index.nbytes(t) - ixb} bytes of "
+            f"index {ix_ms:.2f} ms of it; index {ixb} bytes beside {table_bytes(t)} bytes of "
             f"tables; CT {t.index.ct.buckets} buckets for {t.index.ct.m} rows; "
             f"{', '.join(str(x.n_groups) for x in lpms)} LPM mask group(s) [{card}]")
+
+    for v6 in (False, True):
+        lpm = pf.device_lpm(v6=v6)
+        ix_ms = snapshot_ms(lpm.__post_init__)  # the index, built again
+        log(f"prefilter{'6' if v6 else ''}: index of {lpm.n} prefixes built in {ix_ms:.2f} ms (host clock), "
+            f"{l34_index.nbytes(lpm.index)} bytes [{card}]")
+    for name, lpm in (("prefilter", pf.device_lpm()), ("prefilter6", pf.device_lpm(v6=True)),
+                      ("datapath ipcache", t4.ipcache), ("datapath6 ipcache", t6.ipcache),
+                      ("node ipcache", tn.ipcache_id)):
+        g = lpm.index.n_groups
+        log(f"K12 {name}: {lpm.n} prefixes, {g} mask group(s); the launcher takes "
+            + lpm_pick(lpm.w, lpm.n, g))
 
     def maps_run(t, out, saddr_w, daddr_w, sport, dport, proto):
         """The map-level lookups on the pass's own intermediates: LB on
@@ -1916,6 +1965,55 @@ def l34_slice(dev, card, kerns):
             args = (mode, *cols_, on_dev(p[src]))
             put("ingress", f"{mname}-{label}", ing_mod.ingress(t, *args), ing_mod.ingress_plain(t, *args))
             adv[f"{mname}-{label}"] = ("ingress", t, args)
+    # K14 and K15 on tables with more value columns: 16-word slots of
+    # values, or slots of row ids whose rows a match reads
+    wrng = np.random.default_rng(62)
+    for label, widths in ic.WIDE.items():
+        for w, kname in ((1, "datapath4"), (4, "datapath6")):
+            leaves = ic.widen_datapath(wrng, ic.datapath_leaves(wrng, w), w, **widths)
+            t = (convert.datapath_tables_from_numpy if w == 1 else convert.datapath_tables6_from_numpy)(
+                leaves, device=dev)
+            sw, dw, sp, dpt, pr = ic.datapath_packets(wrng, leaves, w, F)
+            args = (tuple(on_dev(x) for x in sw), tuple(on_dev(x) for x in dw), on_dev(sp), on_dev(dpt),
+                    on_dev(pr))
+            put(kname, f"{'datapath' if w == 1 else 'datapath6'}-{label}", dp_mod.datapath_pass(t, *args),
+                dp_mod.datapath_pass_plain(t, *args))
+        leaves = ic.widen_ingress(wrng, ic.ingress_leaves(wrng), **widths)
+        t = convert.ingress_tables_from_numpy(leaves, device=dev)
+        p = ic.ingress_packets(wrng, leaves, F)
+        cols_ = [on_dev(p[k]) for k in ("saddr", "daddr", "sport", "dport", "proto")]
+        for mode, mname, src in ((ing_mod.MODE_NETDEV, "netdev", "src_id"), (ing_mod.MODE_OVERLAY, "overlay", "vni")):
+            args = (mode, *cols_, on_dev(p[src]))
+            put("ingress", f"{mname}-{label}", ing_mod.ingress(t, *args), ing_mod.ingress_plain(t, *args))
+    # K12 and K13 on adversarial tables, tables of many mask groups and a
+    # wide table (tests/l34_index_cases.py)
+    for name, words, masks, plen, values, valid in (
+            ic.lpm_cases(rng, 1) + ic.lpm_cases(rng, 4)
+            + [(f"many{w}-{n}", *ic.many_group_lpm(rng, w, n)) for w, n in ((4, 256), (1, 1024), (4, 2048))]):
+        lpm = lpm_mod.lpm_from_arrays(words, masks, plen, values, valid, device=dev)
+        ws = [on_dev(np.concatenate([a, b])) for a, b in zip(ic.addr_queries(rng, words, masks, F // 2),
+                                                            ic.lpm_sources(rng, words, masks, F // 2))]
+        put("lpm_lookup", f"lpm-{name}", lpm_mod.lpm_lookup(lpm, *ws), lpm_mod.lpm_lookup_plain(lpm, *ws))
+        log(f"lpm-{name}: {lpm.n} rows, {lpm.index.n_groups} mask group(s); the launcher takes "
+            + lpm_pick(lpm.w, lpm.n, lpm.index.n_groups))
+    for name, cols_, vals, valid in ic.exact_cases(rng) + [("wide", *ic.wide_table(rng))]:
+        table = ml_mod.table_from_arrays(list(cols_), vals, valid, device=dev)
+        q = [on_dev(x) for x in ic.key_queries(rng, cols_, F)]
+        put("exact_lookup", f"exact-{name}", ml_mod.exact_lookup(table, *q), ml_mod.exact_lookup_plain(table, *q))
+    for nv in (1, 12):
+        leaves = ic._policy_leaves(rng, np.array([5, 9, 300]), 1, n=300)
+        vals = np.concatenate([leaves[4], ic.i32(rng.integers(0, 1 << 32, (300, nv - 1)))], 1)
+        dmap = pol_mod.DevicePolicyMap(table=ml_mod.table_from_arrays(leaves[:4], vals, leaves[5], device=dev))
+        q = [on_dev(x) for x in ic.key_queries(rng, np.stack(leaves[:4]), F)[:3]]
+        put("policy_can_access", f"policy-adv-v{nv}", pol_mod.policy_can_access_batch(dmap, *q, DIR_EGRESS),
+            pol_mod.policy_can_access_plain(dmap, *q, DIR_EGRESS))
+    for w, cls in ((1, lb_mod.DeviceLbMap), (4, lb_mod.DeviceLb6Map)):
+        leaves = ic.lb_arrays(rng, w, s=300)
+        dlb = cls.from_arrays(*leaves, dev)
+        vw = np.asarray(leaves[0]).reshape(w, -1)[:, rng.integers(0, 300, F)]
+        lb_in = (dlb, [on_dev(x) for x in vw], on_dev(rng.choice(np.array([0, 80, 443], np.int32), F)),
+                 on_dev(ic.i32(rng.integers(0, 1 << 32, F, dtype=np.int64))))
+        put("lb_select", f"lb-adv-w{w}", lb_mod.lb_select(*lb_in), lb_mod.lb_select_plain(*lb_in))
     log("max |kernel - plain|:", json.dumps(report))
     for kname, per in report.items():
         for label, err in per.items():
@@ -1926,14 +2024,7 @@ def l34_slice(dev, card, kerns):
     log("== L3/L4 datapath times on", card)
     timed = {}
 
-    def nbytes(*objs):
-        total = 0
-        for o in objs:
-            if isinstance(o, torch.Tensor):
-                total += o.numel() * o.element_size()
-            else:
-                total += nbytes(*vars(o).values())
-        return total
+    nbytes = table_bytes
 
     # Operations as the walks of csrc/l34.cuh need them on this run's data:
     # one integer op (a compare, or the AND of a mask) for the reject column
@@ -2038,6 +2129,43 @@ def l34_slice(dev, card, kerns):
             r["walk_bound_ms"], r["walk_bound_by"] = wb["bound_ms"], wb["bound_by"]
         return r
 
+    def map_row(fn, plain, io, ix, hashes, walk_bytes, walk_ops, extra=0):
+        """A K12 / K13 row held to the least of two bounds: the index
+        design's (``io`` bytes in and out, the index ``ix`` read once and
+        ``extra`` bytes read beside it; ``hashes`` the MurmurHash3 ops of
+        the probes this run's queries need) and the walk's (the parent's
+        design: the row walks on this run's data, the tables read once)."""
+        r = row(fn, plain, io + index_bytes(ix) + extra, hashes)
+        wb = bound(dict(bytes=walk_bytes, ops=walk_ops))
+        r["index_bound_ms"], r["index_bound_by"] = r["bound_ms"], r["bound_by"]
+        r["walk_bound_ms"], r["walk_bound_by"] = wb["bound_ms"], wb["bound_by"]
+        if wb["bound_ms"] < r["bound_ms"]:
+            r["bound_ms"], r["bound_by"] = wb["bound_ms"], wb["bound_by"]
+        return r
+
+    def lpm_hashes(lpm, words):
+        """The MurmurHash3 ops of the groups a best-first probe must see at
+        least: a query probes every group whose best score reaches the
+        score it ends with (all of them on a miss)."""
+        gb = lpm.index.groups[:lpm.index.n_groups, 0]
+        plen = lpm_mod.lpm_lookup_plain(lpm, *words)[2]
+        probes = 0
+        for lo, hi in chunks(gb.numel()):
+            probes += int((gb[None, :] >= plen[lo:hi, None] + 1).sum())
+        return probes * hash_ops(len(words) + 1)
+
+    def lpm_row(lpm, ws):
+        """K12 at one table, in turns with the parent's kernel."""
+        def fn():
+            return lpm_mod.lpm_lookup(lpm, *ws)
+
+        w = len(ws)
+        r = map_row(fn, lambda: lpm_mod.lpm_lookup_plain(lpm, *ws), w * 4 * F + 9 * F, lpm.index,
+                    lpm_hashes(lpm, ws), w * 4 * F + 9 * F + nbytes(lpm), lpm_ops(lpm, ws))
+        r["groups"] = lpm.index.n_groups
+        r["variant"] = lpm_pick(w, lpm.n, r["groups"])
+        return parent_turns("lpm", fn, r)
+
     def index_bytes(ix):
         """Bytes a pass may read of one index: every bucket's bounds, the
         indexed rows' slots (not the zero slots past them) and, of an LPM's
@@ -2084,7 +2212,7 @@ def l34_slice(dev, card, kerns):
             return _flat(dp_mod.datapath_pass(t, *args))
 
         r = index_row(k14, lambda: dp_mod.datapath_pass_plain(t, *args), k14_bytes(t, w),
-                      [w + 1] * 4 + [2 * w + 3] + [4] * 3, io + nbytes(t) - ixb, ops)
+                      [w + 1] * 4 + [2 * w + 3] + [4] * 3, io + nbytes(t), ops)
         rows = {kname: parent_turns("datapath", k14, r)}
         host_t = {"datapath": t4, "datapath6": t6, "datapath-rt": t4_rt, "datapath6-rt": t6_rt}[name]
         pt = pass_times(k14, (lambda: _flat(dp_mod.datapath_verdicts(host_t, *in4))) if w == 1
@@ -2098,25 +2226,39 @@ def l34_slice(dev, card, kerns):
         if name != base:
             continue
         k_ct = 2 * w + 3
+        lb = t.lb
+        lb_io = (w + 2) * 4 * F + F + (w + 2) * 4 * F
+        ct_io = k_ct * 4 * F + F + 4 * F
+        pol_io = 12 * F + 5 * F
+
+        def k13(fn):
+            return lambda: _flat(fn())
+
         mrows = {
-            "lb_select": row(lambda: lb_mod.lb_select(*lb_in), lambda: lb_mod.lb_select_plain(*lb_in),
-                             (w + 2) * 4 * F + F + (w + 2) * 4 * F + nbytes(t.lb), map_ops["lb_select"]),
-            "exact_lookup": row(lambda: ml_mod.exact_lookup(*ct_in), lambda: ml_mod.exact_lookup_plain(*ct_in),
-                                k_ct * 4 * F + F + 4 * F + nbytes(t.ct), exact_ops(t.ct, ct_in[1:])),
-            "lpm_lookup": row(lambda: lpm_mod.lpm_lookup(t.ipcache, *nd),
-                              lambda: lpm_mod.lpm_lookup_plain(t.ipcache, *nd),
-                              w * 4 * F + 9 * F + nbytes(t.ipcache), map_ops["lpm_lookup"]),
-            "policy_can_access": row(lambda: pol_mod.policy_can_access_batch(*pol_in),
-                                     lambda: pol_mod.policy_can_access_plain(*pol_in),
-                                     12 * F + 5 * F + nbytes(t.policy), map_ops["policy_can_access"]),
+            "lb_select": parent_turns("l34_tables", k13(lambda: lb_mod.lb_select(*lb_in)), map_row(
+                lambda: lb_mod.lb_select(*lb_in), lambda: lb_mod.lb_select_plain(*lb_in), lb_io, t.index.lb,
+                F * 2 * hash_ops(w + 1), lb_io + nbytes(lb), map_ops["lb_select"],
+                extra=nbytes(lb.counts, lb.b_target_words, lb.b_port, lb.revnat))),
+            "exact_lookup": parent_turns("l34_tables", k13(lambda: ml_mod.exact_lookup(*ct_in)), map_row(
+                lambda: ml_mod.exact_lookup(*ct_in), lambda: ml_mod.exact_lookup_plain(*ct_in), ct_io,
+                t.index.ct, F * hash_ops(k_ct), ct_io + nbytes(t.ct), exact_ops(t.ct, ct_in[1:]))),
+            "lpm_lookup": lpm_row(t.ipcache, nd),
+            "policy_can_access": parent_turns("l34_tables", k13(lambda: pol_mod.policy_can_access_batch(*pol_in)),
+                                              map_row(lambda: pol_mod.policy_can_access_batch(*pol_in),
+                                                      lambda: pol_mod.policy_can_access_plain(*pol_in), pol_io,
+                                                      t.index.policy, F * 3 * hash_ops(4),
+                                                      pol_io + nbytes(t.policy),
+                                                      map_ops["policy_can_access"])),
         }
         timed[f"{name}-maps"] = dict(rows=mrows)
         for kn, mr in mrows.items():
             log_row(f"{name}-maps", kn, mr)
     # The whole CT round trip on the host clock: the creates applied to a
     # fresh copy of the CT map, the tables (and their indexes) rebuilt and
-    # the pass read back; given --baseline-csrc, in turns with the parent's
-    # kernels and a snapshot that builds no index, as the parent's did.  The
+    # the pass read back, five times.  (Not in turns with the parent's
+    # kernel: both sides would run this tree's host code, and the kernel is
+    # well under the host clock's spread.  That a snapshot builds one index
+    # a table is held by tests/test_torch_map_index.py.)  The
     # copies' clock stays at the counted round trip's, so every trip expires
     # and creates the same entries; the collector runs before each trip and
     # is off during it (its pauses spread the readings 3x otherwise).
@@ -2140,23 +2282,16 @@ def l34_slice(dev, card, kerns):
             finally:
                 gc.enable()
 
-        def parent_trip():
-            with parent_kernels(["datapath"]), parent_snapshot(t.index):
-                return trip()
-
-        readings, want = {"n": [], "o": []}, None
-        for who in "noonnoonno" if "datapath" in BASELINE else "nnnnn":
-            ms, got = trip() if who == "n" else parent_trip()
+        readings, want = [], None
+        for _ in range(5):
+            ms, got = trip()
             want = got if want is None else want
             if not torch.equal(got, want):
-                raise AssertionError(f"{name}: the timed round trips ({who}) disagree")
-            readings[who].append(ms)
+                raise AssertionError(f"{name}: the timed round trips disagree")
+            readings.append(ms)
         timed[name]["round_trip"] = readings
         log(f"{name:15s} CT round trip (creates applied, tables and indexes rebuilt, pass read back), host "
-            f"clock: " + ", ".join(f"{x:.2f}" for x in readings["n"]) + " ms"
-            + ("" if not readings["o"] else "; the parent's (its kernel, no index built): "
-               + ", ".join(f"{x:.2f}" for x in readings["o"]) + " ms (in turns n o o n n o o n n o; medians "
-               f"{sorted(readings['n'])[2]:.2f} / {sorted(readings['o'])[2]:.2f})") + f" [{card}]")
+            f"clock: " + ", ".join(f"{x:.2f}" for x in readings) + f" ms [{card}]")
     for name, mode, src in (("netdev", ing_mod.MODE_NETDEV, dsrc), ("overlay", ing_mod.MODE_OVERLAY, dvni)):
         sa, da, sp, dp, pr = dn
         netdev = mode == ing_mod.MODE_NETDEV
@@ -2207,11 +2342,8 @@ def l34_slice(dev, card, kerns):
     for name, ws in pf_words.items():
         v6 = name == "prefilter6"
         lpm = pf.device_lpm(v6=v6)
-        w = 4 if v6 else 1
         host_words = words6 if v6 else words4
-        rows = {"lpm_lookup": row(lambda: lpm_mod.prefilter_check_batch(lpm, *ws),
-                                  lambda: lpm_mod.lpm_lookup_plain(lpm, *ws),
-                                  w * 4 * F + 9 * F + nbytes(lpm), lpm_ops(lpm, ws))}
+        rows = {"lpm_lookup": lpm_row(lpm, ws)}
         timed[name] = dict(rows=rows, **pass_times(
             lambda: (lpm_mod.prefilter_check_batch(lpm, *ws),),
             lambda: (torch.from_numpy(pf.filter_batch(host_words, v6=v6)),)))
@@ -3353,29 +3485,6 @@ class parent_kernels:
     def __exit__(self, *exc):
         for k, fn in self.own:
             k._fn = fn
-
-
-class parent_snapshot:
-    """Inside ``with parent_snapshot(index)``, ``DatapathTables`` build no
-    index, as the parent's snapshot did, and carry ``index``'s parts in its
-    place (the parent's kernels never read them)."""
-
-    def __init__(self, index):
-        self.index = index
-
-    def __enter__(self):
-        from cilium_tpu_torch.datapath import pipeline as dp
-
-        ix = self.index
-        self.own = dp.lb_index, dp.exact_index, dp.lpm_index
-        dp.lb_index = lambda lb: ix.lb
-        dp.exact_index = lambda table, nv: ix.ct if nv == 0 else ix.policy
-        dp.lpm_index = lambda lpm: ix.ipcache
-
-    def __exit__(self, *exc):
-        from cilium_tpu_torch.datapath import pipeline as dp
-
-        dp.lb_index, dp.exact_index, dp.lpm_index = self.own
 
 
 def _outputs(out):
@@ -5514,7 +5623,8 @@ def main() -> int:
                                 "cilium_tpu/parallel/rulesharding.py:503", "mesh-kafka-1x4"),
     }
     fields = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "turns_ms",
-              "parent_ms", "turns_call_ms", "parent_call_ms", "variant", "walk_bound_ms")
+              "parent_ms", "turns_call_ms", "parent_call_ms", "variant", "walk_bound_ms", "index_bound_ms",
+              "groups")
     kernels_line = []
     for kname, (source, ref, shape) in replaces.items():
         row = timed[shape]["rows"][kname]
@@ -5526,6 +5636,7 @@ def main() -> int:
             "turns_ms": row.get("turns_ms"), "parent_ms": row.get("parent_ms"), "shape": shape,
             "shape_launches": runs[shape][kname], "call_ms": row["call_ms"],
             "variant": row.get("variant"), "walk_bound_ms": row.get("walk_bound_ms"),
+            "index_bound_ms": row.get("index_bound_ms"), "groups": row.get("groups"),
         }
         others = {}
         for other, t in timed.items():
@@ -5997,6 +6108,10 @@ def log_row(name, kname, row):
         f"plain {plain}  bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
         f"{row['bytes']} bytes, {row['ops']} ops)"
         + (" variant %s" % (row["variant"],) if "variant" in row else ""))
+    if "index_bound_ms" in row:
+        log(f"{name:15s} {kname:14s} index bound {row['index_bound_ms']:.6f} ms ({row['index_bound_by']}), "
+            f"walk bound {row['walk_bound_ms']:.6f} ms ({row['walk_bound_by']})"
+            + (f", {row['groups']} mask group(s)" if "groups" in row else ""))
     if "turns" in row:
         log(f"{name:15s} {kname:14s} {turns_text(row['turns'])}; per call {row['turns_call_ms']:.5f} "
             f"ms against the parent's {row['parent_call_ms']:.5f} (the better of two each)")

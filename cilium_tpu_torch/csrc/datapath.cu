@@ -10,7 +10,9 @@
 //
 // Bound on the H100: bytes, 4 * (2W + 3) * F in, (W + 6) * 4 * F + 2 * F
 // out, the indexes and the LB's counts, backends and rev NAT once (the
-// other tables' keys and values live in the index slots).  Design: one
+// other tables' keys and the policy's value column 0 live in the index
+// slots, or, for a policy table too wide for its slots, the row id whose
+// value column 0 is read on a match).  Design: one
 // thread a packet probes the hashed indexes of l34_index.cuh
 // (ops/l34_index.py builds them with the tables), so a lookup reads one
 // bucket, not every row, and the post-DNAT tuple, the destination
@@ -47,7 +49,12 @@ namespace {
 constexpr int kForward = 0, kDrop = 1, kToProxy = 2;  // pipeline.py
 constexpr int kDirEgress = 1;                          // maps/policymap.py
 
-template <int W>
+// kOwn: the CT and policy indexes have the slots of the tables the pass
+// is built for (the CT key and a value; the policy key and values 0..2),
+// so the slot strides are constants and value column 0 is slot word 4;
+// else the strides are read from the indexes, and a policy table too wide
+// for its slots has its rows read on a match.
+template <int W, bool kOwn>
 __global__ void __launch_bounds__(l34::kThreads) datapath_kernel(const DpArgs a) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= a.f) return;
@@ -74,7 +81,7 @@ __global__ void __launch_bounds__(l34::kThreads) datapath_kernel(const DpArgs a)
   // 2. conntrack on the post-DNAT tuple (daddr, saddr, dport, sport, proto)
   // and 3. the destination identity, their probes issued together
   constexpr int kCtK = 2 * W + 3;
-  constexpr int kCtS = l34x::slot_words(kCtK + 1);
+  constexpr int kCtS = l34x::slot_words(kCtK);  // the key words of a slot
   int32_t key[kCtK];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
@@ -84,7 +91,7 @@ __global__ void __launch_bounds__(l34::kThreads) datapath_kernel(const DpArgs a)
   key[2 * W] = ndport;
   key[2 * W + 1] = sport;
   key[2 * W + 2] = proto;
-  l34x::Probe<kCtS> ct;
+  l34x::Probe<kCtS, kOwn ? kCtS : 0> ct;
   l34x::LpmPair<W> ip;
   l34x::start<kCtK, kCtS>(a.ct_ix, key, ct);
   l34x::lpm_start<W>(a.ipc_ix, nd, 0, ip);
@@ -97,12 +104,12 @@ __global__ void __launch_bounds__(l34::kThreads) datapath_kernel(const DpArgs a)
   const int32_t dst = ip_found ? ident : l34::kWorldId;
 
   // 4. policy cascade
-  l34x::PolicyProbe pp;
+  l34x::PolicyProbe<kOwn ? l34x::kPolS : 0> pp;
   l34x::policy_start(a.pol_ix, dst, ndport, proto, kDirEgress, pp);
   l34x::policy_first(a.pol_ix, pp);
   bool allowed;
   int32_t proxy;
-  l34x::policy_finish(a.pol_ix, pp, allowed, proxy);
+  l34x::policy_finish<kOwn>(a.pol, a.pol_ix, pp, allowed, proxy);
 
   const bool pass = est || allowed;
   const int verdict = pass ? ((proxy > 0 && !est) ? kToProxy : kForward) : kDrop;
@@ -127,11 +134,16 @@ int launch(const DpArgs* args, void* stream) {
   if (a.lb.w != W || a.ipc.w != W || a.ct.k != 2 * W + 3 || a.pol.k != 4 || a.pol.v < 1)
     return cudaErrorInvalidValue;
   if (!l34x::usable(a.lb_ix, l34x::LbKey<W>::S) ||
-      !l34x::usable(a.ct_ix, l34x::slot_words(2 * W + 4)) || !l34x::usable<W>(a.ipc_ix) ||
-      !l34x::usable(a.pol_ix, l34x::kPolS))
+      !l34x::usable(a.ct_ix, l34x::exact_width(2 * W + 3, a.ct.v)) || !l34x::usable<W>(a.ipc_ix) ||
+      !l34x::usable(a.pol_ix, l34x::exact_width(4, a.pol.v)))
     return cudaErrorInvalidValue;
-  datapath_kernel<W><<<l34::blocks_for(a.f), l34::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  const bool own = a.ct_ix.width == l34x::slot_words(2 * W + 3) &&
+                   a.pol_ix.width == l34x::kPolS && 4 + a.pol.v + 1 <= l34x::kPolS;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (own)
+    datapath_kernel<W, true><<<l34::blocks_for(a.f), l34::kThreads, 0, st>>>(a);
+  else
+    datapath_kernel<W, false><<<l34::blocks_for(a.f), l34::kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@
 // both CT orientations) and the policy cascade as dense [F, N] compares.
 //
 // Bound on the H100: bytes, 24 * F in, 22 * F out, and the indexes once
-// (every value read lives in their slots).  Design: as K14, one thread a packet probes the
+// (every value read lives in their slots, but for an endpoint or policy
+// table too wide for its slots, whose matched rows' values are read from
+// the table).  Design: as K14, one thread a packet probes the
 // hashed indexes of l34_index.cuh: the identity LPM's first pair of mask
 // groups (netdev only), the endpoint, the CT in both orientations and the
 // tunnel LPM's first pair are issued together before any is tested, then
@@ -50,10 +52,18 @@ constexpr int kHostId = 1, kReservedMax = 255;  // datapath/ingress.py
 constexpr int kDirIngress = 0;                  // maps/policymap.py
 constexpr int kHostFlag = 1;                    // maps/lxcmap.py ENDPOINT_F_HOST
 
-constexpr int kCtS = l34x::slot_words(5 + 1);   // the CT key, row id
-constexpr int kLxcS = l34x::slot_words(1 + 3);  // addr, (lxc id, flags), row id
+// The words of a slot the probes read: the CT key; the address and (lxc
+// id, flags), or the row id where the endpoint's values do not fit a slot.
+constexpr int kCtS = l34x::slot_words(5);
+constexpr int kLxcS = l34x::slot_words(1 + 2);
 
-template <int kMode>
+// kOwn: the endpoint, CT and policy indexes have the slots of the tables
+// the pass is built for (the address and (lxc id, flags); the CT key and a
+// value; the policy key and values 0..2), so the slot strides are
+// constants and the values sit in the slots; else the strides are read
+// from the indexes, and a table too wide for its slots has its rows read
+// on a match.
+template <int kMode, bool kOwn>
 __global__ void __launch_bounds__(l34::kThreads) ingress_kernel(const IngArgs a) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= a.f) return;
@@ -72,8 +82,8 @@ __global__ void __launch_bounds__(l34::kThreads) ingress_kernel(const IngArgs a)
   const int32_t kf[5] = {daddr, saddr, dport, sport, proto};
   const int32_t kr[5] = {saddr, daddr, sport, dport, proto};
   l34x::LpmPair<1> idp, tunp;
-  l34x::Probe<kLxcS> lx;
-  l34x::Probe<kCtS> cf, cr;
+  l34x::Probe<kLxcS, kOwn ? kLxcS : 0> lx;
+  l34x::Probe<kCtS, kOwn ? kCtS : 0> cf, cr;
   if (kMode == 0) l34x::lpm_start<1>(a.id_ix, sa, 0, idp);
   l34x::start<1, kLxcS>(a.lxc_ix, da, lx);
   l34x::start<5, kCtS>(a.ct_ix, kf, cf);
@@ -97,12 +107,12 @@ __global__ void __launch_bounds__(l34::kThreads) ingress_kernel(const IngArgs a)
       src_id = l34::kWorldId;
     }
   }
-  l34x::PolicyProbe pp;
+  l34x::PolicyProbe<kOwn ? l34x::kPolS : 0> pp;
   l34x::policy_start(a.pol_ix, src_id, dport, proto, kDirIngress, pp);
 
   // Local endpoint demux: the lxc table keyed by address, values summed.
   int32_t lxc[2] = {0, 0};  // endpoint id, flags
-  const bool is_local = l34x::sum<1, kLxcS, 2>(a.lxc_ix, lx, da, lxc);
+  const bool is_local = l34x::sum2<kOwn>(a.lxc, a.lxc_ix, lx, da, lxc);
   const int32_t lxc_id = lxc[0], lxc_flags = lxc[1];
   const bool is_host = is_local && (lxc_flags & kHostFlag) != 0;
   const bool est_f = l34x::found<5, kCtS>(a.ct_ix, cf, kf);
@@ -115,7 +125,7 @@ __global__ void __launch_bounds__(l34::kThreads) ingress_kernel(const IngArgs a)
   l34x::policy_first(a.pol_ix, pp);
   bool allowed;
   int32_t proxy;
-  l34x::policy_finish(a.pol_ix, pp, allowed, proxy);
+  l34x::policy_finish<kOwn>(a.pol, a.pol_ix, pp, allowed, proxy);
 
   const bool pass = est || allowed;
   const int local = pass ? ((proxy > 0 && !est) ? kToProxy : kForward) : kDrop;
@@ -141,13 +151,22 @@ CILIUM_EXPORT int ingress(const IngArgs* args, void* stream) {
   if (a.ipc_id.w != 1 || a.ipc_tun.w != 1 || a.lxc.k != 1 || a.lxc.v < 2 ||
       a.ct.k != 5 || a.pol.k != 4 || a.pol.v < 1 || (a.mode != 0 && a.mode != 1))
     return cudaErrorInvalidValue;
-  if (!l34x::usable<1>(a.id_ix) || !l34x::usable<1>(a.tun_ix) || !l34x::usable(a.lxc_ix, kLxcS) ||
-      !l34x::usable(a.ct_ix, kCtS) || !l34x::usable(a.pol_ix, l34x::kPolS))
+  if (!l34x::usable<1>(a.id_ix) || !l34x::usable<1>(a.tun_ix) ||
+      !l34x::usable(a.lxc_ix, l34x::exact_width(1, a.lxc.v)) ||
+      !l34x::usable(a.ct_ix, l34x::exact_width(5, a.ct.v)) ||
+      !l34x::usable(a.pol_ix, l34x::exact_width(4, a.pol.v)))
     return cudaErrorInvalidValue;
+  const bool own = a.lxc_ix.width == kLxcS && 1 + a.lxc.v + 1 <= kLxcS && a.ct_ix.width == kCtS &&
+                   a.pol_ix.width == l34x::kPolS && 4 + a.pol.v + 1 <= l34x::kPolS;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.mode == 0)
-    ingress_kernel<0><<<l34::blocks_for(a.f), l34::kThreads, 0, st>>>(a);
+  const int blocks = l34::blocks_for(a.f);
+  if (a.mode == 0 && own)
+    ingress_kernel<0, true><<<blocks, l34::kThreads, 0, st>>>(a);
+  else if (a.mode == 0)
+    ingress_kernel<0, false><<<blocks, l34::kThreads, 0, st>>>(a);
+  else if (own)
+    ingress_kernel<1, true><<<blocks, l34::kThreads, 0, st>>>(a);
   else
-    ingress_kernel<1><<<l34::blocks_for(a.f), l34::kThreads, 0, st>>>(a);
+    ingress_kernel<1, false><<<blocks, l34::kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }

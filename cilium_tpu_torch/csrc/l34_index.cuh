@@ -1,13 +1,17 @@
-// Probes of the hashed table indexes that K14 (datapath.cu) and K15
-// (ingress.cu) read in place of l34.cuh's row walks.  ops/l34_index.py
-// builds the indexes (its ctypes mirrors are HashIx and LpmIx) and holds
-// the layout: a bucketed (CSR) index, bucket h & (B - 1) of a key's
-// MurmurHash3, bounds[b] its (first, end) slot, slots row-major and padded
-// to 4, 8 or 16 words, a bucket's rows in table order, zero slots past
-// the last indexed row (at least one).
+// Probes of the hashed table indexes that the L3/L4 kernels read: K12
+// (lpm.cu), K13 (l34_tables.cu), K14 (datapath.cu) and K15 (ingress.cu).
+// ops/l34_index.py builds the indexes, one a table when the table is made
+// (its ctypes mirrors are HashIx and LpmIx), and holds the layout: a
+// bucketed (CSR) index, bucket h & (B - 1) of a key's MurmurHash3,
+// bounds[b] its (first, end) slot, slots row-major and padded to 4, 8 or
+// 16 words, a bucket's rows in table order, zero slots past the last
+// indexed row (at least one).
 //
 // A probe is two dependent loads: the bucket's bounds (one 8-byte load)
-// and its first slot (16-byte ld.global.nc loads), taken whether or not
+// and its first slot (16-byte ld.global.nc loads of the S words it reads:
+// the slot, or a prefix of it where the stride St between slots is wider,
+// St a template argument, or 0 for the index's width read at run time),
+// taken whether or not
 // the bucket is empty (the zero slots keep it in bounds), so a thread
 // issues the bounds of every independent probe, then every first slot,
 // and tests none of them before all are issued: a test between two loads
@@ -41,6 +45,14 @@ __host__ __device__ constexpr int slot_words(int used) {
   return used <= 4 ? 4 : (used <= 8 ? 8 : 16);
 }
 
+// Whether the slots of a K-column table with V value columns hold the
+// values (ops/maplookup.py slot_values; else the slot holds the row id at
+// word K), and the width of its index's slots.
+__host__ __device__ constexpr bool in_slot(int k, int v) { return k + v + 1 <= 16; }
+__host__ __device__ constexpr int exact_width(int k, int v) {
+  return slot_words(k + (in_slot(k, v) ? v : 0) + 1);
+}
+
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
 
 // ops/l34_index.py hash32: MurmurHash3 (x86, 32 bits, seed 0) of K words.
@@ -60,16 +72,20 @@ __device__ __forceinline__ uint32_t hash_key(const int32_t (&q)[K]) {
   return h ^ (h >> 16);
 }
 
-// One probe: the bucket's bounds and its first slot.
-template <int S>
+// One probe: the bucket's bounds and the first S words of its first
+// slot, slots St words apart (0: the index's width).
+template <int S, int St = S>
 struct Probe {
   int2 b;
   int32_t s[S];
 };
 
-template <int S>
+// The first S words of slot i.
+template <int S, int St>
 __device__ __forceinline__ void load_slot(const HashIx& ix, int i, int32_t (&s)[S]) {
-  const int4* p = reinterpret_cast<const int4*>(ix.slots) + static_cast<size_t>(i) * (S / 4);
+  static_assert(St == 0 || St >= S, "a slot holds fewer words than the probe reads");
+  const int stride = St > 0 ? St : ix.width;
+  const int4* p = reinterpret_cast<const int4*>(ix.slots + static_cast<size_t>(i) * stride);
 #pragma unroll
   for (int j = 0; j < S / 4; ++j) {
     const int4 v = __ldg(p + j);
@@ -81,16 +97,16 @@ __device__ __forceinline__ void load_slot(const HashIx& ix, int i, int32_t (&s)[
 }
 
 // The bucket bounds of key q.
-template <int K, int S>
-__device__ __forceinline__ void start(const HashIx& ix, const int32_t (&q)[K], Probe<S>& p) {
+template <int K, int S, int St>
+__device__ __forceinline__ void start(const HashIx& ix, const int32_t (&q)[K], Probe<S, St>& p) {
   p.b = __ldg(ix.bounds + (hash_key<K>(q) & static_cast<uint32_t>(ix.mask)));
 }
 
 // The bucket's first slot (when the bucket is empty, the slot its bound points
 // at: a row of the next bucket, or the first zero slot).
-template <int S>
-__device__ __forceinline__ void first(const HashIx& ix, Probe<S>& p) {
-  load_slot<S>(ix, p.b.x, p.s);
+template <int S, int St>
+__device__ __forceinline__ void first(const HashIx& ix, Probe<S, St>& p) {
+  load_slot<S, St>(ix, p.b.x, p.s);
 }
 
 template <int K, int S>
@@ -102,36 +118,46 @@ __device__ __forceinline__ bool key_eq(const int32_t (&s)[S], const int32_t (&q)
 }
 
 // on(slot) for every slot of the bucket whose key is q, in table order.
-template <int K, int S, typename On>
-__device__ __forceinline__ void visit(const HashIx& ix, const Probe<S>& p, const int32_t (&q)[K],
+template <int K, int S, int St, typename On>
+__device__ __forceinline__ void visit(const HashIx& ix, const Probe<S, St>& p, const int32_t (&q)[K],
                                       On&& on) {
   if (p.b.x < p.b.y && key_eq<K, S>(p.s, q)) on(p.s);
   for (int i = p.b.x + 1; i < p.b.y; ++i) {
     int32_t s[S];
-    load_slot<S>(ix, i, s);
+    load_slot<S, St>(ix, i, s);
     if (key_eq<K, S>(s, q)) on(s);
   }
 }
 
+// Value column C of the row a matched slot of a K-column table t stands
+// for: slot word K + C where the values fit the slot (kIn: known to),
+// else column C of the table row whose id the slot holds at word K.
+template <int K, int C, bool kIn, int S>
+__device__ __forceinline__ int32_t slot_value(const l34::ExactTab& t, const int32_t (&s)[S]) {
+  static_assert(K + C < S, "the probe reads too few words of the slot");
+  if (kIn || in_slot(K, t.v)) return s[K + C];
+  return l34::ld(t.values + static_cast<size_t>(s[K]) * t.v + C);
+}
+
 // Whether a row has key q (the CT lookups: `found` only).
-template <int K, int S>
-__device__ __forceinline__ bool found(const HashIx& ix, const Probe<S>& p, const int32_t (&q)[K]) {
+template <int K, int S, int St>
+__device__ __forceinline__ bool found(const HashIx& ix, const Probe<S, St>& p, const int32_t (&q)[K]) {
   bool f = false;
   visit<K, S>(ix, p, q, [&](const int32_t (&)[S]) { f = true; });
   return f;
 }
 
-// ops/maplookup.py exact_lookup: whether a row has key q, and the int32-
-// wrapped sum of the NV value columns (slot words K..K+NV-1) of every such
-// row, added into acc.
-template <int K, int S, int NV>
-__device__ __forceinline__ bool sum(const HashIx& ix, const Probe<S>& p, const int32_t (&q)[K],
-                                    int32_t (&acc)[NV]) {
+// ops/maplookup.py exact_lookup: whether a row of table t has key q, and
+// the int32-wrapped sum of value columns 0 and 1 of every such row, added
+// into acc (kIn: the slots are known to hold the values).
+template <bool kIn, int K, int S, int St>
+__device__ __forceinline__ bool sum2(const l34::ExactTab& t, const HashIx& ix, const Probe<S, St>& p,
+                                     const int32_t (&q)[K], int32_t (&acc)[2]) {
   bool f = false;
   visit<K, S>(ix, p, q, [&](const int32_t (&s)[S]) {
     f = true;
-#pragma unroll
-    for (int c = 0; c < NV; ++c) acc[c] = add32(acc[c], s[K + c]);
+    acc[0] = add32(acc[0], slot_value<K, 0, kIn>(t, s));
+    acc[1] = add32(acc[1], slot_value<K, 1, kIn>(t, s));
   });
   return f;
 }
@@ -209,18 +235,23 @@ __device__ __forceinline__ void lpm_finish(const LpmIx& ix, const int32_t (&a)[W
 
 // --- the policy cascade -----------------------------------------------------
 
-constexpr int kPolS = slot_words(4 + 1 + 1);  // key, value column 0, row id
+// The words of a policy slot the cascade reads: the key and word 4 (value
+// column 0, or the row id where the values do not fit the slot).
+constexpr int kPolS = 8;
 
 // maps/policymap.py policy_can_access_batch: the three exact lookups of
 // the cascade, (ident, dport, proto, dir), (ident, 0, 0, dir) and (0,
-// dport, proto, dir), each summing value column 0 of its matched rows.
+// dport, proto, dir), each summing value column 0 of its matched rows;
+// slots St words apart (0: the index's width).
+template <int St = kPolS>
 struct PolicyProbe {
   int32_t q[3][4];
-  Probe<kPolS> p[3];
+  Probe<kPolS, St> p[3];
 };
 
+template <int St>
 __device__ __forceinline__ void policy_start(const HashIx& ix, int32_t ident, int32_t dport,
-                                             int32_t proto, int32_t dir, PolicyProbe& pp) {
+                                             int32_t proto, int32_t dir, PolicyProbe<St>& pp) {
   const int32_t keys[3][4] = {{ident, dport, proto, dir}, {ident, 0, 0, dir}, {0, dport, proto, dir}};
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
@@ -230,19 +261,29 @@ __device__ __forceinline__ void policy_start(const HashIx& ix, int32_t ident, in
   }
 }
 
-__device__ __forceinline__ void policy_first(const HashIx& ix, PolicyProbe& pp) {
+template <int St>
+__device__ __forceinline__ void policy_first(const HashIx& ix, PolicyProbe<St>& pp) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) first(ix, pp.p[j]);
 }
 
-__device__ __forceinline__ void policy_finish(const HashIx& ix, const PolicyProbe& pp,
-                                              bool& allowed, int32_t& proxy) {
-  int32_t v1[1] = {0}, v2[1] = {0}, v3[1] = {0};
-  const bool f1 = sum<4, kPolS, 1>(ix, pp.p[0], pp.q[0], v1);
-  const bool f2 = sum<4, kPolS, 1>(ix, pp.p[1], pp.q[1], v2);
-  const bool f3 = sum<4, kPolS, 1>(ix, pp.p[2], pp.q[2], v3);
-  allowed = f1 || f2 || f3;
-  proxy = f1 ? v1[0] : (f2 ? 0 : (f3 ? v3[0] : 0));
+// The cascade's answer from the policy table t and its index ix (kIn:
+// the slots are known to hold value column 0).
+template <bool kIn, int St>
+__device__ __forceinline__ void policy_finish(const l34::ExactTab& t, const HashIx& ix,
+                                              const PolicyProbe<St>& pp, bool& allowed,
+                                              int32_t& proxy) {
+  bool f[3] = {false, false, false};
+  int32_t v[3] = {0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    visit<4, kPolS>(ix, pp.p[j], pp.q[j], [&](const int32_t (&s)[kPolS]) {
+      f[j] = true;
+      v[j] = add32(v[j], slot_value<4, 0, kIn>(t, s));
+    });
+  }
+  allowed = f[0] || f[1] || f[2];
+  proxy = f[0] ? v[0] : (f[1] ? 0 : (f[2] ? v[2] : 0));
 }
 
 // --- the service table ------------------------------------------------------
@@ -252,10 +293,12 @@ struct LbKey {
   static constexpr int S = slot_words(W + 2);  // VIP words, port, row id
 };
 
-// maps/lbmap.py lb{4,6}_select_backend_batch for one flow, as l34.cuh's
-// lb_walk, with the rows found through the index: the first valid row
-// with (VIP, dport), else the first with (VIP, 0) (a bucket keeps its rows
-// in table order, so the first slot that matches is the first row).
+// maps/lbmap.py lb{4,6}_select_backend_batch for one flow: the first
+// valid row with (VIP, dport), else the first with (VIP, 0), found through
+// the index (a bucket keeps its rows in table order, so the first slot that
+// matches is the first row); backend uint32(hash) % max(count, 1), clamped
+// into the table as the reference's gather clamps; row 0 and zeros when no
+// service matches.
 template <int W>
 __device__ __forceinline__ void lb_probe(const l34::LbTab& t, const HashIx& ix,
                                          const int32_t (&vip)[W], int32_t dport, uint32_t hash,
@@ -288,7 +331,8 @@ __device__ __forceinline__ void lb_probe(const l34::LbTab& t, const HashIx& ix,
 }
 
 // Whether an index was given (a launcher refuses tables without one) and
-// has the slot width the probes read.
+// has the slot width of its table (exact_width for an exact table: the
+// probes read a prefix of it, and where the values sit).
 __host__ __device__ inline bool usable(const HashIx& ix, int width) {
   return ix.bounds != nullptr && ix.slots != nullptr && ix.mask >= 0 && ix.width == width;
 }

@@ -11,23 +11,30 @@
 //                      wildcard port) and the uint32 hash % count backend.
 //
 // The reference formed dense [F, N] compares for each and reduced them.
-// Bound on the H100: operations.  A query compares one reject column of
-// every row (exact_lookup must see them all, since matched rows sum) and
-// a row's other key columns only where that one passed; the bytes are the
-// [F] columns in and out and the tables (tens of KB) once.  Design: one
-// thread a query walks the rows once, the rows read warp-uniform through
-// the read-only path, the reject column of 8 rows loaded before any is
-// compared (l34.cuh exact_sum, policy_walk, lb_walk); values are touched
-// only on a match, and the sums go straight to the thread's own output
-// row, so no atomics are needed.
-#include "l34.cuh"
+// Design: one thread a query probes the hashed index its table carries
+// (ops/l34_index.py builds it when the table is made; the probes are
+// l34_index.cuh): a key's bucket bounds, then the bucket's first slot,
+// every load of the query issued before any is tested, the rest of the
+// bucket after (B is at least twice the rows, so rarely any).  A slot holds
+// the key, the V value columns and the row id, so a hit reads no table
+// row; where K + V + 1 is more than 16 words the slot holds the key and
+// the row id, and the value row is read from the table on a match.  The
+// cascade's three keys and the LB's two (L4, wildcard port) are started
+// together, then their first slots loaded, then tested.  Bound on the
+// H100: bytes, the [F] columns in and out and the index read once.  A
+// launcher refuses arguments without a usable index: no lookup walks the
+// rows.
+#include "l34_index.cuh"
 
+// The index rides after the parent's fields, so a parent's launcher reads
+// these structs unchanged.
 struct ExactArgs {
   l34::ExactTab t;
   const int32_t* q[l34::kMaxKeyCols];
   int32_t f;
   bool* found;
   int32_t* vals;
+  l34x::HashIx ix;
 };
 
 struct PolicyArgs {
@@ -39,6 +46,7 @@ struct PolicyArgs {
   int32_t f;
   bool* allowed;
   int32_t* proxy;
+  l34x::HashIx ix;
 };
 
 struct LbArgs {
@@ -51,28 +59,62 @@ struct LbArgs {
   int32_t* target[4];
   int32_t* port;
   int32_t* rev;
+  l34x::HashIx ix;
 };
 
 namespace {
 
-template <int K>
+using l34x::exact_width;
+using l34x::in_slot;
+
+template <int K, int S>
 __global__ void __launch_bounds__(l34::kThreads) exact_kernel(const ExactArgs a) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= a.f) return;
   int32_t q[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) q[k] = a.q[k][f];
-  int32_t* out = a.vals + static_cast<size_t>(f) * a.t.v;
-  for (int c = 0; c < a.t.v; ++c) out[c] = 0;
-  a.found[f] = l34::exact_sum<K>(a.t, q, a.t.v, out);
+  l34x::Probe<S> p;
+  l34x::start<K, S>(a.ix, q, p);
+  l34x::first(a.ix, p);
+  const int v = a.t.v;
+  int32_t* out = a.vals + static_cast<size_t>(f) * v;
+  bool found = false;
+  if (in_slot(K, v)) {
+    constexpr int kNV = S - K - 1 > 0 ? S - K - 1 : 1;  // value words a slot can hold
+    int32_t acc[kNV];
+#pragma unroll
+    for (int c = 0; c < kNV; ++c) acc[c] = 0;
+    l34x::visit<K, S>(a.ix, p, q, [&](const int32_t (&s)[S]) {
+      found = true;
+#pragma unroll
+      for (int c = 0; c < kNV; ++c)
+        if (c < v) acc[c] = l34::add32(acc[c], s[K + c]);
+    });
+#pragma unroll
+    for (int c = 0; c < kNV; ++c)
+      if (c < v) out[c] = acc[c];
+  } else {
+    for (int c = 0; c < v; ++c) out[c] = 0;
+    l34x::visit<K, S>(a.ix, p, q, [&](const int32_t (&s)[S]) {
+      found = true;
+      const int32_t* row = a.t.values + static_cast<size_t>(s[K]) * v;
+      for (int c = 0; c < v; ++c) out[c] = l34::add32(out[c], l34::ld(row + c));
+    });
+  }
+  a.found[f] = found;
 }
 
+template <int St>
 __global__ void __launch_bounds__(l34::kThreads) policy_kernel(const PolicyArgs a) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= a.f) return;
+  l34x::PolicyProbe<St> pp;
+  l34x::policy_start(a.ix, a.ident[f], a.dport[f], a.proto[f], a.dir, pp);
+  l34x::policy_first(a.ix, pp);
   bool allowed;
   int32_t proxy;
-  l34::policy_walk(a.t, a.ident[f], a.dport[f], a.proto[f], a.dir, allowed, proxy);
+  l34x::policy_finish<false>(a.t, a.ix, pp, allowed, proxy);
   a.allowed[f] = allowed;
   a.proxy[f] = proxy;
 }
@@ -86,8 +128,8 @@ __global__ void __launch_bounds__(l34::kThreads) lb_kernel(const LbArgs a) {
   for (int w = 0; w < W; ++w) vip[w] = a.vip[w][f];
   bool found;
   int32_t port, rev;
-  l34::lb_walk<W>(a.t, vip, a.dport[f], static_cast<uint32_t>(a.hash[f]), found,
-                  target, port, rev);
+  l34x::lb_probe<W>(a.t, a.ix, vip, a.dport[f], static_cast<uint32_t>(a.hash[f]), found, target,
+                    port, rev);
   a.found[f] = found;
 #pragma unroll
   for (int w = 0; w < W; ++w) a.target[w][f] = target[w];
@@ -95,9 +137,24 @@ __global__ void __launch_bounds__(l34::kThreads) lb_kernel(const LbArgs a) {
   a.rev[f] = rev;
 }
 
+template <int K, int S>
+int launch_exact_s(const ExactArgs& a, cudaStream_t s) {
+  if constexpr (S >= K + 1) {
+    exact_kernel<K, S><<<l34::blocks_for(a.f), l34::kThreads, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int K>
-void launch_exact(const ExactArgs& a, cudaStream_t s) {
-  exact_kernel<K><<<l34::blocks_for(a.f), l34::kThreads, 0, s>>>(a);
+int launch_exact(const ExactArgs& a, cudaStream_t s) {
+  const int width = exact_width(K, a.t.v);
+  if (a.t.v < 0 || !l34x::usable(a.ix, width)) return cudaErrorInvalidValue;
+  switch (width) {
+    case 4: return launch_exact_s<K, 4>(a, s);
+    case 8: return launch_exact_s<K, 8>(a, s);
+    default: return launch_exact_s<K, 16>(a, s);
+  }
 }
 
 }  // namespace
@@ -107,28 +164,33 @@ CILIUM_EXPORT int exact_lookup(const ExactArgs* args, void* stream) {
   if (a.f <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   switch (a.t.k) {
-    case 1: launch_exact<1>(a, s); break;
-    case 2: launch_exact<2>(a, s); break;
-    case 3: launch_exact<3>(a, s); break;
-    case 4: launch_exact<4>(a, s); break;
-    case 5: launch_exact<5>(a, s); break;
-    case 6: launch_exact<6>(a, s); break;
-    case 7: launch_exact<7>(a, s); break;
-    case 8: launch_exact<8>(a, s); break;
-    case 9: launch_exact<9>(a, s); break;
-    case 10: launch_exact<10>(a, s); break;
-    case 11: launch_exact<11>(a, s); break;
+    case 1: return launch_exact<1>(a, s);
+    case 2: return launch_exact<2>(a, s);
+    case 3: return launch_exact<3>(a, s);
+    case 4: return launch_exact<4>(a, s);
+    case 5: return launch_exact<5>(a, s);
+    case 6: return launch_exact<6>(a, s);
+    case 7: return launch_exact<7>(a, s);
+    case 8: return launch_exact<8>(a, s);
+    case 9: return launch_exact<9>(a, s);
+    case 10: return launch_exact<10>(a, s);
+    case 11: return launch_exact<11>(a, s);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 CILIUM_EXPORT int policy_can_access(const PolicyArgs* args, void* stream) {
   const PolicyArgs a = *args;
   if (a.f <= 0) return cudaSuccess;
   if (a.t.k != 4 || a.t.v < 1) return cudaErrorInvalidValue;
-  policy_kernel<<<l34::blocks_for(a.f), l34::kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a);
+  const int width = exact_width(4, a.t.v);
+  if (!l34x::usable(a.ix, width)) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (width == 8) {
+    policy_kernel<8><<<l34::blocks_for(a.f), l34::kThreads, 0, s>>>(a);
+  } else {
+    policy_kernel<16><<<l34::blocks_for(a.f), l34::kThreads, 0, s>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -136,9 +198,9 @@ CILIUM_EXPORT int lb_select(const LbArgs* args, void* stream) {
   const LbArgs a = *args;
   if (a.f <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  if (a.t.w == 1) {
+  if (a.t.w == 1 && l34x::usable(a.ix, l34x::LbKey<1>::S)) {
     lb_kernel<1><<<l34::blocks_for(a.f), l34::kThreads, 0, s>>>(a);
-  } else if (a.t.w == 4) {
+  } else if (a.t.w == 4 && l34x::usable(a.ix, l34x::LbKey<4>::S)) {
     lb_kernel<4><<<l34::blocks_for(a.f), l34::kThreads, 0, s>>>(a);
   } else {
     return cudaErrorInvalidValue;

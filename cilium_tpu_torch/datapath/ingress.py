@@ -41,7 +41,7 @@ from ..maps.ctmap import CtKey4, CtMap
 from ..maps.ipcache import IpcacheMap
 from ..maps.lxcmap import ENDPOINT_F_HOST, LxcMap
 from ..maps.policymap import DIR_INGRESS, DevicePolicyMap, PolicyMap, policy_can_access_plain
-from ..ops.l34_index import HashIndex, HashIx, LpmIndex, LpmIx, exact_index, lpm_index
+from ..ops.l34_index import HashIndex, HashIx, LpmIndex, LpmIx
 from ..ops.lpm import DeviceLpm, LpmTab, lpm_lookup_plain
 from ..ops.maplookup import DeviceTable, ExactTab, exact_lookup_plain
 from .pipeline import DROP, FORWARD, TO_PROXY, WORLD_ID, pack_ct
@@ -59,11 +59,12 @@ MODE_OVERLAY = 1
 
 @dataclass
 class IngressIndex:
-    """K15's hashed indexes of one table snapshot (``ops/l34_index.py``)."""
+    """K15's hashed indexes of one table snapshot (``ops/l34_index.py``):
+    the tables' own."""
 
     ipcache_id: LpmIndex
     ipcache_tun: LpmIndex
-    lxc: HashIndex  # addr -> (lxc_id, flags)
+    lxc: HashIndex  # addr -> (lxc_id, flags, ...), or the row id
     ct: HashIndex
     policy: HashIndex
 
@@ -71,7 +72,8 @@ class IngressIndex:
 @dataclass
 class IngressTables:
     """Device snapshot of the maps the node-ingress programs read, and the
-    hashed indexes K15 probes (built here, so every constructor has them)."""
+    hashed indexes K15 probes (each table's own, built with the table: none
+    is built here)."""
 
     ipcache_id: DeviceLpm  # prefix -> sec_label
     ipcache_tun: DeviceLpm  # prefix -> tunnel_endpoint
@@ -91,10 +93,8 @@ class IngressTables:
         for name in ("ipcache_id", "ipcache_tun", "lxc", "ct", "policy"):
             if getattr(self, name).device != device:
                 raise ValueError(f"ingress tables: {name} is not on {device}")
-        self.index = IngressIndex(ipcache_id=lpm_index(self.ipcache_id),
-                                  ipcache_tun=lpm_index(self.ipcache_tun),
-                                  lxc=exact_index(self.lxc, 2), ct=exact_index(self.ct, 0),
-                                  policy=exact_index(self.policy.table, 1))
+        self.index = IngressIndex(ipcache_id=self.ipcache_id.index, ipcache_tun=self.ipcache_tun.index,
+                                  lxc=self.lxc.index, ct=self.ct.index, policy=self.policy.table.index)
 
     @property
     def device(self) -> torch.device:

@@ -19,8 +19,8 @@ bpf/bpf_lxc.c:684-760 handle_ipv4_from_lxc).  One pass takes [F] packet
 
 On the card the whole pass is kernel K14 (``csrc/datapath.cu``): one
 thread a packet probes the hashed indexes of the four tables
-(``ops/l34_index.py``, built with every ``DatapathTables``; the probes
-are ``csrc/l34_index.cuh``), so no intermediate leaves the registers.
+(``ops/l34_index.py``, each built once, by its table; the probes are
+``csrc/l34_index.cuh``), so no intermediate leaves the registers.
 The v4 and v6 passes share it (``datapath4`` and ``datapath6``, one body
 templated on the address width W); ``datapath_pass_plain`` is its plain PyTorch version, the
 composition of K12's and K13's plain versions, as the reference composed
@@ -41,7 +41,7 @@ from ..maps.ctmap import CtKey4, CtMap
 from ..maps.ipcache import IpcacheMap
 from ..maps.lbmap import LbMap, LbTab, _DeviceLb, lb_select_plain
 from ..maps.policymap import DIR_EGRESS, DevicePolicyMap, PolicyMap, policy_can_access_plain
-from ..ops.l34_index import HashIndex, HashIx, LpmIndex, LpmIx, exact_index, lb_index, lpm_index
+from ..ops.l34_index import HashIndex, HashIx, LpmIndex, LpmIx
 from ..ops.lpm import DeviceLpm, LpmTab, lpm_lookup_plain
 from ..ops.maplookup import DeviceTable, ExactTab, exact_lookup_plain, pack_table, u32_to_i32, wrap32
 
@@ -84,19 +84,20 @@ def flow_hash32(saddr, daddr, sport, dport, proto):
 
 @dataclass
 class DatapathIndex:
-    """K14's hashed indexes of one table snapshot (``ops/l34_index.py``)."""
+    """K14's hashed indexes of one table snapshot (``ops/l34_index.py``):
+    the tables' own."""
 
     lb: HashIndex  # (VIP words, port) -> row id
     ct: HashIndex  # the CT key
     ipcache: LpmIndex
-    policy: HashIndex  # (identity, dport, proto, direction) -> value column 0
+    policy: HashIndex  # (identity, dport, proto, direction) -> the values, or the row id
 
 
 @dataclass
 class DatapathTables:
     """One device-resident snapshot of the maps the pipeline reads, and
-    the hashed indexes K14 probes (built here, so every constructor has
-    them)."""
+    the hashed indexes K14 probes (each table's own, built with the table:
+    none is built here)."""
 
     ct: DeviceTable  # keys (daddr, saddr, dport, sport, proto)
     lb: _DeviceLb
@@ -112,9 +113,8 @@ class DatapathTables:
         for name in ("lb", "ipcache", "policy"):
             if getattr(self, name).device != device:
                 raise ValueError(f"tables: {name} is not on {device}")
-        self.index = DatapathIndex(lb=lb_index(self.lb), ct=exact_index(self.ct, 0),
-                                   ipcache=lpm_index(self.ipcache),
-                                   policy=exact_index(self.policy.table, 1))
+        self.index = DatapathIndex(lb=self.lb.index, ct=self.ct.index, ipcache=self.ipcache.index,
+                                   policy=self.policy.table.index)
 
     @property
     def device(self) -> torch.device:

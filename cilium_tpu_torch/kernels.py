@@ -246,6 +246,17 @@ def kafka_variant(r: int, f: int, t: int = 8) -> int:
     return fn(r, f, t)
 
 
+def lpm_variant(w: int, n: int, groups: int) -> tuple[int, int]:
+    """(lanes an address, mask groups a round) that K12's launcher
+    (``csrc/lpm.cu``) takes for a table of ``n`` rows in ``groups`` mask
+    groups at ``w`` words; groups 0 where it walks the rows instead."""
+    fn = library("lpm").lpm_variant
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    v = fn(w, n, groups)
+    return v >> 8, v & 0xFF
+
+
 def on_cpu(device: torch.device) -> bool:
     """True for the CPU (the plain version runs), False for a CUDA device
     (the kernel runs); raises for anything else."""

@@ -10,7 +10,9 @@ Backend selection for F flows is one device pass: hash the flow 5-tuple,
 Counterpart of ``cilium_tpu/maps/lbmap.py``: the host map is a copy; the
 v4 and v6 device maps share one layout (VIP and backend addresses as W
 int32 words, W = 1 or 4), and on the card both selectors are kernel
-K13's ``lb_select`` launcher (``csrc/l34_tables.cu``).  The pick follows
+K13's ``lb_select`` launcher (``csrc/l34_tables.cu``), which finds the
+service through the hashed index every device table builds when it is
+made (``ops/l34_index.py`` ``lb_index``).  The pick follows
 the reference to the bit: the first service row whose VIP and port match
 (L4 before the wildcard port 0), ``uint32(hash) % uint32(max(count, 1))``,
 the backend index clamped into the table as the reference's gather
@@ -22,13 +24,14 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..device import as_tensor, resolve_device
+from ..ops.l34_index import HashIndex, HashIx, lb_index
 from ..ops.maplookup import chunk_rows, u32_to_i32
 from .ctmap import CtKey6
 
@@ -252,7 +255,8 @@ class _DeviceLb:
     """Service table on one device: ``vip_words`` [W, S] and
     ``b_target_words`` [W, S, B] int32 address words, ``ports``,
     ``counts``, ``revnat`` [S] int32, ``b_port`` [S, B] int32 and
-    ``valid`` [S] bool."""
+    ``valid`` [S] bool; ``index``, the hashed (VIP words, port) index
+    K13 and K14 probe, is built here, so every constructor has it."""
 
     vip_words: torch.Tensor
     ports: torch.Tensor
@@ -261,6 +265,7 @@ class _DeviceLb:
     b_target_words: torch.Tensor
     b_port: torch.Tensor
     valid: torch.Tensor
+    index: HashIndex = field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
         device = self.device
@@ -276,6 +281,7 @@ class _DeviceLb:
             raise ValueError("b_port: expected at least one backend column")
         kernels.check(self.b_target_words, "b_target_words", torch.int32, (w, s, b), device)
         kernels.check(self.valid, "valid", torch.bool, (s,), device)
+        self.index = lb_index(self)
 
     @classmethod
     def from_arrays(cls, vips, ports, counts, revnat, b_target, b_port, valid, device=None):
@@ -335,6 +341,7 @@ class LbArgs(ctypes.Structure):
         ("t", LbTab), ("vip", ctypes.c_void_p * 4), ("dport", ctypes.c_void_p),
         ("hash", ctypes.c_void_p), ("f", ctypes.c_int), ("found", ctypes.c_void_p),
         ("target", ctypes.c_void_p * 4), ("port", ctypes.c_void_p), ("rev", ctypes.c_void_p),
+        ("ix", HashIx),
     ]
 
 
@@ -392,7 +399,8 @@ def lb_select(dlb: _DeviceLb, vip_words, dports, flow_hashes):
         vip = (ctypes.c_void_p * 4)(*[v.data_ptr() for v in vw])
         target = (ctypes.c_void_p * 4)(*[out[w].data_ptr() for w in range(dlb.w)])
         args = LbArgs(dlb.abi(), vip, dports.data_ptr(), flow_hashes.data_ptr(), f,
-                      found.data_ptr(), target, out[dlb.w].data_ptr(), out[dlb.w + 1].data_ptr())
+                      found.data_ptr(), target, out[dlb.w].data_ptr(), out[dlb.w + 1].data_ptr(),
+                      dlb.index.abi())
         _LB.launch(device, ctypes.addressof(args))
     return found, tuple(out[:dlb.w]), out[dlb.w], out[dlb.w + 1]
 

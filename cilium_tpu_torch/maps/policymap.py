@@ -15,8 +15,8 @@ exports the cascade as a DeviceTable for the batched verdict op.
 
 Counterpart of ``cilium_tpu/maps/policymap.py``: the host map is a copy;
 on the card ``policy_can_access_batch`` is kernel K13's
-``policy_can_access`` launcher (``csrc/l34_tables.cu``), which runs the
-three steps of the cascade in one walk over the rows.
+``policy_can_access`` launcher (``csrc/l34_tables.cu``), which probes the
+table's hashed index for the three keys of the cascade at once.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops.l34_index import HashIx
 from ..ops.maplookup import DeviceTable, ExactTab, exact_lookup_plain, pack_table
 
 # Traffic directions (reference: pkg/maps/policymap/policymap.go Ingress=0x1?
@@ -185,11 +186,15 @@ class PolicyMap:
 
 @dataclass
 class DevicePolicyMap:
-    table: DeviceTable  # keys (identity, dport, proto, direction), values [N, >= 1]
+    # keys (identity, dport, proto, direction), values [N, >= 1]; its
+    # index is the one K13-K15 probe
+    table: DeviceTable
 
     def __post_init__(self):
         if self.table.keys.shape[0] != 4:
             raise ValueError("policy table: expected 4 key columns")
+        if self.table.values.shape[1] < 1:
+            raise ValueError("policy table: expected a value column (the proxy port)")
 
     @property
     def device(self) -> torch.device:
@@ -205,7 +210,7 @@ class PolicyArgs(ctypes.Structure):
     _fields_ = [
         ("t", ExactTab), ("ident", ctypes.c_void_p), ("dport", ctypes.c_void_p),
         ("proto", ctypes.c_void_p), ("dir", ctypes.c_int), ("f", ctypes.c_int),
-        ("allowed", ctypes.c_void_p), ("proxy", ctypes.c_void_p),
+        ("allowed", ctypes.c_void_p), ("proxy", ctypes.c_void_p), ("ix", HashIx),
     ]
 
 
@@ -253,6 +258,6 @@ def policy_can_access_batch(
     if f:
         args = PolicyArgs(dmap.table.abi(), identities.data_ptr(), dports.data_ptr(),
                           protos.data_ptr(), int(direction), f, allowed.data_ptr(),
-                          proxy.data_ptr())
+                          proxy.data_ptr(), dmap.table.index.abi())
         _POLICY.launch(device, ctypes.addressof(args))
     return allowed, proxy

@@ -1,10 +1,11 @@
-"""Hashed indexes of the L3/L4 tables that K14 and K15 probe.
+"""Hashed indexes of the L3/L4 tables that K12-K15 probe.
 
 The reference compares every packet with every table row (an [F, N]
 broadcast compare, a TPU choice: ``cilium_tpu/ops/maplookup.py:1-12``).
-On the card K14 (``csrc/datapath.cu``) and K15 (``csrc/ingress.cu``)
-probe these indexes instead (``csrc/l34_index.cuh``): a lookup reads one
-bucket's bounds and the rows of that bucket, not every row.
+On the card K12 (``csrc/lpm.cu``), K13 (``csrc/l34_tables.cu``), K14
+(``csrc/datapath.cu``) and K15 (``csrc/ingress.cu``) probe these indexes
+instead (``csrc/l34_index.cuh``): a lookup reads one bucket's bounds and
+the rows of that bucket, not every row.
 
 Every index is bucketed (CSR): a valid row's key hashes (``hash32``, the
 same arithmetic as the kernels') to bucket ``h & (B - 1)``, with B the
@@ -29,9 +30,10 @@ empty.
   last group (N + 2 rows, so at least two zero rows end it).  Rows that can never be selected are left out: invalid ones, ones
   whose word has bits outside its mask, and ones whose score is <= 0.
 
-Indexes are built with torch ops on the tables' device when a table
-snapshot is made (``DatapathTables`` / ``IngressTables.__post_init__``),
-never at a launch: a CUDA-graph capture must not meet a build.  No step
+Indexes are built with torch ops on the table's device when the table is
+made (``DeviceTable`` / ``DeviceLpm`` / ``_DeviceLb.__post_init__``; a
+snapshot of several tables gathers theirs), never at a launch: a
+CUDA-graph capture must not meet a build.  No step
 of a build waits for the device (every size comes from N, none from a
 count on the device), so a table rebuilt on the card costs its launches.
 """
@@ -80,10 +82,13 @@ def hash32(words) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+SLOT_MAX = 16  # the widest slot, in words
+
+
 def slot_words(used: int) -> int:
     """Words of a slot holding ``used`` words: 4, 8 or 16 (whole 16-byte
     loads; ``l34_index.cuh`` ``slot_words``)."""
-    for s in (4, 8, 16):
+    for s in (4, 8, SLOT_MAX):
         if used <= s:
             return s
     raise ValueError(f"a slot of {used} words is wider than 16")

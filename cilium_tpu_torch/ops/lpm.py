@@ -11,20 +11,24 @@ matches everything.
 
 IPv4 addresses are one int32 word; IPv6 four, most significant first.
 On the card ``lpm_lookup`` is kernel K12 (``csrc/lpm.cu``): one thread an
-address walks every row once (the longest match needs them all).
+address probes the hashed index every ``DeviceLpm`` builds when it is made
+(``ops/l34_index.py`` ``lpm_index``: the prefixes grouped by mask, one
+exact probe a group, best group first, several groups a round), and walks
+the rows instead where the table has few rows for its groups.
 """
 
 from __future__ import annotations
 
 import ctypes
 import ipaddress
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..device import as_tensor, resolve_device
+from .l34_index import LpmIndex, LpmIx, lpm_index
 from .maplookup import chunk_rows
 
 INT32_MIN = -(1 << 31)
@@ -61,6 +65,8 @@ class DeviceLpm:
     plen:   [N] int32 — prefix lengths (winner = max among matches).
     values: [N] int32 — value per prefix (identity, tunnel endpoint, ...).
     valid:  [N] bool.
+    index:  the hashed index K12, K14 and K15 probe (``ops/l34_index.py``
+            ``lpm_index``), built here, so every constructor has it.
     """
 
     words: torch.Tensor
@@ -68,6 +74,7 @@ class DeviceLpm:
     plen: torch.Tensor
     values: torch.Tensor
     valid: torch.Tensor
+    index: LpmIndex = field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
         device = self.device
@@ -79,6 +86,7 @@ class DeviceLpm:
         kernels.check(self.plen, "plen", torch.int32, (n,), device)
         kernels.check(self.values, "values", torch.int32, (n,), device)
         kernels.check(self.valid, "valid", torch.bool, (n,), device)
+        self.index = lpm_index(self)
 
     @property
     def device(self) -> torch.device:
@@ -162,6 +170,7 @@ class LpmArgs(ctypes.Structure):
     _fields_ = [
         ("t", LpmTab), ("addr", ctypes.c_void_p * 4), ("f", ctypes.c_int),
         ("found", ctypes.c_void_p), ("value", ctypes.c_void_p), ("plen", ctypes.c_void_p),
+        ("ix", LpmIx),
     ]
 
 
@@ -214,7 +223,8 @@ def lpm_lookup(lpm: DeviceLpm, *addr_words):
     plen = torch.empty((f,), dtype=torch.int32, device=device)
     if f:
         addr = (ctypes.c_void_p * 4)(*[a.data_ptr() for a in ws])
-        args = LpmArgs(lpm.abi(), addr, f, found.data_ptr(), value.data_ptr(), plen.data_ptr())
+        args = LpmArgs(lpm.abi(), addr, f, found.data_ptr(), value.data_ptr(), plen.data_ptr(),
+                       lpm.index.abi())
         _LPM.launch(device, ctypes.addressof(args))
     return found, value, plen
 

@@ -7,22 +7,25 @@ arrays, one per key field; the table is padded to a fixed size, padding
 rows invalid.
 
 On the card ``exact_lookup`` is kernel K13's ``exact_lookup`` launcher
-(``csrc/l34_tables.cu``): one thread a query walks the rows once.  The
-reference extracted the matched row with an int8 one-hot matmul, so the
-values of every matched row are SUMMED (int32, wrapping); the builds keep
-keys unique, but the kernel and the plain version sum all the same.
+(``csrc/l34_tables.cu``): one thread a query probes the hashed index that
+every ``DeviceTable`` builds when it is made (``ops/l34_index.py``), so a
+lookup reads one bucket, not every row.  The reference extracted the
+matched row with an int8 one-hot matmul, so the values of every matched
+row are SUMMED (int32, wrapping); the builds keep keys unique, but the
+kernel and the plain version sum all the same.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..device import as_tensor, resolve_device
+from .l34_index import SLOT_MAX, HashIndex, HashIx, exact_index
 
 MAX_KEY_COLS = 11  # the v6 CT key: four daddr words, four saddr words, dport, sport, proto
 
@@ -47,6 +50,14 @@ def chunk_rows(n_cols: int, budget: int = 1 << 22) -> int:
     return max(1, budget // max(n_cols, 1))
 
 
+def slot_values(k: int, v: int) -> int:
+    """Value columns the index slots of a K-column table with V value
+    columns hold: all V where the key, the values and the row id fit a
+    slot, else none (the kernel then reads a matched row's values from the
+    table)."""
+    return v if k + v + 1 <= SLOT_MAX else 0
+
+
 class ExactTab(ctypes.Structure):
     """``struct ExactTab`` of ``csrc/l34.cuh``."""
 
@@ -64,11 +75,14 @@ class DeviceTable:
     keys:   [K, N] int32 — one row per key field (``cols`` are its rows).
     values: [N, V] int32 value columns.
     valid:  [N] bool — padding rows are invalid.
+    index:  the hashed index K13-K15 probe (``ops/l34_index.py``), built
+            here from the other fields, so every constructor has it.
     """
 
     keys: torch.Tensor
     values: torch.Tensor
     valid: torch.Tensor
+    index: HashIndex = field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
         device = self.device
@@ -78,6 +92,7 @@ class DeviceTable:
             raise ValueError(f"keys: expected [K <= {MAX_KEY_COLS}, N >= 1], got {tuple(self.keys.shape)}")
         kernels.check(self.values, "values", torch.int32, (n, None), device)
         kernels.check(self.valid, "valid", torch.bool, (n,), device)
+        self.index = exact_index(self, slot_values(k, self.values.shape[1]))
 
     @property
     def device(self) -> torch.device:
@@ -144,6 +159,7 @@ class ExactArgs(ctypes.Structure):
     _fields_ = [
         ("t", ExactTab), ("q", ctypes.c_void_p * MAX_KEY_COLS),
         ("f", ctypes.c_int), ("found", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+        ("ix", HashIx),
     ]
 
 
@@ -200,6 +216,6 @@ def exact_lookup(table: DeviceTable, *query_cols):
     vals = torch.empty((f, table.values.shape[1]), dtype=torch.int32, device=device)
     if f:
         q = (ctypes.c_void_p * MAX_KEY_COLS)(*[t.data_ptr() for t in qs])
-        args = ExactArgs(table.abi(), q, f, found.data_ptr(), vals.data_ptr())
+        args = ExactArgs(table.abi(), q, f, found.data_ptr(), vals.data_ptr(), table.index.abi())
         _EXACT.launch(device, ctypes.addressof(args))
     return found, vals

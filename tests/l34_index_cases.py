@@ -107,6 +107,53 @@ def lpm_cases(rng, w):
     return out
 
 
+def many_group_lpm(rng, w, n, lo=None, invalid=0.05, unselectable=0.05):
+    """A prefix table of ``n`` random prefixes of every length from ``lo``
+    (8 for v4, 32 for v6) to 32W, so about as many mask groups as lengths
+    (prefilter6's 256 /32-/128 prefixes fall into 91): a tenth of the rows
+    repeat an earlier prefix (half with its value, half with another),
+    values from a small range (ties at the best length), some rows invalid
+    and some that can never be selected (bits outside the mask, plen -1).
+    Returns (words [W, N], masks [W, N], plen, values, valid)."""
+    lo = (8 if w == 1 else 32) if lo is None else lo
+    plen = rng.integers(lo, 32 * w + 1, n)
+    masks = _masks_for(plen, w)
+    words = rng.integers(0, 1 << 32, (w, n), dtype=np.int64) & masks
+    values = rng.integers(0, 8, n)
+    dup = rng.choice(n, n // 10, replace=False)
+    src = rng.integers(0, n, dup.size)
+    words[:, dup], masks[:, dup], plen[dup] = words[:, src], masks[:, src], plen[src]
+    same = rng.random(dup.size) < 0.5
+    values[dup[same]] = values[src[same]]
+    dirty = (rng.random(n) < unselectable / 2) & (plen < 32 * w)
+    words[:, dirty] |= ~masks[:, dirty] & 0xFFFFFFFF & rng.integers(1, 1 << 32, (w, int(dirty.sum())),
+                                                                    dtype=np.int64)
+    plen[rng.random(n) < unselectable / 2] = -1
+    valid = rng.random(n) >= invalid
+    return i32(words), i32(masks), plen.astype(np.int32), values.astype(np.int32), valid
+
+
+def lpm_sources(rng, words, masks, f, inside=0.2):
+    """[W] of [F] int32 addresses, as the XDP prefilter sees them: a share
+    ``inside`` of them in a random prefix of the table (host bits random),
+    the rest random (a miss, all but surely)."""
+    w, n = words.shape
+    pick = rng.integers(0, n, f)
+    m = masks.view(np.uint32).astype(np.int64)[:, pick]
+    host = rng.integers(0, 1 << 32, (w, f), dtype=np.int64)
+    a = (words.view(np.uint32).astype(np.int64)[:, pick] & m) | (host & ~m & 0xFFFFFFFF)
+    out = rng.random(f) >= inside
+    a[:, out] = rng.integers(0, 1 << 32, (w, int(out.sum())), dtype=np.int64)
+    return [i32(x) for x in a]
+
+
+def wide_table(rng, n=200):
+    """An 11-column table with 8 value columns: key, values and row id (20
+    words) do not fit a 16-word slot, so its index holds the key and the
+    row id and a lookup reads a matched row's values from the table."""
+    return exact_table(rng, 11, n, nv=8, pool=16)
+
+
 def addr_queries(rng, words, masks, f):
     """[W] of [F] int32 addresses: inside the table's prefixes (host bits
     random), zeros, and random."""
@@ -246,6 +293,37 @@ def ingress_leaves(rng, n=(150, 90, 40, 600, 160), invalid=False):
     out = [idw[0], idm[0], idp, idv, idvalid, tw[0], tm[0], tp, tv, tvalid,
            lxc_cols[0], lxc_vals, lxc_valid, *ct_cols, np.zeros((n_ct, 1), np.int32), ct_valid, *pol]
     return _validity(out, [4, 9, 12, 19, 25], invalid)
+
+
+# Value columns of the tables the passes read beyond the ones they use
+# (CT: none, policy: column 0, endpoints: columns 0 and 1): "mid" fills
+# 16-word index slots with values, "wide" passes 16 words, so the slots
+# hold row ids and a match reads its row.
+WIDE = {"mid": {"ct": 3, "pol": 5, "lxc": 7}, "wide": {"ct": 12, "pol": 12, "lxc": 15}}
+
+
+def _widen(rng, leaves, cols):
+    """``leaves`` with the value leaf at each index of ``cols`` grown to
+    ``cols[index]`` columns by random int32 words."""
+    out = list(leaves)
+    for i, v in cols.items():
+        vals = np.asarray(out[i])
+        extra = i32(rng.integers(0, 1 << 32, (vals.shape[0], v - vals.shape[1]), dtype=np.int64))
+        out[i] = np.concatenate([vals, extra], 1)
+    return out
+
+
+def widen_datapath(rng, leaves, w, ct, pol, lxc=None):
+    """``datapath_leaves`` with CT and policy values of ``ct`` and ``pol``
+    columns (``lxc``: unused, the egress snapshot has no endpoint table)."""
+    del lxc
+    return _widen(rng, leaves, {2 * w + 3: ct, len(leaves) - 2: pol})
+
+
+def widen_ingress(rng, leaves, ct, pol, lxc):
+    """``ingress_leaves`` with endpoint, CT and policy values of ``lxc``,
+    ``ct`` and ``pol`` columns."""
+    return _widen(rng, leaves, {11: lxc, 18: ct, 24: pol})
 
 
 def ingress_packets(rng, leaves, f):

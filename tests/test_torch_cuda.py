@@ -1051,6 +1051,46 @@ def test_ingress_kernel_matches_plain_on_adversarial_tables(cuda, mode, source, 
         assert bool(got["established"].any()) and len(torch.unique(got["verdict"])) >= 4
 
 
+@pytest.mark.parametrize("source", list(ic.WIDE))
+@pytest.mark.parametrize("w", [1, 4])
+def test_datapath_kernel_matches_plain_on_wide_tables(cuda, w, source):
+    """CT and policy tables with more value columns: 16-word slots of
+    values ("mid"), or slots of row ids whose rows a match reads ("wide")."""
+    rng = np.random.default_rng(110 * w)
+    leaves = ic.widen_datapath(rng, ic.datapath_leaves(rng, w), w, **ic.WIDE[source])
+    conv = convert.datapath_tables_from_numpy if w == 1 else convert.datapath_tables6_from_numpy
+    tables = conv(leaves, device=cuda)
+    sw, dw, sport, dport, proto = ic.datapath_packets(rng, leaves, w, 4099)
+    args = [tuple(torch.from_numpy(a).to(cuda) for a in sw), tuple(torch.from_numpy(a).to(cuda) for a in dw),
+            *(torch.from_numpy(a).to(cuda) for a in (sport, dport, proto))]
+    kern = dp_mod._DATAPATH[w]
+    before = kern.launches
+    got = datapath_pass(tables, *args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _equal_dicts(got, datapath_pass_plain(tables, *args))
+    assert bool(got["established"].any()) and bool((got["proxy_port"] != 0).any())
+
+
+@pytest.mark.parametrize("source", list(ic.WIDE))
+@pytest.mark.parametrize("mode", [MODE_NETDEV, MODE_OVERLAY])
+def test_ingress_kernel_matches_plain_on_wide_tables(cuda, mode, source):
+    """Endpoint, CT and policy tables with more value columns, as above."""
+    rng = np.random.default_rng(210 + mode)
+    leaves = ic.widen_ingress(rng, ic.ingress_leaves(rng), **ic.WIDE[source])
+    tables = convert.ingress_tables_from_numpy(leaves, device=cuda)
+    p = ic.ingress_packets(rng, leaves, 4099)
+    src = p["src_id"] if mode == MODE_NETDEV else p["vni"]
+    args = [torch.from_numpy(p[k]).to(cuda) for k in ("saddr", "daddr", "sport", "dport", "proto")]
+    args.append(torch.from_numpy(src).to(cuda))
+    before = ing_mod._INGRESS.launches
+    got = ingress(tables, mode, *args)
+    torch.cuda.synchronize()
+    assert ing_mod._INGRESS.launches == before + 1
+    _equal_dicts(got, ingress_plain(tables, mode, *args))
+    assert bool((got["lxc_id"] != 0).any()) and bool((got["proxy_port"] != 0).any())
+
+
 def test_l34_launchers_refuse_tables_without_index(cuda):
     """The C launchers refuse arguments that carry no index: neither walks
     the rows."""
@@ -1088,13 +1128,27 @@ def test_l34_launchers_refuse_tables_without_index(cuda):
                           nix.ipcache_id.abi(), nix.ipcache_tun.abi(), nix.lxc.abi(), HashIx(), nix.policy.abi())
     with pytest.raises(RuntimeError):
         ing_mod._INGRESS.launch(cuda, ctypes.addressof(raw))
+    # an index whose slots are not its table's: 8-word policy slots beside
+    # a policy table of 5 value columns (16-word slots)
+    wide = DevicePolicyMap(table=table_from_arrays(
+        list(tables.policy.table.keys.cpu().numpy()),
+        np.repeat(tables.policy.table.values.cpu().numpy(), 5, 1), tables.policy.table.valid.cpu().numpy(), cuda))
+    assert wide.table.index.width == 16 and ix.policy.width == 8
+    raw = dp_mod.DpArgs(tables.lb.abi(), tables.ct.abi(), tables.ipcache.abi(), wide.table.abi(),
+                        arr(args[0][0].data_ptr()), arr(args[1][0].data_ptr()),
+                        *[t.data_ptr() for t in args[2:]], 256, out.data_ptr(), flags.data_ptr(),
+                        ix.lb.abi(), ix.ct.abi(), ix.ipcache.abi(), ix.policy.abi())
+    with pytest.raises(RuntimeError):
+        dp_mod._DATAPATH[1].launch(cuda, ctypes.addressof(raw))
+    assert dp_mod._DATAPATH[1].launches == before
 
 
 @pytest.mark.parametrize("source", ["datapath", "datapath6", "ingress"])
 def test_l34_index_build_waits_for_nothing(cuda, source):
-    """A snapshot's indexes build on the card with no op that waits for
-    the device (torch's sync debug mode raises on one), so a table rebuilt
-    after a CT round trip costs its launches and nothing more."""
+    """A snapshot's indexes (each built by its table) build on the card
+    with no op that waits for the device (torch's sync debug mode raises on
+    one), so a table rebuilt after a CT round trip costs its launches and
+    nothing more."""
     rng = np.random.default_rng(9)
     if source == "ingress":
         tables = convert.ingress_tables_from_numpy(ic.ingress_leaves(rng), device=cuda)
@@ -1103,13 +1157,17 @@ def test_l34_index_build_waits_for_nothing(cuda, source):
         conv = convert.datapath_tables_from_numpy if w == 1 else convert.datapath_tables6_from_numpy
         tables = conv(ic.datapath_leaves(rng, w), device=cuda)
     built = tables.index
+    parts = [getattr(tables, name) for name in vars(built)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        for part in parts:
+            (part.table if isinstance(part, DevicePolicyMap) else part).__post_init__()
         tables.__post_init__()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     for name, ix in vars(tables.index).items():
+        assert ix is not getattr(built, name)
         for a, b in zip(_index_tensors(ix), _index_tensors(getattr(built, name))):
             assert torch.equal(a, b), name
 
@@ -2424,3 +2482,191 @@ def test_cassandra_stress_model_card_matches_cpu(cuda):
     assert got[: len(reqs)].tolist() == want
     assert kernels.hits_variant("cassandra_hits", 40, cs.F) != (0, 0)
 
+
+
+# --- K12 / K13 on the indexes their tables carry --------------------------------
+# tests/l34_index_cases.py's adversarial tables (duplicate keys, all-zero
+# keys beside padding, keys >= 2^31, irregular masks, bits outside a mask,
+# plen -1 / INT32_MAX, one row, every row invalid), tables of many mask
+# groups and a wide table whose slots hold row ids, at F past a block's edge.
+
+LPM_FORCED = ("1x1", "1x2", "1x4", "1x8", "1x16", "2x1", "2x2", "2x4", "4x1", "4x2", "4x4", "8x1", "8x2", "8x4",
+              "walk")
+
+
+@pytest.fixture(scope="module")
+def lpm_forced():
+    """Every K12 variant (L lanes an address and G groups a round, the
+    walk), built beside csrc by chip_hits_variants.build_lpm_forced."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the plain versions are tested on the CPU")
+    hv = _root_module("chip_hits_variants")
+    return hv, hv.build_lpm_forced(LPM_FORCED, log=lambda *a: None)
+
+
+def _lpm_tables(cuda):
+    """[(name, DeviceLpm on the card, address word tensors)]."""
+    rng = np.random.default_rng(301)
+    out = []
+    cases_ = ic.lpm_cases(rng, 1) + ic.lpm_cases(rng, 4)
+    cases_ += [(f"many{w}-{n}", *ic.many_group_lpm(rng, w, n)) for w, n in ((4, 256), (1, 1024), (4, 2048))]
+    for name, *t in cases_:
+        a = ic.addr_queries(rng, t[0], t[1], 3000)
+        a = [np.concatenate([x, y]) for x, y in zip(a, ic.lpm_sources(rng, t[0], t[1], 4099))]
+        out.append((name, lpm_from_arrays(*t, cuda), [torch.from_numpy(x).to(cuda) for x in a]))
+    return out
+
+
+@pytest.mark.parametrize("variant", ["pick", *LPM_FORCED])
+def test_lpm_variants_match_plain(cuda, lpm_forced, variant):
+    """The launcher's pick and each forced path (lanes and groups a round,
+    the walk) equal the plain version on every table, F past a block's
+    edge, one launch a call."""
+    hv, fns = lpm_forced
+    for name, lpm, a in _lpm_tables(cuda):
+        want = lpm_lookup_plain(lpm, *a)
+        before = lpm_mod._LPM.launches
+        if variant == "pick":
+            got = lpm_lookup(lpm, *a)
+        else:
+            with hv.forced("lpm", fns[variant]):
+                got = lpm_lookup(lpm, *a)
+        torch.cuda.synchronize()
+        assert lpm_mod._LPM.launches == before + 1
+        for g, wt in zip(got, want):
+            assert torch.equal(g, wt), (name, variant)
+
+
+def test_lpm_pick_follows_the_sweep(cuda):
+    """The launcher walks where a table has fewer than 8 (v4) or 12 (v6)
+    rows a mask group, else probes two groups a round with two lanes an
+    address (v4) or one (v6) (lpm.cu Pick)."""
+    lpm_lookup(_rand_lpm(np.random.default_rng(0), 4, 1, cuda)[0], torch.zeros(1, dtype=torch.int32, device=cuda))
+    pick = kernels.lpm_variant
+    assert pick(1, 1020, 25) == (2, 2) and pick(4, 256, 91) == (1, 0) and pick(4, 1027, 2) == (1, 2)
+    assert pick(1, 199, 25) == (1, 0) and pick(1, 200, 25) == (2, 2) and pick(1, 1, 0) == (2, 2)
+    assert pick(4, 1163, 97) == (1, 0) and pick(4, 1164, 97) == (1, 2)
+    assert pick(4, 1535, 200) == (1, 0) and pick(4, 1536, 200) == (1, 2)  # past 128 groups: 128 staged
+
+
+def _exact_cases(cuda):
+    rng = np.random.default_rng(302)
+    out = ic.exact_cases(rng) + [("wide", *ic.wide_table(rng))]
+    for k, v in ((1, 15), (4, 11), (3, 1), (11, 4)):
+        out.append((f"k{k}v{v}", *ic.exact_table(rng, k, 300, nv=v, pool=20)))
+    return [(name, table_from_arrays(list(c), vals, valid, cuda), c) for name, c, vals, valid in out]
+
+
+@pytest.mark.parametrize("f", [1, 4099, 65536])
+def test_exact_lookup_on_adversarial_tables(cuda, f):
+    """Every slot width (4, 8, 16), values in the slots or (K + V + 1 past
+    16 words) read from the rows, duplicates summed with int32 wrap."""
+    rng = np.random.default_rng(303 + f)
+    for name, table, cols in _exact_cases(cuda):
+        q = [torch.from_numpy(x).to(cuda) for x in ic.key_queries(rng, cols, f)]
+        before = ml_mod._EXACT.launches
+        got = exact_lookup(table, *q)
+        torch.cuda.synchronize()
+        assert ml_mod._EXACT.launches == before + 1
+        want = exact_lookup_plain(table, *q)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+
+
+@pytest.mark.parametrize("nv", [1, 3, 5, 12])
+def test_policy_kernel_on_adversarial_tables(cuda, nv):
+    """8- and 16-word slots, and 12 value columns (the row id in the slot)."""
+    rng = np.random.default_rng(304 + nv)
+    for direction in (0, 1):
+        leaves = ic._policy_leaves(rng, np.array([5, 9, 300, 1 << 31]), direction, n=300)
+        vals = np.concatenate([leaves[4], ic.i32(rng.integers(0, 1 << 32, (300, nv - 1)))], 1)
+        dmap = DevicePolicyMap(table=table_from_arrays(leaves[:4], vals, leaves[5], cuda))
+        q = ic.key_queries(rng, np.stack(leaves[:4]), 4099)
+        q[0][:500] = 0
+        args = [torch.from_numpy(x).to(cuda) for x in q[:3]]
+        got = policy_can_access_batch(dmap, *args, direction)
+        want = policy_can_access_plain(dmap, *args, direction)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(want[0].any()) and not bool(want[0].all())
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_lb_kernel_on_adversarial_tables(cuda, w):
+    rng = np.random.default_rng(305 + w)
+    for s in (1, 24, 300):
+        leaves = ic.lb_arrays(rng, w, s=s)
+        dlb = (DeviceLbMap if w == 1 else DeviceLb6Map).from_arrays(*leaves, cuda)
+        f = 4099
+        vw = np.asarray(leaves[0]).reshape(w, -1)
+        pick = rng.integers(0, s, f)
+        vips = [torch.from_numpy(np.where(rng.random(f) < 0.8, vw[c, pick], 0).astype(np.int32)).to(cuda)
+                for c in range(w)]
+        dport = torch.from_numpy(rng.choice(np.array([0, 80, 443, 8080], np.int32), f)).to(cuda)
+        fh = torch.from_numpy(ic.i32(rng.integers(0, 1 << 32, f, dtype=np.int64))).to(cuda)
+        got = lb_select(dlb, vips, dport, fh)
+        want = lb_select_plain(dlb, vips, dport, fh)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        for g, wt in zip(got[1], want[1]):
+            assert torch.equal(g, wt)
+
+
+def test_k12_k13_launchers_refuse_tables_without_index(cuda):
+    """Arguments without an index (or with slots of another width) raise;
+    no launcher walks the rows instead, and nothing counts a launch."""
+    import ctypes
+
+    from cilium_tpu_torch.ops.l34_index import HashIx, LpmIx
+
+    rng = np.random.default_rng(306)
+    f = 256
+    q = torch.zeros((f,), dtype=torch.int32, device=cuda)
+    out_b = torch.empty((f,), dtype=torch.bool, device=cuda)
+    out_i = torch.empty((4, f), dtype=torch.int32, device=cuda)
+    lpm, _ = _rand_lpm(rng, 40, 1, cuda)
+    table = table_from_arrays(list(ic.exact_table(rng, 5, 64)[0]), np.zeros((64, 1), np.int32),
+                              np.ones(64, bool), cuda)
+    leaves = ic._policy_leaves(rng, np.array([5]), 1)
+    dmap = DevicePolicyMap(table=table_from_arrays(leaves[:4], leaves[4], leaves[5], cuda))
+    dlb = DeviceLbMap.from_arrays(*ic.lb_arrays(rng, 1), cuda)
+    arr4 = ctypes.c_void_p * 4
+    wrong = HashIx(table.index.abi().bounds, table.index.abi().slots, table.index.abi().mask, 4)
+    calls = [
+        (lpm_mod._LPM, lpm_mod.LpmArgs(lpm.abi(), arr4(q.data_ptr()), f, out_b.data_ptr(), out_i[0].data_ptr(),
+                                       out_i[1].data_ptr(), LpmIx())),
+        (ml_mod._EXACT, ml_mod.ExactArgs(table.abi(), (ctypes.c_void_p * 11)(*[q.data_ptr()] * 5), f,
+                                         out_b.data_ptr(), out_i.data_ptr(), HashIx())),
+        (ml_mod._EXACT, ml_mod.ExactArgs(table.abi(), (ctypes.c_void_p * 11)(*[q.data_ptr()] * 5), f,
+                                         out_b.data_ptr(), out_i.data_ptr(), wrong)),
+        (pol_mod._POLICY, pol_mod.PolicyArgs(dmap.table.abi(), q.data_ptr(), q.data_ptr(), q.data_ptr(), 1, f,
+                                             out_b.data_ptr(), out_i[0].data_ptr(), HashIx())),
+        (lb_mod._LB, lb_mod.LbArgs(dlb.abi(), arr4(q.data_ptr()), q.data_ptr(), q.data_ptr(), f, out_b.data_ptr(),
+                                   arr4(out_i[0].data_ptr()), out_i[1].data_ptr(), out_i[2].data_ptr(), HashIx())),
+    ]
+    for kern, args in calls:
+        before = kern.launches
+        with pytest.raises(RuntimeError):
+            kern.launch(cuda, ctypes.addressof(args))
+        assert kern.launches == before
+
+
+@pytest.mark.parametrize("source", ["lpm", "exact", "lb"])
+def test_table_index_build_waits_for_nothing(cuda, source):
+    """Each table class builds its index on the card with no op that waits
+    for the device, and builds the same index again."""
+    rng = np.random.default_rng(307)
+    if source == "lpm":
+        table = lpm_from_arrays(*ic.many_group_lpm(rng, 4, 256), cuda)
+    elif source == "exact":
+        cols, vals, valid = ic.wide_table(rng)
+        table = table_from_arrays(list(cols), vals, valid, cuda)
+    else:
+        table = DeviceLb6Map.from_arrays(*ic.lb_arrays(rng, 4, s=40), cuda)
+    built = table.index
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        table.__post_init__()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert table.index is not built
+    for a, b in zip(_index_tensors(table.index), _index_tensors(built)):
+        assert torch.equal(a, b)

@@ -45,7 +45,7 @@ from cilium_tpu_torch.maps.lbmap import DeviceLb6Map, DeviceLbMap, lb_select_pla
 from cilium_tpu_torch.maps.policymap import DevicePolicyMap, policy_can_access_plain
 from cilium_tpu_torch.ops import l34_index
 from cilium_tpu_torch.ops.lpm import lpm_from_arrays, lpm_lookup_plain
-from cilium_tpu_torch.ops.maplookup import exact_lookup_plain, table_from_arrays, wrap32
+from cilium_tpu_torch.ops.maplookup import exact_lookup_plain, slot_values, table_from_arrays, wrap32
 
 CPU = "cpu"
 M32 = 0xFFFFFFFF
@@ -101,14 +101,18 @@ def _visit(ix, q):
         yield s, m
 
 
-def walk_exact(ix, q, nv):
-    """(found, [F, nv] int32-wrapped sums of the matched rows' values)."""
+def walk_exact(ix, q, nv, table=None):
+    """(found, [F, nv] int32-wrapped sums of the matched rows' first nv
+    values): from the slots, or, where ``table``'s values do not fit them,
+    from the table rows whose ids the slots hold."""
     k, f = len(q), q[0].shape[0]
+    wide = table is not None and slot_values(k, table.values.shape[1]) == 0
     found = torch.zeros(f, dtype=torch.bool)
     acc = torch.zeros((f, nv), dtype=torch.int64)
     for s, m in _visit(ix, q):
         found |= m
-        acc += torch.where(m[:, None], s[:, k:k + nv].to(torch.int64), 0)
+        vals = table.values[torch.where(m, s[:, k], 0).to(torch.int64), :nv] if wide else s[:, k:k + nv]
+        acc += torch.where(m[:, None], vals.to(torch.int64), 0)
     return found, wrap32(acc)
 
 
@@ -145,11 +149,11 @@ def walk_lpm(lix, words):
     return found, torch.where(found, val, 0).to(torch.int32), torch.where(found, best - 1, -1).to(torch.int32)
 
 
-def walk_policy(ix, ident, dport, proto, direction):
+def walk_policy(ix, ident, dport, proto, direction, table=None):
     zero, d = torch.zeros_like(ident), torch.full_like(ident, direction)
-    f1, v1 = walk_exact(ix, [ident, dport, proto, d], 1)
-    f2, _ = walk_exact(ix, [ident, zero, zero, d], 1)
-    f3, v3 = walk_exact(ix, [zero, dport, proto, d], 1)
+    f1, v1 = walk_exact(ix, [ident, dport, proto, d], 1, table)
+    f2, _ = walk_exact(ix, [ident, zero, zero, d], 1, table)
+    f3, v3 = walk_exact(ix, [zero, dport, proto, d], 1, table)
     return f1 | f2 | f3, torch.where(f1, v1[:, 0], torch.where(f2, 0, torch.where(f3, v3[:, 0], 0)))
 
 
@@ -178,7 +182,7 @@ def walk_datapath(t, sw, dw, sport, dport, proto):
     est, _ = walk_exact(ix.ct, [*nd, *sw, ndport, sport, proto], 0)
     ip_found, ident, _ = walk_lpm(ix.ipcache, nd)
     dst = torch.where(ip_found, ident, pipeline.WORLD_ID)
-    allowed, proxy = walk_policy(ix.policy, dst, ndport, proto, 1)
+    allowed, proxy = walk_policy(ix.policy, dst, ndport, proto, 1, t.policy.table)
     ok = est | allowed
     zero = torch.zeros_like(dst)
     return {"verdict": torch.where(ok, torch.where((proxy > 0) & ~est, 2, 0), 1).to(torch.int32),
@@ -196,11 +200,11 @@ def walk_ingress(t, mode, saddr, daddr, sport, dport, proto, src):
         reserved = (src >= 0) & (src <= ingress.RESERVED_ID_MAX)
         src_id = torch.where(reserved & found & (sec != 0) & (sec != ingress.HOST_ID), sec,
                              torch.where(reserved & (src == 0), pipeline.WORLD_ID, src))
-    is_local, lxc = walk_exact(ix.lxc, [daddr], 2)
+    is_local, lxc = walk_exact(ix.lxc, [daddr], 2, t.lxc)
     is_host = is_local & ((lxc[:, 1] & 1) != 0)
     est = walk_exact(ix.ct, [daddr, saddr, dport, sport, proto], 0)[0] | \
         walk_exact(ix.ct, [saddr, daddr, sport, dport, proto], 0)[0]
-    allowed, proxy = walk_policy(ix.policy, src_id, dport, proto, 0)
+    allowed, proxy = walk_policy(ix.policy, src_id, dport, proto, 0, t.policy.table)
     tun_found, tunnel, _ = walk_lpm(ix.ipcache_tun, [daddr])
     ok = est | allowed
     local = torch.where(ok, torch.where((proxy > 0) & ~est, 2, 0), 1)
@@ -442,12 +446,15 @@ def _datapath_case(source, w, seed, f=1024):
             pk = (sw, dw, *rest)
         return template, leaves, pk
     nrng = np.random.default_rng(seed)
-    leaves = cases.datapath_leaves(nrng, w, **SHAPES[source])
+    leaves = cases.datapath_leaves(nrng, w, **SHAPES.get(source, {}))
+    if source in cases.WIDE:
+        leaves = cases.widen_datapath(np.random.default_rng(seed + 1), leaves, w, **cases.WIDE[source])
     return _ref_tables(template, leaves), leaves, cases.datapath_packets(nrng, leaves, w, f)
 
 
 SHAPES = {"adversarial": {}, "one-row": {"n": 1}, "all-invalid": {"invalid": True}}
-SOURCES = ["world", *SHAPES]
+# the adversarial tables with more value columns (cases.WIDE)
+SOURCES = ["world", *SHAPES, *cases.WIDE]
 
 
 @pytest.mark.parametrize("w", [1, 4])
@@ -469,9 +476,11 @@ def test_datapath_matches_jax(source, w):
                            *(_t(x) for x in (sport, dport, proto)))
     _equal(_dp_views(walked, w), want)
     host = pipeline.host_arrays(got)
-    if source in ("world", "adversarial"):
+    if source in ("world", "adversarial", *cases.WIDE):
         assert host["established"].any() and host["rev_nat"].any()
         assert (host["verdict"] == pipeline.DROP).any() and (host["verdict"] == pipeline.FORWARD).any()
+    if source in cases.WIDE:  # value column 0 of the policy read, through row ids where "wide"
+        assert (host["verdict"] == pipeline.TO_PROXY).any()
     if source == "all-invalid":
         assert not host["established"].any() and (host["verdict"] == pipeline.DROP).all()
 
@@ -484,7 +493,9 @@ def _ingress_case(source, seed, f=1024):
         return template, [np.asarray(x) for x in jax.tree_util.tree_leaves(template)], \
             worlds.node_packets(rng, f)
     nrng = np.random.default_rng(seed)
-    leaves = cases.ingress_leaves(nrng, **SHAPES[source])
+    leaves = cases.ingress_leaves(nrng, **SHAPES.get(source, {}))
+    if source in cases.WIDE:
+        leaves = cases.widen_ingress(np.random.default_rng(seed + 1), leaves, **cases.WIDE[source])
     return _ref_tables(template, leaves), leaves, cases.ingress_packets(nrng, leaves, f)
 
 
@@ -504,8 +515,10 @@ def test_ingress_matches_jax(source, mode):
     _equal(got, want)
     _equal(walk_ingress(tables, mode, *(_t(x) for x in cols), _t(src)), want)
     host = pipeline.host_arrays(got)
-    if source in ("world", "adversarial"):
+    if source in ("world", "adversarial", *cases.WIDE):
         assert host["established"].any() and len(np.unique(host["verdict"])) >= 4
+    if source in cases.WIDE:  # the endpoint's id and the policy's value column 0 read
+        assert host["lxc_id"].any() and host["proxy_port"].any()
 
 
 def test_tables_carry_their_index():
