@@ -109,7 +109,8 @@ which fails the run on any mismatch:
    graphs gives the same ops, and dispatch_mode="auto" resolves by
    measurement; then frames/s, the seam's round trip p50/p99, the
    device's idle share, and K16 against its plain version, timed at
-   buckets 512 and 2,048;
+   buckets 512 and 2,048 x 256 and at the seam services' largest,
+   4,096 x 64 (given --baseline-csrc, in turns with the parent's K16);
 10. Kafka, counted in a run of its own: ``kafka_verdicts`` on
    bench_kafka's rules and requests (F = 65,536, W = 32) and on the fuzz
    mix (0-9 topics, api keys to 70, overflow rows) against
@@ -134,16 +135,20 @@ which fails the run on any mismatch:
 12. the seam benchmarks, counted in a run of their own (a launch here is a
    wrapper launch or a CUDA-graph replay): ``measure_device_rtt_ms`` (K20
    ``rtt_tick`` + a blocking readback) and ``measure_uplink_mbps``;
-   ``run_paired_colocated`` over the socket and over the shm rings (the
-   seam probe, K19 ``seam_probe``, on the card; seam - null p99, the
-   per-stage seam breakdown, graph captures inside the timed windows);
+   ``run_paired_colocated`` over the socket and over the shm rings, and
+   on the blob wire eager and through graphs (the seam probe, K19
+   ``seam_probe``, on the card, one launch or replay a dispatch and no
+   K16: the probe reads no rows; seam - null p99, the per-stage seam
+   breakdown, graph captures inside the timed windows);
    ``latbench.run`` with the r2d2 model at 100k, 1M and 5M requests/s;
    ``MixBench`` (its first two timed rounds held against the in-process
    parser) and ``oracle_rate``; ``FlowCacheBench`` with the cache on and
    off; 16-session fan-in with its contract; then K19 at the service's
    flow buckets and 65,536 and K20 at [8] against their plain versions,
-   and timed.  Every latency and rate is a reading, printed with the card
-   line; none is held to a limit;
+   and timed, and the probe's blob round graph-timed against the round as
+   the parent ran it (K16, then K19; the parent's K16 given
+   --baseline-csrc).  Every latency and rate is a reading, printed with
+   the card line; none is held to a limit;
 13. rule- and flow-sharded verdicts on a mesh of slots (virtual slots on
    the card unless the host has that many cards), counted in a run of
    their own: ``dryrun_multichip`` at 2 x 2 and 1 x 4, ``mesh_r2d2_model``,
@@ -2858,46 +2863,60 @@ def _sidecar_runs(dev, card, kerns, pols, traffic, expect, frames, tmp, t_phase)
 
     # 9e. K16 against its plain version on the card, at the main path's
     # shapes (the whole-frame batch of round 0, cut as _issue_chunks_blob
-    # cuts it), and timed at buckets 512 and 2,048.
+    # cuts it, and the seam services' largest bucket, the 64 KiB window
+    # of latbench's corpus: 3,180 messages padded to 4,096 x 64), and
+    # timed; given --baseline-csrc, in turns with the parent's.
     report, timed = {"gather_rows": {}}, {}
     r2d2_rounds, r2d2_group = traffic["r2d2"]
     whole = [c for fid, c, _, _ in r2d2_rounds[0] if r2d2_group(fid) == 0]
-    for f_pad in (512, 2048):
-        blob, offs, lens = side_blob_chunk(whole, f_pad)
+    shapes = {"sidecar-512": (side_blob_chunk(whole, 512), 256),
+              "sidecar": (side_blob_chunk(whole, 2048), 256),
+              "sidecar-4096x64": (seam_blob_chunk(4096), 64)}
+    for shape, ((blob, offs, lens), width) in shapes.items():
         b, o, ln = (torch.from_numpy(a).to(dev) for a in (blob, offs, lens))
-        got = gather_mod.gather_rows(b, o, ln, 256)
-        want = gather_mod.gather_rows_plain(b, o, ln, 256)
+        f_pad = o.shape[0]
+        got = gather_mod.gather_rows(b, o, ln, width)
+        want = gather_mod.gather_rows_plain(b, o, ln, width)
         err = max_abs_err([got], [want])
-        report["gather_rows"][f"sidecar-{f_pad}"] = err
+        report["gather_rows"][shape] = err
         edge_o = o.clone()
         edge_l = ln.clone()
-        edge_o[:4] = torch.tensor([65535, 65530, 0, 3], dtype=torch.int32)
-        edge_l[:4] = torch.tensor([256, 300, 0, -1], dtype=torch.int32)
-        err_e = max_abs_err([gather_mod.gather_rows(b, edge_o, edge_l, 256)],
-                            [gather_mod.gather_rows_plain(b, edge_o, edge_l, 256)])
-        report["gather_rows"][f"sidecar-{f_pad}-edges"] = err_e
+        edge_o[:6] = torch.tensor([65535, 65530, 0, 3, 65536 - width, -17], dtype=torch.int32)
+        edge_l[:6] = torch.tensor([width, width + 44, 0, -1, width, width], dtype=torch.int32)
+        err_e = max_abs_err([gather_mod.gather_rows(b, edge_o, edge_l, width)],
+                            [gather_mod.gather_rows_plain(b, edge_o, edge_l, width)])
+        report["gather_rows"][f"{shape}-edges"] = err_e
         if err or err_e:
-            raise AssertionError(f"K16 differs from its plain version at {f_pad}: {err} / {err_e}")
-        g = (o.long()[:, None] + torch.arange(256, device=dev)[None, :]).clamp(0, 65535)
+            raise AssertionError(f"K16 differs from its plain version at {shape}: {err} / {err_e}")
+        col = torch.arange(width, device=dev)[None, :]
+        g = (o.long()[:, None] + col).clamp(0, 65535)
         covered = torch.zeros(65536, dtype=torch.bool, device=dev)
-        col = torch.arange(256, device=dev)[None, :]
         covered[g[col < ln.long()[:, None]]] = True
         row = dict(
-            ms=graph_ms(lambda: gather_mod.gather_rows(b, o, ln, 256)),
-            call_ms=cuda_ms(lambda: gather_mod.gather_rows(b, o, ln, 256), 50),
-            plain_ms=cuda_ms(lambda: gather_mod.gather_rows_plain(b, o, ln, 256), 20),
+            ms=graph_ms(lambda: gather_mod.gather_rows(b, o, ln, width)),
+            call_ms=cuda_ms(lambda: gather_mod.gather_rows(b, o, ln, width), 50),
+            plain_ms=cuda_ms(lambda: gather_mod.gather_rows_plain(b, o, ln, width), 20),
             library_ms=cuda_ms(lambda: b[g], 50),
-            bytes=f_pad * 256 + int(covered.sum()) + 8 * f_pad, ops=0,
+            bytes=f_pad * width + int(covered.sum()) + 8 * f_pad, ops=0,
         )
         bound(row)
-        shape = "sidecar" if f_pad == 2048 else "sidecar-512"
+        parent_turns("gather_rows", lambda: gather_mod.gather_rows(b, o, ln, width), row)
         timed[shape] = {"rows": {"gather_rows": row}}
         log_row(shape, "gather_rows", row)
         log(f"{shape:15s} gather_rows library blob[g] (one advanced-indexing call, no mask) "
             f"{row['library_ms']:.5f} ms [{card}]")
-    runs = {"sidecar": launches, "sidecar-512": launches}
+    runs = {"sidecar": launches, "sidecar-512": launches, "sidecar-4096x64": launches}
     log(f"sidecar slice: {time.monotonic() - t_phase:.1f} s; seam p50/p99 {seam}; idle share {idle}")
     return launches, runs, report, timed
+
+
+def seam_blob_chunk(f_pad, blob_len=65536):
+    """The first blob chunk the seam services cut from latbench's corpus
+    at bucket ``f_pad`` (``side_blob_chunk`` of its messages): at 4,096
+    the 64 KiB window's 3,180 messages, the largest chunk they send."""
+    from cilium_tpu_torch.sidecar import latbench
+
+    return side_blob_chunk(latbench._corpus(f_pad)[0], f_pad, blob_len)
 
 
 def side_blob_chunk(frames, f_pad, blob_len=65536):
@@ -3983,6 +4002,83 @@ def _rate_line(tag, r, card):
         f"gen_saturated {r.gen_saturated} (host clock) [{card}]")
 
 
+class probe_dispatches:
+    """Inside ``with probe_dispatches() as n``, ``n["calls"]`` counts the
+    services' device dispatches of the seam probe: calls of
+    ``_model_call``, ``_model_call_attr`` and ``_gathered_call`` on a
+    ``SeamProbe`` (the outermost of nested ones).  Each is one K19
+    launch or graph replay; a graph capture adds its warm launch."""
+
+    NAMES = ("_model_call", "_model_call_attr", "_gathered_call")
+
+    def __enter__(self):
+        from cilium_tpu_torch.models.base import SeamProbe
+        from cilium_tpu_torch.sidecar.service import VerdictService
+
+        counts, depth, lock = {"calls": 0}, threading.local(), threading.Lock()
+        self.real = {n: getattr(VerdictService, n) for n in self.NAMES}
+
+        def wrap(real):
+            def call(svc, model, *args, **kw):
+                d = getattr(depth, "n", 0)
+                if d == 0 and isinstance(svc._live_model(model), SeamProbe):
+                    with lock:
+                        counts["calls"] += 1
+                depth.n = d + 1
+                try:
+                    return real(svc, model, *args, **kw)
+                finally:
+                    depth.n = d
+            return call
+
+        for n, real in self.real.items():
+            setattr(VerdictService, n, wrap(real))
+        return counts
+
+    def __exit__(self, *exc):
+        from cilium_tpu_torch.sidecar.service import VerdictService
+
+        for n, real in self.real.items():
+            setattr(VerdictService, n, real)
+
+
+def probe_round_times(dev, card):
+    """12i. The seam probe's blob-lane round, graph-timed, at the smallest
+    bucket (the rounds at 100k/s) and the largest the services cut from
+    latbench's corpus (4,096: the 64 KiB window's 3,180 messages): ``_gather_model`` on a ``SeamProbe`` as the service now
+    runs it (K19 alone) in turns with the round as the parent ran it (K16,
+    then K19; the parent's kernels given --baseline-csrc, else this
+    tree's; K19's source is the parent's).  Both rounds' outputs must be
+    equal."""
+    from cilium_tpu_torch.models.base import SeamProbe
+    from cilium_tpu_torch.ops.gather import gather_rows
+    from cilium_tpu_torch.sidecar.service import _gather_model
+
+    probe = SeamProbe(device=dev)
+    stems = [s for s in ("gather_rows",) if s in BASELINE]
+    for f in (256, 4096):
+        b, o, ln = (torch.from_numpy(a).to(dev) for a in seam_blob_chunk(f))
+        r = torch.ones(f, dtype=torch.int32, device=dev)
+
+        def new():
+            return _gather_model(probe, b, o, ln, r, 64, True)
+
+        def old():
+            with parent_kernels(stems):
+                gather_rows(b, o, ln, 64)
+                return probe.verdicts_attr(None, ln, r)
+
+        if max_abs_err(list(new()), list(old())):
+            raise AssertionError(f"the probe's round at {f} differs from the parent's")
+        turns = in_turns(new, old)
+        n, o = sorted(turns["n"])[1], sorted(turns["o"])[1]
+        kern = "the parent's K16" if stems else "this tree's K16"
+        log(f"seam probe blob round {f} x 64, graph-timed: K19 alone "
+            + ", ".join(f"{t:.5f}" for t in turns["n"]) + " ms; K16 then K19 as the parent ran it ("
+            + kern + ") " + ", ".join(f"{t:.5f}" for t in turns["o"])
+            + f" ms (in turns n o o n n o; medians {n:.5f} / {o:.5f} = {n / o:.3f}) [{card}]")
+
+
 def _seam_runs(dev, card, kerns, tmp, t_phase):
     """The runs of ``seam_slice``, their sockets under ``tmp``."""
     from cilium_tpu_torch.models import base as base_mod
@@ -4020,20 +4116,36 @@ def _seam_runs(dev, card, kerns, tmp, t_phase):
             f"of {len(samples)} (min {min(samples):.4f}, max {max(samples):.4f}); uplink "
             f"{uplink:.1f} MB/s (512 KiB pageable numpy, serialized) [{card}]")
 
-        # 12c. the paired colocated experiment, socket then shm
+        # 12c. the paired colocated experiment, socket then shm (matrix
+        # wire), then the blob wire eager and through graphs: the probe
+        # reads no rows, so no K16 launches, replays or captures, and one
+        # K19 launch or replay a dispatch (and one warm launch a capture).
         paired = {}
-        for tr in ("socket", "shm"):
+        for tr, transport, kw in (
+                ("socket", "socket", {}), ("shm", "shm", {}),
+                ("blob-eager", "socket", dict(wire_mode="blob", dispatch_mode="eager", reps=2)),
+                ("blob-jit", "socket", dict(wire_mode="blob", dispatch_mode="jit", reps=2))):
             before, n0 = counts(), len(notes)
-            out = latbench.run_paired_colocated(f"{tmp}/p{tr[:2]}.sock", reps=SEAM_PAIRED_REPS,
-                                                transport=tr)
+            cap0 = {n: kerns[n].captured for n in ("seam_probe", "gather_rows")}
+            with probe_dispatches() as disp:
+                out = latbench.run_paired_colocated(
+                    f"{tmp}/p-{tr}.sock", transport=transport, **{"reps": SEAM_PAIRED_REPS, **kw})
             d = runs[f"seam-paired-{tr}"] = delta(before)
             launched(d, ["seam_probe"], f"paired {tr}")
+            cap = {n: kerns[n].captured - c for n, c in cap0.items()}
+            if d["gather_rows"] or cap["gather_rows"] or d["seam_probe"] != disp["calls"] + cap["seam_probe"]:
+                raise AssertionError(f"paired {tr}: K16 {d['gather_rows']} launches + replays, "
+                                     f"{cap['gather_rows']} captures; K19 {d['seam_probe']} for "
+                                     f"{disp['calls']} probe dispatches and {cap['seam_probe']} captures")
+            log(f"paired {tr}: K16 launches + replays {d['gather_rows']}, captures {cap['gather_rows']}; "
+                f"K19 launches + replays {d['seam_probe']} = {disp['calls']} probe dispatches + "
+                f"{cap['seam_probe']} graph captures' warm launches")
             st = out["seam_transport"]
-            if st["mode"] != tr:
+            if st["mode"] != transport:
                 raise AssertionError(f"paired {tr}: the seam client rode {st['mode']}: {st}")
             win = notes[n0:]
             paired[tr] = out
-            log(f"paired colocated ({tr}, {SEAM_PAIRED_REPS} pairs at 100k/s, seam probe K19 on the card, "
+            log(f"paired colocated ({tr}, {len(out['pair_deltas_ms'])} pairs at 100k/s, seam probe K19 on the card, "
                 f"dispatch {out['dispatch_mode']}): delta p99 (seam - null) {out['delta_p99_ms']:.4f} ms, "
                 f"pair deltas {out['pair_deltas_ms']}, seam p99 runs {out['seam_p99_runs']}, null p99 "
                 f"runs {out['null_p99_runs']} (host clock) [{card}]")
@@ -4179,6 +4291,7 @@ def _seam_runs(dev, card, kerns, tmp, t_phase):
     log(f"{'seam-rtt-8':15s} rtt_tick library x + 1 {row['library_ms']:.5f} ms [{card}]")
     log("max |kernel - plain|:", json.dumps(report))
     seam_issue_costs(dev, card)
+    probe_round_times(dev, card)
     log(f"seam slice: {time.monotonic() - t_phase:.1f} s")
     return launches, runs, report, timed
 

@@ -44,9 +44,13 @@ class ConstVerdict:
 
 
 class VerdictModel:
-    """Base for device-backed batch verdict models."""
+    """Base for device-backed batch verdict models.  ``reads_rows``: the
+    model reads the [F, W] payload rows, so the blob lane builds them
+    (K16) before calling it; a model that reads only the lengths says
+    False."""
 
     n_rules: int = 0
+    reads_rows: bool = True
 
 
 def seam_probe_plain(lengths: torch.Tensor, attr: bool = False):
@@ -61,11 +65,12 @@ def seam_probe_plain(lengths: torch.Tensor, attr: bool = False):
 
 def seam_probe(lengths, attr: bool = False, device=None):
     """K19: the seam probe's all-allow verdict of ``lengths`` (int32 [F];
-    numpy is copied to ``device``, a tensor must already lie there).
-    ``msg_len`` is a copy of its own, never ``lengths`` itself."""
-    if device is None:
-        device = lengths.device if isinstance(lengths, torch.Tensor) else torch.device("cpu")
-    device = torch.device(device)
+    numpy is copied to ``device``, None: the card; a tensor must already
+    lie there).  ``msg_len`` is a copy of its own, never ``lengths``
+    itself."""
+    if device is None and isinstance(lengths, torch.Tensor):
+        device = lengths.device
+    device = resolve_device(device)
     lengths = kernels.arg(lengths, "lengths", torch.int32, (None,), device)
     if kernels.on_cpu(device):
         return seam_probe_plain(lengths, attr)
@@ -91,9 +96,11 @@ class SeamProbe(VerdictModel):
     verdict-compute term, so latbench can measure what the sidecar seam
     itself adds.  Matches the (complete, msg_len, allow) batch model
     contract; ``verdicts_attr`` adds rule row 0.  ``device=None`` is the
-    card, and raises without one."""
+    card, and raises without one.  It reads no payload rows
+    (``reads_rows``), so the blob lane builds none for it."""
 
     match_kinds: tuple = ("probe",)
+    reads_rows: bool = False
 
     def __init__(self, device=None):
         device = resolve_device(device)

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from ..device import resolve_device
 
 _GATHER_ROWS = kernels.CudaKernel(
     "gather_rows", "gather_rows",
@@ -41,10 +42,11 @@ def gather_rows_plain(blob: torch.Tensor, offs: torch.Tensor,
 def gather_rows(blob, offs, lens, width: int, device=None) -> torch.Tensor:
     """K16: the [F, width] uint8 rows of ``offs``/``lens`` (int32 [F]) into
     ``blob`` (uint8 [B], B >= 1).  Tensors must already lie on one device
-    (numpy inputs are copied to ``device``, or to ``blob``'s device)."""
-    if device is None:
-        device = blob.device if isinstance(blob, torch.Tensor) else torch.device("cpu")
-    device = torch.device(device)
+    (numpy inputs are copied to ``device``, or to ``blob``'s device; with
+    neither, to the card)."""
+    if device is None and isinstance(blob, torch.Tensor):
+        device = blob.device
+    device = resolve_device(device)
     blob = kernels.arg(blob, "blob", torch.uint8, (None,), device)
     if blob.shape[0] < 1:
         raise ValueError("blob: expected at least one byte")

@@ -640,10 +640,13 @@ def rtt_tick_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1
 
 
-def rtt_tick(x) -> torch.Tensor:
+def rtt_tick(x, device=None) -> torch.Tensor:
     """K20: ``x + 1`` of an int32 [n] tensor (two's-complement wrap) on
-    its device; the plain version on the CPU."""
-    device = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    its device; numpy is copied to ``device`` (None: the card).  The
+    plain version on the CPU."""
+    if device is None and isinstance(x, torch.Tensor):
+        device = x.device
+    device = resolve_device(device)
     x = kernels.arg(x, "x", torch.int32, (None,), device)
     if kernels.on_cpu(device):
         return rtt_tick_plain(x)

@@ -203,8 +203,14 @@ def _gather_model(model, blob, offs, lens, remotes, width: int,
     the flat payload blob into the [n, width] layout the batch models
     consume, the padding tail masked to zero (K16 ``gather_rows`` on the
     card), then the model.  ``attr`` routes through the model's
-    attributed variant (verdict + deciding rule row from one pass)."""
-    rows = gather_rows(blob, offs, lens, width)
+    attributed variant (verdict + deciding rule row from one pass).  A
+    model that reads no rows (``reads_rows`` False: the seam probe) gets
+    none, as the reference's compiled program drops a gather whose rows
+    nothing reads: its round is the model's kernel alone.  (The sharded
+    models of ``parallel/rulesharding.py`` are no ``VerdictModel`` and
+    read rows, hence the default.)"""
+    rows = (gather_rows(blob, offs, lens, width)
+            if getattr(model, "reads_rows", True) else None)
     if attr:
         return model.verdicts_attr(rows, lens, remotes)
     return model(rows, lens, remotes)
@@ -5759,7 +5765,8 @@ class VerdictService:
     def _gathered_call(self, model, blob_dev, offs, lens, remotes):
         """Dispatch gather (K16) + model in the resolved dispatch mode:
         one CUDA graph per flow bucket in jit mode, K16 and the model's
-        kernels launched from Python in eager mode.  (The reference
+        kernels launched from Python in eager mode (no K16 for a model
+        that reads no rows, ``_gather_model``).  (The reference
         always jits this call: its eager gather was a chain of per-op
         dispatches; here the eager gather is one kernel.)  Returns
         (allow, rule-or-None) with their host copies in flight; with

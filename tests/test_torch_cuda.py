@@ -1203,19 +1203,31 @@ def test_l34_wrappers_reject_bad_inputs(cuda):
 # --- K16 gather_rows and the sidecar's CUDA-graph dispatch -------------------
 
 
+@pytest.mark.parametrize("view", [0, 1, 7], ids=["aligned", "view+1", "view+7"])
 @pytest.mark.parametrize("f,blob_len,width", [(1, 65536, 256), (512, 65536, 256), (2048, 65536, 256),
-                                              (300, 300, 40), (7, 1, 16)])
-def test_gather_rows_kernel_matches_plain(cuda, f, blob_len, width):
+                                              (8192, 65536, 64), (300, 300, 40), (7, 1, 16),
+                                              (64, 4096, 512), (33, 70, 64)])
+def test_gather_rows_kernel_matches_plain(cuda, f, blob_len, width, view):
+    """K16's fast path (aligned 16-byte words, a shuffle, funnel shifts) and
+    its byte path (a piece before the blob, or whose words reach past its
+    end), on blobs at 16-byte aligned and unaligned addresses (``view``:
+    the blob starts that many bytes into a larger tensor), with windows
+    ending exactly at and running past B - 1, and rows of 1 to 32 pieces."""
     from cilium_tpu_torch.ops import gather as gather_mod
 
     rng = np.random.default_rng(f + width)
     blob = rng.integers(0, 256, blob_len, dtype=np.uint8)
     offs = rng.integers(-3, blob_len + 3, f).astype(np.int32)
     lens = rng.integers(-2, width + 20, f).astype(np.int32)
-    edges = [(blob_len - 1, width), (blob_len - 1, 1), (0, 0), (5, width + 40)]
+    edges = [(blob_len - 1, width), (blob_len - 1, 1), (0, 0), (5, width + 40),
+             (blob_len - width, width), (blob_len - 17, width), (-17, width), (-2**31, 9),
+             (2**31 - 1, 2**31 - 1)]
     for i, (o, ln) in enumerate(edges[:f]):
         offs[i], lens[i] = o, ln
-    b, o, ln = _to(cuda, blob, offs, lens)
+    o, ln = _to(cuda, offs, lens)
+    whole = torch.from_numpy(np.concatenate([np.zeros(view, np.uint8), blob])).to(cuda)
+    b = whole[view:]
+    assert b.data_ptr() % 16 == view
     before = gather_mod._GATHER_ROWS.launches
     got = gather_mod.gather_rows(b, o, ln, width)
     torch.cuda.synchronize()
@@ -1592,14 +1604,20 @@ def test_seqdfa_fold_odd_widths_and_views_match_plain(cuda, width, n_chunks, off
 # --- K19 seam_probe and K20 rtt_tick ---------------------------------------------
 
 
-@pytest.mark.parametrize("f", [1, 513, 8192, 65536])
-def test_seam_probe_kernel_matches_plain(cuda, f):
+@pytest.mark.parametrize("view", [0, 1], ids=["aligned", "view+4B"])
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 5, 513, 8192, 8195, 65536])
+def test_seam_probe_kernel_matches_plain(cuda, f, view):
+    """K19 on batches of 1 to 65,536 flows, on either side of a multiple
+    of 4, and on lengths at a 4-byte offset (``view``) as well as at the
+    start of an allocation."""
     from cilium_tpu_torch.models import base as base_mod
 
     rng = np.random.default_rng(f)
     lengths = rng.integers(-1, 257, f).astype(np.int32)
     lengths[0] = -1
-    lens = torch.from_numpy(lengths).to(cuda)
+    whole = torch.from_numpy(np.concatenate([np.zeros(view, np.int32), lengths])).to(cuda)
+    lens = whole[view:]
+    assert (lens.data_ptr() % 16 == 0) == (view == 0)
     for attr in (False, True):
         before = base_mod._SEAM_PROBE.launches
         got = base_mod.seam_probe(lens, attr=attr)
@@ -1705,12 +1723,25 @@ def test_seam_probe_service_on_the_card_matches_cpu(cuda, tmp_path, dispatch_mod
 
     from cilium_tpu_torch.proxylib import instance as inst
 
-    k19 = base_mod._SEAM_PROBE
+    from cilium_tpu_torch.ops import gather as gather_mod
+
+    k16, k19 = gather_mod._GATHER_ROWS, base_mod._SEAM_PROBE
     modes = ("matrix", "blob", "matrix", "blob")
-    before = k19.launches + k19.replayed
     inst.reset_module_registry()
-    got, stages, status = seam_service_ops(str(tmp_path / "card.sock"), modes,
-                                           dispatch_mode=dispatch_mode)
+    before16 = (k16.launches, k16.replayed, k16.captured)
+    before = k19.launches + k19.replayed
+    rounds = []
+    blob_rounds = ("blob",) * 3
+    for mode_set in (modes, blob_rounds):
+        # The probe reads no rows: its blob rounds build none (no K16
+        # launched, captured or replayed), while K19 runs every round.
+        got_k19 = k19.launches + k19.replayed
+        out = seam_service_ops(str(tmp_path / f"card{len(rounds)}.sock"), mode_set,
+                               dispatch_mode=dispatch_mode)
+        assert (k16.launches, k16.replayed, k16.captured) == before16
+        assert k19.launches + k19.replayed >= got_k19 + len(mode_set)
+        rounds.append(out)
+    got, stages, status = rounds[0]
     assert k19.launches + k19.replayed > before
     inst.reset_module_registry()
     want, cpu_stages, _ = seam_service_ops(str(tmp_path / "cpu.sock"), modes, verdict_device="cpu")

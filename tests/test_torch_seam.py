@@ -8,8 +8,10 @@ blob wire modes, and the same ``seam_stages`` keys; ``_corpus``,
 ``NullVerdictServer._const_verdict`` and ``MixBench._build_round`` the
 reference's bytes.  Small runs of ``LatencyBench``, ``run_paired_colocated``
 and ``MixBench`` show the port's benches work end to end on the CPU, and
-the probes and a default-device service raise where there is no card and
-no CPU was asked for.  Every comparison is exact (tolerance 0: bools,
+the probes, the K16 / K19 wrappers given numpy and a default-device
+service raise where there is no card and no CPU was asked for.  The blob
+lane's call of the probe (``_gather_model``) builds no rows and equals
+the reference's.  Every comparison is exact (tolerance 0: bools,
 ints and bytes).  The card's K19 and K20 are held against these plain
 versions in tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -29,11 +31,16 @@ from cilium_tpu.sidecar import SidecarClient as RefSidecarClient
 from cilium_tpu.sidecar import VerdictService as RefVerdictService
 from cilium_tpu.sidecar import latbench as ref_latbench
 from cilium_tpu.sidecar import mixbench as ref_mixbench
+from cilium_tpu.sidecar import service as ref_service
 from cilium_tpu.utils.option import DaemonConfig as RefDaemonConfig
+import cilium_tpu_torch.proxylib as port_pl
 from cilium_tpu_torch.models.base import SeamProbe, seam_probe, seam_probe_plain
+from cilium_tpu_torch.models.r2d2 import build_r2d2_model
+from cilium_tpu_torch.ops.gather import gather_rows
 from cilium_tpu_torch.proxylib import instance as port_inst
 from cilium_tpu_torch.proxylib.types import MORE, PASS
 from cilium_tpu_torch.sidecar import VerdictService, latbench, mixbench, wire
+from cilium_tpu_torch.sidecar import service as port_service
 from cilium_tpu_torch.utils.option import DaemonConfig
 from test_torch_cuda import seam_service_ops
 
@@ -85,6 +92,43 @@ def test_seam_probe_matches_reference(f, attr):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+@pytest.mark.parametrize("attr", [False, True], ids=["call", "attr"])
+@pytest.mark.parametrize("f", [1, 64, 8192])
+def test_blob_lane_builds_no_rows_for_the_probe(f, attr, monkeypatch):
+    """The blob lane's call of the seam probe (``_gather_model``) gives the
+    reference's values and dtypes and builds no rows: the row build's
+    wrapper (K16 on the card) is never called for the probe, and once for
+    the r2d2 model through the same function."""
+    rng = np.random.default_rng(70 + f)
+    blob = rng.integers(0, 256, 65536, dtype=np.uint8)
+    offs = rng.integers(-4, 65536, f).astype(np.int32)
+    lengths = _lengths(f, 80 + f)
+    remotes = np.ones(f, np.int32)
+    want = [np.asarray(x) for x in ref_service._gather_model(
+        RefSeamProbe(), *(jnp.asarray(a) for a in (blob, offs, lengths, remotes)), 64, attr)]
+    calls = []
+
+    def counted(*args):
+        calls.append(args)
+        return gather_rows(*args)
+
+    monkeypatch.setattr(port_service, "gather_rows", counted)
+    args = [torch.from_numpy(a) for a in (blob, offs, lengths, remotes)]
+    got = port_service._gather_model(SeamProbe(device="cpu"), *args, 64, attr)
+    assert calls == []
+    assert len(got) == len(want) == (4 if attr else 3)
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    policy = port_pl.compile_policy(port_pl.NetworkPolicy(
+        name="p", policy=2, ingress_per_port_policies=[port_pl.PortNetworkPolicy(
+            port=80, rules=[port_pl.PortNetworkPolicyRule(
+                l7_proto="r2d2", l7_rules=[{"cmd": "READ", "file": "/public/.*"}])])]))
+    r2d2 = build_r2d2_model(policy, True, 80, device="cpu")
+    out = port_service._gather_model(r2d2, *args, 64, attr)
+    assert len(calls) == 1 and len(out) == (4 if attr else 3)
+
+
 def test_seam_probe_checks_its_inputs(tmp_path):
     with pytest.raises(TypeError, match="lengths"):
         seam_probe(torch.zeros(4, dtype=torch.int64))
@@ -116,7 +160,7 @@ def test_rtt_tick_plain_matches_reference():
         want = np.asarray(tick(jnp.asarray(x)))
         assert want.dtype == np.int32
         for got in (latbench.rtt_tick_plain(torch.from_numpy(x)), latbench.rtt_tick(torch.from_numpy(x)),
-                    latbench.rtt_tick(x)):
+                    latbench.rtt_tick(x, device="cpu")):
             assert got.dtype == torch.int32
             np.testing.assert_array_equal(got.numpy(), want)
     assert int(latbench.rtt_tick_plain(torch.tensor([imax], dtype=torch.int32))[0]) == imin
@@ -268,9 +312,17 @@ def test_mixbench_runs_the_reassembly_lane(tmp_path):
 
 
 def test_no_card_no_cpu_run(tmp_path, monkeypatch):
-    """Without a card, the probes and a default-device seam_probe service
-    raise instead of running on the CPU."""
+    """Without a card, the probes, the K16 / K19 / K20 wrappers given numpy and
+    no device, and a default-device seam_probe service raise instead of
+    running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lengths = np.zeros(4, np.int32)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        seam_probe(lengths)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        gather_rows(np.zeros(8, np.uint8), lengths, lengths, 4)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        latbench.rtt_tick(lengths)
     with pytest.raises(RuntimeError, match="CUDA device"):
         latbench.measure_device_rtt_ms()
     with pytest.raises(RuntimeError, match="CUDA device"):

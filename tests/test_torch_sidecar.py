@@ -106,6 +106,8 @@ def _gather_case(rng, n, blob_len, width):
         (5, width + 40),  # longer than the row
         (blob_len - 4, width),
         (-2, 3),  # a negative offset clips to 0
+        (blob_len - width, width),  # a window ending exactly at B - 1
+        (-17, width),  # more than a 16-byte piece before the blob
         (7, -1),  # a negative length gives zeros
     ]
     for i, (o, ln) in enumerate(edges[: n]):
@@ -115,20 +117,25 @@ def _gather_case(rng, n, blob_len, width):
 
 @pytest.mark.parametrize("n", [1, 2, 7, 64, 256, 512, 2048])
 def test_gather_rows_equals_reference_gather(n):
+    """Every path of the card's kernel has its shape here: W = 256, 64 and
+    40 (a tail piece shorter than 16 bytes), windows ending at and running
+    past B - 1, negative offsets, and the blob as a view at an odd byte
+    offset of a larger tensor."""
     rng = np.random.default_rng(100 + n)
-    for blob_len, width in ((65536, 256), (300, 64), (1, 16), (4096, 40)):
+    for blob_len, width in ((65536, 256), (8192, 64), (300, 64), (1, 16), (4096, 40)):
         blob, offs, lens = _gather_case(rng, n, blob_len, width)
         want = np.asarray(ref_service._gather_model(
             _Rows(), jnp.asarray(blob), jnp.asarray(offs), jnp.asarray(lens),
             None, width,
         ))
-        got = gather_rows(torch.from_numpy(blob), torch.from_numpy(offs),
-                          torch.from_numpy(lens), width)
-        assert got.dtype == torch.uint8 and tuple(got.shape) == (n, width)
-        np.testing.assert_array_equal(got.numpy(), want)
-        np.testing.assert_array_equal(
-            gather_rows_plain(torch.from_numpy(blob), torch.from_numpy(offs),
-                              torch.from_numpy(lens), width).numpy(), want)
+        padded = torch.from_numpy(np.concatenate([np.zeros(3, np.uint8), blob]))
+        for view in (torch.from_numpy(blob), padded[3:]):
+            got = gather_rows(view, torch.from_numpy(offs), torch.from_numpy(lens), width)
+            assert got.dtype == torch.uint8 and tuple(got.shape) == (n, width)
+            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(
+                gather_rows_plain(view, torch.from_numpy(offs),
+                                  torch.from_numpy(lens), width).numpy(), want)
 
 
 def test_gather_rows_checks_its_inputs():
