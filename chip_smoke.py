@@ -131,7 +131,12 @@ which fails the run on any mismatch:
    chunks, the fold's branch counts to ``seqdfa_fold_branches_plain``
    (both branches must run), and timed beside K2 (and K2 beside the
    parent's K2 in turns on seqdfa-32k and -4k, given --baseline-csrc and a
-   parent whose dfa_scan.cu differs);
+   parent whose dfa_scan.cu differs); K18's apply on its pick and every
+   forced path (walk, staged) against its plain version at every case and
+   on tests/merge_cases.py's maps, the launcher's plan and the bytes the
+   staged path loads logged, and the apply beside the parent's in turns at
+   every case (--baseline-csrc; every path in turns:
+   ``chip_apply_variants.py``);
 12. the seam benchmarks, counted in a run of their own (a launch here is a
    wrapper launch or a CUDA-graph replay): ``measure_device_rtt_ms`` (K20
    ``rtt_tick`` + a blocking readback) and ``measure_uplink_mbps``;
@@ -167,10 +172,13 @@ which fails the run on any mismatch:
    ``mesh_rule_shards=2`` on 4 slots serving phase 9's r2d2, DNS and HTTP
    traffic equal to the host oracle through a fault on slot 1, the
    reshape onto the survivors and the re-promotion; then K21 (both
-   forms) and K22 against their plain versions at F = 65,536, R = 1, 2,
-   4, 8, timed beside the library calls (K21's plain form against
-   ``torch.any`` in turns, three readings each).  The rules_100k budget
-   and the scaling floor are asserted only on 4 distinct cards.
+   forms) at R = 1, 2, 4, 8 and K22 at R = 1 to 8 (F = 65,536) and on the
+   1 x 4 Kafka mesh's own merge against their plain versions, timed
+   beside the library calls (K21's plain form against ``torch.any`` in
+   turns, three readings each) and the parent's kernels in turns
+   (--baseline-csrc), K22 on its pick and every path the inputs allow
+   held to plain, also on tests/merge_cases.py's inputs.  The rules_100k budget and the
+   scaling floor are asserted only on 4 distinct cards.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -1582,16 +1590,20 @@ def prefilter_case(f):
 ADV_SHAPES = {"adv": {}, "adv-one-row": {"n": 1}, "adv-invalid": {"invalid": True}}
 
 
-def l34_cases():
-    """tests/l34_index_cases.py: adversarial tables for K14 and K15."""
+def _tests_module(name):
+    """A module of tests/ (the case builders the card tests share)."""
+    import importlib
     from pathlib import Path
 
     tests = str(Path(__file__).resolve().parent / "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import l34_index_cases as cases
+    return importlib.import_module(name)
 
-    return cases
+
+def l34_cases():
+    """tests/l34_index_cases.py: adversarial tables for K14 and K15."""
+    return _tests_module("l34_index_cases")
 
 
 def snapshot_ms(build):
@@ -3475,7 +3487,9 @@ def build_baseline(csrc):
         lib = ctypes.CDLL(str(out / f"{stem}.so"))
         bound = {}
         for k in kernels.ALL:
-            if k.stem == stem:
+            # a launcher the parent lacks (a forced-variant export) is
+            # not swapped
+            if k.stem == stem and hasattr(lib, k.symbol):
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = [*k.argtypes, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
@@ -3494,7 +3508,8 @@ class parent_kernels:
     def __init__(self, stems):
         from cilium_tpu_torch import kernels
 
-        self.held = [(k, BASELINE[k.stem][k.symbol]) for k in kernels.ALL if k.stem in stems]
+        self.held = [(k, BASELINE[k.stem][k.symbol]) for k in kernels.ALL
+                     if k.stem in stems and k.symbol in BASELINE[k.stem]]
 
     def __enter__(self):
         self.own = [(k, k._bind()) for k, _ in self.held]
@@ -3545,38 +3560,43 @@ def in_turns(new, old, **graph):
     return turns
 
 
-def seqdfa_slice(dev, card, kerns):
-    """Phase 11, the chunk-folded DFA search on the card, counted in a run
-    of its own: seqdfa-32k (F = 2,048, the engines' capacity, x W =
-    32,768, the HTTP engine's MAX_WIDTH) and seqdfa-4k (F = 256 x W =
-    4,096), tests/test_seqdfa.py's 9 patterns, n_chunks 1, 8 and 64; and
-    seqdfa-32k-adv (two counters on frames of one byte, n_chunks 1 and
-    64), where K18's fold takes its slow branch.  K18 is held against K2
-    ``dfa_search_batch`` on the non-absorbing tables (every case), its
-    fold and apply against their plain versions where the plain fold is
-    quick enough (``plain_case``), its branch counters against
-    ``seqdfa_fold_branches_plain``, and it is timed beside K2 (and K2
-    beside the parent's K2 in turns on each frame shape, given
-    --baseline-csrc and a parent whose dfa_scan.cu differs).  Returns
-    (launches, runs, report, timed)."""
+def apply_paths_held(dfa, maps, want, label, report):
+    """K18 apply on its pick and every forced path (APPLY_PATHS) against
+    ``want`` (the plain version's output): the error of each into
+    ``report`` as ``label:path``."""
+    from cilium_tpu_torch.ops.seqdfa import APPLY_PATHS, seqdfa_apply
+
+    for path in APPLY_PATHS:
+        got = seqdfa_apply(dfa, maps, None if path == "pick" else path)
+        report[f"{label}:{path}"] = max_abs_err([got], [want])
+
+
+def apply_boundary(dev, report):
+    """K18 apply's pick and forced paths on tests/merge_cases.py's maps
+    (K = 1 to 2,000, S = 1 to 128, F x R off every block's pairs), at byte
+    offsets 0, 1 and 7, against the plain version."""
+    from cilium_tpu_torch.ops.dfa import dfa_from_arrays
+    from cilium_tpu_torch.ops.seqdfa import seqdfa_apply_plain
+
+    mc = _tests_module("merge_cases")
+    for name, f, r, k, s in mc.APPLY_SHAPES:
+        classmap, delta, start, accept, accept_final, maps = mc.apply_case(
+            np.random.default_rng(f * k + s), f, r, k, s)
+        dfa = dfa_from_arrays(classmap, delta, start, accept, accept_final, dev)
+        want = seqdfa_apply_plain(dfa, torch.from_numpy(maps).to(dev))
+        for off in mc.APPLY_OFFSETS:
+            apply_paths_held(dfa, mc.at_offset(maps, off, dev), want, f"apply-{name}-o{off}", report)
+
+
+def seqdfa_cases(dev):
+    """Phase 11's cases: {name: dict(d, l, k, f, width, base, dfa, abs)},
+    seqdfa-32k and -4k (seq9 patterns) at each of SEQ_CHUNKS and
+    seqdfa-32k-adv at k1 and k64."""
     from cilium_tpu_torch.entry import seqdfa_batch, seqdfa_tables
-    from cilium_tpu_torch.ops.dfa import device_dfa, dfa_search_batch
-    from cilium_tpu_torch.ops.seqdfa import (
-        FOLD_DMAX,
-        FOLD_PROBE,
-        device_dfa_absorbing,
-        seqdfa_apply,
-        seqdfa_apply_plain,
-        seqdfa_fold,
-        seqdfa_fold_branches_plain,
-        seqdfa_fold_plain,
-        seqdfa_search_batch,
-        fold_segment,
-    )
+    from cilium_tpu_torch.ops.dfa import device_dfa
+    from cilium_tpu_torch.ops.seqdfa import device_dfa_absorbing, fold_segment
     from cilium_tpu_torch.regex.dfa import compile_pattern_dfas
 
-    log("== seqdfa slice")
-    t_phase = time.monotonic()
     tabs = {}
     for name, tables in (("seq9", seqdfa_tables()), ("adv", compile_pattern_dfas(list(SEQ_ADV_PATTERNS)))):
         tabs[name] = (device_dfa(tables, dev), device_dfa_absorbing(tables, dev))
@@ -3595,6 +3615,41 @@ def seqdfa_slice(dev, card, kerns):
         log(f"{label}: F={f} W={width} R={dfa_abs.n_patterns} S={dfa_abs.n_states} "
             f"C={dfa_abs.n_classes} mean length {float(lengths.mean()):.0f}; K18 fold segments of "
             f"{fold_segment(f, width)} bytes")
+    return cases
+
+
+def seqdfa_slice(dev, card, kerns):
+    """Phase 11, the chunk-folded DFA search on the card, counted in a run
+    of its own: seqdfa-32k (F = 2,048, the engines' capacity, x W =
+    32,768, the HTTP engine's MAX_WIDTH) and seqdfa-4k (F = 256 x W =
+    4,096), tests/test_seqdfa.py's 9 patterns, n_chunks 1, 8 and 64; and
+    seqdfa-32k-adv (two counters on frames of one byte, n_chunks 1 and
+    64), where K18's fold takes its slow branch.  K18 is held against K2
+    ``dfa_search_batch`` on the non-absorbing tables (every case), its
+    fold and apply against their plain versions where the plain fold is
+    quick enough (``plain_case``), its branch counters against
+    ``seqdfa_fold_branches_plain``, and it is timed beside K2 (and K2
+    beside the parent's K2 in turns on each frame shape, given
+    --baseline-csrc and a parent whose dfa_scan.cu differs).  Returns
+    (launches, runs, report, timed)."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.ops.dfa import dfa_search_batch
+    from cilium_tpu_torch.ops.seqdfa import (
+        FOLD_DMAX,
+        FOLD_PROBE,
+        APPLY_PATHS,
+        apply_staged_bytes,
+        seqdfa_apply,
+        seqdfa_apply_plain,
+        seqdfa_fold,
+        seqdfa_fold_branches_plain,
+        seqdfa_fold_plain,
+        seqdfa_search_batch,
+    )
+
+    log("== seqdfa slice")
+    t_phase = time.monotonic()
+    cases = seqdfa_cases(dev)
     log(f"K18 fold: probe {FOLD_PROBE} bytes, at most {FOLD_DMAX} distinct states a fast group")
 
     log("== seqdfa main path (counted)")
@@ -3660,6 +3715,13 @@ def seqdfa_slice(dev, card, kerns):
         log(f"{name:18s} fold groups {groups} (flow, pattern, segment); chains walked past the probe "
             f"{chains} ({chains / max(groups, 1):.4f} a group); slow branch {slow} groups, share "
             f"{slow / max(groups, 1):.6f}")
+    # K18 apply on every path at every case and on the boundary maps
+    for name, cs in cases.items():
+        maps = seqdfa_fold(cs["abs"], cs["d"], cs["l"], cs["k"])
+        apply_paths_held(cs["abs"], maps, seqdfa_apply_plain(cs["abs"], maps), name, report["seqdfa_apply"])
+    apply_boundary(dev, report["seqdfa_apply"])
+    log(f"K18 apply: pick and {len(APPLY_PATHS) - 1} forced paths held to plain at every case and "
+        f"{sum(1 for n in report['seqdfa_apply'] if n.startswith('apply-'))} boundary readings")
     hits = serial["seqdfa-32k"]
     log(f"K18 == K2 at every n_chunks; 32k match share per pattern "
         f"{[round(float(x), 3) for x in hits.float().mean(dim=0)]}; adv match share "
@@ -3697,6 +3759,17 @@ def seqdfa_slice(dev, card, kerns):
                 plain_ms=cuda_ms(lambda: seqdfa_apply_plain(dfa_abs, maps), 10),
                 library_ms=None, bytes=f * r * k + f * r + r + r * s, ops=f * r * k),
         }
+        # the launcher's plan (from the library), the bytes it stages, and
+        # the parent's apply in turns (--baseline-csrc)
+        code, pairs, kt = kernels.seqdfa_apply_variant(f, r, s, k)
+        path = {v: n for n, v in APPLY_PATHS.items()}[code]
+        arow = rows["seqdfa_apply"]
+        arow["variant"] = f"{path} P={pairs} kt={kt}"
+        staged = apply_staged_bytes(maps, kt) if path != "walk" else None
+        log(f"{name:18s} seqdfa_apply path {path}, {pairs} pairs a block, {kt} chunks a tile; "
+            + (f"stages {staged} bytes ({staged / (f * r * k * s):.3f} x the maps)" if staged else
+               f"loads {f * r * k} map bytes, one a dependent step") + f" [{card}]")
+        parent_turns("seqdfa", apply_, arow)
         for kname, row in rows.items():
             bound(row)
             log_row(name, kname, row)
@@ -4425,6 +4498,68 @@ def mesh_rate(fn, f, n=20):
     return f * n / (time.perf_counter() - t0)
 
 
+MESH_K22_RULES = tuple(range(1, 9))
+
+
+def k22_row(label, args, card, report, timed):
+    """K22 at ``args`` (simple, cover, topic_count, overflow): its pick
+    and every path the inputs allow held to the plain version (errors into
+    ``report``), timed beside the plain version and the library
+    expression, and the parent's kernel in turns (--baseline-csrc).  Fills
+    ``timed[label]``."""
+    from cilium_tpu_torch.parallel import rulesharding as rs
+
+    simple, cover, tc, ov = args
+    r, f = simple.shape
+    t = cover.shape[2]
+    want = rs.kafka_shard_combine_plain(*args)
+    report[label] = max_abs_err([rs.kafka_shard_combine(*args)], [want])
+    for p_ in combine_paths(cover):
+        report[f"{label}:{p_}"] = max_abs_err([rs.kafka_shard_combine(*args, path=p_)], [want])
+    t_idx = torch.arange(t, device=cover.device)[None, :]
+    klib = lambda: ((simple.any(dim=0) | ((cover.any(dim=0) | (t_idx >= tc[:, None]))  # noqa: E731
+                                          .all(dim=1) & (tc > 0))) & ~ov)
+    k22 = lambda: rs.kafka_shard_combine(*args)  # noqa: E731
+    krow = dict(ms=graph_ms(k22), call_ms=cuda_ms(k22, 50),
+                plain_ms=cuda_ms(lambda: rs.kafka_shard_combine_plain(*args), 20),
+                library_ms=graph_ms(klib), bytes=r * f + t * r * f + 4 * f + f + f,
+                ops=(t + 1) * r * f, variant=rs.combine_variant(cover))
+    log(f"{label:15s} kafka_shard_combine R={r} F={f} T={t}: path {krow['variant']} [{card}]")
+    parent_turns("shard_reduce", k22, krow)
+    timed.setdefault(label, dict(rows={}))["rows"]["kafka_shard_combine"] = bound(krow)
+    log_row(label, "kafka_shard_combine", krow)
+
+
+def combine_paths(cover):
+    """The K22 paths that may be forced on ``cover``: the launcher's pick
+    (``combine_variant``) and the general path, which takes any input."""
+    from cilium_tpu_torch.parallel import rulesharding as rs
+
+    return list(dict.fromkeys((rs.combine_variant(cover), "general")))
+
+
+def combine_boundary(dev, report):
+    """K22's pick and every path the inputs allow on tests/merge_cases.py's
+    inputs (any nonzero byte true; T = 1, 3, 8, 13; topic counts -1, 0, T,
+    T + 1; F = 1, 3, 4,099, 4,100), R = 1, 4 and 9, aligned and at byte
+    offsets, against the plain version on the bytes read as bools."""
+    from cilium_tpu_torch.parallel import rulesharding as rs
+
+    mc = _tests_module("merge_cases")
+    for r in (1, 4, 9):
+        for t in mc.COMBINE_T:
+            for f in mc.COMBINE_F:
+                arrays = mc.combine_case(np.random.default_rng(31 * r + 7 * t + f), r, f, t)
+                want = rs.kafka_shard_combine_plain(*(torch.from_numpy(a != 0) if a.dtype == np.uint8
+                                                      else torch.from_numpy(a) for a in arrays)).to(dev)
+                for i, offs in enumerate(mc.COMBINE_OFFSETS):
+                    args = [mc.at_offset(a, o, dev, d) for a, o, d in
+                            zip(arrays, offs, (torch.bool, torch.bool, torch.int32, torch.bool))]
+                    for p_ in ["pick", *combine_paths(args[1])]:
+                        got = rs.kafka_shard_combine(*args, path=None if p_ == "pick" else p_)
+                        report[f"combine-R{r}-T{t}-F{f}-o{i}:{p_}"] = max_abs_err([got], [want])
+
+
 def mesh_slice(dev, card, kerns):
     """Phase 13, rule- and flow-sharded verdicts on a mesh of slots, counted
     in a run of its own over every kernel: 13b ``dryrun_multichip`` at 2 x
@@ -4535,7 +4670,7 @@ def _mesh_runs(dev, card, kerns, tmp):
         k.launches = 0
         k.replayed = 0
     # 13b. dryrun_multichip, then the four mesh models at F = 65,536.
-    passes = {}
+    passes, kafka_models = {}, {}
     for n_flow, n_rule in MESH_LAYOUTS:
         name = f"mesh-dryrun-{n_flow}x{n_rule}"
         got = counted(name, lambda: entry.dryrun_multichip(n_flow * n_rule, dev, n_rule=n_rule))
@@ -4562,6 +4697,7 @@ def _mesh_runs(dev, card, kerns, tmp):
                 + json.dumps({k: v for k, v in runs[run].items() if v}))
         kmodel = rs.mesh_kafka_model(k_rows, mesh)
         run = f"mesh-kafka-{n_flow}x{n_rule}"
+        kafka_models[run] = kmodel
         got = counted(run, lambda: kmodel(k_batch, k_rem))
         mesh_equal(run, [got], [k_want])
         expect(run, kafka_hits=n_flow * n_rule, kafka_shard_combine=n_flow)
@@ -4775,6 +4911,7 @@ def _mesh_runs(dev, card, kerns, tmp):
                    plain_ms=cuda_ms(lambda: rs.shard_reduce_plain(allow, rule, off), 20),
                    library_ms=graph_ms(lib),
                    bytes=r * f + 4 * r * f + 4 * r + f + 4 * f, ops=2 * r * f)
+        parent_turns("shard_reduce", k21, row)
         timed[f"mesh-k21-R{r}"] = dict(rows={"shard_reduce": bound(row)})
         runs[f"mesh-k21-R{r}"] = dict.fromkeys(kerns, 0)
         log_row(f"mesh-k21-R{r}", "shard_reduce", row)
@@ -4795,28 +4932,24 @@ def _mesh_runs(dev, card, kerns, tmp):
             + ", ".join(f"{t:.5f}" for t in turns["a"]) + f" ms (in turns k a a k k a; medians "
             + f"{sorted(turns['k'])[1]:.5f} / {sorted(turns['a'])[1]:.5f}) [{card}]")
 
+    for r in MESH_K22_RULES:
+        f = MESH_F
         simple = (torch.rand((r, f), generator=g) < 0.1).to(dev)
         cover = (torch.rand((r, f, 8), generator=g) < 0.7).to(dev)
         tc = torch.randint(0, 10, (f,), generator=g, dtype=torch.int32).to(dev)
         ov = (torch.rand(f, generator=g) < 0.1).to(dev)
-        k22_args = (simple, cover, tc, ov)
-        report["kafka_shard_combine"][f"mesh-k22-R{r}"] = max_abs_err(
-            [rs.kafka_shard_combine(*k22_args)], [rs.kafka_shard_combine_plain(*k22_args)])
-        t_idx = torch.arange(8, device=dev)[None, :]
-        klib = lambda: ((simple.any(dim=0) | ((cover.any(dim=0) | (t_idx >= tc[:, None]))  # noqa: E731
-                                                .all(dim=1) & (tc > 0))) & ~ov)
-        k22 = lambda: rs.kafka_shard_combine(*k22_args)  # noqa: E731
-        krow = dict(ms=graph_ms(k22), call_ms=cuda_ms(k22, 50),
-                    plain_ms=cuda_ms(lambda: rs.kafka_shard_combine_plain(*k22_args), 20),
-                    library_ms=graph_ms(klib),
-                    bytes=r * f + 8 * r * f + 4 * f + f + f, ops=9 * r * f)
-        timed[f"mesh-k22-R{r}"] = dict(rows={"kafka_shard_combine": bound(krow)})
+        k22_row(f"mesh-k22-R{r}", (simple, cover, tc, ov), card, report["kafka_shard_combine"], timed)
         runs[f"mesh-k22-R{r}"] = dict.fromkeys(kerns, 0)
-        log_row(f"mesh-k22-R{r}", "kafka_shard_combine", krow)
+    # K22 on the main path's own call: the 1 x 4 Kafka mesh's merge (R = 4,
+    # F = 65,536, bench_kafka's requests), recorded.
+    calls = recorded_calls(rs, "kafka_shard_combine",
+                           lambda: kafka_models["mesh-kafka-1x4"](k_batch, k_rem))
+    if len(calls) != 1:
+        raise AssertionError(f"mesh-kafka-1x4: {len(calls)} kafka_shard_combine calls, one expected")
+    k22_row("mesh-kafka-1x4", calls[0][:4], card, report["kafka_shard_combine"], timed)
+    combine_boundary(dev, report["kafka_shard_combine"])
     # The main path's own shapes (R = 4, F = 65,536 on the 1 x 4 mesh).
     timed["mesh-r2d2-1x4"]["rows"]["shard_reduce"] = timed["mesh-k21-R4"]["rows"]["shard_reduce"]
-    timed["mesh-kafka-1x4"]["rows"]["kafka_shard_combine"] = timed["mesh-k22-R4"]["rows"][
-        "kafka_shard_combine"]
     log("max |kernel - plain|:", json.dumps(report))
     if any(v for per in report.values() for v in per.values()):
         raise AssertionError("K6 / K7 / K21 / K22 disagree with their plain versions")
@@ -5798,14 +5931,7 @@ def scan_row(scan_pair, tab, data, start, end, sb):
 
 def frame_cases():
     """tests/frame_cases.py: the framing kernels' boundary batches."""
-    from pathlib import Path
-
-    tests = str(Path(__file__).resolve().parent / "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import frame_cases as cases
-
-    return cases
+    return _tests_module("frame_cases")
 
 
 def k1_row(data, lengths, frame):

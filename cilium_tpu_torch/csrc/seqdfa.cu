@@ -42,8 +42,32 @@
 // distinct states, slow groups' live start states) are laid out in group
 // order by a block scan and drained by all threads together.
 //
-// seqdfa_apply: one thread per (f, r) walks s = start[r];
-// s = maps[f, r, k, s] for k in chunk order and writes accept_final[r, s].
+// seqdfa_apply composes the maps from start[r] (s = maps[f, r, k, s] for
+// k in chunk order) and writes accept_final[r, s] for each (f, r) pair.
+// Bound on the H100: bytes, K of a pair's K * S map bytes, start and
+// accept_final.  A walk that loads maps[f, r, k, s] from global memory
+// (one thread a pair, the first design) makes K dependent L2 round trips
+// a pair, ~0.17 us each: latency, not bandwidth, sets its time once K
+// passes a handful.  No design reaches that bound: a step needs one byte
+// of a row only the step before names, so a pair's walk reads all K * S
+// bytes (staged) or a 32-byte sector a step (the walk).  Paths (ApplyPath;
+// seqdfa_apply_variant reports the launcher's pick, seqdfa_apply_forced
+// forces any):
+//   * walk, the pick below kApplyStageMinK chunks, where one or a few
+//     round trips cost less than staging;
+//   * staged, the pick from kApplyStageMinK chunks: a block of P pairs
+//     copies the aligned 16-byte words that hold each pair's K * S bytes
+//     into shared memory (its loads in flight together, clipped a byte at
+//     a time only in blocks whose words pass the ends of the whole maps
+//     tensor, so views at any offset work), then one thread a pair walks
+//     its K steps there (~30 cycles a step).  Each pair gets a region of
+//     an odd number of 16-byte words, so walkers of neighbouring pairs in
+//     one state fall on different banks (the maps' own stride, 1,216 bytes
+//     at S = 19 and K = 64, would put 16 of a warp's walkers on one bank).
+//     Chunks past kApplyStageBytes a pair are staged in tiles of kt.
+// The thresholds come from chip_apply_variants.py's sweep: P at four
+// blocks an SM, and staging from K = 8 (at K = 1 it read 1.3-1.4x the
+// walk's time).
 #include "common.cuh"
 
 namespace {
@@ -367,11 +391,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void seqdfa_apply_kernel(const uint8_t* __restrict__ maps,
-                                    const uint8_t* __restrict__ start,
-                                    const bool* __restrict__ accept_final,
-                                    int F, int R, int S, int K,
-                                    bool* __restrict__ out) {
+__global__ void seqdfa_apply_walk_kernel(const uint8_t* __restrict__ maps,
+                                         const uint8_t* __restrict__ start,
+                                         const bool* __restrict__ accept_final,
+                                         int F, int R, int S, int K,
+                                         bool* __restrict__ out) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<long long>(F) * R) return;
@@ -380,6 +404,180 @@ __global__ void seqdfa_apply_kernel(const uint8_t* __restrict__ maps,
   int s = start[r];
   for (int k = 0; k < K; ++k) s = m[k * S + s];
   out[idx] = accept_final[r * S + s];
+}
+
+constexpr int kApplyThreads = 128;
+constexpr int kApplyStageBytes = 24576;  // bytes a block stages at once, at most
+constexpr int kApplyMinBlocks = 528;     // four blocks an SM of an H100 (132 SMs)
+constexpr int kApplyStageMinK = 8;       // the launcher stages from this many chunks
+constexpr int kApplyUnroll = 4;          // 16-byte loads a thread issues before storing
+
+enum ApplyPath { kApplyPick = 0, kApplyWalk = 1, kApplyStaged = 2 };
+
+struct ApplyPlan {
+  int S, K, R;
+  long long n;    // pairs, F * R
+  int path;
+  int P;          // pairs a block
+  int kt;         // chunks a tile
+  int words;      // 16-byte words a pair's region holds (odd)
+  uint32_t wmagic;  // ceil(2^32 / words): i / words = umulhi(i, wmagic) for i < 2^16
+  size_t smem;
+};
+
+int region_words(int bytes) { return ((bytes + 15) / 16 + 1) | 1; }
+
+void set_pairs(ApplyPlan& p, int P) {
+  p.P = P;
+  p.smem = static_cast<size_t>(16) * p.words * P;
+}
+
+// The plan for F x R pairs of K maps of S states on `path` (kApplyPick:
+// the launcher's choice).  P is the most pairs the block's threads and
+// kApplyStageBytes hold, cut so that the grid keeps kApplyMinBlocks
+// blocks where the batch has them.
+ApplyPlan apply_plan(int F, int R, int S, int K, int path) {
+  ApplyPlan p{};
+  p.S = S, p.K = K, p.R = R;
+  p.n = static_cast<long long>(F) * R;
+  p.path = path == kApplyPick ? (K >= kApplyStageMinK ? kApplyStaged : kApplyWalk) : path;
+  p.P = 1;
+  if (p.path == kApplyWalk) return p;
+  p.kt = std::max(1, std::min(K, (kApplyStageBytes - 48) / S));
+  p.words = region_words(p.kt * S);
+  p.wmagic = static_cast<uint32_t>((0x100000000ULL + p.words - 1) / p.words);
+  const int most = std::max(1, std::min(kApplyThreads, kApplyStageBytes / (16 * p.words)));
+  const long long even = (p.n + kApplyMinBlocks - 1) / kApplyMinBlocks;
+  set_pairs(p, static_cast<int>(std::max(1LL, std::min<long long>(most, even))));
+  return p;
+}
+
+// The 16-byte word at w (16-byte aligned) for bytes inside [lo, hi) only,
+// zeros elsewhere: whole where it lies inside, else a byte at a time.
+__device__ __forceinline__ uint4 load_clipped(uintptr_t w, uintptr_t lo, uintptr_t hi) {
+  if (w >= lo && w + 16 <= hi) return __ldg(reinterpret_cast<const uint4*>(w));
+  uint32_t v[4] = {0, 0, 0, 0};
+  for (int j = 0; j < 16; ++j) {
+    const uintptr_t a = w + j;
+    if (a >= lo && a < hi) v[j / 4] |= static_cast<uint32_t>(*reinterpret_cast<const uint8_t*>(a)) << (8 * (j % 4));
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Staged path: block b holds pairs [b P, b P + P), its tiles of kt chunks
+// one after another.
+__global__ void __launch_bounds__(kApplyThreads)
+    seqdfa_apply_staged_kernel(const uint8_t* __restrict__ maps,
+                               const uint8_t* __restrict__ start,
+                               const bool* __restrict__ accept_final,
+                               const ApplyPlan p, bool* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, S = p.S;
+  const long long q0 = static_cast<long long>(blockIdx.x) * p.P;
+  const int np = static_cast<int>(min(static_cast<long long>(p.P), p.n - q0));
+  const int pb = p.K * S;  // a pair's bytes (the launcher keeps P * pb below 2^31)
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(maps);
+  const uintptr_t hi = lo + static_cast<size_t>(p.n) * pb;
+  const uintptr_t blk = lo + static_cast<size_t>(q0) * pb;  // the block's first pair
+  const int blk_lo = static_cast<int>(blk & 15);
+  // Every word the block loads lies in the aligned words that span its
+  // pairs' bytes [blk, blk + np pb).  Those pass the tensor's ends only
+  // where the span's first word starts before lo or its last ends past
+  // hi: such a block clips its words, the others load them whole.
+  const bool edge = (blk & ~static_cast<uintptr_t>(15)) < lo ||
+                    ((blk + static_cast<size_t>(np) * pb + 15) & ~static_cast<uintptr_t>(15)) > hi;
+  const bool walker = tid < np;
+  const long long q = q0 + tid;
+  const int r = walker ? static_cast<int>(q % p.R) : 0;
+  int s = walker ? start[r] : 0;
+  const int n_words = np * p.words;
+
+  // Stage, into each pair's region, the aligned words that hold its
+  // `nbytes` bytes of the tile at chunk k0: region word i is the i-th
+  // aligned word from the one that holds the pair's first byte of the
+  // tile.  Offsets are from blk, in 32 bits.
+  const auto stage = [&](int k0, int nbytes) {
+    for (int base = tid; base < n_words; base += kApplyThreads * kApplyUnroll) {
+      uint4 v[kApplyUnroll];
+      int at[kApplyUnroll];
+#pragma unroll
+      for (int u = 0; u < kApplyUnroll; ++u) {
+        const int idx = base + u * kApplyThreads;
+        at[u] = -1;
+        if (idx < n_words) {
+          const int pp = __umulhi(static_cast<uint32_t>(idx), p.wmagic);
+          const int i = idx - pp * p.words;
+          const int off = pp * pb + k0 * S;  // the pair's first byte of the tile
+          const int wr = ((blk_lo + off) & ~15) - blk_lo + 16 * i;
+          if (wr < off + nbytes) {
+            const uintptr_t w = blk + wr;
+            v[u] = edge ? load_clipped(w, lo, hi) : __ldg(reinterpret_cast<const uint4*>(w));
+            at[u] = 16 * idx;  // pp * 16 * words + 16 * i
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kApplyUnroll; ++u) {
+        if (at[u] >= 0) *reinterpret_cast<uint4*>(smem + at[u]) = v[u];
+      }
+    }
+  };
+
+  for (int k0 = 0; k0 < p.K; k0 += p.kt) {
+    const int kn = min(p.kt, p.K - k0);
+    const uint8_t* reg = smem + 16 * p.words * tid + ((blk_lo + tid * pb + k0 * S) & 15);
+    stage(k0, kn * S);
+    __syncthreads();
+    if (walker) {
+#pragma unroll 4
+      for (int k = 0; k < kn; ++k) s = reg[k * S + s];
+    }
+    __syncthreads();  // the next tile overwrites the regions
+  }
+  if (walker) out[q] = accept_final[r * S + s];
+}
+
+int apply_code(const ApplyPlan& p) {
+  return p.path | p.P << 3 | (p.path == kApplyWalk ? 0 : p.kt) << 11;
+}
+
+// Launches `p` (from apply_plan) on F x R pairs of K maps of S states.
+int run_apply(const ApplyPlan& p, const void* maps, const void* start, const void* accept_final,
+              int F, void* out, void* stream) {
+  if (p.n <= 0) return cudaSuccess;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const uint8_t*>(maps);
+  const auto* s0 = static_cast<const uint8_t*>(start);
+  const auto* acc = static_cast<const bool*>(accept_final);
+  auto* o = static_cast<bool*>(out);
+  if (p.path == kApplyWalk) {
+    const long long blocks = (p.n + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    seqdfa_apply_walk_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        m, s0, acc, F, p.R, p.S, p.K, o);
+    return cudaGetLastError();
+  }
+  const long long blocks = (p.n + p.P - 1) / p.P;
+  if (p.P < 1 || p.P > kApplyThreads || p.smem > 227 * 1024 || blocks > 0x7fffffffLL ||
+      static_cast<long long>(p.P) * p.K * p.S >= 0x7fffff00LL) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(seqdfa_apply_staged_kernel, p.smem);
+  if (err != cudaSuccess) return err;
+  seqdfa_apply_staged_kernel<<<static_cast<unsigned>(blocks), kApplyThreads, p.smem, st>>>(
+      m, s0, acc, p, o);
+  return cudaGetLastError();
+}
+
+bool apply_args_ok(int F, int R, int S, int K, int path) {
+  return K >= 1 && S >= 1 && S <= kMaxStates && F >= 0 && R >= 0 && path >= kApplyPick &&
+         path <= kApplyStaged;
+}
+
+int launch_apply(const void* maps, const void* start, const void* accept_final,
+                 int F, int R, int S, int K, void* out, int path, void* stream) {
+  if (!apply_args_ok(F, R, S, K, path)) return cudaErrorInvalidValue;
+  return run_apply(apply_plan(F, R, S, K, path), maps, start, accept_final, F, out, stream);
 }
 
 int align16(int n) { return (n + 15) & ~15; }
@@ -448,14 +646,19 @@ CILIUM_EXPORT int seqdfa_fold(const void* data, const void* lengths,
 CILIUM_EXPORT int seqdfa_apply(const void* maps, const void* start,
                                const void* accept_final, int F, int R, int S,
                                int K, void* out, void* stream) {
-  if (K < 1 || S < 1 || S > kMaxStates) return cudaErrorInvalidValue;
-  const long long total = static_cast<long long>(F) * R;
-  if (total <= 0) return cudaSuccess;
-  seqdfa_apply_kernel<<<static_cast<unsigned>((total + kThreads - 1) /
-                                              kThreads),
-                        kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(maps), static_cast<const uint8_t*>(start),
-      static_cast<const bool*>(accept_final), F, R, S, K,
-      static_cast<bool*>(out));
-  return cudaGetLastError();
+  return launch_apply(maps, start, accept_final, F, R, S, K, out, kApplyPick, stream);
+}
+
+// seqdfa_apply on a forced path (1 walk, 2 staged; 0 the pick).
+CILIUM_EXPORT int seqdfa_apply_forced(const void* maps, const void* start,
+                                      const void* accept_final, int F, int R,
+                                      int S, int K, void* out, int path,
+                                      void* stream) {
+  return launch_apply(maps, start, accept_final, F, R, S, K, out, path, stream);
+}
+
+// What seqdfa_apply launches for F x R pairs of K maps of S states:
+// path | pairs a block << 3 | chunks a tile << 11 (0 on the walk).
+CILIUM_EXPORT int seqdfa_apply_variant(int F, int R, int S, int K) {
+  return apply_code(apply_plan(F, R, S, K, kApplyPick));
 }

@@ -36,14 +36,25 @@
 // each lane.  Rows whose pointers or width do not allow the vector loads
 // (a sliced view, F not a multiple of the width) take 4-byte words or
 // single flows; a scalar tail takes F past the last whole vector.  The
-// grid is sized to the work.  K22 runs one thread a flow in a grid-stride
-// loop, a loop over R inside; neighbouring threads read neighbouring bytes
-// of each shard's row, so every load of a warp is one coalesced segment.
+// grid is sized to the work.
+//
+// K22 is one round trip the same way, branch-free: R is a template
+// argument up to 8 (by_r), every shard's loads are issued before any is
+// combined, the shards are ORed as whole words and each byte is tested
+// for nonzero (SWAR, so a bool byte other than 0 or 1 counts as true, as
+// in the plain version), and the active topics are a byte mask built from
+// topic_count (every topic where tc >= T; no cover where tc <= 0).  Paths
+// (kafka_combine_variant reports the pick, kafka_shard_combine_forced
+// forces any):
+//   * flow, the pick where T = 8 and cover is 8-byte aligned: one thread a
+//     flow, one 8-byte cover load and one simple byte a shard;
+//   * general, the pick elsewhere: any T and any alignment, one thread a
+//     flow, byte loads, a loop over T (every topic read, the inactive ones
+//     masked).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int32_t kNoMatch = 0x7fffffff;
 
 // The OR of two words, byte by byte.
@@ -141,39 +152,76 @@ __global__ void shard_attr_kernel(const uint8_t* __restrict__ parts,
   }
 }
 
-__global__ void kafka_shard_combine_kernel(
-    const bool* __restrict__ simple_parts, const bool* __restrict__ cover_parts,
-    const int32_t* __restrict__ topic_count, const bool* __restrict__ overflow,
-    int R, int F, int T, bool* __restrict__ allow) {
-  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < F;
-       f += gridDim.x * blockDim.x) {
-    bool simple = false;
-    for (int j = 0; j < R; ++j) {
-      simple = simple || simple_parts[static_cast<size_t>(j) * F + f];
-    }
-    const int32_t tc = topic_count[f];
-    bool covered = tc > 0;
-    for (int t = 0; t < T && covered; ++t) {
-      if (t >= tc) break;
-      bool c = false;
-      for (int j = 0; j < R; ++j) {
-        c = c || cover_parts[(static_cast<size_t>(j) * F + f) * T + t];
-      }
-      covered = c;
-    }
-    allow[f] = (simple || covered) && !overflow[f];
-  }
+constexpr uint64_t kLow7 = 0x7f7f7f7f7f7f7f7full;
+constexpr uint64_t kHigh = 0x8080808080808080ull;
+
+// 0x80 in each nonzero byte of x, 0 elsewhere.
+__device__ __forceinline__ uint64_t nonzero_bytes(uint64_t x) {
+  return (((x & kLow7) + kLow7) | x) & kHigh;
 }
 
-int blocks_for(int n) {
-  const int want = (n + kThreads - 1) / kThreads;
-  return want < 132 * 8 ? want : 132 * 8;
+// 0x80 in byte t for every active topic t < tc (T = 8).
+__device__ __forceinline__ uint64_t active_topics(int32_t tc) {
+  return tc >= 8 ? kHigh : tc <= 0 ? 0 : kHigh >> (64 - 8 * tc);
+}
+
+// The verdict byte of one flow at T = 8 from its shards' ORed simple byte
+// and cover word.
+__device__ __forceinline__ uint32_t combine8(uint32_t simple, uint64_t cover,
+                                             int32_t tc, uint32_t overflow) {
+  const uint64_t act = active_topics(tc);
+  const bool covered = tc > 0 && (nonzero_bytes(cover) & act) == act;
+  return ((simple != 0) | covered) & (overflow == 0);
+}
+
+template <int RT>
+__global__ void combine_flow_kernel(const uint8_t* __restrict__ simple,
+                                    const uint64_t* __restrict__ cover,
+                                    const int32_t* __restrict__ topic_count,
+                                    const uint8_t* __restrict__ overflow, int R,
+                                    int F, uint8_t* __restrict__ allow) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const int n = RT > 0 ? RT : R;
+  uint32_t s = 0;
+  uint64_t c = 0;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    const size_t at = static_cast<size_t>(j) * F + f;
+    s |= __ldg(simple + at);
+    c |= __ldg(reinterpret_cast<const unsigned long long*>(cover) + at);
+  }
+  allow[f] = combine8(s, c, __ldg(topic_count + f), __ldg(overflow + f));
+}
+
+template <int RT>
+__global__ void combine_general_kernel(const uint8_t* __restrict__ simple,
+                                       const uint8_t* __restrict__ cover,
+                                       const int32_t* __restrict__ topic_count,
+                                       const uint8_t* __restrict__ overflow, int R,
+                                       int F, int T, uint8_t* __restrict__ allow) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const int n = RT > 0 ? RT : R;
+  const int32_t tc = __ldg(topic_count + f);
+  const uint32_t ov = __ldg(overflow + f);
+  uint32_t s = 0;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) s |= __ldg(simple + static_cast<size_t>(j) * F + f);
+  bool covered = tc > 0;
+  for (int t = 0; t < T; ++t) {
+    uint32_t c = 0;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) c |= __ldg(cover + (static_cast<size_t>(j) * F + f) * T + t);
+    covered &= c != 0 || t >= tc;
+  }
+  allow[f] = ((s != 0) | covered) & (ov == 0);
 }
 
 constexpr int kReduceThreads = 128;
 
-unsigned grid_for(int n) {
-  return static_cast<unsigned>((std::max(n, 1) + kReduceThreads - 1) / kReduceThreads);
+unsigned grid_for(int n, int threads = kReduceThreads) {
+  return static_cast<unsigned>((std::max(n, 1) + threads - 1) / threads);
 }
 
 template <typename Word, int RT>
@@ -235,6 +283,52 @@ struct AttrLaunch {
 
 bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
+enum CombinePath { kCombinePick = 0, kCombineFlow = 1, kCombineGeneral = 2 };
+constexpr int kCombineThreads = 128;
+
+struct CombineArgs {
+  const uint8_t* simple;
+  const uint8_t* cover;
+  const int32_t* tc;
+  const uint8_t* ov;
+  int R, F, T;
+  uint8_t* allow;
+  cudaStream_t stream;
+};
+
+bool flow_ok(const CombineArgs& a) { return a.T == 8 && aligned(a.cover, 8); }
+
+// flow wherever it is allowed: general read 1.07-1.59x its time at R = 1
+// to 8, F = 65,536 on an H100 (chip_apply_variants.py).
+int combine_pick(const CombineArgs& a) { return flow_ok(a) ? kCombineFlow : kCombineGeneral; }
+
+template <int RT>
+struct CombineLaunch {
+  static void run(const CombineArgs& a, int path) {
+    if (path == kCombineFlow) {
+      combine_flow_kernel<RT><<<grid_for(a.F, kCombineThreads), kCombineThreads, 0, a.stream>>>(
+          a.simple, reinterpret_cast<const uint64_t*>(a.cover), a.tc, a.ov, a.R, a.F, a.allow);
+    } else {
+      combine_general_kernel<RT><<<grid_for(a.F, kCombineThreads), kCombineThreads, 0, a.stream>>>(
+          a.simple, a.cover, a.tc, a.ov, a.R, a.F, a.T, a.allow);
+    }
+  }
+};
+
+int launch_combine(const bool* simple_parts, const bool* cover_parts, const int32_t* topic_count,
+                   const bool* overflow, int R, int F, int T, bool* allow, int path, void* stream) {
+  if (R < 1 || F < 0 || T < 0 || path < kCombinePick || path > kCombineGeneral) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const CombineArgs a{reinterpret_cast<const uint8_t*>(simple_parts),
+                      reinterpret_cast<const uint8_t*>(cover_parts), topic_count,
+                      reinterpret_cast<const uint8_t*>(overflow), R, F, T,
+                      reinterpret_cast<uint8_t*>(allow), static_cast<cudaStream_t>(stream)};
+  if (path == kCombineFlow && !flow_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (F > 0) by_r<CombineLaunch>(R, a, path == kCombinePick ? combine_pick(a) : path);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // rule_parts, offsets and rule are all null (the plain form) or none is.
@@ -273,11 +367,26 @@ CILIUM_EXPORT int kafka_shard_combine(const bool* simple_parts,
                                       const int32_t* topic_count,
                                       const bool* overflow, int R, int F, int T,
                                       bool* allow, void* stream) {
-  if (R < 1 || F < 0 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (F > 0) {
-    kafka_shard_combine_kernel<<<blocks_for(F), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        simple_parts, cover_parts, topic_count, overflow, R, F, T, allow);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine(simple_parts, cover_parts, topic_count, overflow, R, F, T, allow,
+                        kCombinePick, stream);
+}
+
+// kafka_shard_combine on a forced path (1 flow, 2 general; 0 the pick);
+// flow where the inputs do not allow it returns cudaErrorInvalidValue.
+CILIUM_EXPORT int kafka_shard_combine_forced(const bool* simple_parts,
+                                             const bool* cover_parts,
+                                             const int32_t* topic_count,
+                                             const bool* overflow, int R, int F,
+                                             int T, bool* allow, int path,
+                                             void* stream) {
+  return launch_combine(simple_parts, cover_parts, topic_count, overflow, R, F, T, allow, path,
+                        stream);
+}
+
+// The path kafka_shard_combine takes for cover_parts [R, F, T].
+CILIUM_EXPORT int kafka_combine_variant(const bool* cover_parts, int T) {
+  CombineArgs a{};
+  a.cover = reinterpret_cast<const uint8_t*>(cover_parts);
+  a.T = T;
+  return combine_pick(a);
 }

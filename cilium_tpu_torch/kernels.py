@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -255,6 +256,34 @@ def lpm_variant(w: int, n: int, groups: int) -> tuple[int, int]:
     fn.restype = ctypes.c_int
     v = fn(w, n, groups)
     return v >> 8, v & 0xFF
+
+
+def cu_constants(stem: str) -> dict[str, int]:
+    """The integer ``constexpr int kName = N;`` constants of ``csrc/<stem>.cu``
+    by name.  A launcher's pick mirrored in Python reads its thresholds
+    here, so the mirror and the launcher share one set of numbers."""
+    text = (CSRC / f"{stem}.cu").read_text()
+    return {m[1]: int(m[2]) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def seqdfa_apply_variant(f: int, r: int, s: int, k: int) -> tuple[int, int, int]:
+    """(path, pairs a block, chunks a tile) that K18 apply's launcher
+    (``csrc/seqdfa.cu``) takes for ``f`` x ``r`` pairs of ``k`` maps of
+    ``s`` states: path 1 the walk, 2 staged; chunks 0 on the walk."""
+    fn = library("seqdfa").seqdfa_apply_variant
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    v = fn(f, r, s, k)
+    return v & 7, (v >> 3) & 0xFF, v >> 11
+
+
+def kafka_combine_variant(cover: torch.Tensor) -> int:
+    """The path K22's launcher (``csrc/shard_reduce.cu``) takes for
+    ``cover`` [R, F, T]: 1 a flow a thread, 2 the general path."""
+    fn = library("shard_reduce").kafka_combine_variant
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(p(cover), cover.shape[2])
 
 
 def on_cpu(device: torch.device) -> bool:

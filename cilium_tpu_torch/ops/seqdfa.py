@@ -20,7 +20,9 @@ The reference carries each map as an [S, S] one-hot int8 matrix and
 composes by matmul.  A state map is a function, so here it is the target
 of each start state, ``maps [F, R, K, S]`` uint8: K18 ``seqdfa_fold``
 writes it and K18 ``seqdfa_apply`` walks ``s = maps[f, r, k, s]`` over k
-and tests ``accept_final`` (one thread per (flow, pattern)).  The fold
+and tests ``accept_final``: one thread a (flow, pattern) reading global
+memory for a few chunks, else a block stages its pairs' map bytes in
+shared memory and walks them there (``apply_variant``).  The fold
 cuts each chunk into segments (``fold_segment``); each (flow, pattern,
 segment) group walks all S start states over the first ``FOLD_PROBE``
 bytes only, merges the states that coincide (a DFA step is a function)
@@ -65,6 +67,12 @@ _SEQDFA_APPLY = kernels.CudaKernel(
     "seqdfa", "seqdfa_apply",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
+_SEQDFA_APPLY_FORCED = kernels.CudaKernel(
+    "seqdfa", "seqdfa_apply_forced",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int],
+)
+# K18 apply's paths (csrc/seqdfa.cu ApplyPath); "pick" is the launcher's choice.
+APPLY_PATHS = {"pick": 0, "walk": 1, "staged": 2}
 
 
 def make_absorbing(tables: DfaTables) -> DfaTables:
@@ -133,6 +141,40 @@ def seqdfa_search_batch_plain(dfa: DeviceDfa, data, lengths, n_chunks: int = 1) 
     """Plain PyTorch version of K18 (fold, then apply): [F, R] bool."""
     _check_fold(dfa, data, lengths, n_chunks)
     return seqdfa_apply_plain(dfa, seqdfa_fold_plain(dfa, data, lengths, n_chunks))
+
+
+def apply_variant(f: int, r: int, s: int, k: int, path: str = "pick") -> tuple[str, int, int]:
+    """(path, pairs a block, chunks a tile) that K18 apply's launcher takes
+    for ``f`` x ``r`` pairs of ``k`` maps of ``s`` states on ``path``
+    ("pick": its own choice): ``csrc/seqdfa.cu`` ``apply_plan`` with that
+    file's constants, for the CPU tests (on the card,
+    ``kernels.seqdfa_apply_variant`` asks the library).  The walk below
+    ``kApplyStageMinK`` chunks, else staged; a block holds as many pairs as
+    its threads and ``kApplyStageBytes`` of regions allow (each an odd
+    number of 16-byte words), cut to keep ``kApplyMinBlocks`` blocks;
+    chunks past the budget are staged in tiles."""
+    c = kernels.cu_constants("seqdfa")
+    if path == "pick":
+        path = "staged" if k >= c["kApplyStageMinK"] else "walk"
+    if path == "walk":
+        return path, 1, 0
+    kt = max(1, min(k, (c["kApplyStageBytes"] - 48) // s))
+    words = ((kt * s + 15) // 16 + 1) | 1
+    most = max(1, min(c["kApplyThreads"], c["kApplyStageBytes"] // (16 * words)))
+    even = -(-f * r // c["kApplyMinBlocks"])
+    return path, max(1, min(most, even)), kt
+
+
+def apply_staged_bytes(maps: torch.Tensor, kt: int) -> int:
+    """The bytes K18 apply's staged path loads for ``maps``
+    [F, R, K, S] in tiles of ``kt`` chunks: every aligned 16-byte word that
+    holds a byte of a pair's tile, once for each (pair, tile)."""
+    f, r, k, s = maps.shape
+    q = np.arange(f * r, dtype=np.int64)[:, None]
+    k0 = np.arange(0, k, kt, dtype=np.int64)[None, :]
+    a = maps.data_ptr() + (q * k + k0) * s
+    end = a + np.minimum(kt, k - k0) * s
+    return int(16 * ((end + 15) // 16 - a // 16).sum())
 
 
 def fold_segment(n_flows: int, width: int) -> int:
@@ -219,11 +261,15 @@ def seqdfa_fold(dfa: DeviceDfa, data, lengths, n_chunks: int, debug=None) -> tor
     return maps
 
 
-def seqdfa_apply(dfa: DeviceDfa, maps) -> torch.Tensor:
-    """K18 apply: [F, R] bool from the fold's maps."""
+def seqdfa_apply(dfa: DeviceDfa, maps, path: str | None = None) -> torch.Tensor:
+    """K18 apply: [F, R] bool from the fold's maps.  ``path`` (a key of
+    APPLY_PATHS) forces the launcher's path (``seqdfa_apply_forced``); by
+    default the launcher picks from the shapes (``apply_variant``)."""
     device = dfa.device
     r, s = dfa.n_patterns, dfa.n_states
     kernels.check(maps, "maps", torch.uint8, (None, r, None, s), device)
+    if path is not None and path not in APPLY_PATHS:
+        raise ValueError(f"path: expected one of {sorted(APPLY_PATHS)}, got {path!r}")
     if kernels.on_cpu(device):
         return seqdfa_apply_plain(dfa, maps)
     f, _, k, _ = maps.shape
@@ -232,9 +278,11 @@ def seqdfa_apply(dfa: DeviceDfa, maps) -> torch.Tensor:
     out = torch.empty((f, r), dtype=torch.bool, device=device)
     if out.numel():
         p = kernels.p
-        _SEQDFA_APPLY.launch(
-            device, p(maps), p(dfa.start), p(dfa.accept_final), f, r, s, k, p(out),
-        )
+        args = (p(maps), p(dfa.start), p(dfa.accept_final), f, r, s, k, p(out))
+        if path is None:
+            _SEQDFA_APPLY.launch(device, *args)
+        else:
+            _SEQDFA_APPLY_FORCED.launch(device, *args, APPLY_PATHS[path])
     return out
 
 

@@ -93,6 +93,12 @@ _KAFKA_SHARD_COMBINE = kernels.CudaKernel(
     "shard_reduce", "kafka_shard_combine",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 )
+_KAFKA_SHARD_COMBINE_FORCED = kernels.CudaKernel(
+    "shard_reduce", "kafka_shard_combine_forced",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int],
+)
+# K22's paths (csrc/shard_reduce.cu CombinePath); "pick" is the launcher's choice.
+COMBINE_PATHS = {"pick": 0, "flow": 1, "general": 2}
 
 
 def split_balanced(seq: list, k: int) -> list[list]:
@@ -181,10 +187,20 @@ def kafka_shard_combine_plain(simple_parts, cover_parts, topic_count, overflow):
     return (simple | all_covered) & ~overflow
 
 
-def kafka_shard_combine(simple_parts, cover_parts, topic_count, overflow):
+def combine_variant(cover_parts) -> str:
+    """The path K22's launcher takes for ``cover_parts`` [R, F, T]:
+    ``csrc/shard_reduce.cu`` ``combine_pick``, "flow" where T = 8 and the
+    tensor is 8-byte aligned, else "general".  Only the paths this returns
+    and "general" may be forced on these inputs."""
+    return "flow" if cover_parts.shape[2] == 8 and cover_parts.data_ptr() % 8 == 0 else "general"
+
+
+def kafka_shard_combine(simple_parts, cover_parts, topic_count, overflow, path: str | None = None):
     """K22: allow [F] from R shards' ``simple_parts`` [R, F] and
     ``cover_parts`` [R, F, T] bool, with the batch's ``topic_count`` [F]
-    int32 and ``overflow`` [F] bool."""
+    int32 and ``overflow`` [F] bool.  ``path`` (a key of COMBINE_PATHS)
+    forces the launcher's path (``kafka_shard_combine_forced``; "flow"
+    where the inputs do not allow it raises); by default it picks (``combine_variant``)."""
     device = simple_parts.device
     kernels.check(simple_parts, "simple_parts", torch.bool, (None, None), device)
     r, f = simple_parts.shape
@@ -193,14 +209,18 @@ def kafka_shard_combine(simple_parts, cover_parts, topic_count, overflow):
     kernels.check(cover_parts, "cover_parts", torch.bool, (r, f, None), device)
     kernels.check(topic_count, "topic_count", torch.int32, (f,), device)
     kernels.check(overflow, "overflow", torch.bool, (f,), device)
+    if path is not None and path not in COMBINE_PATHS:
+        raise ValueError(f"path: expected one of {sorted(COMBINE_PATHS)}, got {path!r}")
     if kernels.on_cpu(device):
         return kafka_shard_combine_plain(simple_parts, cover_parts, topic_count, overflow)
     allow = torch.empty((f,), dtype=torch.bool, device=device)
     p = kernels.p
-    _KAFKA_SHARD_COMBINE.launch(
-        device, p(simple_parts), p(cover_parts), p(topic_count), p(overflow),
-        r, f, cover_parts.shape[2], p(allow),
-    )
+    args = (p(simple_parts), p(cover_parts), p(topic_count), p(overflow), r, f,
+            cover_parts.shape[2], p(allow))
+    if path is None:
+        _KAFKA_SHARD_COMBINE.launch(device, *args)
+    else:
+        _KAFKA_SHARD_COMBINE_FORCED.launch(device, *args, COMBINE_PATHS[path])
     return allow
 
 

@@ -97,6 +97,7 @@ import dns_name_cases as dc
 import kafka_cases as kc
 from frame_cases import CARD_WIDTHS as FRAME_CARD_WIDTHS
 from frame_cases import frame_batch, long_head_batch, on_card_at
+import merge_cases as mc
 import hits_cases as hc
 import l7_hits_cases as lc
 
@@ -1601,6 +1602,66 @@ def test_seqdfa_fold_odd_widths_and_views_match_plain(cuda, width, n_chunks, off
     _fold_checked(device_dfa(tables, cuda), device_dfa_absorbing(tables, cuda), d, l, n_chunks)
 
 
+# --- K18 apply's paths (walk, staged) on merge_cases' maps ---------------------
+
+
+@pytest.mark.parametrize("shape", mc.APPLY_SHAPES, ids=[s[0] for s in mc.APPLY_SHAPES])
+def test_seqdfa_apply_paths_match_plain(cuda, shape):
+    """The launcher's pick and every forced path equal the plain version
+    on maps at byte offsets 0, 1 and 7 (K * S not a multiple of 16, F x R
+    no multiple of the staged path's pairs a block, blocks of fewer than
+    16 bytes, tiles past a block's budget, S = 1 to 128); one launch a
+    call."""
+    from cilium_tpu_torch.ops.seqdfa import seqdfa_apply_plain
+
+    _, f, r, k, s = shape
+    classmap, delta, start, accept, accept_final, maps = mc.apply_case(np.random.default_rng(f * k + s),
+                                                                       f, r, k, s)
+    dfa = dfa_from_arrays(classmap, delta, start, accept, accept_final, cuda)
+    want = seqdfa_apply_plain(dfa_from_arrays(classmap, delta, start, accept, accept_final, "cpu"),
+                              torch.from_numpy(maps))
+    for offset in mc.APPLY_OFFSETS:
+        m = mc.at_offset(maps, offset, cuda)
+        assert m.data_ptr() % 16 == offset
+        for path in seqdfa_mod.APPLY_PATHS:
+            before = (seqdfa_mod._SEQDFA_APPLY.launches, seqdfa_mod._SEQDFA_APPLY_FORCED.launches)
+            got = seqdfa_apply(dfa, m, None if path == "pick" else path)
+            torch.cuda.synchronize()
+            forced = path != "pick"
+            assert (seqdfa_mod._SEQDFA_APPLY.launches, seqdfa_mod._SEQDFA_APPLY_FORCED.launches) == (
+                before[0] + (not forced), before[1] + forced)
+            assert torch.equal(got.cpu(), want), (shape, offset, path)
+
+
+def test_seqdfa_apply_pick_is_the_mirrors(cuda):
+    """The launcher's pick (kernels.seqdfa_apply_variant, from the library)
+    is ops.seqdfa.apply_variant's at every phase-11 shape and beyond."""
+    from cilium_tpu_torch.ops.seqdfa import APPLY_PATHS, apply_variant
+
+    names = {v: k for k, v in APPLY_PATHS.items()}
+    for f in (1, 3, 256, 2048, 10000):
+        for r in (1, 2, 9):
+            for s in (1, 16, 19, 127, 128):
+                for k in (1, 7, 8, 64, 300, 2000):
+                    path, pairs, kt = kernels.seqdfa_apply_variant(f, r, s, k)
+                    assert (names[path], pairs, kt) == apply_variant(f, r, s, k), (f, r, s, k)
+
+
+def test_seqdfa_apply_refuses_what_no_path_takes(cuda):
+    """A path number past ApplyPath at the forced export, and an unknown
+    path at the wrapper, raise; nothing falls back."""
+    classmap, delta, start, accept, accept_final, maps = mc.apply_case(np.random.default_rng(0), 4, 2, 8, 19)
+    dfa = dfa_from_arrays(classmap, delta, start, accept, accept_final, cuda)
+    m = torch.from_numpy(maps).to(cuda)
+    out = torch.empty((4, 2), dtype=torch.bool, device=cuda)
+    p = kernels.p
+    with pytest.raises(RuntimeError, match="seqdfa_apply_forced"):
+        seqdfa_mod._SEQDFA_APPLY_FORCED.launch(cuda, p(m), p(dfa.start), p(dfa.accept_final), 4, 2, 19, 8,
+                                               p(out), len(seqdfa_mod.APPLY_PATHS))
+    with pytest.raises(ValueError):
+        seqdfa_apply(dfa, m, "fast")
+
+
 # --- K19 seam_probe and K20 rtt_tick ---------------------------------------------
 
 
@@ -1828,6 +1889,52 @@ def test_kafka_shard_combine_kernel_matches_plain(cuda, r, f):
     args = (simple, cover, topic_count, overflow)
     got = kafka_shard_combine(*_to(cuda, *args))
     assert torch.equal(got.cpu(), kafka_shard_combine_plain(*_to("cpu", *args)))
+
+
+@pytest.mark.parametrize("t", mc.COMBINE_T)
+@pytest.mark.parametrize("r", range(1, 10))
+def test_kafka_shard_combine_paths_match_plain(cuda, r, t):
+    """K22's pick and every forced path on merge_cases' inputs (any
+    nonzero byte true, topic counts -1, 0, T, T + 1), R = 1 to 9, F = 1,
+    3, 4,099 and 4,100, aligned and at byte offsets; a path the inputs do
+    not allow raises; one launch a call."""
+    from cilium_tpu_torch.parallel import rulesharding as rs_mod
+
+    for f in mc.COMBINE_F + ((65536,) if r in (1, 4, 8, 9) else ()):
+        arrays = mc.combine_case(np.random.default_rng(31 * r + 7 * t + f), r, f, t)
+        want = rs_mod.kafka_shard_combine_plain(*(torch.from_numpy(a != 0) if a.dtype == np.uint8
+                                                  else torch.from_numpy(a) for a in arrays))
+        for offs in mc.COMBINE_OFFSETS:
+            s, c, tc, ov = (mc.at_offset(a, o, cuda, d) for a, o, d in
+                            zip(arrays, offs, (torch.bool, torch.bool, torch.int32, torch.bool)))
+            for path in rs_mod.COMBINE_PATHS:
+                before = (rs_mod._KAFKA_SHARD_COMBINE.launches, rs_mod._KAFKA_SHARD_COMBINE_FORCED.launches)
+                forced = path != "pick"
+                if path == "flow" and rs_mod.combine_variant(c) != "flow":
+                    with pytest.raises(RuntimeError, match="kafka_shard_combine_forced"):
+                        rs_mod.kafka_shard_combine(s, c, tc, ov, path=path)
+                    continue
+                got = rs_mod.kafka_shard_combine(s, c, tc, ov, path=None if path == "pick" else path)
+                torch.cuda.synchronize()
+                assert (rs_mod._KAFKA_SHARD_COMBINE.launches,
+                        rs_mod._KAFKA_SHARD_COMBINE_FORCED.launches) == (before[0] + (not forced),
+                                                                          before[1] + forced)
+                assert torch.equal(got.cpu(), want), (r, t, f, offs, path)
+                assert set(got.view(torch.uint8).unique().tolist()) <= {0, 1}
+
+
+@pytest.mark.parametrize("t", [1, 8, 13])
+def test_kafka_shard_combine_pick_is_the_mirrors(cuda, t):
+    """The launcher's pick (kernels.kafka_combine_variant, from the
+    library) is rulesharding.combine_variant's, cover aligned and at byte
+    offsets 1, 4 and 8."""
+    from cilium_tpu_torch.parallel import rulesharding as rs_mod
+
+    names = {v: k for k, v in rs_mod.COMBINE_PATHS.items()}
+    cover = mc.combine_case(np.random.default_rng(t), 3, 4099, t)[1]
+    for off in (0, 1, 4, 8):
+        c = mc.at_offset(cover, off, cuda, torch.bool)
+        assert names[kernels.kafka_combine_variant(c)] == rs_mod.combine_variant(c), (t, off)
 
 
 def test_seqdfa_search_sharded_on_eight_slots_matches_k18(cuda):

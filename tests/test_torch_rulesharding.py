@@ -45,6 +45,7 @@ from cilium_tpu_torch.convert import (
     sharded_kafka_model_from_numpy,
     sharded_model_from_numpy,
 )
+from cilium_tpu_torch import kernels
 from cilium_tpu_torch.kafka.request import RequestMessage
 from cilium_tpu_torch.models.base import ConstVerdict
 from cilium_tpu_torch.models.kafka import encode_requests
@@ -689,6 +690,71 @@ def test_kafka_shard_combine_plain_matches_reference(n_rule):
                                     (simple, cover, topic_count, overflow))), want)
 
 
+def _ref_combine(simple, cover, topic_count, overflow):
+    """The reference's merge on R shards' partials: psum (a sum over the
+    shard axis) > 0, then ``kafka_combine``; any nonzero byte is true."""
+    s = jnp.sum(jnp.asarray(simple != 0).astype(jnp.int32), axis=0) > 0
+    c = jnp.sum(jnp.asarray(cover != 0).astype(jnp.int32), axis=0) > 0
+    return ref_kafka.kafka_combine(s, c, jnp.asarray(topic_count), jnp.asarray(overflow != 0))
+
+
+@pytest.mark.parametrize("t", [1, 3, 8, 13])
+@pytest.mark.parametrize("f", [1, 3, 4099])
+@pytest.mark.parametrize("n_rule", [1, 4, 9])
+def test_kafka_shard_combine_plain_matches_reference_any_t(n_rule, f, t):
+    """K22's plain version against the reference's psum then
+    ``kafka_combine`` at T = 1, 3, 8 and 13, topic counts -1, 0, T and
+    T + 1, R = 9 (past the kernel's template shard counts) and F = 1, 3
+    and 4,099 (merge_cases, tolerance 0)."""
+    import merge_cases as mc
+
+    rng = np.random.default_rng(97 * n_rule + 13 * t + f)
+    simple, cover, tc, ov = mc.combine_case(rng, n_rule, f, t)
+    want = _ref_combine(simple, cover, tc, ov)
+    args = [torch.from_numpy(simple != 0), torch.from_numpy(cover != 0), torch.from_numpy(tc),
+            torch.from_numpy(ov != 0)]
+    _eq(kafka_shard_combine_plain(*args), want)
+    _eq(kafka_shard_combine(*args, path="general"), want)
+    assert set(tc[: min(f, 4)].tolist()) == set([-1, 0, t, t + 1][: min(f, 4)])
+
+
+def test_kafka_shard_combine_plain_counts_any_nonzero_byte_true():
+    """A bool tensor whose bytes hold 2 or 255 (a view of other data) is
+    true wherever a byte is nonzero, in the plain version as in the
+    reference's psum."""
+    import merge_cases as mc
+
+    rng = np.random.default_rng(5)
+    simple, cover, tc, ov = mc.combine_case(rng, 3, 257, 8)
+    assert (simple > 1).any() and (cover > 1).any() and (ov > 1).any()
+    dirty = [torch.from_numpy(simple).view(torch.bool), torch.from_numpy(cover).view(torch.bool),
+             torch.from_numpy(tc), torch.from_numpy(ov).view(torch.bool)]
+    _eq(kafka_shard_combine_plain(*dirty), _ref_combine(simple, cover, tc, ov))
+
+
+@pytest.mark.parametrize("t", [1, 8, 13])
+@pytest.mark.parametrize("f", [1, 3, 4, 4099])
+def test_combine_variant_follows_the_launchers_rule(f, t):
+    """combine_variant, the mirror of shard_reduce.cu's combine_pick:
+    "flow" where T = 8 and cover is 8-byte aligned, else "general", on
+    views at each COMBINE_OFFSETS alignment and with cover alone moved;
+    the wrapper's output equals the reference's at each (the plain
+    version here)."""
+    import merge_cases as mc
+
+    text = (kernels.CSRC / "shard_reduce.cu").read_text()
+    assert "return flow_ok(a) ? kCombineFlow : kCombineGeneral;" in text
+    assert "bool flow_ok(const CombineArgs& a) { return a.T == 8 && aligned(a.cover, 8); }" in text
+    rng = np.random.default_rng(f + t)
+    arrays = mc.combine_case(rng, 2, f, t)
+    offsets = list(mc.COMBINE_OFFSETS) + [(0, 8, 0, 0), (0, 4, 0, 0), (0, 0, 4, 0), (0, 0, 0, 2)]
+    for offs in offsets:
+        s, c, tc, ov = (mc.at_offset(a, o, "cpu", d) for a, o, d in
+                        zip(arrays, offs, (torch.bool, torch.bool, torch.int32, torch.bool)))
+        assert rs.combine_variant(c) == ("flow" if t == 8 and offs[1] % 8 == 0 else "general"), offs
+        _eq(rs.kafka_shard_combine(s, c, tc, ov), _ref_combine(*arrays))
+
+
 def test_merge_wrappers_check_their_inputs():
     a = torch.zeros((2, 4), dtype=torch.bool)
     with pytest.raises(TypeError):
@@ -700,6 +766,10 @@ def test_merge_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         kafka_shard_combine(a, torch.zeros((2, 3, 8), dtype=torch.bool),
                             torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="path"):
+        kafka_shard_combine(a, torch.zeros((2, 4, 8), dtype=torch.bool),
+                            torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.bool),
+                            path="fast")
 
 
 # --- convert: the reference's stacked models into the port ----------------------

@@ -379,3 +379,148 @@ def test_fold_debug_counts_on_the_cpu(tables):
         seqdfa_fold(dfa_abs, d, l, 4, debug=torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):
         seqdfa_fold(dfa_abs, d, l, 4, debug=torch.zeros(2, dtype=torch.int64))
+
+
+# --- K18 apply: the plain version against the reference's compose, and the
+# launcher's pick (csrc/seqdfa.cu apply_plan) as the Python mirror reads it ---
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_leak_guard():
+    """Reference tests leave a dummy HTTP/DNS rule parser registered and a
+    FlightRecorder installed (ROADMAP Queue 3): put the real parsers back
+    and uninstall every recorder, before and after this module."""
+    from cilium_tpu.proxylib.parser import register_l7_rule_parser
+    from cilium_tpu.proxylib.parsers.dns import dns_rule_parser
+    from cilium_tpu.proxylib.parsers.http import http_rule_parser
+    from cilium_tpu.sidecar import blackbox as ref_bb
+    from cilium_tpu_torch.sidecar import blackbox as port_bb
+
+    def clean():
+        register_l7_rule_parser("http", http_rule_parser)
+        register_l7_rule_parser("dns", dns_rule_parser)
+        for bb in (ref_bb, port_bb):
+            for rec in list(bb._RECORDERS):
+                rec.uninstall()
+
+    clean()
+    yield
+    clean()
+
+
+def _ref_apply(start, accept_final, maps):
+    """The reference's apply on one-hot maps: ``_compose`` in chunk order,
+    then ``_apply_start_accept``."""
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+
+    f, r, k, s = maps.shape
+    eye = np.eye(s, dtype=np.int8)
+    pmap = jnp.asarray(eye[maps[:, :, 0, :]])  # [F, R, S, S]: row s0 one-hot at maps[..., s0]
+    for c in range(1, k):
+        pmap = ref_seqdfa._compose(pmap, jnp.asarray(eye[maps[:, :, c, :]]))
+    dfa = SimpleNamespace(start_1h=jnp.asarray(eye[start]),
+                          accept_final_mask=jnp.asarray(accept_final.astype(np.int8)))
+    return np.asarray(ref_seqdfa._apply_start_accept(dfa, pmap))
+
+
+@pytest.mark.parametrize("f,r,k,s", [(37, 9, 1, 19), (5, 3, 1, 128), (6, 2, 9, 127), (9, 9, 64, 19),
+                                     (4, 2, 5, 1), (11, 3, 13, 33), (3, 1, 64, 16)],
+                         ids=["k1", "k1-s128", "near-128", "seq9-k64", "s1", "odd-s", "adv-s16"])
+def test_apply_plain_matches_the_reference_compose(f, r, k, s):
+    """K18 apply's plain version against the reference's one-hot compose
+    and start/accept on seeded maps (tolerance 0): K = 1, a table at and
+    near the 128-state limit, odd S, S = 1, and pairs whose every map sends
+    all states to one state (merge_cases)."""
+    from cilium_tpu_torch.ops.dfa import dfa_from_arrays
+    from cilium_tpu_torch.ops.seqdfa import seqdfa_apply_plain
+
+    import merge_cases as mc
+
+    rng = np.random.default_rng(1000 * k + s)
+    classmap, delta, start, accept, accept_final, maps = mc.apply_case(rng, f, r, k, s)
+    dfa = dfa_from_arrays(classmap, delta, start, accept, accept_final, CPU)
+    got = seqdfa_apply_plain(dfa, torch.from_numpy(maps))
+    want = _ref_apply(start, accept_final, maps)
+    np.testing.assert_array_equal(got.numpy(), want)
+    got_w = seqdfa_apply(dfa, torch.from_numpy(maps), "staged")  # the plain version on the CPU
+    assert torch.equal(got_w, got)
+    assert want.any() or not accept_final.any()
+
+
+def test_apply_variant_reads_the_launchers_constants():
+    """The mirror's thresholds are seqdfa.cu's own constants."""
+    from cilium_tpu_torch import kernels
+
+    text = (kernels.CSRC / "seqdfa.cu").read_text()
+    c = kernels.cu_constants("seqdfa")
+    for name in ("kApplyThreads", "kApplyStageBytes", "kApplyMinBlocks", "kApplyStageMinK",
+                 "kMaxStates"):
+        assert f"constexpr int {name} = {c[name]};" in text
+    assert c["kMaxStates"] == 128
+
+
+@pytest.mark.parametrize("path", ["pick", "staged", "walk"])
+@pytest.mark.parametrize("f,r,k,s", [(2048, 9, 64, 19), (256, 9, 64, 19), (2048, 9, 8, 19),
+                                     (256, 9, 8, 19), (2048, 9, 1, 19), (2048, 2, 64, 16),
+                                     (256, 8, 8, 19), (3, 2, 2000, 19), (1, 1, 1, 128), (5, 1, 3, 1)])
+def test_apply_variant_follows_the_launchers_rule(f, r, k, s, path):
+    """apply_variant: the walk (a pair a thread, no tiles) where forced and
+    below kApplyStageMinK chunks on the pick; staged: a block's pairs fit
+    its threads, their regions (an odd number of 16-byte words, one more
+    than a tile's bytes need) fit kApplyStageBytes, the grid keeps
+    kApplyMinBlocks blocks where F x R allows it and takes as many pairs as
+    it can, and chunks past the budget go in tiles."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.ops.seqdfa import APPLY_PATHS, apply_variant
+
+    c = kernels.cu_constants("seqdfa")
+    got, pairs, kt = apply_variant(f, r, s, k, path)
+    assert got in APPLY_PATHS and got != "pick"
+    if path == "walk" or (path == "pick" and k < c["kApplyStageMinK"]):
+        assert (got, pairs, kt) == ("walk", 1, 0)
+        return
+    assert got == "staged"
+    words = ((kt * s + 15) // 16 + 1) | 1
+    assert words % 2 == 1 and 16 * words >= kt * s + 15
+    assert 1 <= kt <= k and (kt == k or 16 * words + 48 > c["kApplyStageBytes"] - s)
+    assert pairs <= c["kApplyThreads"] and (pairs == 1 or pairs * 16 * words <= c["kApplyStageBytes"])
+    n = f * r
+    blocks = -(-n // pairs)
+    most = min(c["kApplyThreads"], c["kApplyStageBytes"] // (16 * words))
+    assert blocks >= min(c["kApplyMinBlocks"], -(-n // max(most, 1)))
+    assert pairs == max(1, min(most, -(-n // c["kApplyMinBlocks"])))
+
+
+def test_apply_staged_bytes_count_each_pairs_words():
+    """apply_staged_bytes: the aligned 16-byte words holding each pair's
+    tile, at the maps' own byte offset."""
+    from cilium_tpu_torch.ops.seqdfa import apply_staged_bytes
+
+    import merge_cases as mc
+
+    maps = np.zeros((3, 2, 5, 19), np.uint8)  # a pair is 95 bytes
+    for off in (0, 1, 15):
+        m = mc.at_offset(maps, off, CPU)
+        want = 0
+        for q in range(6):
+            for k0 in range(0, 5, 2):
+                a = m.data_ptr() + q * 95 + k0 * 19
+                end = a + min(2, 5 - k0) * 19
+                want += 16 * ((end + 15) // 16 - a // 16)
+        assert apply_staged_bytes(m, 2) == want
+    assert apply_staged_bytes(mc.at_offset(maps, 0, CPU), 5) == 16 * sum(
+        (q * 95 + 95 + 15) // 16 - q * 95 // 16 for q in range(6))
+
+
+def test_apply_path_is_checked(tables):
+    dfa_abs = device_dfa_absorbing(tables, CPU)
+    data, lengths = seqdfa_batch(4, 64, 4)
+    maps = seqdfa_fold(dfa_abs, _t(data, torch.uint8), _t(lengths, torch.int32), 4)
+    with pytest.raises(ValueError, match="path"):
+        seqdfa_apply(dfa_abs, maps, "fast")
+    with pytest.raises(ValueError, match="path"):
+        seqdfa_apply(dfa_abs, maps, "split")
+    for path in ("pick", "walk", "staged"):
+        assert torch.equal(seqdfa_apply(dfa_abs, maps, path), seqdfa_apply(dfa_abs, maps))
