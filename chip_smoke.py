@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's r2d2, HTTP, DNS, Cassandra, memcached and Kafka
 verdict paths, its L3/L4 datapath, its sidecar service, its chunk-folded
-DFA search, its seam benchmarks and its sharded verdicts on a mesh on one
-CUDA card and check them.
+DFA search, its seam benchmarks, its sharded verdicts on a mesh and its
+policy plane on one CUDA card and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline-csrc DIR   # also time the kernels whose
@@ -178,7 +178,27 @@ which fails the run on any mismatch:
    turns, three readings each) and the parent's kernels in turns
    (--baseline-csrc), K22 on its pick and every path the inputs allow
    held to plain, also on tests/merge_cases.py's inputs.  The rules_100k budget and the
-   scaling floor are asserted only on 4 distinct cards.
+   scaling floor are asserted only on 4 distinct cards;
+14. the policy plane, counted in a run of its own (a launch is a wrapper
+   launch or a graph replay): ``entry.policy_rules()`` (1,000 rules over
+   512 identities, after tests/test_policygen.py) loaded from JSON into
+   a ``Repository``, ingress resolved for the most-selected identity
+   (host clock), its 80/TCP and 9092/TCP filters turned into engines by
+   ``ProxyManager`` -> ``create_engine_for_redirect`` for a stand-in
+   daemon on the card, at device="cpu" and on the 1 x 4 mesh (at least
+   1,000 HTTP and 200 Kafka rows); the models' passes at F = 65,536 (HTTP
+   L = 512), ``HttpBatchEngine`` and ``KafkaBatchEngine`` on 4,096 flows
+   over 3 rounds, the mesh models and engine, and NPDS for 64 endpoints
+   pushed by ``NpdsPusher`` to a ``VerdictService`` at its defaults with
+   256 HTTP conns over the socket; every run's K2/K3/K5/K6/K7/K17 (and
+   K21/K22 on the mesh) launches printed, each nonzero on its path; 0
+   mismatches between the card, the CPU path and the host oracles (the
+   proxylib ``HttpParser`` / ``matches_at`` on the NPDS rendering of the
+   destination's policy, ``matches_rule`` over ``kafka_host_rows``, the
+   in-process proxylib oracle for the service), the mesh equal to the
+   single card; the engines' monitor gets POLICY-VERDICT events; K2, K5,
+   K6, K7 and K17 held to their plain versions and timed at these shapes;
+   resolve ms, model build ms and engine frames/s on the host clock.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -2487,8 +2507,8 @@ def sidecar_oracle(proto, rounds, pols, name=None, port=None, base=None):
     in-process proxylib ``Instance`` on the host, fed as the service's
     buffer mirror feeds it (new bytes appended per direction, the
     unconsumed buffer offered again, bytes a PASS/DROP covered beyond it
-    skipped on arrival).  The conns' policy name, port and id base default
-    to phase 9's for ``proto``."""
+    skipped on arrival).  The conns' policy name (or {conn: name}), port
+    and id base default to phase 9's for ``proto``."""
     from cilium_tpu_torch.proxylib import instance as inst
     from cilium_tpu_torch.proxylib.types import DROP, PASS, FilterResult
 
@@ -2504,7 +2524,7 @@ def sidecar_oracle(proto, rounds, pols, name=None, port=None, base=None):
             if fid not in conns:
                 res, conn = inst.on_new_connection(
                     mod, proto, base + fid, True, remote, 2, "1.1.1.1:1",
-                    f"2.2.2.2:{port}", name,
+                    f"2.2.2.2:{port}", name[fid] if isinstance(name, dict) else name,
                     orig_buf_capacity=1 << 16, reply_buf_capacity=1 << 16,
                 )
                 if res != FilterResult.OK:
@@ -2562,7 +2582,9 @@ class SidecarDriver:
     def base(self, proto):
         return SIDE_BASES[proto] + self.shift
 
-    def open(self, proto, rounds):
+    def open(self, proto, rounds, names=None):
+        """Open the rounds' conns; ``names`` ({conn: policy name}) defaults
+        every conn to phase 9's policy for ``proto``."""
         from cilium_tpu_torch.proxylib.types import FilterResult
 
         seen = {}
@@ -2572,7 +2594,7 @@ class SidecarDriver:
         for fid, remote in seen.items():
             res, _ = self.client.new_connection(
                 self.mod, proto, self.base(proto) + fid, True, remote, 2, "1.1.1.1:1",
-                f"2.2.2.2:{SIDE_PORTS[proto]}", SIDE_NAMES[proto])
+                f"2.2.2.2:{SIDE_PORTS[proto]}", SIDE_NAMES[proto] if names is None else names[fid])
             if res != int(FilterResult.OK):
                 raise AssertionError(f"{proto} conn {fid}: result {res}")
         return list(seen)
@@ -5231,6 +5253,675 @@ def hits_counts(model, args, hits):
     )
 
 
+# --- phase 14: the policy plane --------------------------------------------------
+
+POLICY_PERIOD = 4096  # the passes' batches repeat every 4,096 rows
+POLICY_L = 512  # bench_http's width
+POLICY_ENGINE_FLOWS = 4096
+POLICY_NPDS_RULES = 128
+POLICY_NPDS_ENDPOINTS = 64
+POLICY_NPDS_CONNS = 256
+POLICY_NPDS_BASE = 7_000_000
+POLICY_WORLD = (1000, 20, 0.35)  # entry.policy_rules(n_rules, seed, broad) of the slice
+
+
+class _RecordCounter:
+    """An access logger that counts the records the engines write."""
+
+    def __init__(self):
+        self.records = 0
+
+    def log(self, record):
+        self.records += 1
+
+
+class PolicyDaemon:
+    """What ``create_engine_for_redirect`` reads of a daemon: the identity
+    cache ({numeric: Labels}, as ``Daemon.get_identity_cache`` returns it),
+    an access logger, the port's ``Monitor``, a flow log that feeds it
+    POLICY-VERDICT events, and a config with ``flow_cache`` and ``mesh``
+    (``verdict_device`` "cpu" for the CPU path; ``verdict_mesh`` set for
+    the mesh branch)."""
+
+    def __init__(self, cache, device="default", mesh=None):
+        from cilium_tpu_torch.flowlog import FlowLog
+        from cilium_tpu_torch.monitor import Monitor
+        from cilium_tpu_torch.utils.option import OPTION_POLICY_VERDICT_NOTIFY, DaemonConfig, OptionMap
+
+        self.cache = cache
+        self.config = DaemonConfig(verdict_device=device, mesh="off", flow_cache=False)
+        self.access_logger = _RecordCounter()
+        self.monitor = Monitor(queue_size=1 << 16)
+        self.events = []
+        self.monitor.add_listener(self.events.append, queued=False)
+        opts = OptionMap()
+        opts.set(OPTION_POLICY_VERDICT_NOTIFY, True)
+        self.flowlog = FlowLog(capacity=1 << 20, opts=opts, monitor=self.monitor)
+        if mesh is not None:
+            self.verdict_mesh = mesh
+
+    def get_identity_cache(self):
+        return self.cache
+
+
+def policy_world(n_rules, seed, broad):
+    """(identities, repository, identity cache) of ``entry``'s policy
+    slice: the rules loaded from their JSON document and added (``add``
+    sanitizes)."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.labels import Labels
+    from cilium_tpu_torch.policy import Repository, rules_from_json
+
+    ids = entry.policy_identities()
+    repo = Repository()
+    for rule in rules_from_json(json.dumps(entry.policy_rules(n_rules, seed, broad))):
+        repo.add(rule)
+    return ids, repo, {n: Labels.from_model(lbls) for n, lbls in ids.items()}
+
+
+def policy_endpoint(ep_id, numeric, repo, cache):
+    """A stand-in endpoint as ``network_policy_for_endpoint`` reads one:
+    its id, address, identity and resolved ingress policy."""
+    from types import SimpleNamespace
+
+    from cilium_tpu_torch.policy import L4Policy, SearchContext
+
+    l4 = repo.resolve_l4_ingress_policy(SearchContext(to_labels=cache[numeric].to_array()))
+    return SimpleNamespace(id=ep_id, ipv4=f"10.20.{ep_id // 250}.{ep_id % 250 + 1}",
+                           security_identity=SimpleNamespace(id=numeric),
+                           desired_l4_policy=L4Policy(ingress=l4))
+
+
+def policy_remotes(rng, ids, n):
+    """``n`` remote identities: the slice's identities and, one time in
+    sixteen, one that no cache holds."""
+    pool = sorted(ids)
+    return [rng.choice(pool) if rng.random() < 15 / 16 else 99_999 for _ in range(n)]
+
+
+def policy_http_feeds(rng, ids, n_flows):
+    """Three rounds of (flow, chunk, remote): 1-3 of the slice's request
+    heads a flow, every 8th with a body, cut at two random points."""
+    from cilium_tpu_torch import entry
+
+    heads = entry.policy_http_requests(1024, seed=25)
+    rounds = [[], [], []]
+    for fid, remote in enumerate(policy_remotes(rng, ids, n_flows)):
+        stream = b""
+        for _ in range(rng.randrange(1, 4)):
+            head = rng.choice(heads)
+            if fid % 8 == 0:
+                body = b"x" * rng.randrange(1, 64)
+                head = head[:-2] + b"Content-Length: %d\r\n\r\n" % len(body) + body
+            stream += head
+        cut1 = rng.randrange(0, len(stream) + 1)
+        cut2 = rng.randrange(cut1, len(stream) + 1)
+        for rnd, chunk in zip(rounds, (stream[:cut1], stream[cut1:cut2], stream[cut2:])):
+            rnd.append((fid, chunk, remote))
+    return rounds
+
+
+def policy_kafka_feeds(rng, ids, n_flows):
+    """Three rounds of (flow, chunk, remote): 1-2 of the slice's Kafka
+    frames a flow, cut at two random points."""
+    from cilium_tpu_torch import entry
+
+    frames = entry.policy_kafka_frames(1024, seed=26)
+    rounds = [[], [], []]
+    for fid, remote in enumerate(policy_remotes(rng, ids, n_flows)):
+        stream = b"".join(rng.choice(frames) for _ in range(rng.randrange(1, 3)))
+        cut1 = rng.randrange(0, len(stream) + 1)
+        cut2 = rng.randrange(cut1, len(stream) + 1)
+        for rnd, chunk in zip(rounds, (stream[:cut1], stream[cut1:cut2], stream[cut2:])):
+            rnd.append((fid, chunk, remote))
+    return rounds
+
+
+def fresh_engine(eng):
+    """A new engine of ``eng``'s class on the same model and sinks."""
+    from cilium_tpu_torch.runtime.engines import HttpBatchEngine
+
+    kw = dict(logger=eng.logger, monitor=eng.monitor, flowlog=eng.flowlog)
+    if isinstance(eng, HttpBatchEngine):
+        return HttpBatchEngine(eng.model, cache_enabled=eng.cache_enabled, **kw)
+    return type(eng)(eng.model, host_rows=eng.host_rows, **kw)
+
+
+def policy_matching_head(http_rule: dict) -> bytes:
+    """A request head an NPDS HTTP rule allows."""
+    path = http_rule["path"].replace("v[0-9]+", "v2").replace(".*", "item")
+    head = f"{http_rule['method']} {path} HTTP/1.1\r\nHost: svc.local\r\n"
+    return (head + "".join(f"{h}\r\n" for h in http_rule["headers"]) + "\r\n").encode()
+
+
+def policy_npds_traffic(rng, eps, pols, ids):
+    """{conn: policy name} and three rounds of (conn, bytes, remote, reply)
+    for ``POLICY_NPDS_CONNS`` HTTP conns, four on each endpoint's policy:
+    every other conn's remote one that a rule of its endpoint names, and
+    each round 1-2 request heads a conn, the slice's requests or heads
+    that one of the endpoint's rules allows."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.proxy.npds_push import endpoint_policy_name
+
+    heads = entry.policy_http_requests(512, seed=27)
+    names, remotes, rules = {}, {}, {}
+    pool = sorted(ids) + [99_999]
+    for fid in range(POLICY_NPDS_CONNS):
+        i = fid % len(eps)
+        names[fid] = endpoint_policy_name(eps[i])
+        rules[fid] = [r for pp in pols[i].ingress_per_port_policies for r in pp.rules if r.http_rules]
+        named = [x for r in rules[fid] for x in r.remote_policies]
+        remotes[fid] = rng.choice(named) if fid % 2 and named else rng.choice(pool)
+
+    def head(fid):
+        if rules[fid] and rng.random() < 0.5:
+            return policy_matching_head(rng.choice(rng.choice(rules[fid]).http_rules))
+        return rng.choice(heads)
+
+    rounds = [[(fid, b"".join(head(fid) for _ in range(rng.randrange(1, 3))), remotes[fid], False)
+               for fid in names] for _ in range(3)]
+    return names, rounds
+
+
+def npds_serve(path, cfg, eps, cache, names, rounds, counted=None):
+    """Start a ``VerdictService``, push every endpoint's NPDS policy through
+    ``NpdsPusher`` (one full-state push an endpoint), open the conns on
+    their endpoints' policies and drive the rounds over the socket; stop
+    it.  ``counted(phase)`` is called with "before" and "after" around the
+    drive.  Returns (per-round {conn: (ops, orig inject, reply inject)},
+    pushes, service status)."""
+    from cilium_tpu_torch.proxy.npds_push import NpdsPusher
+    from cilium_tpu_torch.sidecar import VerdictService
+
+    svc = VerdictService(path, cfg).start()
+    pusher = driver = None
+    try:
+        pusher = NpdsPusher(path, ack_timeout=120.0)
+        for ep in eps:
+            if not pusher.upsert(ep, cache):
+                raise AssertionError(f"NPDS push for endpoint {ep.id} NACKed")
+        driver = SidecarDriver(path, "socket", None, base_shift=POLICY_NPDS_BASE - SIDE_BASES["http"])
+        fids = driver.open("http", rounds, names=names)
+        if counted:
+            counted("before")
+        out = driver.run("http", rounds, lambda fid: 0)
+        if counted:
+            counted("after")
+        driver.close("http", fids)
+        return out, pusher.pushes, svc.status()
+    finally:
+        if driver is not None:
+            driver.close_client()
+        if pusher is not None:
+            pusher.close()
+        svc.stop()
+
+
+def policy_slice(dev, card, kerns):
+    """Phase 14, the policy plane on the card, counted in a run of its own
+    over every kernel (a launch is a wrapper launch or a graph replay).
+    Returns (launches, runs, span_runs, report, timed)."""
+    import tempfile
+
+    from cilium_tpu_torch.proxylib import instance as inst
+
+    log("== policy slice")
+    t_phase = time.monotonic()
+    inst.reset_module_registry()
+    with tempfile.TemporaryDirectory(prefix="policy-", dir=".") as tmp:
+        out = _policy_runs(dev, card, kerns, tmp)
+    inst.reset_module_registry()
+    log(f"policy slice: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def _policy_runs(dev, card, kerns, tmp):
+    import statistics
+
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.kafka import matches_rule, parse_request
+    from cilium_tpu_torch.models import http as http_mod
+    from cilium_tpu_torch.models.http import (
+        HttpBatchModel,
+        http_frame,
+        http_frame_plain,
+        http_hits,
+        http_hits_plain,
+        http_lit,
+        http_lit_plain,
+        http_verdicts_attr,
+    )
+    from cilium_tpu_torch.models.kafka import (
+        KafkaBatchModel,
+        encode_requests,
+        kafka_hits,
+        kafka_verdicts,
+        kafka_verdicts_plain,
+    )
+    from cilium_tpu_torch.monitor.monitor import MSG_TYPE_POLICY_VERDICT
+    from cilium_tpu_torch.ops import dfa as dfa_mod
+    from cilium_tpu_torch.ops import nfa as nfa_mod
+    from cilium_tpu_torch.ops.dfa import DeviceDfa
+    from cilium_tpu_torch.parallel import rulesharding as rs_mod
+    from cilium_tpu_torch.parallel.mesh import flow_mesh
+    from cilium_tpu_torch.parallel.rulesharding import ShardedKafkaModel, ShardedVerdictModel
+    from cilium_tpu_torch.policy import SearchContext, proxy_id
+    from cilium_tpu_torch.proxy import ProxyManager
+    from cilium_tpu_torch.proxy.npds_push import network_policy_for_endpoint
+    from cilium_tpu_torch.proxylib import compile_policy
+    from cilium_tpu_torch.runtime.engines import HttpBatchEngine, KafkaBatchEngine, create_engine_for_redirect
+    from cilium_tpu_torch.runtime.engines_util import kafka_host_rows
+    from cilium_tpu_torch.utils import metrics
+
+    scans = {"dfa_scan": (dfa_mod.dfa_search_spans, dfa_mod.dfa_scan_plain),
+             "nfa_scan": (nfa_mod.nfa_search_spans, nfa_mod.nfa_scan_plain)}
+
+    def scan_kernel(tab):
+        return "dfa_scan" if isinstance(tab, DeviceDfa) else "nfa_scan"
+
+    # the configuration: 512 identities, 1,000 rules, ingress resolved for
+    # the identity the most rules select
+    ids, repo, cache = policy_world(*POLICY_WORLD)
+    dst = entry.policy_destination(ids, entry.policy_rules(*POLICY_WORLD))
+    ctx = SearchContext(to_labels=cache[dst].to_array())
+    resolve_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        l4 = repo.resolve_l4_ingress_policy(ctx)
+        resolve_ms.append((time.perf_counter() - t0) * 1e3)
+    ep = policy_endpoint(1, dst, repo, cache)  # resolves once more, untimed
+    l4 = ep.desired_l4_policy.ingress
+    f_http, f_kafka = l4["80/TCP"], l4["9092/TCP"]
+    log(f"policy-1000: {repo.num_rules()} rules, {len(ids)} identities, destination {dst} "
+        f"{sorted(cache[dst].get_model())}; ingress ports {sorted(l4)}; 80/TCP {len(f_http.l7_rules_per_ep)} "
+        f"selectors, 9092/TCP {len(f_kafka.l7_rules_per_ep)}; resolve_l4_ingress_policy "
+        f"{statistics.median(resolve_ms):.2f} ms (median of 5, host clock) [{card}]")
+    # the destination's NPDS rendering: the HTTP host oracle's policy
+    oracle_policy = compile_policy(network_policy_for_endpoint(ep, cache))
+    host_rows = kafka_host_rows(f_kafka, cache)
+
+    # the engines through ProxyManager -> create_engine_for_redirect, on the
+    # card, at device="cpu" and on the 1 x 4 mesh
+    slots, distinct = mesh_slots(dev, 4)
+    mesh = flow_mesh(1, 4, slots)
+    daemons = {"card": PolicyDaemon(cache), "cpu": PolicyDaemon(cache, device="cpu"),
+               "mesh": PolicyDaemon(cache, mesh=mesh)}
+    managers = {k: ProxyManager(create_backend=lambda r, d=d: create_engine_for_redirect(d, r))
+                for k, d in daemons.items()}
+    redirects, build_ms = {}, {}
+    for k, pm in managers.items():
+        for f in (f_http, f_kafka):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = pm.create_or_update_redirect(f, proxy_id(1, True, "TCP", f.port), 1)
+            torch.cuda.synchronize()
+            build_ms[(k, f.port)] = (time.perf_counter() - t0) * 1e3
+            redirects[(k, f.port)] = r.implementation
+    want_types = {80: (HttpBatchEngine, HttpBatchModel, ShardedVerdictModel),
+                  9092: (KafkaBatchEngine, KafkaBatchModel, ShardedKafkaModel)}
+    for (k, port), eng in redirects.items():
+        e_cls, m_cls, s_cls = want_types[port]
+        if type(eng) is not e_cls or not isinstance(eng.model, s_cls if k == "mesh" else m_cls):
+            raise AssertionError(f"{k} {port}: engine {type(eng).__name__} on {type(eng.model).__name__}")
+        if eng.monitor is not daemons[k].monitor or eng.capacity != 2048:
+            raise AssertionError(f"{k} {port}: the engine lacks the daemon's monitor or capacity 2,048")
+    model, kmodel = redirects[("card", 80)].model, redirects[("card", 9092)].model
+    cpu_model, cpu_kmodel = redirects[("cpu", 80)].model, redirects[("cpu", 9092)].model
+    mesh_model = redirects[("mesh", 80)].model
+    shard_states = [(m.line_nfa.n_states, [p.n_states for p, _ in m.line_nfa.scan_parts],
+                     m.head_nfa.n_states if m.head_nfa is not None else 0) for m in mesh_model.stacked]
+    log(f"policy-1000: 1 x 4 mesh shards' NFAs (line states, K3 parts, head states): {shard_states}")
+    if model.n_rules < 1000 or kmodel.n_rules < 200:
+        raise AssertionError(f"rows {model.n_rules} HTTP / {kmodel.n_rules} Kafka, below 1,000 / 200")
+    log(f"policy-1000: port 80 -> {model.n_rules} HTTP rows (line automaton "
+        f"{type(model.line_nfa).__name__}, head {type(model.head_nfa).__name__}), port 9092 -> "
+        f"{kmodel.n_rules} Kafka rows; create_or_update_redirect (model build + engine) ms: "
+        + ", ".join(f"{k} {p} {ms:.1f}" for (k, p), ms in build_ms.items()) + f" (host clock) [{card}]")
+
+    # the passes' batches: POLICY_PERIOD requests and remotes, cycled to F
+    rng = random.Random(28)
+    heads = entry.policy_http_requests(POLICY_PERIOD)
+    rem = policy_remotes(rng, ids, POLICY_PERIOD)
+    hdata, hlen, hrem = tile_heads(heads, rem, F, POLICY_L)
+    h_dev = tuple(torch.from_numpy(a).to(dev) for a in (hdata, hlen, hrem))
+    kreqs = [parse_request(fr) for fr in entry.policy_kafka_frames(POLICY_PERIOD)]
+    krem = np.asarray(policy_remotes(rng, ids, POLICY_PERIOD), np.int32)
+    kbatch = encode_requests([kreqs[i % POLICY_PERIOD] for i in range(F)])
+    kremotes = np.resize(krem, F)
+    k_dev, krem_dev = kbatch.to_device(dev), torch.from_numpy(kremotes).to(dev)
+    if kbatch.overflow.any():
+        raise AssertionError("policy-kafka: the batch overflows")
+    hfeeds = policy_http_feeds(random.Random(29), ids, POLICY_ENGINE_FLOWS)
+    kfeeds = policy_kafka_feeds(random.Random(30), ids, POLICY_ENGINE_FLOWS)
+    npds_ids, npds_repo, npds_cache = policy_world(POLICY_NPDS_RULES, 23, 0.0)
+    eps = [policy_endpoint(i + 1, n, npds_repo, npds_cache)
+           for i, n in enumerate(sorted(npds_ids)[:: len(npds_ids) // POLICY_NPDS_ENDPOINTS])]
+    pols = [network_policy_for_endpoint(e, npds_cache) for e in eps]
+    names, nrounds = policy_npds_traffic(random.Random(31), eps, pols, npds_ids)
+    n_npds_rules = sum(len(r.http_rules) for p in pols for pp in p.ingress_per_port_policies for r in pp.rules)
+    log(f"policy-npds: {POLICY_NPDS_RULES} rules without 128-identity sources (a verdict service's "
+        f"model takes at most 32 remotes a rule), {len(eps)} endpoints, {n_npds_rules} HTTP rules "
+        f"rendered, {POLICY_NPDS_CONNS} conns x {len(nrounds)} rounds")
+
+    # the main path, counted
+    log("== policy main path (counted)")
+
+    def counts():
+        return {n: k.launches + k.replayed for n, k in kerns.items()}
+
+    def delta(before):
+        now = counts()
+        return {n: now[n] - before[n] for n in kerns}
+
+    span_runs = {}
+    current = {"line_calls": 0}
+    search = http_mod.automaton_search_spans
+
+    def counted_search(tab, data, start, end):
+        before = counts()
+        out = search(tab, data, start, end)
+        if tab is model.head_nfa:
+            span = "head"
+        else:  # the reference searches the method span before the path
+            span = "method" if model.has_method_rx and not current["line_calls"] else "path"
+            current["line_calls"] += 1
+        run = span_runs.setdefault(f"policy-http:{span}", dict.fromkeys(kerns, 0))
+        for n, d in delta(before).items():
+            run[n] += d
+        return out
+
+    def drive(eng, feeds):
+        return run_l7_engine(lambda: eng, feeds)[0]
+
+    # the mesh runs' K21 / K22 inputs, held against the plain versions below
+    merges = {"shard_reduce": [], "kafka_shard_combine": []}
+    merge_fns = {n: getattr(rs_mod, n) for n in merges}
+
+    def recording(name):
+        def call(*args):
+            merges[name].append(args)
+            return merge_fns[name](*args)
+        return call
+
+    npds_before = {}
+
+    def npds_counted(phase):
+        if phase == "before":
+            npds_before.update(counts())
+        else:
+            runs["policy-npds"] = delta(npds_before)
+
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+    runs = {}
+    before = counts()
+    http_mod.automaton_search_spans = counted_search
+    try:
+        h_out = http_verdicts_attr(model, *h_dev)
+    finally:
+        http_mod.automaton_search_spans = search
+    runs["policy-http"] = delta(before)
+    before = counts()
+    k_out = kafka_verdicts(kmodel, k_dev, krem_dev)
+    runs["policy-kafka"] = delta(before)
+    eng_out = {}
+    for port, feeds, label in ((80, hfeeds, "policy-http-engine"), (9092, kfeeds, "policy-kafka-engine")):
+        before = counts()
+        eng_out[label] = drive(redirects[("card", port)], feeds)
+        runs[label] = delta(before)
+    demoted = metrics.MeshDemotions.get("engine-judge")
+    for n in merges:
+        setattr(rs_mod, n, recording(n))
+    try:
+        before = counts()
+        mh_out = mesh_model.verdicts_attr(*h_dev)
+        runs["policy-mesh-http"] = delta(before)
+        before = counts()
+        mk_out = redirects[("mesh", 9092)].model(k_dev, krem_dev)
+        runs["policy-mesh-kafka"] = delta(before)
+        before = counts()
+        mesh_eng = drive(redirects[("mesh", 80)], hfeeds)
+        runs["policy-mesh-engine"] = delta(before)
+    finally:
+        for n, fn in merge_fns.items():
+            setattr(rs_mod, n, fn)
+    # the engine judged every round on the mesh: a sharded dispatch that
+    # raised would have swapped in its single-card fallback
+    if redirects[("mesh", 80)].model is not mesh_model or metrics.MeshDemotions.get("engine-judge") != demoted:
+        raise AssertionError("policy-mesh-engine: the engine was demoted to its single-card fallback")
+    if runs["policy-mesh-engine"]["shard_reduce"] != len(merges["shard_reduce"]) - 1:
+        raise AssertionError("policy-mesh-engine: K21 launches differ from the engine's sharded steps")
+    npds_card, pushes, npds_status = npds_serve(f"{tmp}/npds.sock", side_config(), eps, npds_cache,
+                                                names, nrounds, counted=npds_counted)
+    torch.cuda.synchronize()
+    launches = {n: sum(r[n] for r in runs.values()) for n in kerns}
+    log("launches:", json.dumps({n: v for n, v in launches.items() if v}))
+    log("launches by run:", json.dumps({n: {k: v for k, v in r.items() if v}
+                                        for n, r in {**runs, **span_runs}.items()}))
+
+    # each run's kernels: K5-K7 once per HTTP call, K2/K3 once per span the
+    # model searches, K17 once per Kafka call, K21 / K22 on the mesh
+    spans = [s for s, on in (("method", model.has_method_rx), ("path", model.has_path_rx),
+                             ("head", model.head_nfa is not None)) if on]
+    for span in spans:
+        tab = model.head_nfa if span == "head" else model.line_nfa
+        got = {k: n for k, n in span_runs.get(f"policy-http:{span}", {}).items() if n}
+        if got != {scan_kernel(tab): 1}:
+            raise AssertionError(f"policy-http:{span}: launches {got}")
+    want = dict.fromkeys(kerns, 0)
+    want.update(http_frame=1, http_lit=1, http_hits=1)
+    for span in spans:
+        kname = scan_kernel(model.head_nfa if span == "head" else model.line_nfa)
+        want[kname] += 1
+    if runs["policy-http"] != want:
+        raise AssertionError(f"policy-http: launches {runs['policy-http']} != {want}")
+    want = dict.fromkeys(kerns, 0)
+    want["kafka_hits"] = 1
+    if runs["policy-kafka"] != want:
+        raise AssertionError(f"policy-kafka: launches {runs['policy-kafka']} != {want}")
+    on_path = {
+        "policy-http-engine": ("http_frame", "http_lit", "http_hits"),
+        "policy-kafka-engine": ("kafka_hits",),
+        "policy-mesh-http": ("http_frame", "http_lit", "http_hits", "nfa_scan", "shard_reduce"),
+        "policy-mesh-kafka": ("kafka_hits", "kafka_shard_combine"),
+        "policy-mesh-engine": ("http_frame", "http_lit", "http_hits", "nfa_scan", "shard_reduce"),
+        "policy-npds": ("http_frame", "http_lit", "http_hits"),
+    }
+    for label, names_ in on_path.items():
+        missing = [n for n in names_ if not runs[label][n]]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched")
+    log("policy launches of K2/K3/K5/K6/K7/K17/K21/K22: " + json.dumps({
+        label: {n: r[n] for n in ("dfa_scan", "nfa_scan", "http_frame", "http_lit", "http_hits",
+                                  "kafka_hits", "shard_reduce", "kafka_shard_combine")}
+        for label, r in runs.items()}))
+
+    # the passes against the CPU path and the host oracles on one period
+    log("== policy model")
+    host = torch.stack([t.to(torch.int32) for t in h_out]).cpu().numpy()
+    if not (host == np.tile(host[:, :POLICY_PERIOD], (1, F // POLICY_PERIOD))).all():
+        raise AssertionError("policy-http: rows of one request disagree")
+    p = slice(0, POLICY_PERIOD)
+    cpu = torch.stack([t.to(torch.int32) for t in
+                       http_verdicts_attr(cpu_model, hdata[p], hlen[p], hrem[p])]).numpy()
+    bad_cpu = int((host[:, p] != cpu).any(axis=0).sum())
+    oracle = http_oracle(oracle_policy, heads, rem)
+    bad_oracle = sum(1 for i, (a, _) in enumerate(oracle) if bool(host[2, i]) != a)
+    mesh_host = torch.stack([t.to(torch.int32) for t in mh_out]).cpu().numpy()
+    bad_mesh = int((mesh_host != host).any(axis=0).sum())
+    log(f"policy-http: F={F} L={POLICY_L} R={model.n_rules}: card != cpu on {bad_cpu} of "
+        f"{POLICY_PERIOD} rows, != the NPDS policy's matches_at on {bad_oracle}, 1 x 4 mesh != "
+        f"card on {bad_mesh} of {F} (verdicts and first rule); allow share {float(host[2].mean()):.3f}")
+    khost = k_out.cpu().numpy()
+    if not (khost == np.resize(khost[:POLICY_PERIOD], F)).all():
+        raise AssertionError("policy-kafka: rows of one request disagree")
+    kcpu = kafka_verdicts(cpu_kmodel, encode_requests(kreqs), krem).numpy()
+    kbad_cpu = int((khost[p] != kcpu).sum())
+    koracle = [matches_rule(r, [rule for rs, rule in host_rows if not rs or int(x) in rs])
+               for r, x in zip(kreqs, krem)]
+    kbad_oracle = sum(1 for i in range(POLICY_PERIOD) if bool(khost[i]) != koracle[i])
+    kbad_mesh = int((mk_out.cpu().numpy() != khost).sum())
+    log(f"policy-kafka: F={F} W={kbatch.topics.shape[2]} R={kmodel.n_rules}: card != cpu on "
+        f"{kbad_cpu} of {POLICY_PERIOD} rows, != matches_rule on {kbad_oracle}, 1 x 4 mesh != card on "
+        f"{kbad_mesh} of {F}; allow share {float(khost.mean()):.3f}")
+    if bad_cpu or bad_oracle or bad_mesh or kbad_cpu or kbad_oracle or kbad_mesh:
+        raise AssertionError("policy passes: mismatches")
+    if not 0 < host[2].mean() < 1 or not 0 < khost.mean() < 1:
+        raise AssertionError("policy passes: every verdict is the same")
+
+    log("== policy engines")
+    card_mon = daemons["card"]
+    pv_events = sum(1 for e in card_mon.events if e.type == MSG_TYPE_POLICY_VERDICT)
+    checks = {
+        "policy-http-engine": (eng_out["policy-http-engine"], [
+            (drive(redirects[("cpu", 80)], hfeeds), "the CPU engine"),
+            (run_http_stream(oracle_policy, hfeeds), "the streaming HttpParser on the NPDS policy"),
+            (mesh_eng, "the 1 x 4 mesh engine")]),
+        "policy-kafka-engine": (eng_out["policy-kafka-engine"], [
+            (drive(redirects[("cpu", 9092)], kfeeds), "the CPU engine"),
+            (kafka_oracle(host_rows, kfeeds), "the matches_rule oracle")]),
+    }
+    for label, (got, others) in checks.items():
+        for other, what in others:
+            if got != other:
+                raise AssertionError(f"{label}: ops differ from {what}: {_first_diff(got, other)}")
+        n_ops = sum(len(ops) for _, ops, _ in got)
+        n_drop = sum(1 for _, ops, _ in got for op, _ in ops if op == 2)
+        if not n_drop or n_drop == n_ops:
+            raise AssertionError(f"{label}: the traffic is all allowed or all denied")
+        log(f"{label}: {POLICY_ENGINE_FLOWS} flows x 3 rounds, {n_ops} ops ({n_drop} DROP), 0 mismatches "
+            f"against {', '.join(w for _, w in others)}")
+    if not pv_events or not card_mon.access_logger.records:
+        raise AssertionError("the card engines' monitor got no POLICY-VERDICT event or no access record")
+    log(f"monitor: {pv_events} POLICY-VERDICT events and {card_mon.access_logger.records} access "
+        f"records from the card engines (flow log notify on)")
+
+    log("== policy NPDS")
+    oracle_npds = sidecar_oracle("http", nrounds, pols, name=names, port=80, base=POLICY_NPDS_BASE)
+    npds_cpu, _, _ = npds_serve(f"{tmp}/npds-cpu.sock", side_config(verdict_device="cpu"), eps,
+                                npds_cache, names, nrounds)
+    bad = side_mismatches(npds_card, oracle_npds) + side_mismatches(npds_card, npds_cpu)
+    frames = side_frames(oracle_npds)
+    dev_st = npds_status.get("device", {})
+    ops = [op for rnd in oracle_npds for o, _, _ in rnd.values() for op, _ in o]
+    log(f"policy-npds: {pushes} NPDS pushes ({len(eps)} endpoints), {POLICY_NPDS_CONNS} conns, "
+        f"{frames} requests ({ops.count(1)} PASS, {ops.count(2)} DROP): {bad} mismatches against the "
+        f"in-process proxylib oracle and the CPU service; device-judged {dev_st.get('device_judged')}, "
+        f"host-judged {dev_st.get('host_judged')}")
+    if bad or not ops.count(1) or not ops.count(2):
+        raise AssertionError("policy-npds: the service disagrees, or allows or denies everything")
+
+    # K2/K3/K5/K6/K7/K17/K21/K22 against their plain versions at the slice's shapes
+    log("== policy kernels vs plain")
+    report = {}
+    data, lengths, rm = h_dev
+    frame = http_frame(data, lengths)
+    report["http_frame"] = {"policy-http": max_abs_err(frame, http_frame_plain(data, lengths))}
+    lit = http_lit(model, data, frame)
+    report["http_lit"] = {"policy-http": max_abs_err(lit, http_lit_plain(model, data, frame))}
+    span_args = {"method": (model.line_nfa, torch.zeros_like(frame.sp1), frame.sp1),
+                 "path": (model.line_nfa, frame.p_start, frame.sp2),
+                 "head": (model.head_nfa, frame.line_end, frame.h_end)}
+    rx = {}
+    for span in spans:
+        tab, s, e = span_args[span]
+        kname = scan_kernel(tab)
+        scan, plain = scans[kname]
+        rx[span] = scan(tab, data, s, e)
+        report.setdefault(kname, {})[f"policy-http:{span}"] = max_abs_err([rx[span]], [plain(tab, data, s, e)])
+    args = (frame.complete, *lit, rx.get("method"), rx.get("path"), rx.get("head"), rm)
+    hits = http_hits(model, *args)
+    report["http_hits"] = {"policy-http": max_abs_err(hits, http_hits_plain(model, *args))}
+    report["kafka_hits"] = {"policy-kafka": max_abs_err(
+        [kafka_hits(kmodel, k_dev, krem_dev)], [kafka_verdicts_plain(kmodel, k_dev, krem_dev)])}
+    # K3 on each 1 x 4 mesh shard's NFAs and spans, K21 / K22 on the mesh
+    # runs' partials
+    for j, shard in enumerate(mesh_model.slots[0]):
+        sdev = shard.device
+        sd, sl = data.to(sdev), lengths.to(sdev)
+        sframe = http_frame(sd, sl)
+        sargs = {"method": (shard.line_nfa, torch.zeros_like(sframe.sp1), sframe.sp1),
+                 "path": (shard.line_nfa, sframe.p_start, sframe.sp2),
+                 "head": (shard.head_nfa, sframe.line_end, sframe.h_end)}
+        for span in [s for s, on in (("method", shard.has_method_rx), ("path", shard.has_path_rx),
+                                     ("head", shard.head_nfa is not None)) if on]:
+            tab, s, e = sargs[span]
+            kname = scan_kernel(tab)
+            scan, plain = scans[kname]
+            report.setdefault(kname, {})[f"policy-mesh-http:s{j}:{span}"] = max_abs_err(
+                [scan(tab, sd, s, e)], [plain(tab, sd, s, e)])
+    def k21_err(args):
+        got, want = rs_mod.shard_reduce(*args), rs_mod.shard_reduce_plain(*args)
+        return max_abs_err(got, want) if isinstance(got, tuple) else max_abs_err([got], [want])
+
+    recorded = merges["shard_reduce"]
+    report["shard_reduce"] = {"policy-mesh-http": k21_err(recorded[0]),
+                              "policy-mesh-engine": max(k21_err(a) for a in recorded[1:])}
+    report["kafka_shard_combine"] = {"policy-mesh-kafka": max(
+        max_abs_err([rs_mod.kafka_shard_combine(*a)], [rs_mod.kafka_shard_combine_plain(*a)])
+        for a in merges["kafka_shard_combine"])}
+    log("max |kernel - plain|:", json.dumps(report))
+    for kname, per in report.items():
+        for name, err in per.items():
+            if err != 0:
+                raise AssertionError(f"{kname} disagrees with its plain version on {name}")
+
+    # times: the kernels and passes, the engines on the host clock
+    log("== policy times on", card)
+    rows = {"http_frame": k5_row(data, lengths, frame)}
+    k6 = lambda: http_lit(model, data, frame)  # noqa: E731
+    rows["http_lit"] = dict(ms=graph_ms(k6), call_ms=cuda_ms(k6, 50),
+                            plain_ms=cuda_ms(lambda: http_lit_plain(model, data, frame), 5),
+                            **lit_counts(model, frame))
+    for span in spans:
+        tab, s, e = span_args[span]
+        kname = scan_kernel(tab)
+        row = scan_row(scans[kname], tab, data, s, e, span_bytes(s, e, POLICY_L))
+        row["span"] = span
+        rows[f"{kname}:{span}"] = row
+    k7 = lambda: http_hits(model, *args)  # noqa: E731
+    rows["http_hits"] = dict(ms=graph_ms(k7), call_ms=cuda_ms(k7, 50),
+                             plain_ms=cuda_ms(lambda: http_hits_plain(model, *args), 5),
+                             **hits_counts(model, args, hits))
+    on_card = lambda: http_verdicts_attr(model, *h_dev)  # noqa: E731
+    timed = {"policy-http": dict(rows=rows, **pass_times(
+        on_card, lambda: http_verdicts_attr(model, hdata, hlen, hrem)))}
+    for kname, row in rows.items():
+        bound(row)
+        log_row("policy-http", kname, row)
+    log_pass("policy-http", "http_verdicts_attr", timed["policy-http"], card)
+    krow = k17_row(kmodel, k_dev, krem_dev)
+    timed["policy-kafka"] = dict(rows={"kafka_hits": krow}, **pass_times(
+        lambda: (kafka_hits(kmodel, k_dev, krem_dev),),
+        lambda: (kafka_verdicts(kmodel, kbatch, kremotes),)))
+    log_row("policy-kafka", "kafka_hits", krow)
+    log_pass("policy-kafka", "kafka_verdicts", timed["policy-kafka"], card)
+    # K3 on the mesh shard its NFA cuts in the most parts (one launch a part)
+    j = max(range(len(mesh_model.stacked)), key=lambda i: len(mesh_model.stacked[i].line_nfa.scan_parts))
+    shard = mesh_model.slots[0][j]
+    sd, sl = data.to(shard.device), lengths.to(shard.device)
+    sframe = http_frame(sd, sl)
+    for span, tab, s, e in (("path", shard.line_nfa, sframe.p_start, sframe.sp2),
+                            ("head", shard.head_nfa, sframe.line_end, sframe.h_end)):
+        if tab is None or not isinstance(tab, nfa_mod.DeviceNfa):
+            continue
+        row = scan_row(scans["nfa_scan"], tab, sd, s, e, span_bytes(s, e, POLICY_L))
+        row.update(span=span, states=tab.n_states, parts=len(tab.scan_parts) or 1)
+        bound(row)
+        name = f"policy-mesh-s{j}-{span}"
+        timed[name] = dict(rows={"nfa_scan": row})
+        log_row(name, "nfa_scan", row)
+        log(f"{name}: {row['states']} states in {row['parts']} K3 launch(es) a call")
+    for port, feeds, label in ((80, hfeeds, "policy-http-engine"), (9092, kfeeds, "policy-kafka-engine")):
+        got = eng_out[label]
+        n = sum(1 for _, ops, _ in got for op, _ in ops if op in (1, 2))
+        eng = redirects[("card", port)]
+        engine_times(f"{label}: {n} frames of {POLICY_ENGINE_FLOWS} flows", n, card,
+                     lambda: drive(fresh_engine(eng), feeds))
+    return launches, runs, span_runs, report, timed
+
+
 def main() -> int:
     import argparse
 
@@ -5825,6 +6516,19 @@ def main() -> int:
     for kname, per in report8.items():
         report.setdefault(kname, {}).update(per)
     for kname, n in launches8.items():
+        launches[kname] = launches.get(kname, 0) + n
+
+    # The policy plane (rules -> repository -> L4 filters -> models and
+    # engines through ProxyManager, NPDS to a verdict service), counted in a
+    # run of its own over every kernel.
+    every = {k.symbol: k for k in kernels.ALL}
+    launches14, runs14, span_runs14, report14, timed14 = policy_slice(dev, card, every)
+    runs.update(runs14)
+    span_runs.update(span_runs14)
+    timed.update(timed14)
+    for kname, per in report14.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches14.items():
         launches[kname] = launches.get(kname, 0) + n
 
     replaces = {

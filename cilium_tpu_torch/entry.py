@@ -19,6 +19,12 @@ counterpart of ``__graft_entry__.dryrun_multichip`` on a mesh of virtual
 slots; ``mesh_bench_policy`` / ``mesh_bench_batch`` and
 ``rules_100k_rows`` / ``rules_100k_batch`` are ``bench_multichip_scaling``'s
 and ``bench_rules_100k``'s inputs (``bench.py:3072-3120,3184-3225``).
+``policy_identities``, ``policy_rules``, ``policy_destination``,
+``policy_http_requests`` and ``policy_kafka_frames`` are the policy
+slice's configuration: tests/test_policygen.py's universe and random
+rules (after Cilium's test/helpers/policygen) widened to 512 identities
+and L7 sections, in the reference's JSON rule schema so the same
+document loads into either package (``policy.rules_from_json``).
 """
 
 from __future__ import annotations
@@ -659,3 +665,166 @@ def rules_100k_batch(f: int = 2048, width: int = 64):
         data[i, : len(m)] = np.frombuffer(m, np.uint8)
         lengths[i] = len(m)
     return data, lengths, remotes
+
+
+# --- the policy slice ---------------------------------------------------------
+
+POLICY_APPS = tuple(f"app{i:02d}" for i in range(32))
+POLICY_TIERS = ("web", "api", "worker", "db")
+POLICY_NS = ("prod", "staging", "dev", "ops")
+POLICY_IDENTITY_BASE = 256  # utils.defaults.MIN_USER_IDENTITY
+POLICY_RESOURCES = tuple(f"res{i:02d}" for i in range(64))
+POLICY_TOPICS = tuple(f"topic-{i:02d}" for i in range(64))
+POLICY_HTTP_PORT = 80
+POLICY_KAFKA_PORT = 9092
+POLICY_METHODS = ("GET", "POST", "PUT", "DELETE")
+# Source selectors by the labels they name.  With 32 x 4 x 4 identities
+# "app" selects 16, "app+ns" 4, "tier+ns" 32, and "tier" or "ns" 128 (more
+# than MAX_REMOTES: the model builder splits those into 4 rows).
+POLICY_NARROW_SOURCES = (("app",), ("app", "ns"), ("tier", "ns"))
+POLICY_BROAD_SOURCES = (("tier",), ("ns",))
+
+
+def policy_identities() -> dict[int, list[str]]:
+    """{numeric identity: label strings}: one identity per (app, tier,
+    ns), 512 in all, numbered from ``POLICY_IDENTITY_BASE``."""
+    out = {}
+    for app in POLICY_APPS:
+        for tier in POLICY_TIERS:
+            for ns in POLICY_NS:
+                out[POLICY_IDENTITY_BASE + len(out)] = [
+                    f"k8s:app={app}", f"k8s:tier={tier}", f"k8s:ns={ns}"]
+    return out
+
+
+def _policy_pick(rng, keys) -> dict[str, str]:
+    vals = {"app": POLICY_APPS, "tier": POLICY_TIERS, "ns": POLICY_NS}
+    return {f"k8s:{k}": rng.choice(vals[k]) for k in keys}
+
+
+def _policy_http_rule(rng) -> dict:
+    res = rng.choice(POLICY_RESOURCES)
+    rule = {"method": rng.choice(POLICY_METHODS)}
+    if rng.random() < 1 / 8:
+        rule["path"] = f"/api/v[0-9]+/{res}/.*"
+    else:
+        rule["path"] = f"/{res}/.*"  # a literal prefix
+    if rng.random() < 1 / 24:
+        rule["headers"] = [f"X-Tenant: {rng.choice(POLICY_NS)}"]
+    return rule
+
+
+def policy_rules(n_rules: int = 1000, seed: int = 20, broad: float = 0.35) -> list[dict]:
+    """``n_rules`` rules in the reference's JSON schema, from
+    ``random.Random(seed)``.  Each selects its endpoints by app, tier or
+    both and has 1-2 ingress sections of 0-3 source selectors (a share
+    ``broad`` of them selecting 128 identities) and ports 80/TCP with 1-4
+    HTTP rules (a method and a path under a resource's prefix, one in
+    8 a versioned-API regex instead; one in 24 also names a tenant
+    header), 9092/TCP with 1-3 Kafka rules (produce or consume on one
+    of 64 topics), or both."""
+    rng = random.Random(seed)
+    rules = []
+    for i in range(n_rules):
+        sections = []
+        for _ in range(rng.randrange(1, 3)):
+            froms = []
+            for _ in range(rng.randrange(0, 4)):
+                kinds = POLICY_BROAD_SOURCES if rng.random() < broad else POLICY_NARROW_SOURCES
+                froms.append({"matchLabels": _policy_pick(rng, rng.choice(kinds))})
+            which = rng.choice(("http", "http", "kafka", "both", "both"))
+            ports = []
+            if which in ("http", "both"):
+                ports.append({
+                    "ports": [{"port": str(POLICY_HTTP_PORT), "protocol": "TCP"}],
+                    "rules": {"http": [_policy_http_rule(rng) for _ in range(rng.randrange(1, 5))]},
+                })
+            if which in ("kafka", "both"):
+                ports.append({
+                    "ports": [{"port": str(POLICY_KAFKA_PORT), "protocol": "TCP"}],
+                    "rules": {"kafka": [
+                        {"role": rng.choice(("produce", "consume")), "topic": rng.choice(POLICY_TOPICS)}
+                        for _ in range(rng.randrange(1, 4))]},
+                })
+            section = {"toPorts": ports}
+            if froms:
+                section["fromEndpoints"] = froms
+            sections.append(section)
+        rules.append({
+            "endpointSelector": {"matchLabels": _policy_pick(
+                rng, rng.choice((("app",), ("tier",), ("app", "tier"))))},
+            "labels": [f"k8s:policy=gen-{i:04d}"],
+            "ingress": sections,
+        })
+    return rules
+
+
+def policy_destination(identities: dict, rules: list[dict]) -> int:
+    """The identity the most rules select (the lowest on a tie), read from
+    the documents themselves: a rule selects an identity whose labels hold
+    every pair of its ``matchLabels``."""
+    def selected(numeric):
+        lbls = set(identities[numeric])
+        return sum(1 for r in rules
+                   if all(f"{k}={v}" in lbls for k, v in r["endpointSelector"]["matchLabels"].items()))
+
+    return max(sorted(identities), key=selected)
+
+
+def policy_http_requests(n: int, seed: int = 21) -> list[bytes]:
+    """``n`` request heads against the slice's rule vocabulary from
+    ``random.Random(seed)``: paths under a resource's prefix, versioned
+    API paths, misses of both shapes and unknown paths; methods including
+    one no rule names; a tenant header on a third of them."""
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        res = rng.choice(POLICY_RESOURCES)
+        roll = rng.random()
+        if roll < 0.35:
+            path = f"/{res}/item{rng.randrange(100)}"
+        elif roll < 0.7:
+            path = f"/api/v{rng.randrange(1, 4)}/{res}/x{rng.randrange(100)}"
+        elif roll < 0.85:
+            path = f"/api/vX/{res}/x"
+        else:
+            path = f"/internal/{res}"
+        method = rng.choice(POLICY_METHODS + ("PATCH",))
+        head = f"{method} {path} HTTP/1.1\r\nHost: svc.local\r\n"
+        if rng.random() < 1 / 3:
+            head += f"X-Tenant: {rng.choice(POLICY_NS)}\r\n"
+        out.append((head + "\r\n").encode())
+    return out
+
+
+def _kafka_str(s: str) -> bytes:
+    b = s.encode()
+    return len(b).to_bytes(2, "big", signed=True) + b
+
+
+def _kafka_i32(*vals) -> bytes:
+    return b"".join(int(v).to_bytes(4, "big", signed=True) for v in vals)
+
+
+def policy_kafka_frames(n: int, seed: int = 22) -> list[bytes]:
+    """``n`` Kafka request frames from ``random.Random(seed)``: produce
+    (key 0), fetch (1) or metadata (3) at version 0-2 over 1-2 topics of
+    the slice's 64, or an unknown one."""
+    rng = random.Random(seed)
+    out = []
+    for cid in range(n):
+        topics = [rng.choice(POLICY_TOPICS) if rng.random() < 0.9 else "secret"
+                  for _ in range(rng.randrange(1, 3))]
+        kind = rng.choice((0, 1, 3))
+        if kind == 0:
+            body = (1).to_bytes(2, "big") + _kafka_i32(1000, len(topics))
+            body += b"".join(_kafka_str(t) + _kafka_i32(1, 0, 4) + b"recs" for t in topics)
+        elif kind == 1:
+            body = _kafka_i32(-1, 100, 1, len(topics))
+            body += b"".join(_kafka_str(t) + _kafka_i32(1, 0, 0, 0, 1048576) for t in topics)
+        else:
+            body = _kafka_i32(len(topics)) + b"".join(_kafka_str(t) for t in topics)
+        payload = (kind.to_bytes(2, "big") + rng.randrange(3).to_bytes(2, "big")
+                   + _kafka_i32(cid) + _kafka_str("svc") + body)
+        out.append(len(payload).to_bytes(4, "big") + payload)
+    return out

@@ -7,11 +7,14 @@ ceil(S/32) words of states reachable from state ``s`` on byte class ``c``;
 K3 reads those rows up to 256 states and, past that, their near form
 (``near_rows``) with the sparse one (``sparse_rows``), built beside them.  On a CUDA tensor
 ``nfa_search_spans`` launches ``csrc/nfa_scan.cu``, on a CPU tensor it
-runs ``nfa_scan_plain``, and on anything else it raises.
+runs ``nfa_scan_plain``, and on anything else it raises.  An NFA of more
+states than one launch holds is cut into parts (``split_parts``), one
+launch a part.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 from dataclasses import dataclass, field
 
@@ -23,7 +26,7 @@ from ..device import resolve_device
 from ..regex.tables import NfaTables
 
 # The kernel keeps the state set in at most 32 registers of 32 bits
-# (csrc/nfa_scan.cu kMaxWords).
+# (csrc/nfa_scan.cu kMaxWords): the states of one launch.
 MAX_STATES = 32 * 32
 
 _NFA_SCAN = kernels.CudaKernel(
@@ -55,6 +58,9 @@ class DeviceNfa:
     scan_targets: torch.Tensor = field(init=False, repr=False)  # [E + 1] int16
     scan_has: torch.Tensor = field(init=False, repr=False)  # [C, W] int32
     scan_any: torch.Tensor = field(init=False, repr=False)  # [2, W] int32
+    # Past MAX_STATES states, K3's launches: (part, pattern columns) pairs
+    # (``split_parts``); empty where one launch holds the NFA.
+    scan_parts: list = field(init=False, repr=False)
 
     def __post_init__(self):
         self.scan_near, self.scan_far = near_rows(self.delta_bits, self.n_states)
@@ -66,6 +72,7 @@ class DeviceNfa:
             unpack_bits(self.accept_bits, w).any(0),
             unpack_bits(self.accept_final_bits, w).any(0),
         ]))
+        self.scan_parts = split_parts(self) if self.n_states > MAX_STATES else []
 
     @property
     def device(self) -> torch.device:
@@ -77,6 +84,75 @@ def _words(bits: torch.Tensor) -> torch.Tensor:
     w = bits.reshape(*bits.shape[:-1], -1, 32).long()
     v = (w << torch.arange(32, device=bits.device)).sum(-1)
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """Bool [..., S] -> int32 words [..., ceil(S/32)]."""
+    pad = -bits.shape[-1] % 32
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((*bits.shape[:-1], pad))], -1)
+    return _words(bits)
+
+
+def split_parts(nfa: DeviceNfa) -> list:
+    """K3's launches for an NFA of more than MAX_STATES states: (part,
+    columns) pairs, each part the NFA on a range of states that no edge
+    and no pattern's accept set crosses, with the patterns that accept in
+    that range as its columns of the [F, R] result (a pattern that accepts
+    nowhere goes to the first part; a range where none accepts is left
+    out).  Cut so, a part's state set is the whole one's on its range at
+    every step, so its launch gives those columns exactly.  The union of
+    separately compiled patterns (``regex.tables.compile_patterns``) cuts
+    between any two of them; a block of more than MAX_STATES states that
+    no cut divides raises."""
+    s, r, dev = nfa.n_states, nfa.n_patterns, nfa.device
+    delta = unpack_bits(nfa.delta_bits, s).cpu()  # [C, S, S]
+    acc = (unpack_bits(nfa.accept_bits, s) | unpack_bits(nfa.accept_final_bits, s)).cpu()
+    src, dst = torch.nonzero(delta.any(0), as_tuple=True)
+    has = acc.any(1)
+    first = acc.to(torch.int8).argmax(1)
+    last = s - 1 - acc.flip(1).to(torch.int8).argmax(1)
+    # a cut k (states < k | states >= k) is crossed by a pair (lo, hi)
+    # where lo < k <= hi
+    lo = torch.cat([torch.minimum(src, dst), first[has]])
+    hi = torch.cat([torch.maximum(src, dst), last[has]])
+    cross = torch.zeros(s + 2, dtype=torch.int64)
+    cross.index_add_(0, lo + 1, torch.ones_like(lo))
+    cross.index_add_(0, hi + 1, -torch.ones_like(hi))
+    cuts = torch.nonzero(torch.cumsum(cross, 0)[: s + 1] == 0).flatten().tolist()
+    bounds, a = [], 0
+    while a < s:
+        b = cuts[bisect.bisect_right(cuts, a + MAX_STATES) - 1]
+        if b <= a:
+            raise ValueError(
+                f"NFA has {s} states with a block of more than {MAX_STATES} that no "
+                f"cut divides; the scan kernel holds at most {MAX_STATES} a launch"
+            )
+        bounds.append((a, b))
+        a = b
+    starts = [lo_ for lo_, _ in bounds]
+    owner = [bisect.bisect_right(starts, int(first[p])) - 1 if has[p] else 0 for p in range(r)]
+    start = unpack_bits(nfa.start_bits, s).cpu()
+    acc_s = unpack_bits(nfa.accept_bits, s).cpu()
+    fin_s = unpack_bits(nfa.accept_final_bits, s).cpu()
+    parts = []
+    for i, (a, b) in enumerate(bounds):
+        cols = [p for p in range(r) if owner[p] == i]
+        if not cols:
+            continue
+        idx = torch.tensor(cols)
+        part = DeviceNfa(
+            classmap=nfa.classmap,
+            delta_bits=_pack_words(delta[:, a:b, a:b]).to(dev),
+            start_bits=_pack_words(start[a:b]).to(dev),
+            accept_bits=_pack_words(acc_s[idx, a:b]).to(dev),
+            accept_final_bits=_pack_words(fin_s[idx, a:b]).to(dev),
+            n_classes=nfa.n_classes,
+            n_states=b - a,
+            n_patterns=len(cols),
+        )
+        parts.append((part, idx.to(dev)))
+    return parts
 
 
 def near_rows(delta_bits: torch.Tensor, s: int):
@@ -149,10 +225,6 @@ def nfa_from_dense(classmap, delta, start, accept, accept_final, device=None) ->
     c, s, s2 = delta.shape
     if s != s2:
         raise ValueError("delta must be [C, S, S]")
-    if s > MAX_STATES:
-        raise ValueError(
-            f"NFA has {s} states; the scan kernel holds at most {MAX_STATES}"
-        )
     classmap = np.asarray(classmap)
     if classmap.shape != (256,) or classmap.min() < 0 or classmap.max() >= c:
         raise ValueError("classmap must map 256 bytes to classes < C")
@@ -220,6 +292,10 @@ def nfa_search_spans(nfa: DeviceNfa, data, span_start, span_end) -> torch.Tensor
     r = nfa.n_patterns
     out = torch.empty((f, r), dtype=torch.bool, device=device)
     if f == 0 or r == 0:
+        return out
+    if nfa.scan_parts:
+        for part, cols in nfa.scan_parts:
+            out.index_copy_(1, cols, nfa_search_spans(part, data, span_start, span_end))
         return out
     p = kernels.p
     _NFA_SCAN.launch(

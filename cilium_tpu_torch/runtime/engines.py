@@ -11,14 +11,16 @@ into filter ops (PASS/DROP + inject), preserving the OnIO contract
 (reference: envoy/cilium_proxylib.cc:125).  The engines dispatch through
 the mesh rung (``_judge_dispatch``): a raising sharded model
 (``parallel.rulesharding``) flips the engine to its single-card fallback.
-``_daemon_mesh`` resolves a daemon's verdict mesh from its config; the
-redirect -> engine factory (``create_engine_for_redirect``) comes with the
-port's control plane.
+``_daemon_mesh`` resolves a daemon's verdict mesh from its config, and
+``create_engine_for_redirect`` is the redirect -> engine factory that
+``proxy.ProxyManager`` calls: it compiles the redirect's resolved
+``L4Filter`` (``models.builder``) on the daemon's verdict device.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -34,9 +36,11 @@ from ..accesslog import (
 from ..kafka import matches_rule, parse_request
 from ..kafka.request import KafkaParseError, frame_length
 from ..models.base import ConstVerdict
+from ..models.builder import build_model_for_filter
 from ..models.kafka import encode_requests
 from ..policy.api import KAFKA_REVERSE_API_KEY_MAP
 from ..policy.invariance import InvariantClaimEngine
+from ..policy.l4 import PARSER_TYPE_HTTP, PARSER_TYPE_KAFKA
 from ..proxylib.parsers.http import HTTP_403, head_and_body_len
 from ..proxylib.types import DROP, MORE, PASS, OpType
 from ..utils import flowdebug, metrics
@@ -69,9 +73,11 @@ class BaseBatchEngine(InvariantClaimEngine):
 
     proto = ""
 
-    def __init__(self, capacity: int = 2048, logger=None, flowlog=None):
+    def __init__(self, capacity: int = 2048, logger=None, monitor=None,
+                 flowlog=None):
         self.capacity = capacity
         self.logger = logger
+        self.monitor = monitor
         # Flow-record sink (flowlog/ring.py): subclasses emit ONE
         # columnar round per _step — never per-request appends.
         self.flowlog = flowlog
@@ -397,6 +403,13 @@ class KafkaBatchEngine(BaseBatchEngine):
         self._emit(st, allow, n, inject, rec)
 
 
+def _daemon_device(daemon):
+    """The daemon's verdict device: ``"cpu"`` when its config asks for
+    the CPU (``verdict_device="cpu"``), else None (the card)."""
+    cfg = getattr(daemon, "config", None)
+    return "cpu" if getattr(cfg, "verdict_device", "default") == "cpu" else None
+
+
 def _daemon_mesh(daemon):
     """The daemon's (flows, rules) verdict mesh: honors a pre-set
     ``daemon.verdict_mesh`` (tests/embedders), otherwise resolves
@@ -413,12 +426,11 @@ def _daemon_mesh(daemon):
     if cfg is not None and getattr(cfg, "mesh", "off") != "off":
         from ..parallel import mesh as mesh_mod
 
-        dev = "cpu" if getattr(cfg, "verdict_device", "default") == "cpu" else None
         try:
             mesh = mesh_mod.serving_mesh(
                 cfg.mesh, getattr(cfg, "mesh_rule_shards", 0),
                 getattr(cfg, "mesh_flow_shards", 0),
-                devices=mesh_mod.local_devices(dev),
+                devices=mesh_mod.local_devices(_daemon_device(daemon)),
             )
         except Exception:  # noqa: BLE001 — fail to single-card, typed
             log.exception("verdict mesh resolution failed; "
@@ -430,3 +442,52 @@ def _daemon_mesh(daemon):
     except Exception:  # noqa: BLE001 — slotted/frozen daemon doubles
         pass
     return mesh
+
+
+def create_engine_for_redirect(daemon, redirect):
+    """Factory wired into ProxyManager (reference dispatch:
+    pkg/proxy/proxy.go:229-236).  The model lands on the daemon's mesh
+    when it has one, else on its verdict device (``_daemon_device``)."""
+    f = redirect.l4_filter
+    if f is None:
+        return None
+    identity_cache = daemon.get_identity_cache()
+    t0 = time.perf_counter()
+    model = build_model_for_filter(
+        f, identity_cache, mesh=_daemon_mesh(daemon),
+        device=_daemon_device(daemon),
+    )
+    # Daemon-side engine builds land in any installed device ledger by
+    # broadcast (the daemon holds no service handle); cause rides the
+    # enclosing scope, cold by default.
+    try:
+        from ..sidecar import ledger as _ledger
+
+        _ledger.broadcast_compile(
+            str(f.l7_parser or "l7"), time.perf_counter() - t0,
+            kind="engine-build",
+        )
+    except Exception:  # noqa: BLE001 — ledger must not cost the build
+        pass
+    common = dict(
+        logger=daemon.access_logger,
+        monitor=daemon.monitor,
+        flowlog=getattr(daemon, "flowlog", None),
+    )
+    if f.l7_parser == PARSER_TYPE_HTTP:
+        return HttpBatchEngine(
+            model,
+            cache_enabled=getattr(
+                getattr(daemon, "config", None), "flow_cache", False
+            ),
+            **common,
+        )
+    if f.l7_parser == PARSER_TYPE_KAFKA:
+        from .engines_util import kafka_host_rows
+
+        return KafkaBatchEngine(
+            model, host_rows=kafka_host_rows(f, identity_cache), **common
+        )
+    # Generic L7 (r2d2/cassandra/memcached/...): served by the proxylib
+    # pipeline (cilium_tpu_torch.proxylib + runtime.batch for r2d2).
+    return None

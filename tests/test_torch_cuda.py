@@ -312,6 +312,25 @@ def test_nfa_kernel_variants_match_plain(cuda, c, s, r, edges, variant, l):
     assert torch.equal(got, want) and (edges == 0 or bool(want.any()))
 
 
+@pytest.mark.parametrize("l", [64, 61])
+def test_nfa_kernel_past_one_launch_matches_plain(cuda, l):
+    """An NFA past MAX_STATES states (48 patterns, 1,360 states): one K3
+    launch a part, the result equal to the plain scan of the whole NFA."""
+    from test_torch_scan_tables import SPLIT_PATTERNS, split_heads
+
+    nfa = device_nfa(compile_patterns(SPLIT_PATTERNS), cuda)
+    assert nfa.n_states > nfa_mod.MAX_STATES and len(nfa.scan_parts) >= 2
+    data, lengths = split_heads(np.random.default_rng(l), 1031, l)
+    d, en = data.to(cuda), lengths.to(cuda)
+    st = torch.zeros_like(en)
+    before = nfa_mod._NFA_SCAN.launches
+    got = nfa_search_spans(nfa, d, st, en)
+    torch.cuda.synchronize()
+    assert nfa_mod._NFA_SCAN.launches == before + len(nfa.scan_parts)
+    want = nfa_scan_plain(nfa, d, st, en)
+    assert torch.equal(got, want) and bool(want.any()) and not bool(want.all())
+
+
 def test_hits_kernel_matches_plain(cuda):
     rows = [
         (frozenset({7, 9}), "READ", ""),

@@ -33,9 +33,11 @@ from cilium_tpu_torch.ops.dfa import (
     scan_geometry,
 )
 from cilium_tpu_torch.ops.nfa import (
+    MAX_STATES,
     DeviceNfa,
     device_nfa,
     nfa_from_dense,
+    nfa_scan_plain,
     pack_bits,
     unpack_bits,
 )
@@ -256,3 +258,73 @@ def test_moved_and_stacked_and_converted_tables_carry_the_sparse_rows():
     _check_nfa(again)
     assert torch.equal(again.scan_rows, nfa.scan_rows)
     assert torch.equal(again.scan_targets, nfa.scan_targets)
+
+
+# Past one launch's MAX_STATES states: 48 patterns of 24-40 states, 1,360
+# in all, and heads that match some of each shape.
+SPLIT_RES = ["orders", "users", "items", "carts", "books", "films", "songs", "teams",
+             "maps", "docs", "logs", "keys"]
+SPLIT_PATTERNS = [p.format(r) for p in ("/api/v[0-9]+/{}/.*", "/v[0-9]+/{}/[a-z]+",
+                                        "/{}/x[0-9]*y", "/api/v[1-3]/{}/.*") for r in SPLIT_RES]
+
+
+def split_heads(rng, n, width=48):
+    """[n, width] uint8 rows of paths against SPLIT_PATTERNS and their lengths."""
+    shapes = ("/api/v{}/{}/a", "/v{}/{}/ab", "/{}/x{}y", "/api/vX/{}/a")
+    data = np.zeros((n, width), np.uint8)
+    lengths = np.zeros((n,), np.int32)
+    for i in range(n):
+        shape = shapes[i % len(shapes)]
+        res = SPLIT_RES[rng.integers(len(SPLIT_RES))]
+        num = int(rng.integers(0, 5))
+        h = (shape.format(res, num) if shape.startswith("/{}") else shape.format(num, res)).encode()
+        data[i, : len(h)] = np.frombuffer(h, np.uint8)
+        lengths[i] = len(h)
+    return torch.from_numpy(data), torch.from_numpy(lengths)
+
+
+def test_nfa_past_one_launch_splits_exactly():
+    """An NFA of more than MAX_STATES states is cut into parts of at most
+    MAX_STATES at states that no edge and no accept set crosses; the
+    parts' columns cover every pattern once, and the plain scan of the
+    parts, put together, is the plain scan of the whole NFA."""
+    tables = compile_patterns(SPLIT_PATTERNS)
+    nfa = device_nfa(tables, CPU)
+    assert nfa.n_states > MAX_STATES
+    assert len(nfa.scan_parts) >= 2
+    cols = torch.cat([c for _, c in nfa.scan_parts])
+    assert sorted(cols.tolist()) == list(range(nfa.n_patterns))
+    for part, c in nfa.scan_parts:
+        assert part.n_states <= MAX_STATES and part.n_patterns == len(c) and not part.scan_parts
+        _check_nfa(part)
+    data, lengths = split_heads(np.random.default_rng(3), 96)
+    start = torch.zeros_like(lengths)
+    whole = nfa_scan_plain(nfa, data, start, lengths)
+    joined = torch.zeros_like(whole)
+    for part, c in nfa.scan_parts:
+        joined[:, c] = nfa_scan_plain(part, data, start, lengths)
+    assert torch.equal(joined, whole)
+    assert all(bool(whole[:, c].any()) for _, c in nfa.scan_parts) and not whole.all()
+    # the padding of a mesh shard's tables (states and patterns that never
+    # accept) leaves the parts' patterns as they were
+    from cilium_tpu_torch.parallel.rulesharding import pad_tables
+
+    padded = device_nfa(pad_tables(tables, tables.n_states + 200, tables.n_classes,
+                                   tables.n_patterns + 3), CPU)
+    joined = torch.zeros((len(data), padded.n_patterns), dtype=torch.bool)
+    for part, c in padded.scan_parts:
+        joined[:, c] = nfa_scan_plain(part, data, start, lengths)
+    assert torch.equal(joined[:, : nfa.n_patterns], whole) and not joined[:, nfa.n_patterns :].any()
+
+
+def test_nfa_block_past_one_launch_raises():
+    """A chain of MAX_STATES + 1 states has no cut: the upload raises."""
+    s = MAX_STATES + 1
+    delta = np.zeros((1, s, s), bool)
+    delta[0, np.arange(s - 1), np.arange(1, s)] = True
+    start = np.zeros(s, bool)
+    start[0] = True
+    accept = np.zeros((1, s), bool)
+    accept[0, -1] = True
+    with pytest.raises(ValueError, match="no cut divides"):
+        nfa_from_dense(np.zeros(256, np.int64), delta, start, accept, accept, CPU)
