@@ -198,7 +198,26 @@ which fails the run on any mismatch:
    in-process proxylib oracle for the service), the mesh equal to the
    single card; the engines' monitor gets POLICY-VERDICT events; K2, K5,
    K6, K7 and K17 held to their plain versions and timed at these shapes;
-   resolve ms, model build ms and engine frames/s on the host clock.
+   resolve ms, model build ms and engine frames/s on the host clock;
+15. the state layer, counted in a run of its own (tests/state_world.py):
+   a ``KvstoreServer`` with two agents on their own ``NetBackend``
+   clients allocating policy-1000's 512 identities (a quarter contended)
+   until both caches agree, 65,536 pod IPs published through
+   ``KvstoreIPSync`` (half each) into B's ipcache through
+   ``datapath_listener``, two nodes, 1,024 services of 8 backends through
+   ``ServiceManager`` (ids from the kvstore), 64 endpoints on the card
+   regenerated through ``EndpointManager`` / ``BuildQueue`` against the
+   1,000 rules with a stub owner that ACKs; then K13 ``policy_can_access``
+   on every endpoint's map, K12 on B's ipcache, K13 ``lb_select`` on B's
+   LB map, K14 ``datapath4`` and K15 overlay on B's maps at F = 65,536,
+   held to the CPU path and the host oracles, before and after churn
+   (1,024 IPs and 64 backends deleted, 8 endpoints moved to a new
+   identity), each stage's host-clock seconds and rates and the tables'
+   build times logged; and K3's wide form (a block of more than 1,024
+   states) on the HTTP rule ``path="/a{256}b{256}"`` at F = 65,536 x 512
+   and on 2,064- and 4,088-state patterns over planted bytes, held to
+   ``nfa_scan_plain`` and timed beside its bound.  ``--state-only`` runs
+   the build and this phase alone and prints no result line.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -1667,6 +1686,41 @@ def table_bytes(*objs):
     return total
 
 
+def hash_ops(words):
+    """Integer ops of one MurmurHash3 of a key of ``words`` words
+    (csrc/l34_index.cuh hash_key): 7 a word (two multiplies, two
+    rotates, an xor, a multiply-add) and 8 to finish."""
+    return 7 * words + 8
+
+
+def index_bytes(ix):
+    """Bytes a pass may read of one index: every bucket's bounds, the
+    indexed rows' slots (not the zero slots past them) and, of an LPM's
+    group list, the groups and the zero row that ends them."""
+    from cilium_tpu_torch.ops import l34_index
+
+    if isinstance(ix, l34_index.LpmIndex):
+        return (ix.n_groups + 1) * ix.groups.shape[1] * 4 + index_bytes(ix.table)
+    return table_bytes(ix.bounds) + ix.m * ix.width * 4
+
+
+def k14_bytes(t, w):
+    """K14's inputs and outputs once, its four indexes and the LB
+    columns the probe still reads (counts, backends, rev NAT): the
+    keys and values of the other tables live in the index slots."""
+    lb = t.lb
+    return (2 * w + 3) * 4 * F + (w + 6) * 4 * F + 2 * F \
+        + sum(index_bytes(v) for v in vars(t.index).values()) \
+        + table_bytes(lb.counts, lb.b_target_words, lb.b_port, lb.revnat)
+
+
+def k15_bytes(t, netdev):
+    """K15's inputs and outputs once and the indexes its mode probes
+    (every value it reads lives in their slots)."""
+    used = ["lxc", "ct", "policy", "ipcache_tun"] + (["ipcache_id"] if netdev else [])
+    return 24 * F + 22 * F + sum(index_bytes(getattr(t.index, k)) for k in used)
+
+
 def l34_slice(dev, card, kerns):
     """The fourth slice's paths on the card at F = 65,536: the v4 egress
     pass on bench_datapath's maps and mix (K14 datapath4), the v6 pass
@@ -2148,12 +2202,6 @@ def l34_slice(dev, card, kerns):
         return bound(dict(ms=graph_ms(fn), call_ms=cuda_ms(fn, 30), plain_ms=cuda_ms(plain, plain_iters),
                           bytes=bytes_, ops=ops))
 
-    def hash_ops(words):
-        """Integer ops of one MurmurHash3 of a key of ``words`` words
-        (csrc/l34_index.cuh hash_key): 7 a word (two multiplies, two
-        rotates, an xor, a multiply-add) and 8 to finish."""
-        return 7 * words + 8
-
     def index_row(fn, plain, bytes_, probes, walk_bytes=None, walk_ops=None):
         """A K14 / K15 row held to the index design's bound: ``bytes_`` (the
         inputs and outputs once, the tables and the indexes read once) and
@@ -2202,29 +2250,6 @@ def l34_slice(dev, card, kerns):
         r["groups"] = lpm.index.n_groups
         r["variant"] = lpm_pick(w, lpm.n, r["groups"])
         return parent_turns("lpm", fn, r)
-
-    def index_bytes(ix):
-        """Bytes a pass may read of one index: every bucket's bounds, the
-        indexed rows' slots (not the zero slots past them) and, of an LPM's
-        group list, the groups and the zero row that ends them."""
-        if isinstance(ix, l34_index.LpmIndex):
-            return (ix.n_groups + 1) * ix.groups.shape[1] * 4 + index_bytes(ix.table)
-        return nbytes(ix.bounds) + ix.m * ix.width * 4
-
-    def k14_bytes(t, w):
-        """K14's inputs and outputs once, its four indexes and the LB
-        columns the probe still reads (counts, backends, rev NAT): the
-        keys and values of the other tables live in the index slots."""
-        lb = t.lb
-        return (2 * w + 3) * 4 * F + (w + 6) * 4 * F + 2 * F \
-            + sum(index_bytes(v) for v in vars(t.index).values()) \
-            + nbytes(lb.counts, lb.b_target_words, lb.b_port, lb.revnat)
-
-    def k15_bytes(t, netdev):
-        """K15's inputs and outputs once and the indexes its mode probes
-        (every value it reads lives in their slots)."""
-        used = ["lxc", "ct", "policy", "ipcache_tun"] + (["ipcache_id"] if netdev else [])
-        return 24 * F + 22 * F + sum(index_bytes(getattr(t.index, k)) for k in used)
 
     for name, base, t, w in (("datapath", "datapath", t4, 1), ("datapath6", "datapath6", t6, 4),
                              ("datapath-rt", "datapath", t4_rt, 1), ("datapath6-rt", "datapath6", t6_rt, 4)):
@@ -5922,6 +5947,399 @@ def _policy_runs(dev, card, kerns, tmp):
     return launches, runs, span_runs, report, timed
 
 
+# --- phase 15: the state layer into K12-K15, and K3's wide form ---------------
+
+
+STATE_SEED = 15  # the world's numpy seed (services' backends)
+STATE_CLOCK = 10_000.0  # the CT map's clock
+STATE_SAMPLE = 2000  # queries a shape held to the host oracles
+# queries of the shapes whose host oracles walk the ipcache: IpcacheMap.lookup
+# scans its 65,536 prefixes in Python, tens of ms a query
+STATE_LPM_SAMPLE = 256
+STATE_CPU_F = 8192  # queries a shape held to the CPU path (its LPM walks 65,536 prefixes a query)
+STATE_SHAPES = ("state-policy", "state-ipcache", "state-lb", "state-datapath", "state-overlay")
+# K3's wide form at these (F, L): the HTTP rule at policy-http's shape and
+# the compiled patterns on planted bytes (tests/nfa_wide_cases.py)
+NFA_WIDE_SHAPES = {"nfa-wide-http": (F, POLICY_L), "nfa-wide-2064": (8192, 1280),
+                   "nfa-wide-4088": (2048, 2048)}
+
+
+def state_slice(dev, card, kerns):
+    """Phase 15, the state layer on the card, counted in a run of its own
+    over every kernel.  Returns (launches, runs, report, timed)."""
+    sw = _tests_module("state_world")
+    log("== state slice")
+    t_phase = time.monotonic()
+    held = {}
+    try:
+        out = _state_runs(dev, card, kerns, sw, held)
+    finally:
+        if "world" in held:
+            held["world"].close()
+    log(f"state slice: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def state_stage_lines(stages, card):
+    """One log line a stage of the world's build: host-clock seconds and
+    its rates and counts."""
+    for name, (secs, info) in stages.items():
+        rates = ""
+        if name == "identities":
+            rates = f" = {info['allocations'] / secs:.0f} allocations/s"
+        elif name == "ipcache":
+            rates = (f"; published in {info['publish_s']:.2f} s = {info['published'] / info['publish_s']:.0f}"
+                     f" pairs/s, converged on B at {info['entries'] / secs:.0f} entries/s")
+        elif name == "services":
+            rates = f" = {info['services'] / secs:.0f} services/s"
+        elif name == "endpoints":
+            rates = f" = {info['endpoints'] / secs:.1f} regenerations/s"
+        log(f"state {name}: {secs:.3f} s (host clock){rates}; "
+            + ", ".join(f"{k} {v}" for k, v in info.items() if k != "publish_s") + f" [{card}]")
+
+
+def _state_runs(dev, card, kerns, sw, held):
+    import copy
+
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.datapath import ingress as ing_mod
+    from cilium_tpu_torch.datapath import pipeline as dp_mod
+    from cilium_tpu_torch.maps import lbmap as lb_mod
+    from cilium_tpu_torch.maps import policymap as pol_mod
+    from cilium_tpu_torch.maps.policymap import DIR_INGRESS
+    from cilium_tpu_torch.models.http import build_http_model, http_frame, http_verdicts_attr
+    from cilium_tpu_torch.ops import l34_index
+    from cilium_tpu_torch.ops import lpm as lpm_mod
+    from cilium_tpu_torch.ops import nfa as nfa_mod
+    from cilium_tpu_torch.policy.api import PortRuleHTTP
+    from cilium_tpu_torch.regex import compile_patterns
+
+    wc = _tests_module("nfa_wide_cases")
+    new = {"lpm_lookup": lpm_mod._LPM, "policy_can_access": pol_mod._POLICY, "lb_select": lb_mod._LB,
+           "datapath4": dp_mod._DATAPATH[1], "ingress": ing_mod._INGRESS, "nfa_scan": nfa_mod._NFA_SCAN}
+    kerns = {**kerns, **new}
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def counts():
+        return {n: k.launches + k.replayed for n, k in kerns.items()}
+
+    runs, outs = {}, {}
+
+    def run(name, fn):
+        before = counts()
+        outs[name] = fn()
+        now = counts()
+        runs[name] = {n: now[n] - before[n] for n in kerns}
+
+    # K3's wide form: the HTTP rule's model and the compiled patterns, with
+    # their batches (built before the count: no kernel runs here)
+    wide = {}
+    rule = [(frozenset(), PortRuleHTTP(**wc.HTTP_WIDE_RULE))]
+    hmodel = build_http_model(rule, device=dev)
+    f_h, l_h = NFA_WIDE_SHAPES["nfa-wide-http"]
+    hrng = np.random.default_rng(71)
+    heads = [wc.http_requests(int(a), int(b), l_h)
+             for a, b in zip(hrng.integers(200, 257, 512), hrng.integers(0, 200, 512))]
+    hdata, hlen, hrem = tile_heads(heads, [1] * len(heads), f_h, l_h)
+    wide["nfa-wide-http"] = dict(tab=hmodel.line_nfa, dev=tuple(on_dev(a) for a in (hdata, hlen, hrem)))
+    for shape, pattern in wc.WIDE_PATTERNS.items():
+        f_w, l_w = NFA_WIDE_SHAPES[shape]
+        data, lengths = wc.planted(np.random.default_rng(72), f_w, l_w, wc.needle(pattern))
+        wide[shape] = dict(tab=nfa_mod.device_nfa(compile_patterns([pattern]), dev),
+                           dev=(on_dev(data), on_dev(lengths)))
+    for shape, c in wide.items():
+        tab = c["tab"]
+        if not (nfa_mod.MAX_STATES < tab.n_states <= nfa_mod.WIDE_STATES) or tab.scan_parts:
+            raise AssertionError(f"{shape}: {tab.n_states} states in {len(tab.scan_parts)} parts: "
+                                 "not one launch of K3's wide form")
+        log(f"{shape}: {tab.n_states} states ({-(-tab.n_states // 32)} words), {tab.n_classes} classes, "
+            f"{tab.n_patterns} pattern(s), F={c['dev'][0].shape[0]} L={c['dev'][0].shape[1]}: one K3 "
+            "launch in the wide form")
+
+    # the main path, counted: the world built, the lookups on its maps,
+    # the churn, the lookups again, K3's wide form
+    log("== state main path (counted)")
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+    sets = list(entry.policy_identities().values())
+    rules_json = json.dumps(entry.policy_rules(*POLICY_WORLD))
+    w = held["world"] = sw.build_world(sw.modules("cilium_tpu_torch"), sw.Scale(), sets, rules_json,
+                                       seed=STATE_SEED, concurrent=True, ct_clock=lambda: STATE_CLOCK)
+    state_stage_lines(w.stages, card)
+    eps = w.manager.get_endpoints()
+    if any(ep.device_policy_map.device.type != dev.type for ep in eps):
+        raise AssertionError("an endpoint's policy map is not on the card")
+    snaps = {}
+
+    def snapshot(tag):
+        """The host maps and the card's tables of this moment, built
+        (timed) from the world's maps, and their CPU twins."""
+        pol = eps[0].policy_map
+        t = {}
+        t["lpm_ms"] = snapshot_ms(lambda: t.update(lpm=w.ipc.to_device(device=dev)))
+        t["lb_ms"] = snapshot_ms(lambda: t.update(lb=w.lb.to_device(device=dev)))
+        t["dp_ms"] = snapshot_ms(lambda: t.update(dp=dp_mod.build_tables(w.ct, w.lb, w.ipc, pol, dev)))
+        t["ing_ms"] = snapshot_ms(lambda: t.update(ing=ing_mod.build_ingress_tables(w.ipc, w.lxc, w.ct, pol, dev)))
+        t["dp_ix_ms"] = snapshot_ms(lambda: rebuild_indexes(t["dp"]))
+        t["host"] = tuple(copy.deepcopy(m) for m in (w.ct, w.lb, w.ipc, pol, w.lxc))
+        t["eps"] = [(ep.id, ep.device_policy_map, copy.deepcopy(ep.policy_map)) for ep in eps]
+        t["cpu_maps"] = [ep.policy_map.to_device(device="cpu") for ep in eps]
+        ct, lb, ipc, hpol, lxc = t["host"]
+        t["cpu"] = dict(lpm=ipc.to_device(device="cpu"), lb=lb.to_device(device="cpu"),
+                        dp=dp_mod.build_tables(ct, lb, ipc, hpol, "cpu"),
+                        ing=ing_mod.build_ingress_tables(ipc, lxc, ct, hpol, "cpu"))
+        rng = np.random.default_rng(STATE_SEED + len(snaps))
+        t["q"] = dict(policy=sw.policy_queries(w, rng, F), ipcache=(sw.address_queries(w, rng, F),),
+                      lb=sw.lb_queries(w, rng, F), datapath=sw.datapath_packets(w, rng, F),
+                      overlay=sw.overlay_packets(w, rng, F))
+        t["d"] = {k: tuple(on_dev(a) for a in v) for k, v in t["q"].items()}
+        snaps[tag] = t
+        log(f"state {tag}: tables from the host maps (host clock, synchronised): ipcache "
+            f"{t['lpm'].n} prefixes {t['lpm_ms']:.2f} ms, LB "
+            f"{t['lb'].valid.shape[0]} services x {t['lb'].b_port.shape[1]} {t['lb_ms']:.2f} ms, K14's "
+            f"tables {t['dp_ms']:.2f} ms (their indexes rebuilt alone {t['dp_ix_ms']:.2f} ms; "
+            f"{l34_index.nbytes(t['dp'].index)} index bytes beside {table_bytes(t['dp'])} of tables), "
+            f"K15's {t['ing_ms']:.2f} ms [{card}]")
+        return t
+
+    def lookups(tag, t):
+        d = t["d"]
+        run(f"state-policy{tag}", lambda: [pol_mod.policy_can_access_batch(dm, *d["policy"], DIR_INGRESS)
+                                           for _, dm, _ in t["eps"]])
+        run(f"state-ipcache{tag}", lambda: lpm_mod.lpm_lookup(t["lpm"], *d["ipcache"]))
+        run(f"state-lb{tag}", lambda: lb_mod.lb4_select_backend_batch(t["lb"], *d["lb"]))
+        run(f"state-datapath{tag}", lambda: dp_mod.datapath_verdicts(t["dp"], *d["datapath"]))
+        run(f"state-overlay{tag}", lambda: ing_mod.overlay_verdicts(t["ing"], *d["overlay"]))
+        state_held(tag, t)
+
+    def state_held(tag, t):
+        """The card's outputs against the CPU path (the first STATE_CPU_F
+        queries) and the host oracles (STATE_SAMPLE queries a shape,
+        STATE_LPM_SAMPLE where the oracle walks the ipcache)."""
+        t0 = time.perf_counter()
+        q = {k: tuple(a[:STATE_CPU_F] for a in v) for k, v in t["q"].items()}
+        cpu = t["cpu"]
+        ct, lb, ipc, hpol, lxc = t["host"]
+        want = {
+            f"state-policy{tag}": [pol_mod.policy_can_access_batch(cm, *(torch.from_numpy(x) for x in q["policy"]),
+                                                                   DIR_INGRESS) for cm in t["cpu_maps"]],
+            f"state-ipcache{tag}": lpm_mod.lpm_lookup(cpu["lpm"], torch.from_numpy(q["ipcache"][0])),
+            f"state-lb{tag}": lb_mod.lb4_select_backend_batch(cpu["lb"], *(torch.from_numpy(x) for x in q["lb"])),
+            f"state-datapath{tag}": dp_mod.datapath_verdicts(cpu["dp"], *q["datapath"]),
+            f"state-overlay{tag}": ing_mod.overlay_verdicts(cpu["ing"], *q["overlay"]),
+        }
+        for name, wv in want.items():
+            if max_abs_err([x[:STATE_CPU_F].cpu() for x in _flat(outs[name])], _flat(wv)) != 0:
+                raise AssertionError(f"{name}: the card differs from the CPU path")
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q = t["q"]
+        sample = sorted(random.Random(STATE_SEED).sample(range(F), STATE_SAMPLE))
+        lpm_sample = sample[:: STATE_SAMPLE // STATE_LPM_SAMPLE]
+
+        def u32(x):
+            return int(np.int64(x) & 0xFFFFFFFF)
+
+        def ip(x):
+            return str(ipaddress.IPv4Address(u32(x)))
+
+        ident, dport, proto = q["policy"]
+        probe = [i for i in sample if dport[i] != 0]  # not the L3-only shape (ROADMAP Queue 3)
+        for (eid, _, hmap), (allowed, port) in zip(t["eps"], outs[f"state-policy{tag}"]):
+            a, pp = allowed.cpu().numpy(), port.cpu().numpy()
+            for i in probe:
+                if (bool(a[i]), int(pp[i])) != hmap.lookup(int(ident[i]), int(dport[i]), int(proto[i]),
+                                                          DIR_INGRESS, count_packets=False):
+                    raise AssertionError(f"state-policy{tag}: endpoint {eid} query {i} != PolicyMap.lookup")
+        found, value, _ = (x.cpu().numpy() for x in outs[f"state-ipcache{tag}"])
+        for i in lpm_sample:
+            info = ipc.lookup(ip(q["ipcache"][0][i]))
+            if bool(found[i]) != (info is not None) or (info is not None and int(value[i]) != info.sec_label):
+                raise AssertionError(f"state-ipcache{tag}: address {i} != IpcacheMap.lookup")
+        lbo = [x.cpu().numpy() for x in outs[f"state-lb{tag}"]]
+        for i in sample:
+            b = lb.select_backend(u32(q["lb"][0][i]), int(q["lb"][1][i]), u32(q["lb"][2][i]))
+            got = (bool(lbo[0][i]),) + ((u32(lbo[1][i]), int(lbo[2][i]), int(lbo[3][i])) if lbo[0][i] else ())
+            if got != ((True, b.target, b.port, b.rev_nat_index) if b is not None else (False,)):
+                raise AssertionError(f"state-lb{tag}: flow {i} != LbMap.select_backend")
+        dp_h = dp_mod.host_arrays(outs[f"state-datapath{tag}"])
+        pk = q["datapath"]
+        for i in lpm_sample:
+            o = dp_mod.host_oracle(ct, lb, ipc, hpol, u32(pk[0][i]), u32(pk[1][i]), int(pk[2][i]),
+                                   int(pk[3][i]), int(pk[4][i]))
+            for key in ("verdict", "new_daddr", "new_dport", "dst_identity", "proxy_port", "rev_nat",
+                        "established", "needs_ct_create"):
+                if u32(dp_h[key][i]) != u32(o[key]):
+                    raise AssertionError(f"state-datapath{tag}: packet {i} {key} != host_oracle")
+        ov_h = dp_mod.host_arrays(outs[f"state-overlay{tag}"])
+        pk = q["overlay"]
+        for i in lpm_sample:
+            o = ing_mod.host_oracle_netdev(ipc, lxc, ct, hpol, u32(pk[0][i]), u32(pk[1][i]), int(pk[2][i]),
+                                           int(pk[3][i]), int(pk[4][i]), tunnel_id=int(pk[5][i]))
+            for key in ("verdict", "src_identity", "lxc_id", "tunnel_endpoint", "proxy_port", "established",
+                        "needs_ct_create"):
+                if u32(ov_h[key][i]) != u32(o[key]):
+                    raise AssertionError(f"state-overlay{tag}: packet {i} {key} != host_oracle_netdev")
+        v = dp_h["verdict"], ov_h["verdict"]
+        log(f"state{tag}: card == CPU path on {STATE_CPU_F} queries a shape ({len(t['eps'])} endpoint maps; "
+            f"{cpu_s:.1f} s), == the host oracles on {STATE_SAMPLE} (K13) / {len(lpm_sample)} (K12, K14, "
+            f"K15; {time.perf_counter() - t0:.1f} s); K12 hit share {found.mean():.3f}, K13 LB found share "
+            f"{lbo[0].mean():.3f}, K13 policy allowed share (endpoint {t['eps'][0][0]}) "
+            f"{outs[f'state-policy{tag}'][0][0].float().mean().item():.3f}; K14 verdicts "
+            f"{np.bincount(v[0], minlength=5).tolist()}, K15 overlay "
+            f"{np.bincount(v[1], minlength=5).tolist()} (FORWARD, DROP, TO_PROXY, TO_HOST, TO_OVERLAY)")
+
+    lookups("", snapshot(""))
+    sw.churn(w, seed=STATE_SEED + 1)  # holds B's cache and ipcache to what was published
+    state_stage_lines({"churn": w.stages["churn"]}, card)
+    lookups("-churn", snapshot("-churn"))
+    # K3's wide form
+    run("nfa-wide-http", lambda: http_verdicts_attr(hmodel, *wide["nfa-wide-http"]["dev"]))
+    for shape in wc.WIDE_PATTERNS:
+        run(shape, lambda s=shape: nfa_mod.nfa_search_batch(wide[s]["tab"], *wide[s]["dev"]))
+    torch.cuda.synchronize()
+    launches = {n: sum(r[n] for r in runs.values()) for n in kerns}
+    log("launches:", json.dumps({n: v for n, v in launches.items() if v}))
+    log("launches by run:", json.dumps({n: {k: c for k, c in r.items() if c} for n, r in runs.items()}))
+    for n in new:
+        if launches[n] <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the state slice's main path")
+    n_eps = len(eps)
+    for tag in ("", "-churn"):
+        want = {"state-policy": {"policy_can_access": n_eps}, "state-ipcache": {"lpm_lookup": 1},
+                "state-lb": {"lb_select": 1}, "state-datapath": {"datapath4": 1}, "state-overlay": {"ingress": 1}}
+        for name, wv in want.items():
+            got = {k: c for k, c in runs[name + tag].items() if c}
+            if got != wv:
+                raise AssertionError(f"{name}{tag}: launches {got} != {wv}")
+    for shape in NFA_WIDE_SHAPES:
+        if runs[shape]["nfa_scan"] != 1:
+            raise AssertionError(f"{shape}: K3 launched {runs[shape]['nfa_scan']} times, not once")
+
+    # kernels against their plain versions, at the main path's inputs
+    log("== K3 wide form, K12-K15 on the state vs plain")
+    report = {}
+
+    def put(kname, label, got, want_):
+        report.setdefault(kname, {})[label] = max_abs_err(_flat(got), _flat(want_))
+
+    for tag, t in snaps.items():
+        d = t["d"]
+        for eid, dm, _ in t["eps"]:
+            put("policy_can_access", f"state-policy{tag}/{eid}",
+                pol_mod.policy_can_access_batch(dm, *d["policy"], DIR_INGRESS),
+                pol_mod.policy_can_access_plain(dm, *d["policy"], DIR_INGRESS))
+        put("lpm_lookup", f"state-ipcache{tag}", lpm_mod.lpm_lookup(t["lpm"], *d["ipcache"]),
+            lpm_mod.lpm_lookup_plain(t["lpm"], *d["ipcache"]))
+        lb_in = (t["lb"], [d["lb"][0]], d["lb"][1], d["lb"][2])
+        put("lb_select", f"state-lb{tag}", lb_mod.lb_select(*lb_in), lb_mod.lb_select_plain(*lb_in))
+        dp_in = (t["dp"], (d["datapath"][0],), (d["datapath"][1],), *d["datapath"][2:])
+        put("datapath4", f"state-datapath{tag}", dp_mod.datapath_pass(*dp_in), dp_mod.datapath_pass_plain(*dp_in))
+        ov_in = (t["ing"], ing_mod.MODE_OVERLAY, *d["overlay"])
+        put("ingress", f"state-overlay{tag}", ing_mod.ingress(*ov_in), ing_mod.ingress_plain(*ov_in))
+    hframe = http_frame(*wide["nfa-wide-http"]["dev"][:2])
+    wide["nfa-wide-http"]["span"] = (hframe.p_start, hframe.sp2)
+    plain_ms = {}
+    for shape, c in wide.items():
+        tab, data = c["tab"], c["dev"][0]
+        start, end = c.get("span") or (torch.zeros_like(c["dev"][1]), c["dev"][1])
+        c["span"] = (start, end)
+        got = nfa_mod.nfa_search_spans(tab, data, start, end)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want_ = nfa_mod.nfa_scan_plain(tab, data, start, end)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms[shape] = e0.elapsed_time(e1)
+        put("nfa_scan", shape, got, want_)
+        hits = want_.any(1)
+        log(f"{shape}: K3's wide form == nfa_scan_plain on {data.shape[0]} flows; {int(hits.sum())} match")
+        if shape != "nfa-wide-http" and not (bool(hits.any()) and not bool(hits.all())):
+            raise AssertionError(f"{shape}: the planted needles did not give both outcomes")
+    # the HTTP verdicts, as a whole, against the CPU model (no row can
+    # match at L = 512: the rule's path alone is 513 bytes)
+    cpu_h = build_http_model(rule, device="cpu")
+    hcpu = http_verdicts_attr(cpu_h, *(torch.from_numpy(a) for a in (hdata, hlen, hrem)))
+    if max_abs_err([x.cpu() for x in _flat(outs["nfa-wide-http"])], _flat(hcpu)) != 0:
+        raise AssertionError("nfa-wide-http: the card's verdicts differ from the CPU model's")
+    log("max |kernel - plain|:", json.dumps(report))
+    for kname, per in report.items():
+        for label, err in per.items():
+            if err != 0:
+                raise AssertionError(f"{kname} disagrees with its plain version on {label}")
+
+    # times
+    log("== state slice times on", card)
+    timed = {}
+
+    def row(fn, plain, bytes_, ops, plain_iters=3):
+        return bound(dict(ms=graph_ms(fn), call_ms=cuda_ms(fn, 30), plain_ms=cuda_ms(plain, plain_iters),
+                          bytes=bytes_, ops=ops))
+
+    for tag, t in snaps.items():
+        d = t["d"]
+        _, dm, _ = t["eps"][0]
+        pol_in = (dm, *d["policy"], DIR_INGRESS)
+        rows = {
+            f"state-policy{tag}": ("policy_can_access", row(
+                lambda: _flat(pol_mod.policy_can_access_batch(*pol_in)),
+                lambda: pol_mod.policy_can_access_plain(*pol_in),
+                17 * F + index_bytes(dm.table.index), F * 3 * hash_ops(4))),
+            f"state-ipcache{tag}": ("lpm_lookup", row(
+                lambda: _flat(lpm_mod.lpm_lookup(t["lpm"], *d["ipcache"])),
+                lambda: lpm_mod.lpm_lookup_plain(t["lpm"], *d["ipcache"]),
+                4 * F + 9 * F + index_bytes(t["lpm"].index),
+                F * t["lpm"].index.n_groups * hash_ops(2))),
+            f"state-lb{tag}": ("lb_select", row(
+                lambda: _flat(lb_mod.lb4_select_backend_batch(t["lb"], *d["lb"])),
+                lambda: lb_mod.lb_select_plain(t["lb"], [d["lb"][0]], d["lb"][1], d["lb"][2]),
+                12 * F + F + 12 * F + index_bytes(t["lb"].index)
+                + table_bytes(t["lb"].counts, t["lb"].b_target_words, t["lb"].b_port, t["lb"].revnat),
+                F * 2 * hash_ops(2))),
+            f"state-datapath{tag}": ("datapath4", row(
+                lambda: _flat(dp_mod.datapath_pass(t["dp"], (d["datapath"][0],), (d["datapath"][1],),
+                                                   *d["datapath"][2:])),
+                lambda: dp_mod.datapath_pass_plain(t["dp"], (d["datapath"][0],), (d["datapath"][1],),
+                                                   *d["datapath"][2:]),
+                k14_bytes(t["dp"], 1), F * sum(hash_ops(k) for k in [2] * 4 + [5] + [4] * 3))),
+            f"state-overlay{tag}": ("ingress", row(
+                lambda: _flat(ing_mod.ingress(t["ing"], ing_mod.MODE_OVERLAY, *d["overlay"])),
+                lambda: ing_mod.ingress_plain(t["ing"], ing_mod.MODE_OVERLAY, *d["overlay"]),
+                k15_bytes(t["ing"], False), F * sum(hash_ops(k) for k in [1, 5, 5, 2, 2, 4, 4, 4]))),
+        }
+        for name, (kname, r) in rows.items():
+            timed[name] = dict(rows={kname: r})
+            log_row(name, kname, r)
+        timed[f"state-datapath{tag}"].update(pass_times(
+            lambda: _flat(dp_mod.datapath_verdicts(t["dp"], *d["datapath"])),
+            lambda: _flat(dp_mod.datapath_verdicts(t["dp"], *t["q"]["datapath"]))))
+        log_pass(f"state-datapath{tag}", "datapath4", timed[f"state-datapath{tag}"], card)
+    for shape, c in wide.items():
+        tab, data = c["tab"], c["dev"][0]
+        start, end = c["span"]
+        f_w, l_w = data.shape
+        sb = span_bytes(start, end, l_w)
+        # the wide form reads the sparse rows, not delta_bits
+        tables = 4 * (tab.scan_rows.numel() + tab.scan_has.numel() + tab.start_bits.numel()
+                      + 2 * tab.accept_bits.numel()) + 2 * tab.scan_targets.numel() + 256
+        fn = (lambda tab=tab, data=data, start=start, end=end: nfa_mod.nfa_search_spans(tab, data, start, end))
+        r = bound(dict(ms=graph_ms(fn, iters=5, replays=4), call_ms=cuda_ms(fn, 5), plain_ms=plain_ms[shape],
+                       bytes=sb + 8 * f_w + tables + f_w * tab.n_patterns, ops=sb * tab.delta_bits.shape[2],
+                       states=tab.n_states))
+        timed[shape] = dict(rows={"nfa_scan": r})
+        log_row(shape, "nfa_scan", r)
+        log(f"{shape}: {tab.n_states} states, {sb} span bytes; wide form {r['ms'] / r['bound_ms']:.1f}x its "
+            f"bound [{card}]")
+    on_card = lambda: http_verdicts_attr(hmodel, *wide["nfa-wide-http"]["dev"])  # noqa: E731
+    timed["nfa-wide-http"].update(pass_times(on_card, lambda: http_verdicts_attr(hmodel, hdata, hlen, hrem)))
+    log_pass("nfa-wide-http", "http_verdicts_attr", timed["nfa-wide-http"], card)
+    return launches, runs, report, timed
+
+
 def main() -> int:
     import argparse
 
@@ -5930,6 +6348,9 @@ def main() -> int:
                     help="a parent commit's cilium_tpu_torch/csrc (unpacked): time the kernels "
                     "whose sources differ from it beside the parent's, in turns, at every "
                     "shape that times them, and the passes that run them")
+    ap.add_argument("--state-only", action="store_true",
+                    help="build every kernel and run phase 15 (the state slice) alone; prints its "
+                    "readings and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -5985,6 +6406,11 @@ def main() -> int:
         for line in kernels.ptxas_log(src).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {src.name}: {line.strip()}")
+
+    if args.state_only:
+        state_slice(dev, card, {k.symbol: k for k in kernels.ALL})
+        log(f"total {time.monotonic() - t_start:.1f} s")
+        return 0
 
     kerns = {
         "r2d2_frame": r2d2_mod._R2D2_FRAME,
@@ -6529,6 +6955,17 @@ def main() -> int:
     for kname, per in report14.items():
         report.setdefault(kname, {}).update(per)
     for kname, n in launches14.items():
+        launches[kname] = launches.get(kname, 0) + n
+
+    # The state layer (kvstore, identities, ipcache, services, endpoints)
+    # into K12-K15, and K3's wide form, counted in a run of their own.
+    every = {k.symbol: k for k in kernels.ALL}
+    launches15, runs15, report15, timed15 = state_slice(dev, card, every)
+    runs.update(runs15)
+    timed.update(timed15)
+    for kname, per in report15.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches15.items():
         launches[kname] = launches.get(kname, 0) + n
 
     replaces = {

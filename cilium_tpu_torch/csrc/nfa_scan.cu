@@ -38,6 +38,19 @@
 // - Blocks are persistent and stride over the flows; bytes come 16 at a
 //   time where rows are 16-byte aligned, as in K2, with the step once in
 //   the code.
+// - Past 32 words (a block of more than 1,024 states that no cut in
+//   ops/nfa.py split_parts divides: one long bounded repetition, such
+//   as a{256}b{256}), up to 128 words (4,096 states, the reference's
+//   MAX_STATES), a warp a flow (kWide, nfa_wide_kernel below): lane l
+//   keeps words l, l + 32, l + 64, l + 96 of the state and seen sets in
+//   registers, walks the sparse rows of its live states from global
+//   memory and ORs their targets into the warp's next-state words in
+//   shared memory with atomicOr; after __syncwarp each lane takes its
+//   own words back and clears them.  The warp stops when __any_sync
+//   finds no live state, and the span's bytes come 32 at a time, one a
+//   lane, passed round by shuffle.  Correct first, not tuned: a chain
+//   of n states keeps about one state live a byte, so a step is a few
+//   loads and two warp barriers.
 // At the nfa shape a step inlined 16 times over ran slower than the first
 // version, and a factored form (next = follow(state) & enter[class],
 // follow by byte-wide table lookups; that table is homogeneous) slower
@@ -58,6 +71,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxWords = 32;  // S <= 1024; ops/nfa.py MAX_STATES
 constexpr size_t kSmemBudget = 200 * 1024;
 constexpr int kDenseWords = 2;  // the dense rows' variant up to 64 states
+constexpr int kWideWords = 128;  // S <= 4096: the wide form (a warp a flow)
+constexpr int kWideLane = kWideWords / 32;  // state words a lane keeps
+constexpr int kWideWarps = 8;  // flows a block of the wide form
 
 // Which form of the relation a variant walks (chosen from the shape in
 // nfa_scan below).
@@ -301,6 +317,133 @@ cudaError_t launch(const void* data, const void* span_start,
   return cudaGetLastError();
 }
 
+// The wide form: a warp a flow, for 33 to 128 words.  Lane l owns words
+// l + 32 k (k < kWideLane) of `state` and `seen`; the warp's next-state
+// words live in shared memory (s_next), each zero between steps.
+__global__ void __launch_bounds__(kWideWarps * 32)
+nfa_wide_kernel(const uint8_t* __restrict__ data,
+                const int32_t* __restrict__ span_start,
+                const int32_t* __restrict__ span_end,
+                const uint8_t* __restrict__ classmap,
+                const int2* __restrict__ rows,
+                const uint16_t* __restrict__ targets,
+                const uint32_t* __restrict__ has,
+                const uint32_t* __restrict__ start,
+                const uint32_t* __restrict__ accept,
+                const uint32_t* __restrict__ accept_final,
+                const uint32_t* __restrict__ any, int F, int L, int R, int S,
+                int words, bool* __restrict__ out) {
+  __shared__ uint8_t s_cmap[256];
+  __shared__ uint32_t s_next[kWideWarps][kWideWords];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_cmap[i] = classmap[i];
+  uint32_t* nxt = s_next[warp];
+#pragma unroll
+  for (int k = 0; k < kWideLane; ++k) nxt[lane + 32 * k] = 0u;
+  // the union of the accept sets in the lane's words
+  uint32_t any_acc[kWideLane], any_fin[kWideLane];
+#pragma unroll
+  for (int k = 0; k < kWideLane; ++k) {
+    const int j = lane + 32 * k;
+    any_acc[k] = j < words ? any[j] : 0u;
+    any_fin[k] = j < words ? any[words + j] : 0u;
+  }
+  __syncthreads();
+
+  const unsigned full = 0xFFFFFFFFu;
+  for (int f = blockIdx.x * kWideWarps + warp; f < F; f += gridDim.x * kWideWarps) {
+    uint32_t state[kWideLane], seen[kWideLane];
+#pragma unroll
+    for (int k = 0; k < kWideLane; ++k) {
+      const int j = lane + 32 * k;
+      state[k] = j < words ? start[j] : 0u;
+      seen[k] = state[k];
+    }
+    const uint8_t* rowp = data + static_cast<size_t>(f) * L;
+    const int t0 = max(span_start[f], 0);
+    const int t1 = min(span_end[f], L);
+    uint32_t chunk = 0u;
+    for (int t = t0; t < t1; ++t) {
+      const int b = (t - t0) & 31;
+      if (b == 0) chunk = t + lane < t1 ? __ldg(rowp + t + lane) : 0u;
+      const int c = s_cmap[__shfl_sync(full, chunk, b)];
+      const int2* crow = rows + static_cast<size_t>(c) * S;
+      const uint32_t* chas = has + static_cast<size_t>(c) * words;
+#pragma unroll
+      for (int k = 0; k < kWideLane; ++k) {
+        const int j = lane + 32 * k;
+        uint32_t bits = state[k];
+        if (bits) bits &= __ldg(chas + j);
+        while (bits) {
+          const int2 rw = __ldg(crow + j * 32 + __ffs(bits) - 1);
+          bits &= bits - 1;
+          const int n = rw.y & 0xFFFF;
+          for (int e = 0, tg = rw.y >> 16;;) {
+            atomicOr(nxt + (tg >> 5), 1u << (tg & 31));
+            if (++e >= n) break;
+            tg = __ldg(targets + rw.x + e);
+          }
+        }
+      }
+      __syncwarp();
+      uint32_t live = 0u;
+#pragma unroll
+      for (int k = 0; k < kWideLane; ++k) {
+        const int j = lane + 32 * k;
+        const uint32_t v = nxt[j];
+        nxt[j] = 0u;
+        state[k] = v;
+        seen[k] |= v;
+        live |= v;
+      }
+      __syncwarp();
+      if (!__any_sync(full, live != 0u)) break;
+    }
+
+    // Only words where some pattern's accept meets `seen`, or some
+    // accept_final meets `state`, can decide a pattern.
+    uint32_t hit = 0u;
+#pragma unroll
+    for (int k = 0; k < kWideLane; ++k) hit |= (seen[k] & any_acc[k]) | (state[k] & any_fin[k]);
+    const bool any_hit = __any_sync(full, hit != 0u);
+    bool* dst = out + static_cast<size_t>(f) * R;
+    for (int r = 0; r < R; ++r) {
+      uint32_t a = 0u;
+      if (any_hit) {
+        const uint32_t* acc = accept + static_cast<size_t>(r) * words;
+        const uint32_t* fin = accept_final + static_cast<size_t>(r) * words;
+#pragma unroll
+        for (int k = 0; k < kWideLane; ++k) {
+          const int j = lane + 32 * k;
+          if (j < words) a |= (seen[k] & __ldg(acc + j)) | (state[k] & __ldg(fin + j));
+        }
+      }
+      const bool v = __any_sync(full, a != 0u);
+      if (lane == 0) dst[r] = v;
+    }
+  }
+}
+
+cudaError_t launch_wide(const void* data, const void* span_start, const void* span_end,
+                        const void* classmap, const void* rows, const void* targets,
+                        const void* has, const void* start, const void* accept,
+                        const void* accept_final, const void* any, int F, int L, int R,
+                        int S, int words, void* out, cudaStream_t stream) {
+  int resident = 0;
+  cudaError_t err = resident_blocks(nfa_wide_kernel, kWideWarps * 32, 0, &resident);
+  if (err != cudaSuccess) return err;
+  const int blocks = std::min((F + kWideWarps - 1) / kWideWarps, resident);
+  nfa_wide_kernel<<<blocks, kWideWarps * 32, 0, stream>>>(
+      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(span_start),
+      static_cast<const int32_t*>(span_end), static_cast<const uint8_t*>(classmap),
+      static_cast<const int2*>(rows), static_cast<const uint16_t*>(targets),
+      static_cast<const uint32_t*>(has), static_cast<const uint32_t*>(start),
+      static_cast<const uint32_t*>(accept), static_cast<const uint32_t*>(accept_final),
+      static_cast<const uint32_t*>(any), F, L, R, S, words, static_cast<bool*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dense: delta_bits; near, far, rows, targets, has, any: ops/nfa.py
@@ -315,9 +458,13 @@ CILIUM_EXPORT int nfa_scan(const void* data, const void* span_start,
                            void* out, void* stream) {
   if (F <= 0 || R <= 0) return cudaSuccess;
   const int words = (S + 31) / 32;
-  if (S < 1 || words > kMaxWords || C < 1 || C > 256) return cudaErrorInvalidValue;
-  const bool vec = L % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
+  if (S < 1 || words > kWideWords || C < 1 || C > 256) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  // Past one thread's registers, a warp a flow.
+  if (words > kMaxWords)
+    return launch_wide(data, span_start, span_end, classmap, rows, targets, has, start, accept,
+                       accept_final, any, F, L, R, S, words, out, s);
+  const bool vec = L % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
 #define CILIUM_NFA_ARGS(smem)                                                     \
   data, span_start, span_end, classmap, dense, near, far, rows, targets, has,     \
       start, accept, accept_final, any, F, L, R, S, C, words, smem, out, s

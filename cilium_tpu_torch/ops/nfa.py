@@ -8,8 +8,10 @@ K3 reads those rows up to 256 states and, past that, their near form
 (``near_rows``) with the sparse one (``sparse_rows``), built beside them.  On a CUDA tensor
 ``nfa_search_spans`` launches ``csrc/nfa_scan.cu``, on a CPU tensor it
 runs ``nfa_scan_plain``, and on anything else it raises.  An NFA of more
-states than one launch holds is cut into parts (``split_parts``), one
-launch a part.
+states than one thread's registers hold (MAX_STATES) is cut into parts
+(``split_parts``), one launch a part; a block that no cut brings down to
+MAX_STATES is a part of its own, which K3 scans in its wide form (a warp a
+flow, up to WIDE_STATES).  The plain scan walks any state count.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ from .. import kernels
 from ..device import resolve_device
 from ..regex.tables import NfaTables
 
-# The kernel keeps the state set in at most 32 registers of 32 bits
-# (csrc/nfa_scan.cu kMaxWords): the states of one launch.
+# K3's one-thread-a-flow forms keep the state set in at most 32 registers
+# of 32 bits (csrc/nfa_scan.cu kMaxWords); its wide form, a warp a flow,
+# up to 128 words (kWideWords): the reference's regex.nfa.MAX_STATES.
 MAX_STATES = 32 * 32
+WIDE_STATES = 128 * 32
 
 _NFA_SCAN = kernels.CudaKernel(
     "nfa_scan", "nfa_scan",
@@ -59,7 +63,7 @@ class DeviceNfa:
     scan_has: torch.Tensor = field(init=False, repr=False)  # [C, W] int32
     scan_any: torch.Tensor = field(init=False, repr=False)  # [2, W] int32
     # Past MAX_STATES states, K3's launches: (part, pattern columns) pairs
-    # (``split_parts``); empty where one launch holds the NFA.
+    # (``split_parts``); empty where one launch takes the whole NFA.
     scan_parts: list = field(init=False, repr=False)
 
     def __post_init__(self):
@@ -103,8 +107,11 @@ def split_parts(nfa: DeviceNfa) -> list:
     out).  Cut so, a part's state set is the whole one's on its range at
     every step, so its launch gives those columns exactly.  The union of
     separately compiled patterns (``regex.tables.compile_patterns``) cuts
-    between any two of them; a block of more than MAX_STATES states that
-    no cut divides raises."""
+    between any two of them.  Parts hold at most MAX_STATES states where
+    a cut allows it; a block of more that no cut divides (one long
+    bounded repetition) is a part of its own, which K3 scans in its wide
+    form.  Empty where that block holds every pattern that accepts: the
+    whole NFA is then one launch of the wide form."""
     s, r, dev = nfa.n_states, nfa.n_patterns, nfa.device
     delta = unpack_bits(nfa.delta_bits, s).cpu()  # [C, S, S]
     acc = (unpack_bits(nfa.accept_bits, s) | unpack_bits(nfa.accept_final_bits, s)).cpu()
@@ -123,11 +130,8 @@ def split_parts(nfa: DeviceNfa) -> list:
     bounds, a = [], 0
     while a < s:
         b = cuts[bisect.bisect_right(cuts, a + MAX_STATES) - 1]
-        if b <= a:
-            raise ValueError(
-                f"NFA has {s} states with a block of more than {MAX_STATES} that no "
-                f"cut divides; the scan kernel holds at most {MAX_STATES} a launch"
-            )
+        if b <= a:  # no cut within MAX_STATES: the block up to the next cut
+            b = cuts[bisect.bisect_right(cuts, a)]
         bounds.append((a, b))
         a = b
     starts = [lo_ for lo_, _ in bounds]
@@ -135,11 +139,12 @@ def split_parts(nfa: DeviceNfa) -> list:
     start = unpack_bits(nfa.start_bits, s).cpu()
     acc_s = unpack_bits(nfa.accept_bits, s).cpu()
     fin_s = unpack_bits(nfa.accept_final_bits, s).cpu()
+    plan = [(a, b, cols) for i, (a, b) in enumerate(bounds)
+            if (cols := [p for p in range(r) if owner[p] == i])]
+    if len(plan) == 1 and plan[0][1] - plan[0][0] > MAX_STATES and s <= WIDE_STATES:
+        return []  # one block in the wide form: the whole NFA is the launch
     parts = []
-    for i, (a, b) in enumerate(bounds):
-        cols = [p for p in range(r) if owner[p] == i]
-        if not cols:
-            continue
+    for a, b, cols in plan:
         idx = torch.tensor(cols)
         part = DeviceNfa(
             classmap=nfa.classmap,

@@ -331,6 +331,40 @@ def test_nfa_kernel_past_one_launch_matches_plain(cuda, l):
     assert torch.equal(got, want) and bool(want.any()) and not bool(want.all())
 
 
+@pytest.mark.parametrize("case", ["chain-1025", "random-1025", "nfa-wide-2064", "random-2500",
+                                  "nfa-wide-4088", "random-4000"])
+@pytest.mark.parametrize("l", [2048, 2045])
+def test_nfa_wide_form_matches_plain(cuda, case, l):
+    """A block of more than MAX_STATES states that no cut divides (a
+    chain, compiled run-length patterns, random edges over every state):
+    one launch of K3's wide form (a warp a flow, up to 4,096 states), equal
+    to the plain scan on spans of random bytes with the needle planted."""
+    import nfa_wide_cases as wc
+
+    rng = np.random.default_rng(sum(map(ord, case)) + l)
+    if case == "chain-1025":
+        nfa = nfa_from_dense(*wc.chain(), cuda)
+        needle = b"a" * (wc.CHAIN_STATES - 1)
+    elif case.startswith("random"):
+        s = int(case.split("-")[1])
+        nfa = _random_nfa(rng, cuda, 6, s, 5, 6 * s)
+        needle = bytes(rng.integers(0, 256, 64).astype(np.uint8))
+    else:
+        nfa = device_nfa(compile_patterns([wc.WIDE_PATTERNS[case]]), cuda)
+        needle = wc.needle(wc.WIDE_PATTERNS[case])
+    assert nfa_mod.MAX_STATES < nfa.n_states <= nfa_mod.WIDE_STATES and not nfa.scan_parts
+    data, lengths = wc.planted(rng, 1031, l, needle)
+    d = torch.from_numpy(data).to(cuda)
+    en = torch.from_numpy(lengths).to(cuda)
+    st = torch.from_numpy(rng.integers(-2, 3, len(lengths)).astype(np.int32)).to(cuda)
+    st[:3] = torch.tensor([0, l, 5], dtype=torch.int32)
+    got = _one_launch(nfa_mod._NFA_SCAN, nfa_search_spans, nfa, d, st, en)
+    want = nfa_scan_plain(nfa, d, st, en)
+    assert torch.equal(got, want)
+    if not case.startswith("random"):
+        assert bool(want.any()) and not bool(want.all())
+
+
 def test_hits_kernel_matches_plain(cuda):
     rows = [
         (frozenset({7, 9}), "READ", ""),

@@ -38,6 +38,7 @@ from cilium_tpu_torch.ops.nfa import (
     device_nfa,
     nfa_from_dense,
     nfa_scan_plain,
+    nfa_search_batch,
     pack_bits,
     unpack_bits,
 )
@@ -318,13 +319,30 @@ def test_nfa_past_one_launch_splits_exactly():
 
 
 def test_nfa_block_past_one_launch_raises():
-    """A chain of MAX_STATES + 1 states has no cut: the upload raises."""
-    s = MAX_STATES + 1
-    delta = np.zeros((1, s, s), bool)
-    delta[0, np.arange(s - 1), np.arange(1, s)] = True
-    start = np.zeros(s, bool)
-    start[0] = True
-    accept = np.zeros((1, s), bool)
-    accept[0, -1] = True
-    with pytest.raises(ValueError, match="no cut divides"):
-        nfa_from_dense(np.zeros(256, np.int64), delta, start, accept, accept, CPU)
+    """A chain of MAX_STATES + 1 states has no cut.  The upload no longer
+    raises (K3 scans such a block in its wide form): the port at
+    ``device="cpu"`` gives the reference's ``nfa_search_batch`` on runs
+    of the chain's byte that reach its end, fall one short or are broken,
+    and on an empty span."""
+    from cilium_tpu.ops import nfa as ref_nfa
+    from cilium_tpu.regex.tables import NfaTables
+
+    import nfa_wide_cases as wc
+
+    classmap, delta, start, accept, accept_final = wc.chain(MAX_STATES + 1)
+    s = delta.shape[1]
+    nfa = nfa_from_dense(classmap, delta, start, accept, accept_final, CPU)
+    assert nfa.n_states == s and nfa.scan_parts == []
+    _check_nfa(nfa)
+    # the reference's scan costs S * C * S a byte of every row
+    data = np.full((4, s), ord("a"), np.uint8)
+    data[2, 7] = ord("b")
+    lengths = np.array([s - 1, s - 2, s, 0], np.int32)
+    ref = ref_nfa.device_nfa(NfaTables(
+        n_states=s, n_classes=2, n_patterns=1, classmap=classmap.astype(np.int32),
+        delta=delta.astype(np.uint8), start=start, accept=accept, accept_final=accept_final,
+        matches_empty=np.zeros(1, bool)))
+    want = np.asarray(ref_nfa.nfa_search_batch(ref, data, lengths))
+    got = nfa_search_batch(nfa, torch.from_numpy(data), torch.from_numpy(lengths))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[:, 0].tolist() == [True, False, False, False]
