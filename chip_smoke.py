@@ -225,6 +225,7 @@ line last.
 
 from __future__ import annotations
 
+import dataclasses
 import ipaddress
 import json
 import random
@@ -2444,8 +2445,6 @@ def sidecar_policies():
     """tests/test_sidecar.py's two-rule r2d2 policy and bench.py's HTTP,
     DNS, Cassandra and memcached policies (``entry.*_bench_policy``), one
     NPDS policy each, pushed together."""
-    import dataclasses
-
     from cilium_tpu_torch import entry
     from cilium_tpu_torch.proxylib import NetworkPolicy, PortNetworkPolicy, PortNetworkPolicyRule
 
@@ -3491,7 +3490,6 @@ def build_baseline(csrc):
     wrappers' own argument packing drives both (``parent_kernels`` swaps
     them in).  Returns the stems."""
     import ctypes
-    import importlib
     import re
     from pathlib import Path
 
@@ -3499,12 +3497,7 @@ def build_baseline(csrc):
 
     # every module that defines a kernel, so that each source's launchers
     # are in kernels.ALL before they are bound
-    for mod in ("models.base", "models.r2d2", "models.http", "models.dns", "models.cassandra",
-                "models.memcached", "models.kafka", "ops.dfa", "ops.nfa", "ops.gather",
-                "ops.seqdfa", "ops.lpm", "ops.maplookup", "maps.lbmap", "maps.policymap",
-                "datapath.pipeline", "datapath.ingress", "parallel.rulesharding",
-                "sidecar.latbench"):
-        importlib.import_module(f"cilium_tpu_torch.{mod}")
+    every_kernel()
     csrc = Path(csrc).resolve()
 
     def read_or_none(path):
@@ -5955,7 +5948,10 @@ STATE_CLOCK = 10_000.0  # the CT map's clock
 STATE_SAMPLE = 2000  # queries a shape held to the host oracles
 # queries of the shapes whose host oracles walk the ipcache: IpcacheMap.lookup
 # scans its 65,536 prefixes in Python, tens of ms a query
-STATE_LPM_SAMPLE = 256
+STATE_LPM_SAMPLE = 64
+# endpoints regenerated against policy-1000 (state_world.Scale's 64 cut to
+# 16, so that phase 16 fits in the script's time limit)
+STATE_ENDPOINTS = 16
 STATE_CPU_F = 8192  # queries a shape held to the CPU path (its LPM walks 65,536 prefixes a query)
 STATE_SHAPES = ("state-policy", "state-ipcache", "state-lb", "state-datapath", "state-overlay")
 # K3's wide form at these (F, L): the HTTP rule at policy-http's shape and
@@ -6066,8 +6062,9 @@ def _state_runs(dev, card, kerns, sw, held):
         k.replayed = 0
     sets = list(entry.policy_identities().values())
     rules_json = json.dumps(entry.policy_rules(*POLICY_WORLD))
-    w = held["world"] = sw.build_world(sw.modules("cilium_tpu_torch"), sw.Scale(), sets, rules_json,
-                                       seed=STATE_SEED, concurrent=True, ct_clock=lambda: STATE_CLOCK)
+    t_sec = time.monotonic()
+    w = held["world"] = sw.build_world(sw.modules("cilium_tpu_torch"), sw.Scale(endpoints=STATE_ENDPOINTS), sets,
+                                       rules_json, seed=STATE_SEED, concurrent=True, ct_clock=lambda: STATE_CLOCK)
     state_stage_lines(w.stages, card)
     eps = w.manager.get_endpoints()
     if any(ep.device_policy_map.device.type != dev.type for ep in eps):
@@ -6192,10 +6189,16 @@ def _state_runs(dev, card, kerns, sw, held):
             f"{np.bincount(v[0], minlength=5).tolist()}, K15 overlay "
             f"{np.bincount(v[1], minlength=5).tolist()} (FORWARD, DROP, TO_PROXY, TO_HOST, TO_OVERLAY)")
 
+    sections = {"build": time.monotonic() - t_sec}
+    t_sec = time.monotonic()
     lookups("", snapshot(""))
+    sections["snapshot-and-checks"] = time.monotonic() - t_sec
+    t_sec = time.monotonic()
     sw.churn(w, seed=STATE_SEED + 1)  # holds B's cache and ipcache to what was published
     state_stage_lines({"churn": w.stages["churn"]}, card)
     lookups("-churn", snapshot("-churn"))
+    sections["churn-and-checks"] = time.monotonic() - t_sec
+    t_sec = time.monotonic()
     # K3's wide form
     run("nfa-wide-http", lambda: http_verdicts_attr(hmodel, *wide["nfa-wide-http"]["dev"]))
     for shape in wc.WIDE_PATTERNS:
@@ -6220,6 +6223,8 @@ def _state_runs(dev, card, kerns, sw, held):
             raise AssertionError(f"{shape}: K3 launched {runs[shape]['nfa_scan']} times, not once")
 
     # kernels against their plain versions, at the main path's inputs
+    sections["k3-wide-and-counts"] = time.monotonic() - t_sec
+    t_sec = time.monotonic()
     log("== K3 wide form, K12-K15 on the state vs plain")
     report = {}
 
@@ -6261,10 +6266,16 @@ def _state_runs(dev, card, kerns, sw, held):
         if shape != "nfa-wide-http" and not (bool(hits.any()) and not bool(hits.all())):
             raise AssertionError(f"{shape}: the planted needles did not give both outcomes")
     # the HTTP verdicts, as a whole, against the CPU model (no row can
-    # match at L = 512: the rule's path alone is 513 bytes)
+    # match at L = 512: the rule's path alone is 513 bytes) on the first
+    # STATE_CPU_F rows; the rows repeat the 512 heads, and every later row
+    # must equal its first occurrence
+    card_h = np.stack([x.cpu().numpy().astype(np.int64) for x in _flat(outs["nfa-wide-http"])])
+    period = len(heads)
+    if not (card_h == np.tile(card_h[:, :period], (1, card_h.shape[1] // period))).all():
+        raise AssertionError("nfa-wide-http: rows of one head disagree on the card")
     cpu_h = build_http_model(rule, device="cpu")
-    hcpu = http_verdicts_attr(cpu_h, *(torch.from_numpy(a) for a in (hdata, hlen, hrem)))
-    if max_abs_err([x.cpu() for x in _flat(outs["nfa-wide-http"])], _flat(hcpu)) != 0:
+    hcpu = http_verdicts_attr(cpu_h, *(torch.from_numpy(a[:STATE_CPU_F]) for a in (hdata, hlen, hrem)))
+    if max_abs_err([torch.from_numpy(c[:STATE_CPU_F]) for c in card_h], _flat(hcpu)) != 0:
         raise AssertionError("nfa-wide-http: the card's verdicts differ from the CPU model's")
     log("max |kernel - plain|:", json.dumps(report))
     for kname, per in report.items():
@@ -6273,6 +6284,8 @@ def _state_runs(dev, card, kerns, sw, held):
                 raise AssertionError(f"{kname} disagrees with its plain version on {label}")
 
     # times
+    sections["vs-plain"] = time.monotonic() - t_sec
+    t_sec = time.monotonic()
     log("== state slice times on", card)
     timed = {}
 
@@ -6337,7 +6350,613 @@ def _state_runs(dev, card, kerns, sw, held):
     on_card = lambda: http_verdicts_attr(hmodel, *wide["nfa-wide-http"]["dev"])  # noqa: E731
     timed["nfa-wide-http"].update(pass_times(on_card, lambda: http_verdicts_attr(hmodel, hdata, hlen, hrem)))
     log_pass("nfa-wide-http", "http_verdicts_attr", timed["nfa-wide-http"], card)
+    sections["times"] = time.monotonic() - t_sec
+    log("state sections (host clock s): " + json.dumps(sections))
     return launches, runs, report, timed
+
+
+# --- phase 16: the agent, from policy to verdict and through a restart ------------
+
+# policy-1000 without its 128-identity sources: the daemon pushes every
+# endpoint's policy to the verdict service, whose model takes at most 32
+# remotes a rule (models/base.py MAX_REMOTES, the reference's too; a conn
+# on a policy with a wider rule loses its connection)
+DAEMON_WORLD = (1000, 20, 0.0)
+# Each endpoint's regeneration pushes the full NPDS state, ACK-gated, and
+# the service rebuilds every engine a conn has bound on each push: a round
+# of N regenerations costs about N x N engine builds (at 32 endpoints, 4.5 s
+# a push and 223 s for the delete's round on the H100's host), so the phase
+# runs 16 endpoints to keep the script inside its time limit.
+DAEMON_ENDPOINTS = 16
+DAEMON_ACK_TIMEOUT_S = 120.0  # a push waits for the service to rebuild its bound engines
+DAEMON_ENGINE_FLOWS = 4096
+DAEMON_K13_F = 8192  # queries a endpoint map
+DAEMON_SAMPLE = 2000  # of them held to PolicyMap.lookup; prefilter sources held to the deny sets
+DAEMON_DELETE = 100  # rules deleted together (one policy of many rules): those that select the most endpoints
+DAEMON_DELETE_LABEL = "k8s:policy-set=bulk"  # the label the deleted rules share
+DAEMON_BASE = 8_000_000  # the service conns' ids; each later drive 1,000 above the last
+DAEMON_NODE = "192.168.20.1"
+DAEMON_FQDN = "svc.example.com"
+DAEMON_FQDN_CIDR = "10.96.0.0/16"  # the FQDN rule's own toCIDRSet section
+DAEMON_FQDN_IPS = ("10.96.3.7", "10.96.41.9", "10.96.200.1")  # the stub resolver's answer
+DAEMON_WAIT_S = 900.0  # the longest wait for endpoints to settle
+
+
+def daemon_fqdn_rule(labels):
+    """An egress rule selecting the endpoint of ``labels`` (its full label
+    set): one section to ``DAEMON_FQDN`` and one to ``DAEMON_FQDN_CIDR``."""
+    return {"endpointSelector": {"matchLabels": dict(lbl.split("=", 1) for lbl in labels)},
+            "labels": ["k8s:policy=fqdn"],
+            "egress": [{"toFQDNs": [{"matchName": DAEMON_FQDN}]},
+                       {"toCIDRSet": [{"cidr": DAEMON_FQDN_CIDR}]}]}
+
+
+def _selects(rule, labels) -> bool:
+    lbls = set(labels)
+    return all(f"{k}={v}" in lbls for k, v in rule["endpointSelector"]["matchLabels"].items())
+
+
+def daemon_endpoint_ids(ids, rules, n):
+    """The ``n`` identities the most rules select (the lowest first on a
+    tie), as ``entry.policy_destination`` ranks them."""
+    return sorted(sorted(ids), key=lambda x: -sum(_selects(r, ids[x]) for r in rules))[:n]
+
+
+def daemon_deleted_rules(rules, label_sets, n):
+    """The labels of the ``n`` rules that select the most of ``label_sets``
+    (the endpoints'; the earliest first on a tie)."""
+    ranked = sorted(range(len(rules)), key=lambda i: -sum(_selects(rules[i], ls) for ls in label_sets))
+    return [rules[i]["labels"][0] for i in ranked[:n]]
+
+
+def every_kernel():
+    """Every kernel of the port by launcher name, the modules that define
+    them imported first."""
+    import importlib
+
+    from cilium_tpu_torch import kernels
+
+    for mod in ("models.base", "models.r2d2", "models.http", "models.dns", "models.cassandra",
+                "models.memcached", "models.kafka", "ops.dfa", "ops.nfa", "ops.gather",
+                "ops.seqdfa", "ops.lpm", "ops.maplookup", "maps.lbmap", "maps.policymap",
+                "datapath.pipeline", "datapath.ingress", "parallel.rulesharding",
+                "sidecar.latbench"):
+        importlib.import_module(f"cilium_tpu_torch.{mod}")
+    every = {k.symbol: k for k in kernels.ALL}
+    if len(every) != len(kernels.ALL):
+        raise AssertionError("two kernels share a launcher name")
+    return every
+
+
+def daemon_mismatch_lines(label, got, want, rounds, names, n=3):
+    """Log the first ``n`` (conn, round) pairs whose service output differs
+    from the oracle's, with the conn's policy, remote and bytes."""
+    shown = 0
+    for r, (g, w) in enumerate(zip(got, want)):
+        for fid in sorted(set(g) | set(w)):
+            if g.get(fid) != w.get(fid) and shown < n:
+                shown += 1
+                sent = [(c, rem) for f, c, rem, _ in rounds[r] if f == fid]
+                log(f"{label}: conn {fid} round {r} policy {names[fid]} remote {sent[0][1] if sent else None} "
+                    f"bytes {sent[0][0] if sent else None!r}: service {g.get(fid)} != oracle {w.get(fid)}")
+
+
+def daemon_slice(dev, card, kerns):
+    """Phase 16, the agent on the card: a ``Daemon`` with its kvstore,
+    identities, endpoints, proxy engines, NPDS push, prefilter, DNS poller
+    and a restart, counted in a run of its own over every kernel.
+    ``option.config``, the kvstore client and the proxylib registry are put
+    back after it.  Returns (launches, runs, report, timed)."""
+    import tempfile
+
+    from cilium_tpu_torch import kvstore as kv_mod
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.utils import option
+
+    log("== daemon slice")
+    t_phase = time.monotonic()
+    saved = option.config, kv_mod._default_client
+    held = {}
+    inst.reset_module_registry()
+    try:
+        with tempfile.TemporaryDirectory(prefix="daemon-", dir=".") as tmp:
+            try:
+                out = _daemon_runs(dev, card, kerns, tmp, held)
+            finally:
+                for key in ("daemon", "svc", "peer", "peer_kv", "server"):
+                    obj = held.pop(key, None)
+                    if obj is not None:
+                        (obj.stop if key == "svc" else obj.close)()
+    finally:
+        option.config, kv_mod._default_client = saved
+        inst.reset_module_registry()
+    log(f"daemon slice: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def _daemon_runs(dev, card, kerns, tmp, held):
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.datapath.prefilter import PreFilter
+    from cilium_tpu_torch.endpoint import EndpointState
+    from cilium_tpu_torch.identity import IdentityAllocator
+    from cilium_tpu_torch.kvstore import KvstoreServer, NetBackend
+    from cilium_tpu_torch.labels import LabelArray, Labels
+    from cilium_tpu_torch.maps import policymap as pol_mod
+    from cilium_tpu_torch.maps.policymap import DIR_INGRESS
+    from cilium_tpu_torch.models.http import (
+        HttpBatchModel,
+        http_frame,
+        http_frame_plain,
+        http_hits,
+        http_hits_plain,
+        http_lit,
+        http_lit_plain,
+    )
+    from cilium_tpu_torch.models.kafka import KafkaBatchModel, encode_requests, kafka_hits, kafka_verdicts_plain
+    from cilium_tpu_torch.kafka import parse_request
+    from cilium_tpu_torch.monitor.monitor import MSG_TYPE_ACCESS_LOG
+    from cilium_tpu_torch.ops import dfa as dfa_mod
+    from cilium_tpu_torch.ops import lpm as lpm_mod
+    from cilium_tpu_torch.ops import nfa as nfa_mod
+    from cilium_tpu_torch.ops.dfa import DeviceDfa
+    from types import SimpleNamespace
+
+    from cilium_tpu_torch.policy import L4Policy, Repository, SearchContext, proxy_id, rules_from_json
+    from cilium_tpu_torch.proxy.npds_push import network_policy_for_endpoint
+    from cilium_tpu_torch.proxylib import compile_policy
+    from cilium_tpu_torch.runtime.engines import HttpBatchEngine, KafkaBatchEngine
+    from cilium_tpu_torch.runtime.engines_util import kafka_host_rows
+    from cilium_tpu_torch.sidecar import VerdictService
+    from cilium_tpu_torch.utils import metrics
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counts():
+        return {n: k.launches + k.replayed for n, k in kerns.items()}
+
+    runs, stages = {}, {}
+
+    def stage(name, secs, **info):
+        stages[name] = (secs, info)
+        log(f"daemon {name}: {secs:.3f} s (host clock); " + ", ".join(f"{k} {v}" for k, v in info.items())
+            + f" [{card}]")
+
+    def counted(name, fn):
+        before = counts()
+        out = fn()
+        sync()
+        now = counts()
+        run = runs.setdefault(name, dict.fromkeys(kerns, 0))
+        for n in kerns:
+            run[n] += now[n] - before[n]
+        return out
+
+    def wait_for(cond, what, timeout=DAEMON_WAIT_S):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"daemon: {what} within {timeout:.0f} s")
+            time.sleep(0.02)
+
+    def regenerations():
+        return int(metrics.EndpointRegenerationCount.get("success")
+                   + metrics.EndpointRegenerationCount.get("fail"))
+
+    def settled(d, eps, rev):
+        return all(ep.state == EndpointState.READY and ep.policy_revision >= rev for ep in eps) \
+            and d.build_queue.wait_idle(0.01)
+
+    ids = entry.policy_identities()
+    rules = entry.policy_rules(*DAEMON_WORLD)
+    ep_ids = daemon_endpoint_ids(ids, rules, DAEMON_ENDPOINTS)
+    fqdn_labels = ids[ep_ids[0]]
+    gone = set(daemon_deleted_rules(rules, [ids[n] for n in ep_ids], DAEMON_DELETE))
+    for r in rules:
+        if r["labels"][0] in gone:
+            r["labels"].append(DAEMON_DELETE_LABEL)
+    doc = json.dumps(rules + [daemon_fqdn_rule(fqdn_labels)])
+    cfg = DaemonConfig(
+        kvstore="tcp", run_dir=f"{tmp}/run", dry_mode=False, enable_health=True, node_ipv4=DAEMON_NODE,
+        verdict_device="default" if on_card else "cpu", socket_path=f"{tmp}/agent.sock",
+        monitor_socket_path=f"{tmp}/monitor.sock", proxy_ack_timeout_s=DAEMON_ACK_TIMEOUT_S,
+    )
+
+    # the main path, counted: every count is 0 from here to the restart's K13
+    log("== daemon main path (counted)")
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+
+    # 1. setup: the cluster's store, its 512 identities allocated by a peer
+    # agent, and the daemon on the card with health and a node address
+    t0 = time.monotonic()
+    server = held["server"] = KvstoreServer()
+    cfg.kvstore_opts = {"address": server.address}
+    peer_kv = held["peer_kv"] = NetBackend(server.address)
+    peer = held["peer"] = IdentityAllocator(backend=peer_kv, node_name="peer")
+    numeric = {}
+    for n in sorted(ids):
+        ident, _ = peer.allocate(Labels.from_model(ids[n]))
+        numeric[n] = ident.id
+    stage("identities", time.monotonic() - t0, allocated=len(numeric))
+    t0 = time.monotonic()
+    dm = held["daemon"] = Daemon(cfg, node_name="agent-16")
+    if {dm.device.type, dm.prefilter.device.type, dm.endpoint_manager.device.type} != {dev.type}:
+        raise AssertionError(f"daemon: device {dm.device}, not {dev}")
+    events = []
+    dm.monitor.add_listener(events.append, queued=False)
+    wait_for(lambda: all(i in dm.get_identity_cache() for i in numeric.values()),
+             "the daemon's identity cache learns the peer's identities")
+    stage("start", time.monotonic() - t0, identities=len(dm.get_identity_cache()))
+
+    # 2. policy in, 3. endpoints: created one at a time, readied through the
+    # daemon's trigger and build queue
+    regen0 = regenerations()
+    t_policy = time.monotonic()
+    rev = dm.policy_add(rules_from_json(doc))
+    eps = []
+    for i, n in enumerate(ep_ids):
+        eps.append(dm.endpoint_create(i + 1, ipv4=f"10.40.{i // 250}.{i % 250 + 1}", labels=ids[n]))
+    wait_for(lambda: settled(dm, eps, rev), "every endpoint ready at the policy's revision")
+    t_ready = time.monotonic()
+    stage("policy-to-ready", t_ready - t_policy, rules=dm.policy.num_rules(), endpoints=len(eps),
+          regenerations=regenerations() - regen0, redirects=len(dm.proxy_manager.redirects))
+    if any(ep.security_identity.id != numeric[n] for ep, n in zip(eps, ep_ids)):
+        raise AssertionError("daemon: an endpoint's identity differs from the peer's for its labels")
+    if any(ep.device_policy_map is None or ep.device_policy_map.device.type != dev.type for ep in eps):
+        raise AssertionError("daemon: an endpoint's policy map is not on the daemon's device")
+    cache = dm.get_identity_cache()
+    pool = sorted(numeric.values())
+
+    # 4. the verdict service on the card at its defaults; the NPDS push
+    svc_path = f"{tmp}/vs.sock"
+    held["svc"] = VerdictService(svc_path, side_config(**({} if on_card else {"verdict_device": "cpu"}))).start()
+    t0 = time.monotonic()
+    pusher = dm.attach_verdict_service(svc_path)
+    stage("attach", time.monotonic() - t0, pushes=pusher.pushes, nacks=pusher.nacks)
+    if pusher.nacks or pusher.pushes < len(eps):
+        raise AssertionError(f"daemon: {pusher.pushes} NPDS pushes, {pusher.nacks} NACKs")
+
+    # 5. the daemon's own engines, built by its ProxyManager for the first
+    # endpoint's redirects
+    ep0 = eps[0]
+    eng_h = dm.proxy_manager.redirects[proxy_id(ep0.id, True, "TCP", 80)].implementation
+    red_k = dm.proxy_manager.redirects[proxy_id(ep0.id, True, "TCP", 9092)]
+    eng_k = red_k.implementation
+    if (type(eng_h) is not HttpBatchEngine or not isinstance(eng_h.model, HttpBatchModel)
+            or type(eng_k) is not KafkaBatchEngine or not isinstance(eng_k.model, KafkaBatchModel)):
+        raise AssertionError(f"daemon: engines {type(eng_h).__name__} / {type(eng_k).__name__}")
+    if eng_h.logger is not dm.access_logger or eng_h.monitor is not dm.monitor:
+        raise AssertionError("daemon: the HTTP engine lacks the daemon's access logger or monitor")
+    hmodel, kmodel = eng_h.model, eng_k.model
+    if hmodel.m_needle.device.type != dev.type:
+        raise AssertionError("daemon: the HTTP engine's model is not on the daemon's device")
+    hfeeds = policy_http_feeds(random.Random(29), pool, DAEMON_ENGINE_FLOWS)
+    kfeeds = policy_kafka_feeds(random.Random(30), pool, DAEMON_ENGINE_FLOWS)
+    n_access = sum(1 for e in events if e.type == MSG_TYPE_ACCESS_LOG)
+    eng_out = {
+        "daemon-http-engine": counted("daemon-http-engine", lambda: run_l7_engine(lambda: eng_h, hfeeds)[0]),
+        "daemon-kafka-engine": counted("daemon-kafka-engine", lambda: run_l7_engine(lambda: eng_k, kfeeds)[0]),
+    }
+    n_access = sum(1 for e in events if e.type == MSG_TYPE_ACCESS_LOG) - n_access
+    oracle_policy = compile_policy(network_policy_for_endpoint(ep0, cache))
+    checks = {"daemon-http-engine": (run_http_stream(oracle_policy, hfeeds), "the streaming HttpParser"),
+              "daemon-kafka-engine": (kafka_oracle(kafka_host_rows(red_k.l4_filter, cache), kfeeds),
+                                      "matches_rule over kafka_host_rows")}
+    for label, (want, what) in checks.items():
+        got = eng_out[label]
+        if got != want:
+            raise AssertionError(f"{label}: ops differ from {what}: {_first_diff(got, want)}")
+        n_ops = sum(len(o) for _, o, _ in got)
+        n_drop = sum(1 for _, o, _ in got for op, _ in o if op == 2)
+        if not n_drop or n_drop == n_ops:
+            raise AssertionError(f"{label}: the traffic is all allowed or all denied")
+        log(f"{label}: endpoint {ep0.id}'s engine ({hmodel.n_rules if 'http' in label else kmodel.n_rules} "
+            f"rows), {DAEMON_ENGINE_FLOWS} flows x 3 rounds, {n_ops} ops ({n_drop} DROP), 0 mismatches "
+            f"against {what}")
+    if n_access <= 0:
+        raise AssertionError("daemon: the access logger delivered no access-log event to the monitor")
+    log(f"daemon monitor: {n_access} access-log events from the engines")
+
+    # 6. K13 on every endpoint's exported map
+    rng = np.random.default_rng(16)
+    qpool = np.asarray(pool + [1, 2, 4242, 99_999], np.int64)
+    q7 = (_i32(rng.choice(qpool, DAEMON_K13_F)),
+          _i32(rng.choice(np.array([80, 9092, 8080, 443, 0]), DAEMON_K13_F, p=[0.4, 0.3, 0.1, 0.1, 0.1])),
+          _i32(rng.choice(np.array([6, 17, 0]), DAEMON_K13_F, p=[0.8, 0.1, 0.1])))
+    q7_dev = tuple(torch.from_numpy(a).to(dev) for a in q7)
+    k13_in = {ep.id: ep.device_policy_map for ep in eps}
+    ports7 = {r.proxy_port: pid for pid, r in dm.proxy_manager.redirects.items()}
+    k13 = counted("daemon-policy", lambda: {i: pol_mod.policy_can_access_batch(m, *q7_dev, DIR_INGRESS)
+                                            for i, m in k13_in.items()})
+    sample = [i for i in sorted(random.Random(16).sample(range(DAEMON_K13_F), DAEMON_SAMPLE)) if q7[1][i] != 0]
+    q7_cpu = tuple(torch.from_numpy(a) for a in q7)
+    allowed_share = []
+    for ep in eps:
+        got = [x.cpu() for x in k13[ep.id]]
+        want = pol_mod.policy_can_access_batch(ep.policy_map.to_device(device="cpu"), *q7_cpu, DIR_INGRESS)
+        if max_abs_err(got, list(want)) != 0:
+            raise AssertionError(f"daemon-policy: endpoint {ep.id}'s map on {dev} differs from the CPU path")
+        a, pp = got[0].numpy(), got[1].numpy()
+        for i in sample:
+            if (bool(a[i]), int(pp[i])) != ep.policy_map.lookup(int(q7[0][i]), int(q7[1][i]), int(q7[2][i]),
+                                                                DIR_INGRESS, count_packets=False):
+                raise AssertionError(f"daemon-policy: endpoint {ep.id} query {i} != PolicyMap.lookup")
+        allowed_share.append(float(a.mean()))
+    log(f"daemon-policy: K13 on {len(eps)} endpoint maps ({sum(len(ep.policy_map.entries) for ep in eps)} entries) x "
+        f"{DAEMON_K13_F} queries == the CPU path, {len(sample)} a map == PolicyMap.lookup; allowed share "
+        f"{min(allowed_share):.3f}-{max(allowed_share):.3f}")
+
+    # 7. K12 on the daemon: its prefilter with phase 8's deny list, then the
+    # DNS poller's answer in its ipcache map
+    cidrs, src4, _ = prefilter_case(F)
+    words4 = _i32(src4)
+    dm.prefilter.insert(1, cidrs)
+    keep = counted("daemon-prefilter", lambda: dm.prefilter.filter_batch(words4))
+    pf_cpu = PreFilter(device="cpu")
+    pf_cpu.insert(1, cidrs)
+    if not np.array_equal(keep, pf_cpu.filter_batch(words4)):
+        raise AssertionError("daemon-prefilter: the keep mask differs from the CPU path")
+    deny = [n for n in map(ipaddress.ip_network, cidrs) if n.version == 4]
+    for i in sorted(random.Random(43).sample(range(F), DAEMON_SAMPLE)):
+        if bool(keep[i]) == any(ipaddress.ip_address(src4[i]) in n for n in deny):
+            raise AssertionError(f"daemon-prefilter: source {i} disagrees with the deny sets")
+    log(f"daemon-prefilter: K12 over {dm.prefilter.device_lpm().n} v4 prefixes at F={F} == the CPU path, "
+        f"== the deny sets on {DAEMON_SAMPLE}; drop share {1 - float(keep.mean()):.3f}")
+    fq_ep = eps[0]
+    rev_fq = fq_ep.policy_revision
+    t0 = time.monotonic()
+    dm.start_dns_poller(lambda name: (list(DAEMON_FQDN_IPS), 3600.0), interval=3600.0)
+    want_cidrs = {f"{ip}/32" for ip in DAEMON_FQDN_IPS}
+
+    def generated():
+        with dm.policy.mutex:
+            return {c.cidr for r in dm.policy.rules for e in r.egress for c in e.to_cidr_set if c.generated}
+
+    wait_for(lambda: generated() == want_cidrs and fq_ep.policy_revision > rev_fq
+             and settled(dm, eps, dm.policy.get_revision()), "the FQDN endpoint regenerates on the poller's answer")
+    stage("fqdn", time.monotonic() - t0, generated=len(generated()), revision=f"{rev_fq} -> {fq_ep.policy_revision}")
+    cidr_id = dm._cidr_identities[DAEMON_FQDN_CIDR].id
+    addrs = list(DAEMON_FQDN_IPS) + [ep.ipv4 for ep in eps] + ["10.97.0.1", "172.16.5.5", DAEMON_NODE]
+    words = _i32([int(ipaddress.IPv4Address(a)) for a in addrs])
+    words = np.resize(words, F)
+    lpm = dm.ipcache_map.to_device(device=dev)
+    found, value, _ = (x.cpu().numpy() for x in counted(
+        "daemon-ipcache", lambda: lpm_mod.lpm_lookup(lpm, torch.from_numpy(words).to(dev))))
+    for i, a in enumerate(addrs):
+        info = dm.ipcache_map.lookup(a)
+        if bool(found[i]) != (info is not None) or (info is not None and int(value[i]) != info.sec_label):
+            raise AssertionError(f"daemon-ipcache: {a} != IpcacheMap.lookup")
+    for i in range(len(DAEMON_FQDN_IPS)):
+        if not found[i] or int(value[i]) != cidr_id:
+            raise AssertionError(f"daemon-ipcache: {addrs[i]} not found under {DAEMON_FQDN_CIDR}'s identity")
+    if not (np.resize(found[:len(addrs)], F) == found).all():
+        raise AssertionError("daemon-ipcache: rows of one address disagree")
+    log(f"daemon-fqdn: the poller's {len(want_cidrs)} CIDRs regenerated endpoint {fq_ep.id} in "
+        f"{stages['fqdn'][0]:.3f} s; K12 on the daemon's ipcache map ({lpm.n} prefixes) finds them under "
+        f"{DAEMON_FQDN_CIDR}'s identity {cidr_id}, == IpcacheMap.lookup on {len(addrs)} addresses")
+
+    # 8. HTTP conns through the service on the pushed policies (after the
+    # FQDN's round of regenerations: each push rebuilds every engine a conn
+    # has bound in the service, so the round before any conn pushes cheaply)
+    pols = [network_policy_for_endpoint(ep, cache) for ep in eps]
+    names, rounds = policy_npds_traffic(random.Random(31), eps, pols, pool)
+    shifts = iter(range(DAEMON_BASE - SIDE_BASES["http"], 1 << 40, 1000))
+
+    def serve(tag, rnds=None):
+        rnds = rounds if rnds is None else rnds
+        shift = next(shifts)
+        driver = SidecarDriver(svc_path, "socket", None, base_shift=shift)
+        try:
+            fids = driver.open("http", rnds, names=names)
+            out = counted(tag, lambda: driver.run("http", rnds, lambda fid: 0))
+            driver.close("http", fids)
+        finally:
+            driver.close_client()
+        return out, SIDE_BASES["http"] + shift
+
+    served, base = serve("daemon-service")
+    oracle = sidecar_oracle("http", rounds, pols, name=names, port=80, base=base)
+    bad = side_mismatches(served, oracle)
+    daemon_mismatch_lines("daemon-service", served, oracle, rounds, names)
+    ops = [op for rnd in oracle for o, _, _ in rnd.values() for op, _ in o]
+    log(f"daemon-service: {len(eps)} endpoints' NPDS policies ({pusher.pushes} pushes, 0 NACKs), "
+        f"{POLICY_NPDS_CONNS} conns x {len(rounds)} rounds, {side_frames(oracle)} requests "
+        f"({ops.count(1)} PASS, {ops.count(2)} DROP): {bad} mismatches against the in-process proxylib oracle")
+    if bad or not ops.count(1) or not ops.count(2):
+        raise AssertionError("daemon-service: the service disagrees, or allows or denies everything")
+
+    # 9. delete rules. The endpoints' policies after the delete, resolved
+    # beforehand from a repository of the remaining rules, name the conns
+    # whose verdicts change; one of them is probed until its verdict
+    # changes. Then new conns are held to the oracle on the regenerated
+    # policies, which must equal the prediction.
+    kept = Repository()
+    for rule in rules_from_json(json.dumps([r for r in json.loads(doc) if DAEMON_DELETE_LABEL not in r["labels"]])):
+        kept.add(rule)
+    pred = [network_policy_for_endpoint(SimpleNamespace(
+        id=ep.id, ipv4=ep.ipv4, security_identity=ep.security_identity, desired_l4_policy=L4Policy(
+            ingress=kept.resolve_l4_ingress_policy(SearchContext(to_labels=ep.security_label_array())))), cache)
+        for ep in eps]
+    oracle_pred = sidecar_oracle("http", rounds, pred, name=names, port=80, base=base)
+    moved = sorted({fid for o, p in zip(oracle, oracle_pred) for fid in o if o[fid] != p.get(fid)})
+    if not moved:
+        raise AssertionError("daemon-delete: the delete changes the verdict of no conn")
+    probe_rounds = [[e for e in rnd if e[0] == moved[0]] for rnd in rounds]
+    probe_before = [{moved[0]: rnd[moved[0]]} for rnd in served]
+    regen0 = regenerations()
+    t_del = time.monotonic()
+    deleted = dm.policy_delete(LabelArray.parse(DAEMON_DELETE_LABEL))[1]
+    t_deleted = time.monotonic()
+    rev_del = dm.policy.get_revision()
+    first_change, probes = None, 0
+    while first_change is None:
+        done = settled(dm, eps, rev_del)
+        out, _ = serve("daemon-delete-probe", probe_rounds)
+        probes += 1
+        if side_mismatches(out, probe_before):
+            first_change = time.monotonic() - t_del
+        elif done:
+            break
+        elif time.monotonic() - t_del > DAEMON_WAIT_S:
+            raise AssertionError("daemon: endpoints did not settle after the delete")
+        else:
+            time.sleep(0.2)  # the build-queue workers share the host's cores with the probe
+    wait_for(lambda: settled(dm, eps, rev_del), "every endpoint ready after the delete")
+    t_settle = time.monotonic() - t_del
+    pols2 = [network_policy_for_endpoint(ep, cache) for ep in eps]
+    served2, base2 = serve("daemon-delete")
+    oracle2 = sidecar_oracle("http", rounds, pols2, name=names, port=80, base=base2)
+    bad2 = side_mismatches(served2, oracle2)
+    daemon_mismatch_lines("daemon-delete", served2, oracle2, rounds, names)
+    changed = side_mismatches(served2, served)
+    changed_fids = sorted({fid for g, w in zip(served2, served) for fid in g if g[fid] != w.get(fid)})
+    if [dataclasses.asdict(x) for x in pols2] != [dataclasses.asdict(x) for x in pred] or changed_fids != moved:
+        raise AssertionError("daemon-delete: the regenerated policies or the changed conns differ from the "
+                             "prediction of a repository of the remaining rules")
+    stage("delete", t_settle, deleted=deleted, delete_calls_s=round(t_deleted - t_del, 3),
+          first_changed_verdict_s=first_change, probes=probes, regenerations=regenerations() - regen0,
+          pushes=pusher.pushes, nacks=pusher.nacks)
+    log(f"daemon-delete: {deleted} rules deleted; first changed verdict "
+        f"{'none' if first_change is None else f'{first_change:.3f} s'} after the delete ({probes} probes of "
+        f"conn {moved[0]}); endpoints settled in {t_settle:.3f} s; {changed} (conn, round) outputs of "
+        f"{len(moved)} conns changed, as predicted; new conns {bad2} mismatches against the oracle on the "
+        "regenerated policies, which equal the prediction")
+    if deleted != DAEMON_DELETE or bad2 or not changed or first_change is None or pusher.nacks:
+        raise AssertionError("daemon-delete: mismatches, a NACK, or no verdict changed")
+
+    # 10. restart: a second daemon on the same run_dir; the policy is added
+    # again, then the endpoints are restored from the run_dir and regenerate
+    # once (as the agent waits for its policy sources before it regenerates
+    # restored endpoints); K13 on the restored maps
+    dm.close()
+    held.pop("daemon")
+    regen0 = regenerations()
+    t0 = time.monotonic()
+    dm2 = held["daemon"] = Daemon(dataclasses.replace(cfg, restore_state=False), node_name="agent-16")
+    rev2 = dm2.policy_add(rules_from_json(doc))
+    t_policy2 = time.monotonic() - t0
+    n_restored = dm2.restore_endpoints()
+    restored = sorted(dm2.endpoint_manager.get_endpoints(), key=lambda ep: ep.id)
+    t_restored = time.monotonic() - t0
+    if n_restored != len(eps) or [ep.id for ep in restored] != [ep.id for ep in eps] or any(
+            ep.device.type != dev.type for ep in restored):
+        raise AssertionError(f"daemon restart: restored {[ep.id for ep in restored]} on the wrong device")
+    wait_for(lambda: settled(dm2, restored, rev2) and all(ep.policy_revision == rev2 for ep in restored),
+             "every restored endpoint ready at the re-added policy")
+    stage("restart", time.monotonic() - t0, restored=len(restored), policy_s=round(t_policy2, 3),
+          restore_s=round(t_restored, 3), regenerations=regenerations() - regen0,
+          redirects=len(dm2.proxy_manager.redirects))
+    k13_again_in = {ep.id: ep.device_policy_map for ep in restored}
+    ports10 = {r.proxy_port: pid for pid, r in dm2.proxy_manager.redirects.items()}
+    moved = 0
+    k13_again = counted("daemon-restart", lambda: {i: pol_mod.policy_can_access_batch(m, *q7_dev, DIR_INGRESS)
+                                                   for i, m in k13_again_in.items()})
+    for i, got in k13_again.items():
+        a0, p0 = (x.cpu().numpy() for x in k13[i])
+        a1, p1 = (x.cpu().numpy() for x in got)
+        if not np.array_equal(a0, a1) or [ports7.get(int(x), int(x)) for x in p0] != [
+                ports10.get(int(x), int(x)) for x in p1]:
+            raise AssertionError(f"daemon restart: endpoint {i}'s K13 outputs differ from before the restart")
+        moved += int((p0 != p1).sum())
+    log(f"daemon-restart: {len(restored)} endpoints restored {t_restored:.3f} s and ready at the re-added "
+        f"policy {stages['restart'][0]:.3f} s after the second daemon began; K13 on their maps == step 7's "
+        f"(verdicts equal; proxy ports equal as redirects: {moved} outputs carry a redirect's new port, the "
+        "ports being allocated in the order the build-queue workers reach the endpoints)")
+    sync()
+    launches = {n: sum(r[n] for r in runs.values()) for n in kerns}
+    total = counts()
+    runs["daemon-build"] = {n: total[n] - launches[n] for n in kerns}  # outside every step: the builds
+    launches = total
+    status = dm2.status()
+    metric_lines = [ln for ln in dm2.metrics_text().splitlines() if ln and not ln.startswith("#")]
+    dm2.close()
+    held.pop("daemon")
+
+    # 11. report
+    log("daemon status:", json.dumps(status, default=str, sort_keys=True))
+    log(f"daemon metrics_text: {len(metric_lines)} samples; " + ", ".join(
+        ln for ln in metric_lines if ln.split("{")[0].split(" ")[0] in (
+            "cilium_tpu_endpoint_regenerations_total", "cilium_tpu_policy_count",
+            "cilium_tpu_endpoint_count", "cilium_tpu_policy_max_revision")))
+    log("daemon stages (host clock s): " + json.dumps({name: secs for name, (secs, _) in stages.items()}))
+    log("launches:", json.dumps({n: v for n, v in launches.items() if v}))
+    log("launches by run:", json.dumps({n: {k: c for k, c in r.items() if c} for n, r in runs.items()}))
+    if on_card:
+        for n in ("dfa_scan", "http_frame", "http_lit", "http_hits", "lpm_lookup", "policy_can_access",
+                  "kafka_hits"):
+            if launches[n] <= 0:
+                raise AssertionError(f"kernel {n} was not launched on the daemon slice's main path")
+        want = {"daemon-policy": {"policy_can_access": len(eps)}, "daemon-restart": {"policy_can_access": len(eps)},
+                "daemon-prefilter": {"lpm_lookup": 1}, "daemon-ipcache": {"lpm_lookup": 1}}
+        for name, wv in want.items():
+            got = {k: c for k, c in runs[name].items() if c}
+            if got != wv:
+                raise AssertionError(f"{name}: launches {got} != {wv}")
+        for name, names_ in (("daemon-service", ("http_frame", "http_lit", "http_hits")),
+                             ("daemon-http-engine", ("http_frame", "http_lit", "http_hits")),
+                             ("daemon-kafka-engine", ("kafka_hits",)),
+                             ("daemon-delete", ("http_frame", "http_lit", "http_hits"))):
+            missing = [n for n in names_ if not runs[name][n]]
+            if missing:
+                raise AssertionError(f"{name}: {missing} never launched")
+
+    # the kernels against their plain versions at the slice's inputs: K13 on
+    # every map, K12 on the prefilter and the ipcache map, K5-K7 and K2 / K3
+    # on the daemon's HTTP engine model, K17 on its Kafka model
+    log("== daemon kernels vs plain")
+    report = {}
+
+    def put(kname, label, got, want):
+        report.setdefault(kname, {})[label] = max_abs_err(_flat(got), _flat(want))
+
+    for tag, maps in (("daemon-policy", k13_in), ("daemon-restart", k13_again_in)):
+        for i, m in maps.items():
+            put("policy_can_access", f"{tag}/{i}", pol_mod.policy_can_access_batch(m, *q7_dev, DIR_INGRESS),
+                pol_mod.policy_can_access_plain(m, *q7_dev, DIR_INGRESS))
+    w4 = torch.from_numpy(words4).to(dev)
+    pf_lpm = dm.prefilter.device_lpm()
+    put("lpm_lookup", "daemon-prefilter", lpm_mod.lpm_lookup(pf_lpm, w4), lpm_mod.lpm_lookup_plain(pf_lpm, w4))
+    wd = torch.from_numpy(words).to(dev)
+    put("lpm_lookup", "daemon-ipcache", lpm_mod.lpm_lookup(lpm, wd), lpm_mod.lpm_lookup_plain(lpm, wd))
+    heads = entry.policy_http_requests(POLICY_PERIOD)
+    rem = policy_remotes(random.Random(28), pool, POLICY_PERIOD)
+    data, lengths, rm = (torch.from_numpy(a).to(dev) for a in tile_heads(heads, rem, POLICY_PERIOD, POLICY_L))
+    frame = http_frame(data, lengths)
+    put("http_frame", "daemon-http", frame, http_frame_plain(data, lengths))
+    lit = http_lit(hmodel, data, frame)
+    put("http_lit", "daemon-http", lit, http_lit_plain(hmodel, data, frame))
+    spans = {"method": (hmodel.line_nfa, torch.zeros_like(frame.sp1), frame.sp1, hmodel.has_method_rx),
+             "path": (hmodel.line_nfa, frame.p_start, frame.sp2, hmodel.has_path_rx),
+             "head": (hmodel.head_nfa, frame.line_end, frame.h_end, hmodel.head_nfa is not None)}
+    rx = {}
+    for span, (tab, s, e, on) in spans.items():
+        if not on:
+            continue
+        if isinstance(tab, DeviceDfa):
+            kname, scan, plain = "dfa_scan", dfa_mod.dfa_search_spans, dfa_mod.dfa_scan_plain
+        else:
+            kname, scan, plain = "nfa_scan", nfa_mod.nfa_search_spans, nfa_mod.nfa_scan_plain
+        rx[span] = scan(tab, data, s, e)
+        put(kname, f"daemon-http:{span}", [rx[span]], [plain(tab, data, s, e)])
+    args = (frame.complete, *lit, rx.get("method"), rx.get("path"), rx.get("head"), rm)
+    put("http_hits", "daemon-http", http_hits(hmodel, *args), http_hits_plain(hmodel, *args))
+    kreqs = [parse_request(fr) for fr in entry.policy_kafka_frames(POLICY_PERIOD)]
+    kb = encode_requests(kreqs).to_device(dev)
+    krem = torch.from_numpy(np.asarray(policy_remotes(random.Random(30), pool, POLICY_PERIOD), np.int32)).to(dev)
+    put("kafka_hits", "daemon-kafka", [kafka_hits(kmodel, kb, krem)], [kafka_verdicts_plain(kmodel, kb, krem)])
+    log("max |kernel - plain|:", json.dumps(report))
+    for kname, per in report.items():
+        for label, err in per.items():
+            if err != 0:
+                raise AssertionError(f"{kname} disagrees with its plain version on {label}")
+    return launches, runs, report, {}
 
 
 def main() -> int:
@@ -6351,6 +6970,9 @@ def main() -> int:
     ap.add_argument("--state-only", action="store_true",
                     help="build every kernel and run phase 15 (the state slice) alone; prints its "
                     "readings and no result line")
+    ap.add_argument("--daemon-only", action="store_true",
+                    help="build every kernel and run phase 16 (the agent) alone; prints its readings "
+                    "and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -6409,6 +7031,10 @@ def main() -> int:
 
     if args.state_only:
         state_slice(dev, card, {k.symbol: k for k in kernels.ALL})
+        log(f"total {time.monotonic() - t_start:.1f} s")
+        return 0
+    if args.daemon_only:
+        daemon_slice(dev, card, every_kernel())
         log(f"total {time.monotonic() - t_start:.1f} s")
         return 0
 
@@ -6966,6 +7592,16 @@ def main() -> int:
     for kname, per in report15.items():
         report.setdefault(kname, {}).update(per)
     for kname, n in launches15.items():
+        launches[kname] = launches.get(kname, 0) + n
+
+    # The agent (a Daemon from policy to verdict, through a restart), last,
+    # counted in a run of its own over every kernel.
+    launches16, runs16, report16, timed16 = daemon_slice(dev, card, every_kernel())
+    runs.update(runs16)
+    timed.update(timed16)
+    for kname, per in report16.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches16.items():
         launches[kname] = launches.get(kname, 0) + n
 
     replaces = {

@@ -1,14 +1,44 @@
-"""Access log records, copied from ``cilium_tpu/accesslog/record.py``
-(reference: pkg/proxy/accesslog/record.go).  The HTTP and Kafka engines
-fill one ``LogRecord`` per judged request; the log server and logger are not part
-of the port yet."""
+"""Access log records and the agent-side log server.
+
+reference: pkg/proxy/accesslog/record.go (the canonical LogRecord with
+HTTP/Kafka/L7 variants) + pkg/envoy/accesslog_server.go (unix-socket server
+receiving per-request records from proxies, feeding the monitor and the
+structured log file) + proxylib/accesslog/client.go (the sender side).
+"""
 
 from .record import (
+    FLOW_TYPE_REQUEST,
+    FLOW_TYPE_RESPONSE,
+    FLOW_TYPE_SAMPLE,
+    OBS_POINT_INGRESS,
+    OBS_POINT_EGRESS,
     VERDICT_DENIED,
+    VERDICT_ERROR,
     VERDICT_FORWARDED,
+    EndpointInfo,
     HttpLogEntry,
     KafkaLogEntry,
+    L7LogEntry,
     LogRecord,
 )
+from .server import AccessLogClient, AccessLogServer
+from .logger import AccessLogger
 
-__all__ = ["HttpLogEntry", "KafkaLogEntry", "LogRecord", "VERDICT_DENIED", "VERDICT_FORWARDED"]
+__all__ = [
+    "AccessLogClient",
+    "AccessLogServer",
+    "AccessLogger",
+    "EndpointInfo",
+    "FLOW_TYPE_REQUEST",
+    "FLOW_TYPE_RESPONSE",
+    "FLOW_TYPE_SAMPLE",
+    "HttpLogEntry",
+    "KafkaLogEntry",
+    "L7LogEntry",
+    "LogRecord",
+    "OBS_POINT_EGRESS",
+    "OBS_POINT_INGRESS",
+    "VERDICT_DENIED",
+    "VERDICT_ERROR",
+    "VERDICT_FORWARDED",
+]

@@ -20,6 +20,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def config_device(config):
+    """The device a ``DaemonConfig`` names: ``"cpu"`` when its
+    ``verdict_device`` is ``"cpu"``, else None (the card).  The daemon's
+    endpoints, prefilter and engines all read it from here."""
+    return "cpu" if getattr(config, "verdict_device", "default") == "cpu" else None
+
+
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A contiguous ``dtype`` tensor on ``device`` from a numpy array or a
     tensor (the models' ``__call__`` contract)."""

@@ -33,6 +33,7 @@ from ..accesslog import (
     VERDICT_DENIED,
     VERDICT_FORWARDED,
 )
+from ..device import config_device
 from ..kafka import matches_rule, parse_request
 from ..kafka.request import KafkaParseError, frame_length
 from ..models.base import ConstVerdict
@@ -406,8 +407,7 @@ class KafkaBatchEngine(BaseBatchEngine):
 def _daemon_device(daemon):
     """The daemon's verdict device: ``"cpu"`` when its config asks for
     the CPU (``verdict_device="cpu"``), else None (the card)."""
-    cfg = getattr(daemon, "config", None)
-    return "cpu" if getattr(cfg, "verdict_device", "default") == "cpu" else None
+    return config_device(getattr(daemon, "config", None))
 
 
 def _daemon_mesh(daemon):

@@ -2861,3 +2861,100 @@ def test_table_index_build_waits_for_nothing(cuda, source):
     assert table.index is not built
     for a, b in zip(_index_tensors(table.index), _index_tensors(built)):
         assert torch.equal(a, b)
+
+
+# --- the agent: a daemon on the card against the same daemon on the CPU ----------------
+
+
+def _daemon_world(tmp_path, device):
+    """A port ``Daemon`` at ``verdict_device`` ``device`` ("default" is the
+    card) with 4 endpoints against ``entry.policy_rules(64)`` and 16
+    identities, seeded: per endpoint its K13 outputs on its exported map and
+    its HTTP and Kafka redirect engines' ops on seeded feeds, proxy ports as
+    the redirects they name."""
+    import json
+    import random
+    import time
+
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch import kvstore as kv_mod
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.labels import Labels
+    from cilium_tpu_torch.maps import policymap as pol_mod
+    from cilium_tpu_torch.policy import proxy_id, rules_from_json
+    from cilium_tpu_torch.utils import option
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    random.seed(64)
+    saved = option.config, kv_mod._default_client
+    ids = entry.policy_identities()
+    doc = entry.policy_rules(64)
+    ranked = sorted(sorted(ids), key=lambda n: -sum(
+        all(f"{k}={v}" in ids[n] for k, v in r["endpointSelector"]["matchLabels"].items()) for r in doc))
+    root = tmp_path / device
+    d = Daemon(DaemonConfig(run_dir=str(root), socket_path=str(root / "a.sock"),
+                            monitor_socket_path=str(root / "m.sock"), enable_health=False,
+                            verdict_device=device))
+    try:
+        for n in ranked[4:16]:
+            d.identity_allocator.allocate(Labels.from_model(ids[n]))
+        rev = d.policy_add(rules_from_json(json.dumps(doc)))
+        eps = [d.endpoint_create(i + 1, ipv4=f"10.50.0.{i + 1}", labels=ids[n]) for i, n in enumerate(ranked[:4])]
+        deadline = time.monotonic() + 300
+        while not all(ep.state.value == "ready" and ep.policy_revision >= rev for ep in eps):
+            assert time.monotonic() < deadline, "endpoints not ready"
+            time.sleep(0.05)
+        assert d.build_queue.wait_idle(60)
+        port_of = {r.proxy_port: pid for pid, r in d.proxy_manager.redirects.items()}
+        cache = sorted(d.get_identity_cache())
+        rng = np.random.default_rng(9)
+        q = [torch.from_numpy(a).to(d.device) for a in (
+            rng.choice(np.asarray(cache + [4242], np.int32), 4096),
+            rng.choice(np.array([0, 80, 9092, 443], np.int32), 4096),
+            rng.choice(np.array([0, 6, 17], np.int32), 4096))]
+        heads = entry.policy_http_requests(256, seed=41)
+        frames = entry.policy_kafka_frames(256, seed=42)
+        out = {}
+        for ep in eps:
+            assert ep.device_policy_map.device.type == d.device.type
+            allowed, port = (x.cpu() for x in pol_mod.policy_can_access_batch(
+                ep.device_policy_map, *q, pol_mod.DIR_INGRESS))
+            ops = {}
+            for dport, stream in ((80, heads), (9092, frames)):
+                red = d.proxy_manager.redirects.get(proxy_id(ep.id, True, "TCP", dport))
+                if red is None or red.implementation is None:
+                    continue
+                eng = red.implementation
+                assert next(t for t in vars(eng.model).values() if isinstance(t, torch.Tensor)).device.type \
+                    == d.device.type
+                got = []
+                for fid in range(256):
+                    eng.feed(fid, stream[(fid * 7) % len(stream)], remote_id=cache[(fid * 13) % len(cache)])
+                eng.pump()
+                for fid in range(256):
+                    taken = eng.take_ops(fid)
+                    got.append(([(int(o), n) for o, n in taken[0]], taken[-1]))
+                ops[dport] = got
+            out[ep.id] = (ep.security_identity.id, allowed.tolist(), [port_of.get(int(p), int(p)) for p in port],
+                          sorted(ep.realized_redirects), ops)
+        return out
+    finally:
+        d.close()
+        option.config, kv_mod._default_client = saved
+
+
+def test_daemon_on_the_card_matches_the_daemon_on_the_cpu(cuda, tmp_path):
+    card = _daemon_world(tmp_path, "default")
+    cpu = _daemon_world(tmp_path, "cpu")
+    assert card == cpu
+    assert any(ops for *_, ops in card.values())
+    assert all(any(allowed) and not all(allowed) for _, allowed, *_ in card.values())
+
+
+def test_daemon_on_the_card_launches_k13_and_the_engines(cuda, tmp_path):
+    from cilium_tpu_torch.maps import policymap as pol_mod
+
+    before = (pol_mod._POLICY.launches, http_mod._HTTP_FRAME.launches, kafka_mod._KAFKA_HITS.launches)
+    _daemon_world(tmp_path, "default")
+    after = (pol_mod._POLICY.launches, http_mod._HTTP_FRAME.launches, kafka_mod._KAFKA_HITS.launches)
+    assert after[0] - before[0] == 4 and after[1] > before[1] and after[2] > before[2]
