@@ -2,7 +2,9 @@
 """Drive the port's r2d2, HTTP, DNS, Cassandra, memcached and Kafka
 verdict paths, its L3/L4 datapath, its sidecar service, its chunk-folded
 DFA search, its seam benchmarks, its sharded verdicts on a mesh and its
-policy plane on one CUDA card and check them.
+policy plane, its state layer, its agent and the agent's front doors
+(the Kubernetes watcher, CNI, the REST API and the CLI) on one CUDA card
+and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline-csrc DIR   # also time the kernels whose
@@ -217,7 +219,38 @@ which fails the run on any mismatch:
    states) on the HTTP rule ``path="/a{256}b{256}"`` at F = 65,536 x 512
    and on 2,064- and 4,088-state patterns over planted bytes, held to
    ``nfa_scan_plain`` and timed beside its bound.  ``--state-only`` runs
-   the build and this phase alone and prints no result line.
+   the build and this phase alone and prints no result line;
+16. the agent, counted in a run of its own: a ``Daemon`` on the card
+   (tcp kvstore whose 512 identities a peer allocated, health, device
+   export) with policy-1000 less its 128-identity sources and a
+   ``toFQDNs`` rule, 8 endpoints, a ``VerdictService`` on its NPDS push,
+   its own HTTP and Kafka engines against the streaming parser and
+   ``matches_rule``, K13 on every endpoint map, K12 on its prefilter and
+   its ipcache map after the DNS poller, 256 conns through the service
+   against the proxylib oracle, 100 rules deleted as one policy (the first
+   changed verdict timed), and a restart; ``--daemon-only`` runs it alone;
+17. the agent's front doors, counted in a run of its own
+   (tests/k8s_world.py): a ``Daemon`` on the card fed by the
+   ``K8sWatcher`` (128 NetworkPolicies, 64 HTTP CNPs and 4 toServices CNPs,
+   1,024 Services of 8 backends with their Endpoints) and 110 pods through
+   ``CniPlugin.cni_add`` on ``IpamAllocator("10.0.0.0/24")``; the CLI
+   (``cli.main``) against an in-process ``ApiServer``: status, endpoint
+   list / get, identity list, map list / get, service list, policy trace,
+   ``prefilter update`` with phase 8's deny list (then K12 at F = 65,536)
+   and ``bugtool`` (its device.json names the card); K13 on every
+   endpoint map, K13's LB on the watcher's LB map at F = 65,536 (again
+   after 2 backends are cut from 64 Services), 8 containers through the
+   workloads watcher and 8 through the libnetwork driver's socket, 10 CNI
+   DELs; a ``VerdictService`` on the NPDS of the node with 256 conns on 8
+   endpoints' policies against the proxylib oracle, one CNP deleted
+   through the API server (the first changed verdict timed, the new
+   policies equal to a repository of the remaining documents); K14 on
+   tables from the daemon's maps; every kernel against its plain
+   version; then ``python -m cilium_tpu_torch.agent`` as a process on the
+   card driven by the CLI as processes (status, policy import, endpoint
+   create x 8, map get, bugtool), its map equal to an in-process agent's
+   at verdict_device="cpu", SIGTERM exiting 0 with no socket left;
+   ``--k8s-only`` runs it alone.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -5947,12 +5980,16 @@ STATE_SEED = 15  # the world's numpy seed (services' backends)
 STATE_CLOCK = 10_000.0  # the CT map's clock
 STATE_SAMPLE = 2000  # queries a shape held to the host oracles
 # queries of the shapes whose host oracles walk the ipcache: IpcacheMap.lookup
-# scans its 65,536 prefixes in Python, tens of ms a query
+# scans its 16,384 prefixes in Python, milliseconds a query
 STATE_LPM_SAMPLE = 64
 # endpoints regenerated against policy-1000 (state_world.Scale's 64 cut to
 # 16, so that phase 16 fits in the script's time limit)
 STATE_ENDPOINTS = 16
-STATE_CPU_F = 8192  # queries a shape held to the CPU path (its LPM walks 65,536 prefixes a query)
+# pod IPs an identity: 16,384 published pairs (state_world.Scale's 128, 65,536
+# pairs, cut so that phase 17 fits in the script's time limit; every query
+# width stays)
+STATE_IPS_PER_IDENTITY = 32
+STATE_CPU_F = 8192  # queries a shape held to the CPU path (its LPM walks 16,384 prefixes a query)
 STATE_SHAPES = ("state-policy", "state-ipcache", "state-lb", "state-datapath", "state-overlay")
 # K3's wide form at these (F, L): the HTTP rule at policy-http's shape and
 # the compiled patterns on planted bytes (tests/nfa_wide_cases.py)
@@ -6063,7 +6100,8 @@ def _state_runs(dev, card, kerns, sw, held):
     sets = list(entry.policy_identities().values())
     rules_json = json.dumps(entry.policy_rules(*POLICY_WORLD))
     t_sec = time.monotonic()
-    w = held["world"] = sw.build_world(sw.modules("cilium_tpu_torch"), sw.Scale(endpoints=STATE_ENDPOINTS), sets,
+    w = held["world"] = sw.build_world(sw.modules("cilium_tpu_torch"), sw.Scale(endpoints=STATE_ENDPOINTS,
+                                                                        ips_per_identity=STATE_IPS_PER_IDENTITY), sets,
                                        rules_json, seed=STATE_SEED, concurrent=True, ct_clock=lambda: STATE_CLOCK)
     state_stage_lines(w.stages, card)
     eps = w.manager.get_endpoints()
@@ -6366,8 +6404,9 @@ DAEMON_WORLD = (1000, 20, 0.0)
 # the service rebuilds every engine a conn has bound on each push: a round
 # of N regenerations costs about N x N engine builds (at 32 endpoints, 4.5 s
 # a push and 223 s for the delete's round on the H100's host), so the phase
-# runs 16 endpoints to keep the script inside its time limit.
-DAEMON_ENDPOINTS = 16
+# runs 8 endpoints (16 until phase 17 came) to keep the script inside its
+# time limit.
+DAEMON_ENDPOINTS = 8
 DAEMON_ACK_TIMEOUT_S = 120.0  # a push waits for the service to rebuild its bound engines
 DAEMON_ENGINE_FLOWS = 4096
 DAEMON_K13_F = 8192  # queries a endpoint map
@@ -6959,6 +6998,772 @@ def _daemon_runs(dev, card, kerns, tmp, held):
     return launches, runs, report, {}
 
 
+# --- phase 17: the agent's front doors, a node from a CNP to verdicts ------------
+
+K8S_SEED = 17  # the world's documents (tests/k8s_world.py)
+# The endpoints whose NPDS policies the service's conns use: each push
+# rebuilds every engine a conn has bound, and a CNP delete regenerates every
+# endpoint (each one a push), so the conns use few policies; the 110 pods stay.
+K8S_CONN_ENDPOINTS = 8
+K8S_K13_F = 8192  # queries a endpoint map
+K8S_SAMPLE = 2000  # of them held to the host oracles
+K8S_CUT_SERVICES = 64  # Services that lose backends
+K8S_CUT_BACKENDS = 2
+K8S_CNI_DEL = 10
+K8S_WORKLOADS = 8  # containers through the workloads watcher, and through the libnetwork driver
+K8S_AGENT_ENDPOINTS = 8
+K8S_AGENT_WAIT_S = 120.0
+K8S_BASE = 9_000_000  # the service conns' ids; each later drive 1,000 above the last
+K8S_WAIT_S = 300.0
+
+
+def cli_out(cli, argv):
+    """(exit code, stdout) of the CLI's ``main(argv)`` in this process."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def bugtool_device(path):
+    """The ``device.json`` member of a bugtool bundle."""
+    import tarfile
+
+    with tarfile.open(path) as tar:
+        return json.load(tar.extractfile("cilium-tpu-bugtool/device.json"))
+
+
+def agent_map(map_out, ident_out):
+    """A ``map get`` JSON dump with each identity named by its labels
+    (from an ``identity list`` JSON dump), sorted."""
+    names = {e["id"]: tuple(sorted(e["labels"])) for e in json.loads(ident_out)}
+    return sorted((names.get(e["identity"], e["identity"]), e["dport"], e["proto"], e["direction"],
+                   e["proxy_port"] != 0) for e in json.loads(map_out))
+
+
+def k8s_slice(dev, card, kerns):
+    """Phase 17, the agent's front doors on the card: a ``Daemon`` fed by
+    the Kubernetes watcher, CNI and IPAM (tests/k8s_world.py), reached
+    through an in-process ``ApiServer`` and the CLI, a verdict service on
+    its NPDS, the workloads watcher and the libnetwork driver, then the
+    agent as its own process; counted in a run of its own over every
+    kernel.  ``option.config``, the kvstore client and the proxylib
+    registry are put back after it.  Returns (launches, runs, report, timed)."""
+    import tempfile
+
+    from cilium_tpu_torch import kvstore as kv_mod
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.utils import option
+
+    kw = _tests_module("k8s_world")
+    log("== k8s slice")
+    t_phase = time.monotonic()
+    saved = option.config, kv_mod._default_client
+    held = {}
+    inst.reset_module_registry()
+    try:
+        with tempfile.TemporaryDirectory(prefix="k8s-", dir=".") as tmp:
+            try:
+                out = _k8s_runs(dev, card, kerns, kw, tmp, held)
+            finally:
+                proc = held.pop("proc", None)
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+                for key in ("world", "api", "driver", "watcher", "svc", "daemon", "agent_cpu"):
+                    obj = held.pop(key, None)
+                    if obj is not None:
+                        (obj.stop if key == "svc" else obj.close)()
+    finally:
+        option.config, kv_mod._default_client = saved
+        inst.reset_module_registry()
+    log(f"k8s slice: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def _k8s_runs(dev, card, kerns, kw, tmp, held):
+    import os
+    import signal
+    import tarfile
+
+    from cilium_tpu_torch import cli
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.api import ApiClient, ApiServer
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.datapath import pipeline as dp_mod
+    from cilium_tpu_torch.datapath.prefilter import PreFilter
+    from cilium_tpu_torch.k8s import IpamAllocator, parse_cnp, parse_network_policy
+    from cilium_tpu_torch.k8s.cni import CniError
+    from cilium_tpu_torch.maps import lbmap as lb_mod
+    from cilium_tpu_torch.maps import policymap as pol_mod
+    from cilium_tpu_torch.maps.policymap import DIR_INGRESS
+    from cilium_tpu_torch.models.http import (
+        build_http_model_for_port,
+        http_frame,
+        http_frame_plain,
+        http_hits,
+        http_hits_plain,
+        http_lit,
+        http_lit_plain,
+    )
+    from cilium_tpu_torch.ops import dfa as dfa_mod
+    from cilium_tpu_torch.ops import lpm as lpm_mod
+    from cilium_tpu_torch.ops import nfa as nfa_mod
+    from cilium_tpu_torch.ops.dfa import DeviceDfa
+    from types import SimpleNamespace
+
+    from cilium_tpu_torch.plugins.docker import LibnetworkDriver
+    from cilium_tpu_torch.policy import L4Policy, Repository, SearchContext
+    from cilium_tpu_torch.policy.serialize import rules_to_json
+    from cilium_tpu_torch.proxy.npds_push import network_policy_for_endpoint
+    from cilium_tpu_torch.proxylib import compile_policy
+    from cilium_tpu_torch.sidecar import VerdictService
+    from cilium_tpu_torch.utils.option import DaemonConfig
+    from cilium_tpu_torch import workloads as workloads_mod
+    from cilium_tpu_torch.workloads import EventType, WorkloadWatcher
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counts():
+        return {n: k.launches + k.replayed for n, k in kerns.items()}
+
+    runs, stages, sections = {}, {}, {}
+
+    def stage(name, secs, **info):
+        stages[name] = (secs, info)
+        log(f"k8s {name}: {secs:.3f} s (host clock); " + ", ".join(f"{k} {v}" for k, v in info.items())
+            + f" [{card}]")
+
+    def counted(name, fn):
+        before = counts()
+        out = fn()
+        sync()
+        now = counts()
+        run = runs.setdefault(name, dict.fromkeys(kerns, 0))
+        for n in kerns:
+            run[n] += now[n] - before[n]
+        return out
+
+    def wait_for(cond, what, timeout=K8S_WAIT_S):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"k8s: {what} within {timeout:.0f} s")
+            time.sleep(0.02)
+
+    def u32(x):
+        return int(np.int64(x) & 0xFFFFFFFF)
+
+    def ip_int(ip):
+        return int(ipaddress.IPv4Address(ip))
+
+    cfg = DaemonConfig(
+        run_dir=f"{tmp}/run", dry_mode=False, enable_health=False, verdict_device="default" if on_card else "cpu",
+        socket_path=f"{tmp}/agent.sock", monitor_socket_path=f"{tmp}/monitor.sock",
+        proxy_ack_timeout_s=DAEMON_ACK_TIMEOUT_S,
+    )
+
+    # the main path, counted: every count is 0 from here to the last check
+    log("== k8s main path (counted)")
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+    t_sec = time.monotonic()
+
+    # 1. the daemon on the card, its REST API, and the node built through
+    # the watcher, IPAM and CNI
+    t0 = time.monotonic()
+    dm = held["daemon"] = Daemon(cfg, node_name="node-0")
+    if {dm.device.type, dm.prefilter.device.type, dm.endpoint_manager.device.type} != {dev.type}:
+        raise AssertionError(f"k8s: daemon device {dm.device}, not {dev}")
+    sock = cfg.socket_path
+    held["api"] = ApiServer(dm, sock)
+    stage("start", time.monotonic() - t0)
+    w = held["world"] = kw.build_world(kw.modules("cilium_tpu_torch"), dm, kw.Scale(timeout=K8S_WAIT_S),
+                                       seed=K8S_SEED)
+    for name, (secs, info) in w.stages.items():
+        stage(f"world-{name}", secs, **info)
+    eps = w.endpoints()
+    if len(eps) != w.scale.pods or any(ep.device_policy_map is None or ep.device_policy_map.device.type != dev.type
+                                       for ep in eps):
+        raise AssertionError("k8s: a pod's endpoint has no policy map on the daemon's device")
+    cache = dm.get_identity_cache()
+    pool = sorted(cache)
+    sections["world"] = time.monotonic() - t_sec
+
+    # 2. the CLI against the API server
+    t_sec = time.monotonic()
+    base = ["--socket", sock]
+    outs = {}
+    first = eps[0]
+    for key, argv in (("status", ["status"]), ("endpoint-list", ["endpoint", "list"]),
+                      ("endpoint-get", ["endpoint", "get", str(first.id)]), ("identity-list", ["identity", "list"]),
+                      ("map-list", ["map", "list"]), ("map-get", ["map", "get", f"policy-{first.id}"]),
+                      ("service-list", ["service", "list"]), ("prefilter-list", ["prefilter", "list"])):
+        rc, out = cli_out(cli, base + argv)
+        if rc != 0:
+            raise AssertionError(f"k8s cli {' '.join(argv)}: exit {rc}")
+        outs[key] = out
+    if f"Endpoints:      {len(eps)} (ready={len(eps)})" not in outs["status"]:
+        raise AssertionError(f"k8s cli status: {outs['status']!r}")
+    listed = outs["endpoint-list"].splitlines()[1:]
+    if sorted(int(ln.split()[0]) for ln in listed) != [ep.id for ep in eps]:
+        raise AssertionError("k8s cli endpoint list: not the daemon's endpoints")
+    got_ep = json.loads(outs["endpoint-get"])
+    if (got_ep["ipv4"], got_ep["identity"], got_ep["policy_map_entries"]) != (
+            first.ipv4, first.security_identity.id, len(first.policy_map.entries)):
+        raise AssertionError("k8s cli endpoint get: not the daemon's endpoint")
+    if {e["id"] for e in json.loads(outs["identity-list"])} != set(cache):
+        raise AssertionError("k8s cli identity list: not the daemon's identity cache")
+    if not {f"policy-{ep.id}" for ep in eps} <= set(outs["map-list"].split()):
+        raise AssertionError("k8s cli map list: an endpoint's policy map is missing")
+    want_map = sorted((k.identity, k.dest_port, k.proto, k.direction, v.proxy_port)
+                      for k, v in first.policy_map.dump())
+    if sorted((e["identity"], e["dport"], e["proto"], e["direction"], e["proxy_port"])
+              for e in json.loads(outs["map-get"])) != want_map:
+        raise AssertionError("k8s cli map get: not the endpoint's policy map")
+    fronts = [ln.split()[1] for ln in outs["service-list"].splitlines()]
+    n_services = len(fronts)
+    if sorted(fronts) != sorted(f"{kw.service_vip(s)}:{kw.HTTP_PORT}/TCP" for s in range(w.scale.services)):
+        raise AssertionError(f"k8s cli service list: {n_services} frontends, not the {w.scale.services} Services'")
+    # policy trace: a CNP's source and destination on 80/TCP, and a source
+    # no rule admits
+    cnp0 = w.cnps[0]["spec"]
+    ns0 = w.cnps[0]["metadata"]["namespace"]
+    dst = ",".join(f"k8s:{k}={v}" for k, v in cnp0["endpointSelector"]["matchLabels"].items()) + f",{kw.NS_LABEL}={ns0}"
+    src = ",".join(f"k8s:{k}={v}" for k, v in cnp0["ingress"][0]["fromEndpoints"][0]["matchLabels"].items()) \
+        + f",{kw.NS_LABEL}={ns0}"
+    rc_allow, out_allow = cli_out(cli, base + ["policy", "trace", "--src", src, "--dst", dst, "--dport", "80/TCP"])
+    rc_deny, out_deny = cli_out(cli, base + ["policy", "trace", "--src", "k8s:app=nobody", "--dst", dst,
+                                              "--dport", "80/TCP"])
+    if (rc_allow, rc_deny) != (0, 1):
+        raise AssertionError(f"k8s cli policy trace: {out_allow!r} / {out_deny!r}")
+    log(f"k8s-cli: status, endpoint list ({len(listed)}) / get, identity list ({len(cache)}), map list / get "
+        f"({len(want_map)} entries of endpoint {first.id}), service list ({n_services}), policy trace "
+        f"(allowed / denied) == the daemon's state")
+
+    # 3. the prefilter through the CLI, then K12 on it
+    cidrs, src4, _ = prefilter_case(F)
+    words4 = _i32(src4)
+    rev0 = json.loads(outs["prefilter-list"])["revision"]
+    rc, out = cli_out(cli, base + ["prefilter", "update", "--revision", str(rev0)]
+                      + [a for c in cidrs for a in ("--cidr", c)])
+    if rc != 0 or dm.prefilter.dump()[0] != rev0 + 1:
+        raise AssertionError(f"k8s cli prefilter update: exit {rc}, {out!r}")
+    keep = counted("k8s-prefilter", lambda: dm.prefilter.filter_batch(words4))
+    pf_cpu = PreFilter(device="cpu")
+    pf_cpu.insert(pf_cpu.revision, cidrs)
+    if not np.array_equal(keep, pf_cpu.filter_batch(words4)):
+        raise AssertionError("k8s-prefilter: the keep mask differs from the CPU path")
+    deny = [n for n in map(ipaddress.ip_network, cidrs) if n.version == 4]
+    for i in sorted(random.Random(43).sample(range(F), K8S_SAMPLE)):
+        if bool(keep[i]) == any(ipaddress.ip_address(src4[i]) in n for n in deny):
+            raise AssertionError(f"k8s-prefilter: source {i} disagrees with the deny sets")
+    log(f"k8s-prefilter: {len(cidrs)} CIDRs through `prefilter update`; K12 at F={F} == the CPU path, == the deny "
+        f"sets on {K8S_SAMPLE}; drop share {1 - float(keep.mean()):.3f}")
+
+    # 4. the bugtool bundle through the CLI
+    bundle = f"{tmp}/bugtool.tar.gz"
+    rc, out = cli_out(cli, base + ["bugtool", "-o", bundle])
+    dev_json = bugtool_device(bundle)
+    want_name = card.split(",")[0].strip()
+    names = [d["name"] for d in dev_json["devices"]]
+    if on_card and (rc != 0 or dev_json["backend"] != "cuda" or names[:1] != [want_name]):
+        raise AssertionError(f"k8s cli bugtool: exit {rc}, {out!r}, device.json {dev_json}")
+    with tarfile.open(bundle) as tar:
+        members = len(tar.getmembers())
+    log(f"k8s-bugtool: {members} members; device.json {json.dumps(dev_json)} names {names[:1]} "
+        f"(nvidia-smi: {want_name})")
+    sections["cli"] = time.monotonic() - t_sec
+
+    # 5. K13 on every endpoint's map, K13's LB on the watcher's LB map, K14
+    # on tables from the daemon's maps
+    t_sec = time.monotonic()
+    rng = np.random.default_rng(K8S_SEED)
+    qpool = np.asarray(pool + [99_999], np.int64)
+    q13 = (_i32(rng.choice(qpool, K8S_K13_F)),
+           _i32(rng.choice(np.array([80, 443, 5432, 6379, 8080, 0]), K8S_K13_F, p=[0.4, 0.1, 0.1, 0.1, 0.2, 0.1])),
+           _i32(rng.choice(np.array([6, 17, 0]), K8S_K13_F, p=[0.8, 0.1, 0.1])))
+    q13_dev = tuple(torch.from_numpy(a).to(dev) for a in q13)
+    q13_cpu = tuple(torch.from_numpy(a) for a in q13)
+    sample13 = [i for i in sorted(random.Random(K8S_SEED).sample(range(K8S_K13_F), K8S_SAMPLE)) if q13[1][i] != 0]
+
+    def k13_policy(tag, endpoints):
+        maps = {ep.id: ep.device_policy_map for ep in endpoints}
+        got = counted(tag, lambda: {i: pol_mod.policy_can_access_batch(m, *q13_dev, DIR_INGRESS)
+                                    for i, m in maps.items()})
+        shares = []
+        for ep in endpoints:
+            g = [x.cpu() for x in got[ep.id]]
+            want = pol_mod.policy_can_access_batch(ep.policy_map.to_device(device="cpu"), *q13_cpu, DIR_INGRESS)
+            if max_abs_err(g, list(want)) != 0:
+                raise AssertionError(f"{tag}: endpoint {ep.id}'s map on {dev} differs from the CPU path")
+            a, pp = g[0].numpy(), g[1].numpy()
+            for i in sample13:
+                if (bool(a[i]), int(pp[i])) != ep.policy_map.lookup(int(q13[0][i]), int(q13[1][i]), int(q13[2][i]),
+                                                                    DIR_INGRESS, count_packets=False):
+                    raise AssertionError(f"{tag}: endpoint {ep.id} query {i} != PolicyMap.lookup")
+            shares.append(float(a.mean()))
+        log(f"{tag}: K13 on {len(endpoints)} endpoint maps ({sum(len(ep.policy_map.entries) for ep in endpoints)} "
+            f"entries) x {K8S_K13_F} queries == the CPU path, {len(sample13)} a map == PolicyMap.lookup; allowed "
+            f"share {min(shares):.3f}-{max(shares):.3f}")
+        return maps
+
+    k13_maps = k13_policy("k8s-policy", eps)
+    vips = np.array([ip_int(kw.service_vip(s)) for s in range(w.scale.services)] + [ip_int("172.21.0.1")], np.int64)
+
+    def lb_case(seed):
+        r = np.random.default_rng(seed)
+        return (_i32(vips[r.integers(0, len(vips), F)]),
+                _i32(r.choice(np.array([kw.HTTP_PORT, 443], np.int64), F, p=[0.9, 0.1])),
+                _i32(r.integers(0, 1 << 32, F, dtype=np.int64)))
+
+    def k13_lb(tag, q):
+        tab = dm.lb_map.to_device(device=dev)
+        out = counted(tag, lambda: lb_mod.lb4_select_backend_batch(tab, *(torch.from_numpy(a).to(dev) for a in q)))
+        got = [x.cpu().numpy() for x in out]
+        want = lb_mod.lb4_select_backend_batch(dm.lb_map.to_device(device="cpu"), *(torch.from_numpy(a) for a in q))
+        if max_abs_err([torch.from_numpy(x) for x in got], list(want)) != 0:
+            raise AssertionError(f"{tag}: the card differs from the CPU path")
+        for i in sorted(random.Random(K8S_SEED + 1).sample(range(F), K8S_SAMPLE)):
+            b = dm.lb_map.select_backend(u32(q[0][i]), int(q[1][i]), u32(q[2][i]))
+            g = (bool(got[0][i]),) + ((u32(got[1][i]), int(got[2][i]), int(got[3][i])) if got[0][i] else ())
+            if g != ((True, b.target, b.port, b.rev_nat_index) if b is not None else (False,)):
+                raise AssertionError(f"{tag}: flow {i} != LbMap.select_backend")
+        log(f"{tag}: K13's LB on the watcher's LB map ({len(dm.service_manager)} services, "
+            f"{len(dm.lb_map.dump())} entries) at F={F} == the CPU path, == select_backend on {K8S_SAMPLE}; "
+            f"found share {got[0].mean():.3f}")
+        return tab
+
+    lb_q = lb_case(K8S_SEED + 2)
+    lb_tab = k13_lb("k8s-lb", lb_q)
+
+    # K14: egress from a pod a toServices CNP selects (its egress is
+    # enforced); 40% to Service VIPs, 40% to pods on 80 / 443 / 8080, 20%
+    # outside
+    dp_ep = next(ep for ep in eps[: len(eps) - K8S_CNI_DEL] if ep.egress_policy_enabled)  # CNI DEL takes the last
+    pod_ips = np.array([ip_int(ep.ipv4) for ep in eps], np.int64)
+    r14 = np.random.default_rng(K8S_SEED + 3)
+    saddr = np.full(F, ip_int(dp_ep.ipv4), np.int64)
+    roll = r14.random(F)
+    daddr = pod_ips[r14.integers(0, len(pod_ips), F)]
+    to_vip, outside = roll < 0.4, roll >= 0.8
+    daddr[to_vip] = vips[r14.integers(0, len(vips) - 1, int(to_vip.sum()))]
+    daddr[outside] = r14.integers(ip_int("11.0.0.0"), ip_int("11.255.255.255"), int(outside.sum()))
+    dport = r14.choice(np.array([80, 443, 8080], np.int64), F)
+    dport[to_vip] = kw.HTTP_PORT
+    pk14 = tuple(_i32(x) for x in (saddr, daddr, r14.integers(1024, 65535, F), dport,
+                                    r14.choice(np.array([6, 17], np.int64), F, p=[0.9, 0.1])))
+
+    # 6. workloads and the libnetwork driver: 8 containers each, their
+    # endpoints regenerated on the card
+    t0 = time.monotonic()
+    runtime = kw.fake_runtime(workloads_mod)
+    extra = []
+    for i in range(K8S_WORKLOADS):
+        wid = f"work{i:02d}" * 8
+        ip = f"10.0.2.{i + 2}"
+        runtime.add(wid, {"app": kw.APPS[i % len(kw.APPS)], "role": "batch"}, ip)
+        extra.append(dm.endpoint_create(3000 + i, ipv4=ip, container_name=wid))
+    watcher = held["watcher"] = WorkloadWatcher(dm, runtime)
+    for wid in runtime.list_workloads():
+        watcher.enqueue(wid, EventType.START)
+    watcher.flush(K8S_WAIT_S)
+    driver = held["driver"] = LibnetworkDriver(dm, IpamAllocator("10.11.0.0/24")).serve(f"{tmp}/docker.sock")
+
+    def post(route, body):
+        return kw.unix_post(f"{tmp}/docker.sock", route, body)
+
+    for route, body in (("/Plugin.Activate", {}), ("/NetworkDriver.CreateNetwork", {"NetworkID": "n1"})):
+        if post(route, body)[0] != 200:
+            raise AssertionError(f"k8s libnetwork {route} refused")
+    for i in range(K8S_WORKLOADS):
+        st, out = post("/NetworkDriver.CreateEndpoint",
+                       {"EndpointID": f"lnet{i:02d}", "Interface": {"Address": f"10.11.0.{i + 2}/24"}})
+        st2, out2 = post("/NetworkDriver.Join", {"EndpointID": f"lnet{i:02d}", "SandboxKey": f"/sb/{i}"})
+        if (st, st2) != (200, 200) or out2["Gateway"] != "10.11.0.1":
+            raise AssertionError(f"k8s libnetwork endpoint {i}: {st} {out} / {st2} {out2}")
+        extra.append(dm.endpoint_manager.lookup_container(f"lnet{i:02d}"))
+    wait_for(lambda: all(ep.state.value == "ready" and ep.device_policy_map is not None for ep in extra)
+             and w.settled(), "the containers' endpoints ready")
+    for ep in extra[:K8S_WORKLOADS]:
+        want = sorted(runtime.inspect(ep.container_name).identity_labels())
+        if sorted(str(lb) for lb in ep.labels.values()) != want:
+            raise AssertionError(f"k8s workloads: endpoint {ep.id} labels {ep.labels} != the runtime's {want}")
+    stage("containers", time.monotonic() - t0, workloads=K8S_WORKLOADS, libnetwork=K8S_WORKLOADS,
+          identities=len({ep.security_identity.id for ep in extra}))
+    k13_policy("k8s-containers", extra)
+
+    # 7. churn before the service: CNI DEL 10 pods, 2 backends cut from 64
+    # Services
+    t0 = time.monotonic()
+    gone = kw.cni_del(w, K8S_CNI_DEL)
+    for cid, res in gone:
+        if dm.endpoint_manager.lookup(res.endpoint_id) is not None or res.ip in w.ipam.dump():
+            raise AssertionError(f"k8s cni del {cid}: endpoint or IP left behind")
+        try:
+            w.cni.cni_check(cid)
+        except CniError:
+            continue
+        raise AssertionError(f"k8s cni check {cid}: passed after DEL")
+    if any(dm.ipcache.lookup_by_ip(res.ip) is not None for _, res in gone):
+        raise AssertionError("k8s cni del: an IP is still in the ipcache")
+    cut = kw.cut_backends(w, K8S_CUT_SERVICES, K8S_CUT_BACKENDS)
+    stage("churn", time.monotonic() - t0, cni_del=len(gone), services_cut=len(cut),
+          lb_entries=len(dm.lb_map.dump()))
+    k13_lb("k8s-lb-cut", lb_q)
+    eps = w.endpoints()
+    wait_for(w.settled, "the node settled after the churn")
+    sections["maps-containers-churn"] = time.monotonic() - t_sec
+
+    # 8. the verdict service on its NPDS; 256 HTTP conns on the policies of
+    # K8S_CONN_ENDPOINTS endpoints that CNPs admit HTTP to, those with a
+    # regex path first
+    t_sec = time.monotonic()
+    svc_path = f"{tmp}/vs.sock"
+    held["svc"] = VerdictService(svc_path, side_config(**({} if on_card else {"verdict_device": "cpu"}))).start()
+    t0 = time.monotonic()
+    pusher = dm.attach_verdict_service(svc_path)
+    stage("attach", time.monotonic() - t0, pushes=pusher.pushes, nacks=pusher.nacks)
+    all_eps = sorted(dm.endpoint_manager.get_endpoints(), key=lambda ep: ep.id)
+    if pusher.nacks or pusher.pushes < len(all_eps):
+        raise AssertionError(f"k8s: {pusher.pushes} NPDS pushes, {pusher.nacks} NACKs")
+    cache = dm.get_identity_cache()
+
+    def http_rows(pol):
+        return [r for pp in pol.ingress_per_port_policies if pp.port == kw.HTTP_PORT for r in pp.rules
+                if r.http_rules]
+
+    cands = [(ep, network_policy_for_endpoint(ep, cache)) for ep in eps]
+    cands = [(ep, pol) for ep, pol in cands if http_rows(pol)]
+    cands.sort(key=lambda c: (not any("[" in h["path"] for r in http_rows(c[1]) for h in r.http_rules), c[0].id))
+    conn_eps = [ep for ep, _ in cands[:K8S_CONN_ENDPOINTS]]
+    pols = [pol for _, pol in cands[:K8S_CONN_ENDPOINTS]]
+    if len(conn_eps) < K8S_CONN_ENDPOINTS:
+        raise AssertionError(f"k8s: {len(conn_eps)} endpoints with HTTP rules")
+    n_regex = sum(1 for pol in pols if any("[" in h["path"] for r in http_rows(pol) for h in r.http_rules))
+    names, rounds = policy_npds_traffic(random.Random(K8S_SEED), conn_eps, pols, pool)
+    shifts = iter(range(K8S_BASE - SIDE_BASES["http"], 1 << 40, 1000))
+
+    def serve(tag, rnds=None):
+        rnds = rounds if rnds is None else rnds
+        shift = next(shifts)
+        drv = SidecarDriver(svc_path, "socket", None, base_shift=shift)
+        try:
+            fids = drv.open("http", rnds, names=names)
+            out = counted(tag, lambda: drv.run("http", rnds, lambda fid: 0))
+            drv.close("http", fids)
+        finally:
+            drv.close_client()
+        return out, SIDE_BASES["http"] + shift
+
+    served, base_id = serve("k8s-service")
+    oracle = sidecar_oracle("http", rounds, pols, name=names, port=80, base=base_id)
+    bad = side_mismatches(served, oracle)
+    daemon_mismatch_lines("k8s-service", served, oracle, rounds, names)
+    ops = [op for rnd in oracle for o, _, _ in rnd.values() for op, _ in o]
+    log(f"k8s-service: {len(all_eps)} endpoints' NPDS policies ({pusher.pushes} pushes, {pusher.nacks} NACKs); "
+        f"{POLICY_NPDS_CONNS} conns on {len(conn_eps)} endpoints' policies ({n_regex} with a regex path) x "
+        f"{len(rounds)} rounds, {side_frames(oracle)} requests ({ops.count(1)} PASS, {ops.count(2)} DROP): {bad} "
+        "mismatches against the in-process proxylib oracle")
+    if bad or not ops.count(1) or not ops.count(2):
+        raise AssertionError("k8s-service: the service disagrees, or allows or denies everything")
+
+    # 9. delete one CNP through the API server: the one whose loss the
+    # most conns see, predicted from a repository of the remaining
+    # documents; one of those conns is probed until its verdict changes
+    def predict(skip):
+        kept = Repository()
+        for obj in w.nps:
+            for rule in parse_network_policy(obj):
+                kept.add(rule)
+        for obj in w.cnps:
+            if obj["metadata"]["name"] != skip:
+                for rule in parse_cnp(obj):
+                    kept.add(rule)
+        return [network_policy_for_endpoint(SimpleNamespace(
+            id=ep.id, ipv4=ep.ipv4, security_identity=ep.security_identity, desired_l4_policy=L4Policy(
+                ingress=kept.resolve_l4_ingress_policy(SearchContext(to_labels=ep.security_label_array())))), cache)
+            for ep in conn_eps]
+
+    best = None
+    for obj in w.cnps[: w.scale.cnps]:
+        sel = obj["spec"]["endpointSelector"]["matchLabels"]
+        hits = [ep for ep in conn_eps if ep.security_identity.labels.get_model() and all(
+            f"k8s:{k}={v}" in ep.security_identity.labels.get_model() for k, v in sel.items())
+            and f"{kw.NS_LABEL}={obj['metadata']['namespace']}" in ep.security_identity.labels.get_model()]
+        if hits and (best is None or len(hits) > best[1]):
+            best = (obj["metadata"]["name"], len(hits))
+    gone_cnp = best[0]
+    pred = predict(gone_cnp)
+    oracle_pred = sidecar_oracle("http", rounds, pred, name=names, port=80, base=base_id)
+    moved = sorted({fid for o, p in zip(oracle, oracle_pred) for fid in o if o[fid] != p.get(fid)})
+    if not moved:
+        raise AssertionError(f"k8s-delete: deleting {gone_cnp} changes the verdict of no conn")
+    probe_rounds = [[e for e in rnd if e[0] == moved[0]] for rnd in rounds]
+    probe_before = [{moved[0]: rnd[moved[0]]} for rnd in served]
+    t_del = time.monotonic()
+    kw.delete_cnp(w, gone_cnp)
+    t_deleted = time.monotonic()
+    rev_del = dm.get_policy_repository().get_revision()
+    first_change, probes = None, 0
+    while first_change is None:
+        done = w.settled()
+        out, _ = serve("k8s-delete-probe", probe_rounds)
+        probes += 1
+        if side_mismatches(out, probe_before):
+            first_change = time.monotonic() - t_del
+        elif done:
+            break
+        elif time.monotonic() - t_del > K8S_WAIT_S:
+            raise AssertionError("k8s: endpoints did not settle after the CNP delete")
+        else:
+            time.sleep(0.2)
+    wait_for(lambda: w.settled() and all(ep.policy_revision >= rev_del for ep in conn_eps),
+             "every endpoint ready after the CNP delete")
+    t_settle = time.monotonic() - t_del
+    pols2 = [network_policy_for_endpoint(ep, cache) for ep in conn_eps]
+    served2, base2 = serve("k8s-delete")
+    oracle2 = sidecar_oracle("http", rounds, pols2, name=names, port=80, base=base2)
+    bad2 = side_mismatches(served2, oracle2)
+    daemon_mismatch_lines("k8s-delete", served2, oracle2, rounds, names)
+    changed_fids = sorted({fid for g, o in zip(served2, served) for fid in g if g[fid] != o.get(fid)})
+    if [dataclasses.asdict(x) for x in pols2] != [dataclasses.asdict(x) for x in pred] or changed_fids != moved:
+        raise AssertionError("k8s-delete: the regenerated policies or the changed conns differ from the prediction "
+                             "of a repository of the remaining documents")
+    stage("cnp-delete", t_settle, cnp=gone_cnp, delete_call_s=round(t_deleted - t_del, 3),
+          first_changed_verdict_s=first_change, probes=probes, pushes=pusher.pushes, nacks=pusher.nacks)
+    log(f"k8s-delete: {gone_cnp} deleted through the API server; first changed verdict "
+        f"{'none' if first_change is None else f'{first_change:.3f} s'} after it ({probes} probes of conn "
+        f"{moved[0]}); settled in {t_settle:.3f} s; {len(moved)} conns changed, as predicted; new conns {bad2} "
+        "mismatches against the oracle on the regenerated policies, which equal the prediction")
+    if bad2 or first_change is None or pusher.nacks:
+        raise AssertionError("k8s-delete: mismatches, a NACK, or no verdict changed")
+
+    # K14 on tables built from the daemon's maps, as phase 15 builds them
+    dp_pol = dp_ep.policy_map
+    dp_tab = dp_mod.build_tables(dm.ct_map, dm.lb_map, dm.ipcache_map, dp_pol, dev)
+    dp_out = counted("k8s-datapath", lambda: dp_mod.datapath_verdicts(dp_tab, *pk14))
+    dp_cpu = dp_mod.datapath_verdicts(dp_mod.build_tables(dm.ct_map, dm.lb_map, dm.ipcache_map, dp_pol, "cpu"),
+                                      *(a[:STATE_CPU_F] for a in pk14))
+    if max_abs_err([x[:STATE_CPU_F].cpu() for x in _flat(dp_out)], _flat(dp_cpu)) != 0:
+        raise AssertionError("k8s-datapath: the card differs from the CPU path")
+    dp_h = dp_mod.host_arrays(dp_out)
+    for i in sorted(random.Random(K8S_SEED + 4).sample(range(F), K8S_SAMPLE)):
+        o = dp_mod.host_oracle(dm.ct_map, dm.lb_map, dm.ipcache_map, dp_pol, u32(pk14[0][i]), u32(pk14[1][i]),
+                               int(pk14[2][i]), int(pk14[3][i]), int(pk14[4][i]))
+        for key in ("verdict", "new_daddr", "new_dport", "dst_identity", "proxy_port", "rev_nat", "established",
+                    "needs_ct_create"):
+            if u32(dp_h[key][i]) != u32(o[key]):
+                raise AssertionError(f"k8s-datapath: packet {i} {key} != host_oracle")
+    log(f"k8s-datapath: K14 on tables from the daemon's CT, LB, ipcache and endpoint {dp_ep.id}'s policy "
+        f"map at F={F} == the CPU path on {STATE_CPU_F}, == host_oracle on {K8S_SAMPLE}; verdicts "
+        f"{np.bincount(dp_h['verdict'], minlength=5).tolist()} (FORWARD, DROP, TO_PROXY, TO_HOST, TO_OVERLAY)")
+    sections["service-delete-datapath"] = time.monotonic() - t_sec
+
+    sync()
+    launches = {n: sum(r[n] for r in runs.values()) for n in kerns}
+    total = counts()
+    runs["k8s-build"] = {n: total[n] - launches[n] for n in kerns}  # outside every step: the builds
+    launches = total
+    log("launches:", json.dumps({n: v for n, v in launches.items() if v}))
+    log("launches by run:", json.dumps({n: {k: c for k, c in r.items() if c} for n, r in runs.items()}))
+    if on_card:
+        for n in ("http_frame", "http_lit", "http_hits", "lpm_lookup", "policy_can_access", "lb_select",
+                  "datapath4"):
+            if launches[n] <= 0:
+                raise AssertionError(f"kernel {n} was not launched on the k8s slice's main path")
+        if n_regex and launches["dfa_scan"] + launches["nfa_scan"] <= 0:
+            raise AssertionError("k8s: no automaton scan ran for the regex paths")
+        want = {"k8s-policy": {"policy_can_access": len(k13_maps)}, "k8s-prefilter": {"lpm_lookup": 1},
+                "k8s-lb": {"lb_select": 1}, "k8s-lb-cut": {"lb_select": 1}, "k8s-datapath": {"datapath4": 1}}
+        for name, wv in want.items():
+            got = {k: c for k, c in runs[name].items() if c}
+            if got != wv:
+                raise AssertionError(f"{name}: launches {got} != {wv}")
+        for name in ("k8s-service", "k8s-delete"):
+            missing = [n for n in ("http_frame", "http_lit", "http_hits") if not runs[name][n]]
+            if missing:
+                raise AssertionError(f"{name}: {missing} never launched")
+
+    # the kernels against their plain versions at the slice's inputs: K13 on
+    # every map, K13 LB, K12 on the prefilter, K14, and K5-K7 with K2 / K3 on
+    # the first conn policy's HTTP model
+    t_sec = time.monotonic()
+    log("== k8s kernels vs plain")
+    report = {}
+
+    def put(kname, label, got, want_):
+        report.setdefault(kname, {})[label] = max_abs_err(_flat(got), _flat(want_))
+
+    for i, m in k13_maps.items():
+        put("policy_can_access", f"k8s-policy/{i}", pol_mod.policy_can_access_batch(m, *q13_dev, DIR_INGRESS),
+            pol_mod.policy_can_access_plain(m, *q13_dev, DIR_INGRESS))
+    lb_in = (lb_tab, [torch.from_numpy(lb_q[0]).to(dev)], *(torch.from_numpy(a).to(dev) for a in lb_q[1:]))
+    put("lb_select", "k8s-lb", lb_mod.lb_select(*lb_in), lb_mod.lb_select_plain(*lb_in))
+    w4 = torch.from_numpy(words4).to(dev)
+    pf_lpm = dm.prefilter.device_lpm()
+    put("lpm_lookup", "k8s-prefilter", lpm_mod.lpm_lookup(pf_lpm, w4), lpm_mod.lpm_lookup_plain(pf_lpm, w4))
+    d14 = tuple(torch.from_numpy(a).to(dev) for a in pk14)
+    dp_in = (dp_tab, (d14[0],), (d14[1],), *d14[2:])
+    put("datapath4", "k8s-datapath", dp_mod.datapath_pass(*dp_in), dp_mod.datapath_pass_plain(*dp_in))
+    hmodel = build_http_model_for_port(compile_policy(pols[0]), True, kw.HTTP_PORT, "auto", dev)
+    heads = [policy_matching_head(h) for r in http_rows(pols[0]) for h in r.http_rules] \
+        + [h for _, c, _, _ in rounds[0] for h in [c]][:256]
+    rem = policy_remotes(random.Random(K8S_SEED), pool, len(heads))
+    data, lengths, rm = (torch.from_numpy(a).to(dev) for a in tile_heads(heads, rem, POLICY_PERIOD, POLICY_L))
+    frame = http_frame(data, lengths)
+    put("http_frame", "k8s-http", frame, http_frame_plain(data, lengths))
+    lit = http_lit(hmodel, data, frame)
+    put("http_lit", "k8s-http", lit, http_lit_plain(hmodel, data, frame))
+    spans = {"method": (hmodel.line_nfa, torch.zeros_like(frame.sp1), frame.sp1, hmodel.has_method_rx),
+             "path": (hmodel.line_nfa, frame.p_start, frame.sp2, hmodel.has_path_rx),
+             "head": (hmodel.head_nfa, frame.line_end, frame.h_end, hmodel.head_nfa is not None)}
+    rx = {}
+    for span, (tab, s, e, on) in spans.items():
+        if not on:
+            continue
+        if isinstance(tab, DeviceDfa):
+            kname, scan, plain = "dfa_scan", dfa_mod.dfa_search_spans, dfa_mod.dfa_scan_plain
+        else:
+            kname, scan, plain = "nfa_scan", nfa_mod.nfa_search_spans, nfa_mod.nfa_scan_plain
+        rx[span] = scan(tab, data, s, e)
+        put(kname, f"k8s-http:{span}", [rx[span]], [plain(tab, data, s, e)])
+    args = (frame.complete, *lit, rx.get("method"), rx.get("path"), rx.get("head"), rm)
+    put("http_hits", "k8s-http", http_hits(hmodel, *args), http_hits_plain(hmodel, *args))
+    log("max |kernel - plain| (readings, largest):", json.dumps(
+        {k: [len(v), max(v.values())] for k, v in report.items()}))
+    for kname, per in report.items():
+        for label, err in per.items():
+            if err != 0:
+                raise AssertionError(f"{kname} disagrees with its plain version on {label}")
+    sections["vs-plain"] = time.monotonic() - t_sec
+    # the node's daemon, service and servers stop before the agent runs as
+    # a process (a daemon sets process-wide state: one at a time here)
+    for key in ("world", "api", "driver", "watcher", "svc", "daemon"):
+        obj = held.pop(key)
+        (obj.stop if key == "svc" else obj.close)()
+
+    # 10. the agent as its own process on the card, driven by the CLI as
+    # processes; the same commands on an in-process agent at
+    # verdict_device="cpu" give the same map, identities named by labels
+    t_sec = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + (os.pathsep + os.environ["PYTHONPATH"]
+                                              if os.environ.get("PYTHONPATH") else ""))
+    run_dir = f"{tmp}/agent"
+    agent_sock = f"{run_dir}/cilium-tpu.sock"
+    rules_file = f"{tmp}/cnp-rules.json"
+    with open(rules_file, "w") as fh:
+        fh.write(rules_to_json([r for obj in w.cnps for r in parse_cnp(obj)]))
+    picked = [ep for ep in w.endpoints() if ep.realized_redirects][:K8S_AGENT_ENDPOINTS]
+    specs = [(7000 + i, f"10.0.3.{i + 2}", sorted(ep.security_identity.labels.get_model()))
+             for i, ep in enumerate(picked)]
+    t0 = time.monotonic()
+    log_out = open(f"{tmp}/agent.log", "w")
+    proc = held["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "cilium_tpu_torch.agent", "--run-dir", run_dir, "--no-restore"],
+        cwd=root, env=env, stdout=log_out, stderr=subprocess.STDOUT)
+
+    def agent_up():
+        if proc.poll() is not None:
+            raise AssertionError(f"k8s agent: exited {proc.returncode}: "
+                                 + open(f"{tmp}/agent.log").read()[-2000:])
+        try:
+            return ApiClient(agent_sock).get("/v1/healthz")["cilium"]["state"] == "Ok"
+        except OSError:
+            return False
+
+    wait_for(agent_up, "the agent process serves its API", timeout=K8S_AGENT_WAIT_S)
+    t_up = time.monotonic() - t0
+
+    def cli_proc(*argv):
+        return subprocess.Popen([sys.executable, "-m", "cilium_tpu_torch.cli", "--socket", agent_sock, *argv],
+                                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(p, what):
+        out, err = p.communicate(timeout=K8S_AGENT_WAIT_S)
+        if p.returncode != 0:
+            raise AssertionError(f"k8s cli process {what}: exit {p.returncode}: {err[-2000:]}")
+        return out
+
+    # two rounds of processes run together (each process takes seconds to
+    # import torch): status, the import and the creates, then the reads
+    p_status, p_import = cli_proc("status"), cli_proc("policy", "import", rules_file)
+    creates = [cli_proc("endpoint", "create", str(i), "--ipv4", ip, *[a for lb in lbls for a in ("-l", lb)])
+               for i, ip, lbls in specs]
+    proc_out = {"status": finish(p_status, "status"), "import": finish(p_import, "policy import")}
+    for p, (i, _, _) in zip(creates, specs):
+        finish(p, f"endpoint create {i}")
+    client = ApiClient(agent_sock)
+
+    def agent_ready(c):
+        st = c.get("/v1/status")
+        eps_ = c.get("/v1/endpoint")
+        return st["policy"]["rules"] > 0 and len(eps_) == len(specs) and all(
+            e["state"] == "ready" and e["policy_revision"] >= st["policy"]["revision"] for e in eps_)
+
+    wait_for(lambda: agent_ready(client), "the agent's endpoints ready", timeout=K8S_AGENT_WAIT_S)
+    map_name = f"policy-{specs[0][0]}"
+    p_map, p_ident, p_bug = (cli_proc("map", "get", map_name), cli_proc("identity", "list"),
+                             cli_proc("bugtool", "-o", f"{tmp}/agent-bugtool.tar.gz"))
+    proc_out.update(map=finish(p_map, "map get"), ident=finish(p_ident, "identity list"),
+                    bugtool=finish(p_bug, "bugtool"))
+    t_cli = time.monotonic() - t0 - t_up
+    agent_dev = bugtool_device(f"{tmp}/agent-bugtool.tar.gz")
+    if on_card and [d["name"] for d in agent_dev["devices"]][:1] != [want_name]:
+        raise AssertionError(f"k8s agent bugtool: device.json {agent_dev} does not name {want_name}")
+    t_stop = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(30)
+    t_stop = time.monotonic() - t_stop
+    held.pop("proc")
+    log_out.close()
+    left = [f for f in os.listdir(run_dir) if f.endswith(".sock")]
+    if rc != 0 or left:
+        raise AssertionError(f"k8s agent: SIGTERM exit {rc}, sockets left {left}: "
+                             + open(f"{tmp}/agent.log").read()[-2000:])
+    # the same commands on an in-process agent on the CPU
+    cpu_dir = f"{tmp}/agent-cpu"
+    cpu_cfg = DaemonConfig(run_dir=cpu_dir, socket_path=f"{cpu_dir}/cilium-tpu.sock",
+                           monitor_socket_path=f"{cpu_dir}/monitor.sock", verdict_device="cpu", restore_state=False)
+    held["agent_cpu"] = Agent(cpu_cfg)
+    cbase = ["--socket", cpu_cfg.socket_path]
+    for argv in (["policy", "import", rules_file],
+                 *(["endpoint", "create", str(i), "--ipv4", ip, *[a for lb in lbls for a in ("-l", lb)]]
+                   for i, ip, lbls in specs)):
+        if cli_out(cli, cbase + argv)[0] != 0:
+            raise AssertionError(f"k8s cpu agent: {argv[:2]} failed")
+    wait_for(lambda: agent_ready(ApiClient(cpu_cfg.socket_path)), "the CPU agent's endpoints ready")
+    cpu_map = cli_out(cli, cbase + ["map", "get", map_name])[1]
+    cpu_ident = cli_out(cli, cbase + ["identity", "list"])[1]
+    held.pop("agent_cpu").close()
+    got_map, want_agent = agent_map(proc_out["map"], proc_out["ident"]), agent_map(cpu_map, cpu_ident)
+    if got_map != want_agent or not got_map:
+        raise AssertionError(f"k8s agent: map {map_name} on the card differs from the CPU agent's "
+                             f"({len(got_map)} / {len(want_agent)} entries)")
+    stage("agent-process", time.monotonic() - t0, up_s=round(t_up, 3), cli_s=round(t_cli, 3),
+          sigterm_s=round(t_stop, 3), rules=proc_out["import"].strip(), endpoints=len(specs),
+          map_entries=len(got_map))
+    log(f"k8s-agent: `python -m cilium_tpu_torch.agent` served in {t_up:.1f} s; the CLI as processes: status, "
+        f"policy import ({proc_out['import'].strip()}), {len(specs)} endpoint creates, map get {map_name} "
+        f"({len(got_map)} entries == the in-process CPU agent's, identities by labels), bugtool (device.json "
+        f"names {agent_dev['devices'][0]['name'] if agent_dev['devices'] else None}); SIGTERM: exit 0 in "
+        f"{t_stop:.2f} s, no socket left")
+    sections["agent-process"] = time.monotonic() - t_sec
+
+    log("k8s stages (host clock s): " + json.dumps({name: secs for name, (secs, _) in stages.items()}))
+    log("k8s sections (host clock s): " + json.dumps(sections))
+    return launches, runs, report, {}
+
+
 def main() -> int:
     import argparse
 
@@ -6973,6 +7778,9 @@ def main() -> int:
     ap.add_argument("--daemon-only", action="store_true",
                     help="build every kernel and run phase 16 (the agent) alone; prints its readings "
                     "and no result line")
+    ap.add_argument("--k8s-only", action="store_true",
+                    help="build every kernel and run phase 17 (the agent's front doors) alone; prints "
+                    "its readings and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -7035,6 +7843,10 @@ def main() -> int:
         return 0
     if args.daemon_only:
         daemon_slice(dev, card, every_kernel())
+        log(f"total {time.monotonic() - t_start:.1f} s")
+        return 0
+    if args.k8s_only:
+        k8s_slice(dev, card, every_kernel())
         log(f"total {time.monotonic() - t_start:.1f} s")
         return 0
 
@@ -7602,6 +8414,17 @@ def main() -> int:
     for kname, per in report16.items():
         report.setdefault(kname, {}).update(per)
     for kname, n in launches16.items():
+        launches[kname] = launches.get(kname, 0) + n
+
+    # The agent's front doors (the Kubernetes watcher, CNI and IPAM, the
+    # REST API and CLI, workloads, the libnetwork driver, the agent process),
+    # last, counted in a run of its own over every kernel.
+    launches17, runs17, report17, timed17 = k8s_slice(dev, card, every_kernel())
+    runs.update(runs17)
+    timed.update(timed17)
+    for kname, per in report17.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches17.items():
         launches[kname] = launches.get(kname, 0) + n
 
     replaces = {

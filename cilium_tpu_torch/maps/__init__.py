@@ -3,8 +3,8 @@
 Counterpart of ``cilium_tpu/maps``: each map keeps an authoritative
 host-side table (copied from the reference) plus a ``to_device()`` export
 packing entries into tensors for batched lookups on the card
-(``cilium_tpu_torch.ops.maplookup`` / ``lpm``).  The reference's
-``ProxyMap`` is not part of the port yet.
+(``cilium_tpu_torch.ops.maplookup`` / ``lpm``).  ``ProxyMap`` is host-only:
+the native shim reads its ``save()`` snapshot.
 """
 
 from .policymap import (
@@ -26,6 +26,7 @@ from .lbmap import (
 from .ipcache import IpcacheMap
 from .lxcmap import EndpointInfo, LxcMap
 from .metricsmap import MetricsMap
+from .proxymap import ProxyMap
 
 __all__ = [
     "CT_DEFAULT_LIFETIME",
@@ -45,6 +46,7 @@ __all__ = [
     "PolicyEntry",
     "PolicyKey",
     "PolicyMap",
+    "ProxyMap",
     "TCP_CLOSING_LIFETIME",
     "lb4_select_backend_batch",
     "policy_can_access_batch",

@@ -2958,3 +2958,162 @@ def test_daemon_on_the_card_launches_k13_and_the_engines(cuda, tmp_path):
     _daemon_world(tmp_path, "default")
     after = (pol_mod._POLICY.launches, http_mod._HTTP_FRAME.launches, kafka_mod._KAFKA_HITS.launches)
     assert after[0] - before[0] == 4 and after[1] > before[1] and after[2] > before[2]
+
+
+# --- the agent's front doors on the card --------------------------------------------
+
+
+def _k8s_node(tmp_path, device):
+    """tests/k8s_world.py's node at SMALL on a port ``Daemon`` at
+    ``verdict_device`` ``device`` ("default" is the card), seeded: per
+    endpoint its realized map and K13 outputs (identities by labels, proxy
+    ports as presence), K13's LB outputs on the watcher's LB map, and the
+    HTTP verdicts of a verdict service on the node's NPDS."""
+    import ipaddress
+    import random
+
+    import k8s_world as kw
+    from cilium_tpu_torch import kvstore as kv_mod
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.maps import lbmap as lb_mod
+    from cilium_tpu_torch.maps import policymap as pol_mod
+    from cilium_tpu_torch.proxy.npds_push import network_policy_for_endpoint
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+    from cilium_tpu_torch.utils import option
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    random.seed(43)
+    saved = option.config, kv_mod._default_client
+    inst.reset_module_registry()
+    root = tmp_path / f"k8s-{device}"
+    d = Daemon(DaemonConfig(run_dir=str(root), socket_path=str(root / "a.sock"), monitor_socket_path=str(root / "m.sock"),
+                            enable_health=False, verdict_device=device), node_name="node-0")
+    svc = VerdictService(str(root / "vs.sock"), DaemonConfig(batch_timeout_ms=2.0, verdict_device=device)).start()
+    w = client = None
+    try:
+        w = kw.build_world(kw.modules("cilium_tpu_torch"), d, kw.SMALL, seed=5)
+        by_labels = sorted(kw.labels_of(w, i) for i in d.get_identity_cache())
+        id_of = {kw.labels_of(w, i): i for i in d.get_identity_cache()}
+        rng = np.random.default_rng(11)
+        pick = rng.integers(0, len(by_labels), 2048)
+        ident = np.array([id_of[by_labels[j]] for j in pick], np.int32)
+        dport = rng.choice(np.array([80, 443, 5432, 8080, 0], np.int32), 2048)
+        proto = rng.choice(np.array([6, 17, 0], np.int32), 2048)
+        q = [torch.from_numpy(a).to(d.device) for a in (ident, dport, proto)]
+        out = {}
+        for ep in w.endpoints():
+            assert ep.device_policy_map.device.type == d.device.type
+            allowed, port = (x.cpu().numpy() for x in pol_mod.policy_can_access_batch(ep.device_policy_map, *q,
+                                                                                       pol_mod.DIR_INGRESS))
+            out[ep.id] = (sorted((kw.labels_of(w, k.identity), k.dest_port, k.proto, k.direction, v.proxy_port != 0)
+                                 for k, v in ep.realized_map_state.items()),
+                          allowed.astype(bool).tolist(), (port != 0).tolist())
+        vips = np.array([int(ipaddress.IPv4Address(kw.service_vip(s))) for s in range(kw.SMALL.services)] + [1],
+                        np.int64)
+        lbq = [torch.from_numpy(a).to(d.device) for a in (
+            vips[rng.integers(0, len(vips), 2048)].astype(np.uint32).view(np.int32),
+            rng.choice(np.array([80, 443], np.int32), 2048),
+            rng.integers(0, 1 << 31, 2048).astype(np.int32))]
+        out["lb"] = [x.cpu().numpy().tolist() for x in lb_mod.lb4_select_backend_batch(
+            d.lb_map.to_device(device=d.device), *lbq)]
+        d.attach_verdict_service(svc.socket_path)
+        client = SidecarClient(svc.socket_path)
+        out["verdicts"], _ = kw.shim_verdicts(w, network_policy_for_endpoint, client, client.open_module([]), 100)
+        return out
+    finally:
+        if client is not None:
+            client.close()
+        if w is not None:
+            w.close()
+        d.close()
+        svc.stop()
+        inst.reset_module_registry()
+        option.config, kv_mod._default_client = saved
+
+
+def test_k8s_node_on_the_card_matches_the_node_on_the_cpu(cuda, tmp_path):
+    card = _k8s_node(tmp_path, "default")
+    cpu = _k8s_node(tmp_path, "cpu")
+    assert card == cpu
+    assert any(any(v[1]) for k, v in card.items() if isinstance(k, int))
+    assert any(card["lb"][0]) and not all(card["lb"][0])
+    outs = [b for v in card["verdicts"].values() for b in v[1:-1]]
+    assert outs and any(outs) and not all(outs)
+
+
+def _nvidia_smi_name():
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def test_bugtool_names_the_card(cuda, tmp_path):
+    import json
+    import tarfile
+
+    from cilium_tpu_torch import kvstore as kv_mod
+    from cilium_tpu_torch.api import ApiClient, ApiServer
+    from cilium_tpu_torch.bugtool import collect
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.utils import option
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    saved = option.config, kv_mod._default_client
+    d = Daemon(DaemonConfig(run_dir=str(tmp_path), socket_path=str(tmp_path / "a.sock"),
+                            monitor_socket_path=str(tmp_path / "m.sock"), enable_health=False))
+    srv = ApiServer(d, str(tmp_path / "api.sock"))
+    try:
+        manifest = collect(ApiClient(str(tmp_path / "api.sock")), str(tmp_path / "b.tar.gz"))
+        with tarfile.open(tmp_path / "b.tar.gz") as tar:
+            device = json.load(tar.extractfile("cilium-tpu-bugtool/device.json"))
+    finally:
+        srv.close()
+        d.close()
+        option.config, kv_mod._default_client = saved
+    assert manifest["sections"]["device.json"]["ok"] and device["backend"] == "cuda"
+    assert device["device_count"] == torch.cuda.device_count() >= 1
+    name = device["devices"][0]["name"]
+    assert name == torch.cuda.get_device_name(0) == _nvidia_smi_name() and "H100" in name
+    assert device["devices"][0]["capability"] == list(torch.cuda.get_device_capability(0))
+
+
+def test_agent_process_on_the_card_stops_on_sigterm(cuda, tmp_path):
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from cilium_tpu_torch.api import ApiClient
+
+    root = str(Path(__file__).resolve().parent.parent)
+    run_dir = tmp_path / "run"
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log = open(tmp_path / "agent.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "cilium_tpu_torch.agent", "--run-dir", str(run_dir),
+                             "--no-restore"], cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, (tmp_path / "agent.log").read_text()[-2000:]
+            try:
+                status = ApiClient(str(run_dir / "cilium-tpu.sock")).get("/v1/status")
+                break
+            except OSError:
+                assert time.monotonic() < deadline, "the agent did not serve its API"
+                time.sleep(0.2)
+        assert status["cilium"]["state"] == "Ok"
+        assert sorted(f for f in os.listdir(run_dir) if f.endswith(".sock")) == [
+            "access_log.sock", "cilium-tpu.sock", "monitor.sock", "npds.sock"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(30) == 0
+        assert not [f for f in os.listdir(run_dir) if f.endswith(".sock")]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        log.close()
