@@ -251,6 +251,18 @@ which fails the run on any mismatch:
    create x 8, map get, bugtool), its map equal to an in-process agent's
    at verdict_device="cpu", SIGTERM exiting 0 with no socket left;
    ``--k8s-only`` runs it alone.
+18. the device contracts (``cilium_tpu_torch.analysis.devicecheck``),
+   counted in a run of their own: ``check_device_contracts`` on the card
+   (the HTTP, r2d2, DNS and seam-probe models and every sharded step
+   captured into CUDA graphs, the reshape ladder, the shape closure
+   through a ``VerdictService``'s graph caches) must return no finding;
+   each captured graph is replayed on fresh inputs and held equal to its
+   CPU twin (the kernels' plain versions) on the same inputs, a replay
+   adding exactly the launches its graph holds; the launches print per
+   model and per kernel; the port's linter (``python -m
+   cilium_tpu_torch.analysis.cli --json --ratchet cilium_tpu_torch``, a
+   process started with the phase) must report 0 active findings;
+   ``--contracts-only`` runs it alone.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -7084,6 +7096,117 @@ def k8s_slice(dev, card, kerns):
     return out
 
 
+CONTRACTS_SEED = 1
+CONTRACTS_LINT_S = 300.0  # the linter process: about 40 s on one core
+
+
+def contracts_slice(dev, card, kerns):
+    """Phase 18, the device contracts on the card: the port's
+    ``check_device_contracts`` (the card is its default), every captured
+    graph replayed on fresh inputs against its CPU twin, and the port's
+    linter over the package in a process of its own, started first and
+    waited for last; counted in a run of its own over every kernel.
+    Returns (launches, runs, report, timed)."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.analysis import devicecheck as dc
+
+    log("== contracts slice")
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "cilium_tpu_torch.analysis.cli", "--json", "--ratchet",
+         "cilium_tpu_torch"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        out = _contracts_runs(dev, card, kerns, dc, kernels, on_card)
+        lint_out, lint_err = lint.communicate(timeout=CONTRACTS_LINT_S)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait(30)
+    try:
+        rep = json.loads(lint_out)
+    except ValueError:
+        raise AssertionError(f"linter: rc {lint.returncode}, no report: {lint_err[-2000:]}")
+    log(f"contracts lint: {rep['total']} active, {len(rep['suppressed'])} suppressed, rc "
+        f"{lint.returncode} ({time.monotonic() - t_phase:.1f} s into the phase, host clock)")
+    if lint.returncode != 0 or rep["total"]:
+        raise AssertionError(f"linter: rc {lint.returncode}, findings {rep['findings'][:5]} "
+                             f"{lint_err[-2000:]}")
+    log(f"contracts slice: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def _contracts_runs(dev, card, kerns, dc, kernels, on_card):
+    cpu = torch.device("cpu")
+
+    def counts():
+        return {n: k.launches + k.replayed for n, k in kerns.items()}
+
+    # the main path, counted: every count is 0 from here to the last check
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+    captures = []
+    t0 = time.monotonic()
+    findings = dc.check_device_contracts(None if on_card else "cpu", captures=captures)
+    if on_card:
+        torch.cuda.synchronize()
+    t_check = time.monotonic() - t0
+    for f in findings:
+        log("contract finding:", f.render())
+    if findings:
+        raise AssertionError(f"{len(findings)} device-contract finding(s)")
+    log(f"contracts: 0 findings over {len(captures)} traced calls in {t_check:.1f} s (host clock) [{card}]")
+    after_check = counts()
+    runs = {"contracts-check": dict(after_check)}
+
+    # every captured graph replayed on fresh inputs, held to its CPU twin
+    twins = dc.case_calls(cpu)
+    report, per_kernel = {}, {}
+    fresh = {dev: dc.batch(dev, seed=CONTRACTS_SEED), cpu: dc.batch(cpu, seed=CONTRACTS_SEED)}
+    for tag, fn, cap in captures:
+        twin_fn, twin_args = twins[tag]
+        if isinstance(cap.ins[0], torch.Tensor):  # a row batch: fresh rows
+            for dst, src in zip(cap.ins, fresh[dev]):
+                dst.copy_(src)
+            twin_args = fresh[cpu]
+        before = counts()
+        if on_card:
+            cap.graph.replay()
+            kernels.add_replays(cap.held)
+            torch.cuda.synchronize()
+            got = dc._outputs(cap.outs)
+        else:
+            got = dc._outputs(fn(*cap.ins))
+        now = counts()
+        run = {n: now[n] - before[n] for n in kerns}
+        runs[f"contracts-{tag}"] = run
+        held = cap.launches()
+        if on_card and {n: c for n, c in run.items() if c} != held:
+            raise AssertionError(f"contracts {tag}: a replay launched {run}, its graph holds {held}")
+        err = max_abs_err([g.cpu() for g in got], dc._outputs(twin_fn(*twin_args)))
+        if err:
+            raise AssertionError(f"contracts {tag}: the replay disagrees with its CPU twin by {err}")
+        for n, c in held.items():
+            report.setdefault(n, {})[f"contracts-{tag}"] = err
+            per_kernel[n] = per_kernel.get(n, 0) + c
+        log(f"contracts {tag}: replay == plain, launches a replay "
+            + ", ".join(f"{n} {c}" for n, c in sorted(held.items())))
+    launches = counts()
+    if on_card:
+        torch.cuda.synchronize()
+        missing = sorted(n for n in per_kernel if not launches[n])
+        if missing:
+            raise AssertionError(f"contracts: kernels of the path never launched: {missing}")
+    log("contracts launches by kernel (warm calls, service rounds and replays): "
+        + ", ".join(f"{n} {c}" for n, c in sorted(launches.items()) if c) + f" [{card}]")
+    log("contracts replayed by kernel (the replay check alone): "
+        + ", ".join(f"{n} {c}" for n, c in sorted(per_kernel.items())))
+    return launches, runs, report, {}
+
+
 def _k8s_runs(dev, card, kerns, kw, tmp, held):
     import os
     import signal
@@ -7781,6 +7904,9 @@ def main() -> int:
     ap.add_argument("--k8s-only", action="store_true",
                     help="build every kernel and run phase 17 (the agent's front doors) alone; prints "
                     "its readings and no result line")
+    ap.add_argument("--contracts-only", action="store_true",
+                    help="build every kernel and run phase 18 (the device contracts and the linter) "
+                    "alone; prints its readings and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -7847,6 +7973,10 @@ def main() -> int:
         return 0
     if args.k8s_only:
         k8s_slice(dev, card, every_kernel())
+        log(f"total {time.monotonic() - t_start:.1f} s")
+        return 0
+    if args.contracts_only:
+        contracts_slice(dev, card, every_kernel())
         log(f"total {time.monotonic() - t_start:.1f} s")
         return 0
 
@@ -8425,6 +8555,17 @@ def main() -> int:
     for kname, per in report17.items():
         report.setdefault(kname, {}).update(per)
     for kname, n in launches17.items():
+        launches[kname] = launches.get(kname, 0) + n
+
+    # The device contracts (the models and sharded steps captured into
+    # CUDA graphs, the shape closure, the linter), last, counted in a run
+    # of their own over every kernel.
+    launches18, runs18, report18, timed18 = contracts_slice(dev, card, every_kernel())
+    runs.update(runs18)
+    timed.update(timed18)
+    for kname, per in report18.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches18.items():
         launches[kname] = launches.get(kname, 0) + n
 
     replaces = {

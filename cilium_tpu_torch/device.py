@@ -32,6 +32,7 @@ def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     tensor (the models' ``__call__`` contract)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype).contiguous()
+    # lint: disable=R9 -- host inputs only: a tensor (every captured call's input) returned above
     return torch.from_numpy(np.ascontiguousarray(x)).to(
         device=device, dtype=dtype
     ).contiguous()

@@ -195,6 +195,7 @@ def arg(x, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) ->
     copied to ``device`` as ``dtype``; a tensor must already be what the
     kernel takes (see ``check``) and is never copied or converted."""
     if not isinstance(x, torch.Tensor):
+        # lint: disable=R9 -- host inputs only: a captured call passes tensors, which skip this copy
         x = torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dtype)
     check(x, name, dtype, shape, device)
     return x

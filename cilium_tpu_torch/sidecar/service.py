@@ -3838,7 +3838,7 @@ class VerdictService:
             return
         dev = self._exec_device
         with self._device_ctx():
-            ok = torch.ones(8, device=dev).sum().item() == 8
+            ok = int(_to_host(torch.ones(8, device=dev).sum())) == 8
         if not ok:
             raise RuntimeError(f"device probe on {dev}: wrong sum")
 

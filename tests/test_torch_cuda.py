@@ -3107,8 +3107,12 @@ def test_agent_process_on_the_card_stops_on_sigterm(cuda, tmp_path):
                 assert time.monotonic() < deadline, "the agent did not serve its API"
                 time.sleep(0.2)
         assert status["cilium"]["state"] == "Ok"
-        assert sorted(f for f in os.listdir(run_dir) if f.endswith(".sock")) == [
-            "access_log.sock", "cilium-tpu.sock", "monitor.sock", "npds.sock"]
+        # The API serves before the agent binds its access-log and NPDS
+        # sockets: wait for all four, within the same deadline.
+        want = ["access_log.sock", "cilium-tpu.sock", "monitor.sock", "npds.sock"]
+        while (socks := sorted(f for f in os.listdir(run_dir) if f.endswith(".sock"))) != want:
+            assert proc.poll() is None and time.monotonic() < deadline, socks
+            time.sleep(0.05)
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(30) == 0
         assert not [f for f in os.listdir(run_dir) if f.endswith(".sock")]
@@ -3117,3 +3121,86 @@ def test_agent_process_on_the_card_stops_on_sigterm(cuda, tmp_path):
             proc.kill()
             proc.wait(30)
         log.close()
+
+
+# --- device contracts on the card (analysis/devicecheck.py) ---------------
+
+
+@pytest.fixture(scope="module")
+def card_contracts():
+    """``check_device_contracts`` on the card (its default), once, with
+    every traced model and sharded step's capture."""
+    from cilium_tpu_torch.analysis import devicecheck
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    captures = []
+    findings = devicecheck.check_device_contracts(captures=captures)
+    return findings, {tag: (fn, cap) for tag, fn, cap in captures}
+
+
+def test_device_contracts_clean_on_the_card(cuda, card_contracts):
+    findings, caps = card_contracts
+    assert findings == [], "\n".join(f.render() for f in findings)
+    assert {"r2d2.plain", "r2d2.attr", "http.attr", "dns.attr",
+            "seam_probe.plain", "sharded_kafka_step@4x2"} <= set(caps)
+
+
+def test_model_graphs_hold_their_kernels(cuda, card_contracts):
+    """A capture records one launch a kernel op of the trace: the graph's
+    launches are the trace's kernel ops, and the attributed graph holds
+    the plain graph's (no second pass)."""
+    _, caps = card_contracts
+    for tag, (_fn, cap) in caps.items():
+        if "@" in tag:
+            continue
+        assert cap.graph is not None and cap.held, tag
+        ops = cap.trace.kernel_counts()
+        assert set(cap.launches()) == set(ops), tag
+    for fam in ("r2d2", "http", "dns", "seam_probe"):
+        assert caps[f"{fam}.attr"][1].launches() == caps[f"{fam}.plain"][1].launches()
+    assert caps["r2d2.plain"][1].launches() == {"r2d2_frame": 1, "dfa_scan": 1, "r2d2_hits": 1}
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_contract_graph_replays_match_the_cpu_twins(cuda, card_contracts, seed):
+    """Every captured graph replayed on fresh rows equals its CPU twin
+    (the kernels' plain versions) on the same rows, and a replay adds
+    exactly the launches its graph holds."""
+    from cilium_tpu_torch.analysis import devicecheck
+
+    _, caps = card_contracts
+    twins = devicecheck.case_calls("cpu")
+    rows = devicecheck.batch(cuda, seed=seed)
+    cpu_rows = devicecheck.batch("cpu", seed=seed)
+    for tag, (_fn, cap) in caps.items():
+        twin_fn, twin_args = twins[tag]
+        if isinstance(cap.ins[0], torch.Tensor):
+            for dst, src in zip(cap.ins, rows):
+                dst.copy_(src)
+            twin_args = cpu_rows
+        before = {k.symbol: k.replayed for k in kernels.ALL}
+        cap.graph.replay()
+        kernels.add_replays(cap.held)
+        torch.cuda.synchronize()
+        after = {k.symbol: k.replayed - before[k.symbol] for k in kernels.ALL}
+        assert {k: n for k, n in after.items() if n} == cap.launches(), tag
+        got = devicecheck._outputs(cap.outs)
+        want = devicecheck._outputs(twin_fn(*twin_args))
+        assert len(got) == len(want), tag
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), tag
+
+
+def test_capture_of_a_host_sync_is_a_finding(cuda):
+    """A model that reads to the host inside its call cannot be
+    captured: the contract reports it, it never runs eagerly instead."""
+    from cilium_tpu_torch.analysis import devicecheck
+
+    class _Sync:
+        def __call__(self, data, lengths, remotes):
+            ok = lengths >= 0
+            return ok, lengths + int(lengths.sum()), ok
+
+    findings = devicecheck._check_model("sync", "x.py", _Sync(), cuda)
+    assert any(f.rule in ("R8", "R9") for f in findings), [f.render() for f in findings]
