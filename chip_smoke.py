@@ -3,8 +3,8 @@
 verdict paths, its L3/L4 datapath, its sidecar service, its chunk-folded
 DFA search, its seam benchmarks, its sharded verdicts on a mesh and its
 policy plane, its state layer, its agent and the agent's front doors
-(the Kubernetes watcher, CNI, the REST API and the CLI) on one CUDA card
-and check them.
+(the Kubernetes watcher, CNI, the REST API and the CLI), and the native
+shim as shim processes, on one CUDA card and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline-csrc DIR   # also time the kernels whose
@@ -262,7 +262,24 @@ which fails the run on any mismatch:
    model and per kernel; the port's linter (``python -m
    cilium_tpu_torch.analysis.cli --json --ratchet cilium_tpu_torch``, a
    process started with the phase) must report 0 active findings;
-   ``--contracts-only`` runs it alone.
+   ``--contracts-only`` runs it alone;
+19. the native shim, counted in a run of its own: ``native/shim.cc``
+   built with ``make -B -C native`` and run as 16 shim processes
+   (``cilium_tpu_torch/sidecar/nativeshim.py`` as a script) against one
+   ``VerdictService`` on the card at the reference's defaults with phase
+   9's five policies: the processes open phase 9's 6,656 conns and drive
+   every round through ``cilium_tpu_on_io`` with an access log attached,
+   and accept 1,024 conns through ``ProxyMap`` / ``IpcacheMap`` snapshots
+   of phase 17's node and 16,384 pod IPs; every call's forwarded bytes
+   and every access-log record equal to the host oracle's, the shim's
+   host-map identities to K12 on the card (and K12 to its plain
+   version); then the service stopped between two rounds of a fresh
+   r2d2 drive and a new one started on the same socket (0 errors, the
+   split frames judged as the oracle says), the fan-in contract with the
+   16 processes at twice one process's closed-loop capacity, and the
+   native and the in-process seams (``on_io`` p50 / p99, frames/s, the
+   device's idle share, launches) in turns; ``--native-only`` runs it
+   alone.  ``--fanin-only N`` runs phase 12's fan-in contract N times.
 
 It prints the ``kernels`` JSON line, then the card line, then the result
 line last.
@@ -2571,6 +2588,23 @@ def sidecar_traffic():
     }
 
 
+_SIDE_WORLD = []
+
+
+def side_world():
+    """(phase 9's policies, traffic, each protocol's host-oracle rounds),
+    made once a run: phases 9 and 19 drive the same traffic."""
+    if not _SIDE_WORLD:
+        pols, traffic = sidecar_policies(), sidecar_traffic()
+        t0 = time.monotonic()
+        expect = {p: sidecar_oracle(p, traffic[p][0], pols) for p in traffic}
+        log(f"sidecar traffic: " + ", ".join(
+            f"{p} {SIDE_CONNS[p]} conns x {len(traffic[p][0])} rounds = {side_frames(e)} frames"
+            for p, e in expect.items()) + f"; host oracle {time.monotonic() - t0:.1f} s")
+        _SIDE_WORLD.append((pols, traffic, expect))
+    return _SIDE_WORLD[0]
+
+
 def sidecar_oracle(proto, rounds, pols, name=None, port=None, base=None):
     """Each round's {conn: (ops, orig inject, reply inject)} from the port's
     in-process proxylib ``Instance`` on the host, fed as the service's
@@ -2801,14 +2835,8 @@ def sidecar_slice(dev, card, kerns):
     kerns.update(dns_name=dns_mod._DNS_NAME, dns_hits=dns_mod._DNS_HITS,
                  cassandra_hits=cass_mod._CASSANDRA_HITS, memcache_hits=mc_mod._MEMCACHE_HITS,
                  gather_rows=gather_mod._GATHER_ROWS)
-    pols = sidecar_policies()
-    traffic = sidecar_traffic()
-    t0 = time.monotonic()
-    expect = {p: sidecar_oracle(p, traffic[p][0], pols) for p in traffic}
+    pols, traffic, expect = side_world()
     frames = {p: side_frames(e) for p, e in expect.items()}
-    log(f"sidecar traffic: " + ", ".join(
-        f"{p} {SIDE_CONNS[p]} conns x {len(traffic[p][0])} rounds = {frames[p]} frames"
-        for p in traffic) + f"; host oracle {time.monotonic() - t0:.1f} s")
     inst.reset_module_registry()
     with tempfile.TemporaryDirectory(prefix="sidecar-", dir=".") as tmp:
         return _sidecar_runs(dev, card, kerns, pols, traffic, expect, frames, tmp, t_phase)
@@ -7887,6 +7915,604 @@ def _k8s_runs(dev, card, kerns, kw, tmp, held):
     return launches, runs, report, {}
 
 
+# --- phase 19: the native shim, as N shim processes, into the service ------------
+
+NATIVE_PROCS = 16  # the pods of one node, one shim process each
+NATIVE_ACCEPT = 64  # conns a shim process accepts through its map snapshots
+NATIVE_ACCEPT_BASE = 5_500_000
+NATIVE_ACCEPT_POLICY = "native-accept"
+NATIVE_NODE_SEED = 17  # phase 17's node (tests/k8s_world.py: 110 pods on 10.0.0.0/24)
+NATIVE_CLUSTER_IPS = 16_384  # phase 15's pod IPs (tests/state_world.py pod_ip)
+NATIVE_RANDOM_IPS = 1_024  # addresses drawn at random, most outside every pod prefix
+NATIVE_RESTART_SHIFT = 200_000  # the restart drive's conns: SIDE_BASES + this
+NATIVE_TURN_SHIFT = 300_000  # turn t's conns: SIDE_BASES + this + 100,000 t
+NATIVE_TURNS = ("native", "in-process", "native", "in-process")
+NATIVE_PROFILED = 2  # the last turns, one of each kind, run under the profiler
+NATIVE_TURN_ROUNDS = 1  # a turn drives the traffic's first round (cut for time)
+NATIVE_RESTART_ROUNDS = 2  # the restart falls between them
+NATIVE_FANIN_BASE = 5_600_000
+NATIVE_FANIN_CONNS = 16  # a process's conns in the fan-in (seam_fanin's 16 a session)
+NATIVE_FANIN_CAP_S = 2.0
+NATIVE_FANIN_S = 4.0
+NATIVE_JOB_S = 300.0  # the longest a shim process may take for one job
+NATIVE_KERNELS = ("r2d2_frame", "dfa_scan", "r2d2_hits", "http_frame", "http_lit", "http_hits",
+                  "dns_name", "dns_hits", "cassandra_hits", "memcache_hits", "lpm_lookup")
+FANIN_FRAME = b"READ /public/bench.txt\r\n"
+
+
+class ShimProcs:
+    """N shim processes (``sidecar/nativeshim.py`` run as a script, each
+    its own OS process with the library loaded through ctypes) and the job
+    protocol they speak on their standard input and output."""
+
+    def __init__(self, n, library, tmp):
+        from cilium_tpu_torch.sidecar import nativeshim
+
+        self.library, self.tmp, self.n_jobs = str(library), tmp, 0
+        self.errs = [open(f"{tmp}/shim-{k}.err", "w") for k in range(n)]
+        self.procs = [subprocess.Popen([sys.executable, nativeshim.__file__], stdin=subprocess.PIPE,
+                                       stdout=subprocess.PIPE, stderr=e, text=True, bufsize=1)
+                      for e in self.errs]
+
+    def _line(self, k, deadline):
+        import select
+
+        p = self.procs[k]
+        ready, _, _ = select.select([p.stdout], [], [], max(deadline - time.monotonic(), 0.0))
+        line = p.stdout.readline().strip() if ready else None
+        if not line or line.startswith("error"):
+            self.errs[k].flush()
+            with open(self.errs[k].name) as f:
+                tail = f.read()[-2000:]
+            raise AssertionError(f"shim process {k}: {line or 'no answer in time'} {tail}")
+        return line
+
+    def run(self, jobs, on_pause=None):
+        """Hand ``jobs`` ({process: job}) out together and return {process:
+        result}.  With ``on_pause``, every process's pause is awaited, then
+        ``on_pause()`` runs and they go on."""
+        paths = {}
+        for k, job in jobs.items():
+            self.n_jobs += 1
+            paths[k] = f"{self.tmp}/job-{self.n_jobs}.json"
+            with open(paths[k], "w") as f:
+                json.dump(dict(job, library=self.library), f)
+            self.procs[k].stdin.write(paths[k] + "\n")
+            self.procs[k].stdin.flush()
+        deadline = time.monotonic() + NATIVE_JOB_S
+        if on_pause is not None:
+            for k in jobs:
+                if self._line(k, deadline) != "pause":
+                    raise AssertionError(f"shim process {k} did not pause")
+            on_pause()
+            for k in jobs:
+                self.procs[k].stdin.write("go\n")
+                self.procs[k].stdin.flush()
+        out = {}
+        for k, path in paths.items():
+            line = self._line(k, deadline)
+            if line != f"done {path}":
+                raise AssertionError(f"shim process {k}: {line}")
+            with open(path + ".out") as f:
+                out[k] = json.load(f)
+        return out
+
+    def close(self):
+        for p in self.procs:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+        for p in self.procs:
+            try:
+                p.wait(30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+        for e in self.errs:
+            e.close()
+
+
+def native_src(proto, fid):
+    """A conn's own source address (its access-log records carry it)."""
+    return f"10.{list(SIDE_PORTS).index(proto) + 1}.{fid // 256}.{fid % 256}:{1024 + fid}"
+
+
+def native_share(traffic, k, n, shift=0, protos=None, rounds=None):
+    """Shim process k's part of phase 9's traffic: every protocol's conns
+    with fid % n == k, and their calls in round order (every protocol's
+    round r before any round r + 1), the first ``rounds`` rounds (all by
+    default).  Returns (conns, calls, keys): keys[i] is call i's (proto,
+    fid, round)."""
+    from cilium_tpu_torch.sidecar.nativeshim import b64
+
+    protos = list(protos or traffic)
+    conns, calls, keys = [], [], []
+    for proto in protos:
+        remotes = {fid: remote for rnd in traffic[proto][0] for fid, _, remote, _ in rnd}
+        conns += [[proto, SIDE_BASES[proto] + shift + fid, remote, native_src(proto, fid),
+                   f"2.2.2.2:{SIDE_PORTS[proto]}", SIDE_NAMES[proto]]
+                  for fid, remote in remotes.items() if fid % n == k]
+    for r in range(min(max(len(traffic[p][0]) for p in protos), rounds or 1 << 30)):
+        for proto in protos:
+            rounds = traffic[proto][0]
+            for fid, chunk, _, reply in rounds[r] if r < len(rounds) else ():
+                if fid % n == k:
+                    calls.append([r, SIDE_BASES[proto] + shift + fid, bool(reply), b64(chunk)])
+                    keys.append((proto, fid, r))
+    return conns, calls, keys
+
+
+def native_expect(traffic, expect):
+    """{(proto, fid, round): (forwarded bytes, frames passed, frames
+    dropped)}: the oracle's ops and injects through ``OnIoMirror``, the
+    shim's ``on_io`` contract."""
+    from cilium_tpu_torch.sidecar.nativeshim import OnIoMirror
+
+    out = {}
+    for proto, (rounds, _) in traffic.items():
+        mirrors = {}
+        for r, rnd in enumerate(rounds):
+            for fid, chunk, _, reply in rnd:
+                ops, io, ir = expect[proto][r][fid]
+                out[(proto, fid, r)] = mirrors.setdefault(fid, OnIoMirror()).call(reply, chunk, ops, io, ir)
+    return out
+
+
+def native_outputs(label, keys, results, want):
+    """Every call's result OK and forwarded bytes equal to ``want[key][0]``;
+    raises with the first few that are not."""
+    from cilium_tpu_torch.sidecar.nativeshim import unb64
+
+    bad = []
+    for k, res in results.items():
+        if res.get("conn_results"):
+            raise AssertionError(f"{label}: shim process {k} conns refused {res['conn_results'][:5]}")
+        for key, r, got in zip(keys[k], res["results"], res["outs"]):
+            if r != 0 or unb64(got) != want[key][0]:
+                bad.append((key, r, unb64(got)[:80], want[key][0][:80]))
+        if len(res["results"]) != len(keys[k]):
+            raise AssertionError(f"{label}: shim process {k} made {len(res['results'])} of {len(keys[k])} calls")
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} calls differ from the oracle, first {bad[:3]}")
+    return sum(len(v) for v in keys.values())
+
+
+def native_accept_world(tmp, pols):
+    """Phase 17's node (110 pods on 10.0.0.0/24, an identity a label set)
+    and phase 15's 16,384 pod IPs (an identity a 32) in an ``IpcacheMap``,
+    under 10.0.0.0/8 (9) and the world default (2); ``NATIVE_PROCS`` x
+    ``NATIVE_ACCEPT`` conns to accept: node pods redirected to the node's
+    proxy (a ``ProxyMap`` entry with the original destination and the
+    source identity), node pods, cluster pods and outside sources direct.
+    Writes both snapshots; returns the world and the push's policies with
+    the accepted conns' policy (the node's prod pods allowed) added."""
+    from cilium_tpu_torch.maps.ipcache import IpcacheMap
+    from cilium_tpu_torch.maps.proxymap import ProxyKey4, ProxyMap
+    from cilium_tpu_torch.proxylib import NetworkPolicy, PortNetworkPolicy, PortNetworkPolicyRule
+
+    kw, sw = _tests_module("k8s_world"), _tests_module("state_world")
+    ipc = IpcacheMap()
+    ipc.upsert("0.0.0.0/0", sec_label=2)
+    ipc.upsert("10.0.0.0/8", sec_label=9)
+    ids, node = {}, []
+    for i, pod in enumerate(kw.pods(kw.Scale(), NATIVE_NODE_SEED)):
+        ident = ids.setdefault((pod["namespace"], pod["labels"]["app"], pod["labels"]["tier"]),
+                               1000 + len(ids))
+        node.append((f"10.0.0.{i + 2}", ident, pod["namespace"]))
+        ipc.upsert(f"10.0.0.{i + 2}/32", sec_label=ident)
+    cluster = [sw.pod_ip(i) for i in range(NATIVE_CLUSTER_IPS)]
+    for i, ip in enumerate(cluster):
+        ipc.upsert(f"{ip}/32", sec_label=256 + i // 32)
+    rng = random.Random(19)
+    rand = [str(ipaddress.IPv4Address(rng.getrandbits(32))) for _ in range(NATIVE_RANDOM_IPS)]
+    ip = lambda s: int(ipaddress.IPv4Address(s))
+    pm = ProxyMap(clock=lambda: 0.0)
+    conns = []
+    for j in range(NATIVE_PROCS * NATIVE_ACCEPT):
+        kind, pod, peer = j % 4, node[j % len(node)], cluster[(j * 7) % len(cluster)]
+        sport = 20_000 + j
+        if kind == 0:  # redirected to the node's proxy port
+            pm.create(ProxyKey4(saddr=ip(pod[0]), daddr=ip("10.0.0.1"), sport=sport, dport=15001, nexthdr=6),
+                      orig_daddr=ip(peer), orig_dport=80, identity=pod[1])
+            conns.append((j, pod[0], "10.0.0.1", sport, 15001, peer, pod[1]))
+        elif kind == 1:
+            conns.append((j, pod[0], peer, sport, 80, peer, None))
+        elif kind == 2:
+            conns.append((j, peer, pod[0], sport, 80, pod[0], None))
+        else:
+            conns.append((j, f"203.0.113.{j % 250 + 1}", pod[0], sport, 80, pod[0], None))
+    paths = {"hostmap": f"{tmp}/hostmap.bin", "proxymap": f"{tmp}/proxymap.bin"}
+    n_ipc, n_pm = ipc.save(paths["hostmap"]), pm.save(paths["proxymap"])
+    allowed = sorted({ident for _, ident, ns in node if ns == "prod"})
+    accept_pol = NetworkPolicy(name=NATIVE_ACCEPT_POLICY, policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+            remote_policies=allowed, l7_proto="r2d2",
+            l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}])])])
+    addrs = [p[0] for p in node] + cluster + rand
+    log(f"native accept world: {len(node)} node pods ({len(ids)} identities, {len(allowed)} allowed), "
+        f"{len(cluster)} cluster pod IPs, {n_ipc} ipcache prefixes, {n_pm} proxymap entries, "
+        f"{len(conns)} conns to accept, {len(addrs)} addresses to resolve")
+    return dict(ipc=ipc, conns=conns, addrs=addrs, paths=paths, ip=ip), pols + [accept_pol]
+
+
+def native_accept_frame(j, r):
+    """Accepted conn j's frame in its round r (of two)."""
+    return R2D2_CORPUS[j % len(R2D2_CORPUS)] if r == 0 else b"READ /public/acc%d.txt\r\n" % j
+
+
+def native_records(srv, want_total, timeout_s=60.0):
+    """The access-log server's records by source address: (verdict, source
+    identity, destination identity, destination, proto) in arrival order."""
+    deadline = time.monotonic() + timeout_s
+    while len(srv.records) < want_total and time.monotonic() < deadline:
+        time.sleep(0.05)
+    out = {}
+    for r in list(srv.records):
+        out.setdefault(r.source.ipv4, []).append(
+            (r.verdict, r.source.identity, r.destination.identity, r.destination.ipv4, r.l7.proto))
+    return out
+
+
+def native_slice(dev, card, kerns):
+    """Phase 19: the native C++ shim (``native/shim.cc``, built here with
+    ``make -C native``) as 16 shim processes, the pods of one node, into
+    one port ``VerdictService`` on the card at the reference's defaults
+    with phase 9's five policies and traffic, counted in a run of its own
+    over every kernel: every call's forwarded bytes and every access-log
+    record held to the host oracle, the accept path's identities to K12,
+    a service restart mid-stream, the fan-in contract across processes,
+    then readings of the native and the in-process seams in turns.
+    Returns (launches, runs, report, timed)."""
+    import tempfile
+
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.sidecar import nativeshim
+
+    log("== native slice")
+    t_phase = time.monotonic()
+    t0 = time.monotonic()
+    so = nativeshim.build_shim()
+    log(f"native shim built from native/ ({so.stat().st_size} bytes) in {time.monotonic() - t0:.1f} s")
+    pols, traffic, expect = side_world()
+    inst.reset_module_registry()
+    held = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="native-", dir=".") as tmp:
+            try:
+                out = _native_runs(dev, card, kerns, so, pols, traffic, expect, tmp, held)
+            finally:
+                procs = held.pop("procs", None)
+                if procs is not None:
+                    procs.close()
+                for key in ("svc", "al"):
+                    obj = held.pop(key, None)
+                    if obj is not None:
+                        (obj.stop if key == "svc" else obj.close)()
+    finally:
+        inst.reset_module_registry()
+    log(f"native slice: {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def _native_runs(dev, card, kerns, so, pols, traffic, expect, tmp, held):
+    from cilium_tpu_torch.accesslog.server import AccessLogServer
+    from cilium_tpu_torch.ops.lpm import ipv4_to_words, lpm_lookup, lpm_lookup_plain
+    from cilium_tpu_torch.sidecar import VerdictService
+    from cilium_tpu_torch.sidecar.nativeshim import b64
+
+    sections, t_mark = {}, [time.monotonic()]
+
+    def mark(name):
+        now = time.monotonic()
+        sections[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
+    world, pols = native_accept_world(tmp, pols)
+    pj = json.dumps([dataclasses.asdict(p) for p in pols])
+    path = f"{tmp}/native.sock"
+    n = NATIVE_PROCS
+    want = native_expect(traffic, expect)
+    frames = sum(side_frames(e) for e in expect.values())
+    held["al"] = srv = AccessLogServer(f"{tmp}/access.sock")
+    held["svc"] = VerdictService(path, side_config()).start()
+    held["procs"] = procs = ShimProcs(n, so, tmp)
+
+    def counts():
+        return {name: k.launches + k.replayed for name, k in kerns.items()}
+
+    mark("setup")
+
+    # 19a. the counted run: 16 shim processes push the five policies (and
+    # the accepted conns'), open their share of phase 9's 6,656 conns with
+    # their own source addresses and an access log, accept 64 conns each
+    # through the map snapshots and resolve the addresses, drive every
+    # round with on_io; then K12 resolves the same addresses on the card.
+    shares = {k: native_share(traffic, k, n) for k in range(n)}
+    acc = world["conns"]
+    jobs = {}
+    for k in range(n):
+        mine = [c for c in acc if c[0] % n == k]
+        acc_calls = [[100 + r, NATIVE_ACCEPT_BASE + j, False, b64(native_accept_frame(j, r))]
+                     for r in range(2) for j, *_ in mine]
+        jobs[k] = dict(kind="drive", socket=path, policy=pj, accesslog=srv.path, conns=shares[k][0],
+                       calls=shares[k][1] + acc_calls,
+                       accept=dict(proxymap=world["paths"]["proxymap"], hostmap=world["paths"]["hostmap"],
+                                   conns=[[NATIVE_ACCEPT_BASE + j, world["ip"](s), world["ip"](d), sp, dp,
+                                           NATIVE_ACCEPT_POLICY] for j, s, d, sp, dp, _, _ in mine],
+                                   addrs=[world["ip"](a) for a in world["addrs"][k::n]]))
+    addrs = world["addrs"] + [c[1] for c in acc] + [c[5] for c in acc]
+    for k in kerns.values():
+        k.launches = 0
+        k.replayed = 0
+    t0 = time.monotonic()
+    main = procs.run(jobs)
+    t_drive = time.monotonic() - t0
+    lpm = world["ipc"].to_device(device=dev)
+    found, value, plen = (t.cpu().numpy() for t in lpm_lookup(lpm, *ipv4_to_words(addrs)))
+    launches = counts()
+    runs = {"native": dict(launches)}
+    ws = [torch.from_numpy(w).to(dev) for w in ipv4_to_words(addrs)]
+    report = {"lpm_lookup": {"native-accept": max_abs_err(list(lpm_lookup(lpm, *ws)),
+                                                          list(lpm_lookup_plain(lpm, *ws)))}}
+    if report["lpm_lookup"]["native-accept"]:
+        raise AssertionError(f"native accept: K12 differs from its plain version: {report}")
+    missing = [name for name in NATIVE_KERNELS if not launches[name]]
+    if missing:
+        raise AssertionError(f"native: kernels of the path never launched: {missing} ({launches})")
+    log("native counted run: " + ", ".join(f"{name} {c}" for name, c in sorted(launches.items()) if c)
+        + f"; K16 (the blob lane) {launches['gather_rows']} [{card}]")
+
+    mark("counted-run")
+
+    # accept: the shim's host-map reader and its accept path against K12.
+    k12 = {a: (int(plen[i]) + 1 if found[i] else 0, int(value[i]) if found[i] else 0)
+           for i, a in enumerate(addrs)}
+    bad = [(a, got, k12[a]) for k in range(n)
+           for a, got in zip(world["addrs"][k::n], main[k]["hostmap"]) if tuple(got) != k12[a]]
+    if bad:
+        raise AssertionError(f"native hostmap: {len(bad)} of {len(world['addrs'])} addresses differ "
+                             f"from K12, first {bad[:3]}")
+    sids = {}
+    for k in range(n):
+        for cid, res, od, op, sid, did in main[k]["accept"]:
+            j = cid - NATIVE_ACCEPT_BASE
+            _, s, d, sp, dp, orig, pm_id = acc[j]
+            want_sid = pm_id if pm_id is not None else k12[s][1]
+            got = (res, od, op, sid, did)
+            exp = (0, world["ip"](orig), 80, want_sid, k12[orig][1])
+            if got != exp:
+                raise AssertionError(f"native accept conn {j}: {got} != {exp}")
+            sids[j] = sid
+    if len(sids) != len(acc):
+        raise AssertionError(f"native accept: {len(sids)} of {len(acc)} conns accepted")
+    acc_rounds = [[(j, native_accept_frame(j, r), sids[j], False) for j, *_ in acc] for r in range(2)]
+    acc_expect = sidecar_oracle("r2d2", acc_rounds, pols, name=NATIVE_ACCEPT_POLICY, port=80,
+                                base=NATIVE_ACCEPT_BASE)
+    want.update({("accept", j, 100 + r): w for (_, j, r), w in
+                 native_expect({"accept": (acc_rounds, None)}, {"accept": acc_expect}).items()})
+    keys = {k: shares[k][2] + [("accept", j, 100 + r) for r in range(2) for j, *_ in acc if j % n == k]
+            for k in range(n)}
+    n_calls = native_outputs("native", keys, main, want)
+    allowed = set(pols[-1].ingress_per_port_policies[0].rules[0].remote_policies)
+    log(f"native: {n} shim processes, {sum(len(s[0]) for s in shares.values())} conns of five protocols "
+        f"and {len(acc)} accepted, {n_calls} on_io calls ({frames} frames of phase 9's traffic) at "
+        f"{side_config().batch_flows} x {side_config().batch_width}: 0 mismatches against the oracle, "
+        f"drive {t_drive:.1f} s (host clock) [{card}]")
+    log(f"native accept: {len(world['addrs'])} addresses through the shim's host map == K12 on the card "
+        f"({len(addrs)} looked up, {int(found.sum())} found); {len(acc)} conns accepted (identities and "
+        f"original destinations == K12 and the proxymap, {sum(s in allowed for s in sids.values())} from an "
+        f"allowed identity), their frames judged as the oracle says")
+
+    # access log: each conn's records, in order, are the oracle's frames.
+    rec_want = {}
+    for proto, (rounds, _) in traffic.items():
+        for r, rnd in enumerate(rounds):
+            for fid, _, remote, _ in rnd:
+                _, passed, dropped = want[(proto, fid, r)]
+                rec = (remote, 2, f"2.2.2.2:{SIDE_PORTS[proto]}", proto)
+                rec_want.setdefault(native_src(proto, fid), []).extend(
+                    [("Forwarded", *rec)] * passed + [("Denied", *rec)] * dropped)
+    dotted = lambda a: str(ipaddress.IPv4Address(a))
+    for r in range(2):
+        for j, s_ip, _, sport, _, orig, _ in acc:
+            _, passed, dropped = want[("accept", j, 100 + r)]
+            rec = (sids[j], k12[orig][1], f"{orig}:80", "r2d2")
+            rec_want.setdefault(f"{s_ip}:{sport}", []).extend(
+                [("Forwarded", *rec)] * passed + [("Denied", *rec)] * dropped)
+    rec_want = {src: w for src, w in rec_want.items() if w}  # a conn that only buffered logs nothing
+    n_recs = sum(map(len, rec_want.values()))
+    got_recs = native_records(srv, n_recs)
+    bad = [(src, got_recs.get(src, [])[:3], w[:3]) for src, w in rec_want.items() if got_recs.get(src) != w]
+    if bad or len(got_recs) != len(rec_want):
+        raise AssertionError(f"native access log: {len(bad)} conns' records differ from the oracle "
+                             f"({sum(map(len, got_recs.values()))} of {n_recs} records), first {bad[:2]}")
+    log(f"native access log: {n_recs} records from {len(rec_want)} conns over {n} shim clients == the "
+        f"oracle's frames ({sum(v[0] == 'Forwarded' for w in rec_want.values() for v in w)} forwarded)")
+
+    mark("checks")
+
+    # 19b. restart: stop the service between round 0 and round 1 of a fresh
+    # r2d2 drive (its split frames cross the restart) and start a new one on
+    # the card on the same socket; the shims replay their policy and conns.
+    r2d2_only = {"r2d2": traffic["r2d2"]}
+    rs = {k: native_share(r2d2_only, k, n, shift=NATIVE_RESTART_SHIFT, rounds=NATIVE_RESTART_ROUNDS)
+          for k in range(n)}
+    restarted = {}
+
+    def restart():
+        t = time.monotonic()
+        held.pop("svc").stop()
+        held["svc"] = VerdictService(path, side_config()).start()
+        restarted["s"] = time.monotonic() - t
+
+    res = procs.run({k: dict(kind="drive", socket=path, policy=pj, conns=rs[k][0], calls=rs[k][1],
+                             pause_after=0) for k in range(n)}, on_pause=restart)
+    native_outputs("native restart", {k: s[2] for k, s in rs.items()}, res, want)
+    split = sum(1 for fid in range(SIDE_CONNS["r2d2"]) if 16 <= fid % 20 < 18)
+    svc = held["svc"]
+    log(f"native restart: service stopped after round 0 and a fresh one started on the card in "
+        f"{restarted['s']:.1f} s; {sum(len(s[1]) for s in rs.values())} calls on "
+        f"{sum(len(s[0]) for s in rs.values())} r2d2 conns ({split} with a frame split across it) == the "
+        f"oracle, 0 errors (host clock) [{card}]")
+
+    mark("restart")
+
+    # 19c. the fan-in contract across processes: one process's closed-loop
+    # capacity, then 16 at twice it together.
+    fan_pol = SIDE_NAMES["r2d2"]
+
+    def fan_conns(k):
+        return [["r2d2", NATIVE_FANIN_BASE + 100 * k + i, 1, f"10.9.{k}.{i}:1", "2.2.2.2:80", fan_pol]
+                for i in range(NATIVE_FANIN_CONNS)]
+
+    cap = procs.run({0: dict(kind="paced", socket=path, policy=pj, conns=fan_conns(0),
+                             frames=[b64(FANIN_FRAME)], rate=0, duration=NATIVE_FANIN_CAP_S)})[0]
+    if cap["ok"] != cap["calls"] or cap["wrong"]:
+        raise AssertionError(f"native fan-in capacity run: {cap['calls']} calls, {cap['ok']} OK, "
+                             f"{cap['wrong']} wrong")
+    single = cap["calls"] / cap["seconds"]
+    rate = 2.0 * single / n
+    start = time.time() + 1.0
+    fan = procs.run({k: dict(kind="paced", socket=path, policy=pj, conns=fan_conns(k + 1),
+                             frames=[b64(FANIN_FRAME)], rate=rate, duration=NATIVE_FANIN_S, start=start)
+                     for k in range(n)})
+    served = [r["ok"] for r in fan.values()]
+    wrong = sum(r["wrong"] for r in fan.values())
+    typed = {}
+    for r in fan.values():
+        for code, c in r["other"].items():
+            typed[code] = typed.get(code, 0) + c
+    rows = [row for row in svc.status()["sessions"]["live"] if row["submitted"] != row["answered"]]
+    if wrong or min(served) == 0 or rows:
+        raise AssertionError(f"native fan-in contract: {wrong} misrouted, served {served}, sessions "
+                             f"unbalanced {rows[:2]}")
+    p99s = [float(np.percentile(r["rtt_us"], 99)) / 1e3 for r in fan.values()]
+    log(f"native fan-in, {n} shim processes x {NATIVE_FANIN_CONNS} conns at twice one process's closed-loop "
+        f"capacity ({single:.0f} calls/s; {2 * single:.0f} offered): {sum(served)} served in "
+        f"{NATIVE_FANIN_S:.0f} s ({sum(served) / NATIVE_FANIN_S:.0f}/s), typed non-OK {typed}, 0 misrouted, "
+        f"every process served, every session's submitted == answered; per-process on_io p99 median "
+        f"{sorted(p99s)[n // 2]:.3f} ms, worst {max(p99s):.3f} ms; single p50 "
+        f"{np.percentile(cap['rtt_us'], 50) / 1e3:.3f} ms (host clock) [{card}]")
+
+    mark("fan-in")
+
+    # 19d. readings in turns, the same service and traffic: the 16 native
+    # processes, then 16 in-process SidecarClient sessions (the Python
+    # shim's on_io), alternating; the last two under the profiler.
+    turns = []
+    turn_frames = sum(p + d for (_, _, r), (_, p, d) in want.items() if r < NATIVE_TURN_ROUNDS)
+    for t, kind in enumerate(NATIVE_TURNS):
+        shift = NATIVE_TURN_SHIFT + 100_000 * t
+        share = {k: native_share(traffic, k, n, shift=shift, rounds=NATIVE_TURN_ROUNDS) for k in range(n)}
+        profiled = t >= len(NATIVE_TURNS) - NATIVE_PROFILED
+        before = counts()
+        prof = native_profiler() if profiled else None
+        if kind == "native":
+            res = procs.run({k: dict(kind="drive", socket=path, policy=pj, conns=share[k][0],
+                                     calls=share[k][1]) for k in range(n)})
+        else:
+            res = native_inprocess(path, share)
+        device_us = native_profiler_busy(prof) if prof is not None else None
+        native_outputs(f"native turn {t} ({kind})", {k: s[2] for k, s in share.items()}, res, want)
+        after = counts()
+        secs = max(r["seconds"] for r in res.values())
+        per = [(float(np.percentile(r["rtt_us"], 50)) / 1e3, float(np.percentile(r["rtt_us"], 99)) / 1e3)
+               for r in res.values()]
+        turns.append(dict(kind=kind, frames_per_s=turn_frames / secs, seconds=secs,
+                          p50=sorted(p for p, _ in per)[n // 2], p99=sorted(q for _, q in per)[n // 2],
+                          p99_worst=max(q for _, q in per),
+                          idle=None if device_us is None else 1 - device_us / (secs * 1e6),
+                          launches={name: after[name] - before[name] for name in after
+                                    if after[name] != before[name]}))
+        tr = turns[-1]
+        log(f"native turn {t} {kind}: {turn_frames} frames in {secs:.2f} s = {tr['frames_per_s']:.0f} frames/s; "
+            f"on_io per process p50 median {tr['p50']:.3f} ms, p99 median {tr['p99']:.3f} ms, worst "
+            f"{tr['p99_worst']:.3f} ms; idle share "
+            f"{'not measured (unprofiled)' if tr['idle'] is None else format(tr['idle'], '.4f')}; launches "
+            f"{tr['launches']} (host clock) [{card}]")
+    mark("turns")
+    log("native sections (host clock s): " + json.dumps(sections) + f" [{card}]")
+    st = svc.status()
+    log(f"native seam_stages {dict(svc.seam_stages)} (filled on the matrix path of a seam-probe "
+        f"service only); the tracer's stages {json.dumps(st['latency'])[:1500]} (host clock) [{card}]")
+    return launches, runs, report, {}
+
+
+def native_profiler():
+    """A started CUDA-activity profiler, or None where it will not start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as err:
+        log(f"native idle share: not measured ({err})")
+        return None
+    return prof
+
+
+def native_profiler_busy(prof):
+    """Device-busy microseconds the stopped profiler saw."""
+    torch.cuda.synchronize()
+    prof.stop()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def native_inprocess(path, share):
+    """The in-process side of a turn: one ``SidecarClient`` session a
+    share in a thread of this process (phase 12's fan-in sessions), each
+    opening its conns and running its calls through the Python shim's
+    ``on_io`` in order, timed as the native processes time theirs."""
+    from cilium_tpu_torch.sidecar import SidecarClient
+    from cilium_tpu_torch.sidecar.nativeshim import b64, unb64
+
+    out, errs = {}, []
+    ready = threading.Barrier(len(share) + 1)
+
+    def run(k, conns, calls):
+        client = SidecarClient(path, timeout=120.0, identity=f"inproc-{k}")
+        try:
+            mod = client.open_module([])
+            shims = {}
+            for proto, cid, remote, src, dst, policy in conns:
+                res, shims[cid] = client.new_connection(mod, proto, cid, True, remote, 2, src, dst, policy)
+                if res != 0:
+                    raise AssertionError(f"in-process conn {cid}: {res}")
+            ready.wait()
+            results, outs, rtt = [], [], []
+            t0 = time.perf_counter()
+            for _, cid, reply, data in calls:
+                data = unb64(data)
+                t = time.perf_counter()
+                res, got = shims[cid].on_io(reply, data)
+                rtt.append((time.perf_counter() - t) * 1e6)
+                results.append(int(res))
+                outs.append(b64(got))
+            out[k] = dict(results=results, outs=outs, rtt_us=rtt, seconds=time.perf_counter() - t0)
+            for cid in shims:
+                client.close_connection(cid)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errs.append(exc)
+            ready.abort()
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(k, *s[:2]), daemon=True) for k, s in share.items()]
+    for t in threads:
+        t.start()
+    try:
+        ready.wait(NATIVE_JOB_S)
+    except threading.BrokenBarrierError:
+        pass
+    for t in threads:
+        t.join(NATIVE_JOB_S)
+    if errs or len(out) != len(share):
+        raise AssertionError(f"in-process turn: {errs[:3]} ({len(out)} of {len(share)} sessions)")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -7907,6 +8533,13 @@ def main() -> int:
     ap.add_argument("--contracts-only", action="store_true",
                     help="build every kernel and run phase 18 (the device contracts and the linter) "
                     "alone; prints its readings and no result line")
+    ap.add_argument("--native-only", action="store_true",
+                    help="build every kernel and run phase 19 (the native shim as 16 shim processes "
+                    "into the service) alone; prints its readings and no result line")
+    ap.add_argument("--fanin-only", type=int, default=0, metavar="N",
+                    help="build every kernel and run phase 12's fan-in contract (seam_fanin) N "
+                    "times, each on a fresh service; prints each run and no result line, and exits "
+                    "non-zero if any run broke the contract")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -7979,6 +8612,24 @@ def main() -> int:
         contracts_slice(dev, card, every_kernel())
         log(f"total {time.monotonic() - t_start:.1f} s")
         return 0
+    if args.native_only:
+        native_slice(dev, card, every_kernel())
+        log(f"total {time.monotonic() - t_start:.1f} s")
+        return 0
+    if args.fanin_only:
+        import tempfile
+
+        broke = 0
+        for i in range(args.fanin_only):
+            with tempfile.TemporaryDirectory(prefix="fanin-", dir=".") as tmp:
+                try:
+                    seam_fanin(f"{tmp}/fanin.sock", card)
+                except AssertionError as exc:
+                    broke += 1
+                    log(f"fan-in run {i}: {exc}")
+        log(f"fan-in: {args.fanin_only - broke} of {args.fanin_only} runs held the contract [{card}]")
+        log(f"total {time.monotonic() - t_start:.1f} s")
+        return 1 if broke else 0
 
     kerns = {
         "r2d2_frame": r2d2_mod._R2D2_FRAME,
@@ -8566,6 +9217,17 @@ def main() -> int:
     for kname, per in report18.items():
         report.setdefault(kname, {}).update(per)
     for kname, n in launches18.items():
+        launches[kname] = launches.get(kname, 0) + n
+
+    # The native shim as 16 shim processes into the service (accept, access
+    # log, restart, fan-in, readings in turns), last, counted in a run of its
+    # own over every kernel.
+    launches19, runs19, report19, timed19 = native_slice(dev, card, every_kernel())
+    runs.update(runs19)
+    timed.update(timed19)
+    for kname, per in report19.items():
+        report.setdefault(kname, {}).update(per)
+    for kname, n in launches19.items():
         launches[kname] = launches.get(kname, 0) + n
 
     replaces = {

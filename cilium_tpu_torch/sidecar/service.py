@@ -162,6 +162,8 @@ from .transport import (
 log = logging.getLogger(__name__)
 # Per-flow debug stream, flowdebug-gated (one boolean when disabled).
 _flow_log = logging.getLogger("cilium_tpu_torch.sidecar.flow")
+# A reader's pause after each batch that admission refused (_shed_refused).
+_SHED_YIELD_S = 1e-5
 
 # Protocols served by a device batch engine (everything else rides the
 # in-process oracle), and the subset whose single-frame payloads may
@@ -282,8 +284,10 @@ def _to_torch(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-# One capture at a time per process: ``torch.cuda.graph`` synchronizes
-# the device and empties the allocator cache on entry.
+# One capture, with its warm launch, at a time per process:
+# ``torch.cuda.graph`` synchronizes the device and empties the allocator
+# cache on entry, and the warm launch's pool stream must not be another
+# thread's capturing stream (``_CudaGraphFn._capture``).
 _CAPTURE_LOCK = threading.Lock()
 
 
@@ -326,17 +330,6 @@ class _CudaGraphFn:
     def _capture(self, args, sig):
         t0 = time.perf_counter()
         dev = self.device
-        ins = [
-            torch.empty(a.shape, dtype=a.dtype, device=dev) for a in args
-        ]
-        for dst, a in zip(ins, args):
-            dst.copy_(a)
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.fn(*ins)  # warm: first launches load the kernels
-        cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         box = {}
 
@@ -344,7 +337,24 @@ class _CudaGraphFn:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 box["outs"] = self.fn(*ins)
 
+        # The warm launch's side stream comes from torch's stream pool,
+        # which hands the same CUDA streams round to every thread: made
+        # while another thread captures, it may be the capturing stream
+        # itself, and waiting on it then breaks that capture (two
+        # sessions binding their first conns at once).  So the warm
+        # launch rides the lock too.
         with _CAPTURE_LOCK:
+            ins = [
+                torch.empty(a.shape, dtype=a.dtype, device=dev) for a in args
+            ]
+            for dst, a in zip(ins, args):
+                dst.copy_(a)
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self.fn(*ins)  # warm: first launches load the kernels
+            cur.wait_stream(side)
             held = kernels.captured_by(capture)
         outs = box["outs"]
         outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
@@ -3123,7 +3133,7 @@ class VerdictService:
         item = ("data", client, batch)
         reason = self._fanin_admit(sess, batch)
         if reason:
-            self._shed_item(item, reason)
+            self._shed_refused(item, reason)
             return
         if not backlogged and self._try_cut_through(item):
             return
@@ -3142,7 +3152,7 @@ class VerdictService:
         item = ("mat", client, mb)
         reason = self._fanin_admit(sess, mb)
         if reason:
-            self._shed_item(item, reason)
+            self._shed_refused(item, reason)
             return
         if not backlogged and self._try_cut_through(item):
             return
@@ -3150,6 +3160,20 @@ class VerdictService:
                                       session=sess,
                                       nbytes=self._batch_nbytes(mb)):
             self._shed_item(item, "queue_full")
+
+    def _shed_refused(self, item, reason: str) -> None:
+        """Shed a batch that admission refused, then yield the GIL.
+
+        Runs on the session's reader thread.  A flooding session's
+        reader sheds back to back from its buffered stream and so holds
+        the GIL almost without a break, while a round on the dispatcher
+        gives the GIL up at every torch op and kernel launch (a few
+        hundred a round on the CPU) and must win it back each time: a
+        round of milliseconds then took seconds and starved every other
+        session.  The pause hands the GIL over once per refused batch,
+        so the flood is still shed in full, typed, at the same quota."""
+        self._shed_item(item, reason)
+        time.sleep(_SHED_YIELD_S)
 
     def _try_cut_through(self, item) -> bool:
         """Greedy-mode cut-through: process the round directly on the

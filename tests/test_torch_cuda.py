@@ -8,6 +8,7 @@ This file imports no JAX, so it runs where only the port is installed.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
 
@@ -3204,3 +3205,237 @@ def test_capture_of_a_host_sync_is_a_finding(cuda):
 
     findings = devicecheck._check_model("sync", "x.py", _Sync(), cuda)
     assert any(f.rule in ("R8", "R9") for f in findings), [f.render() for f in findings]
+
+
+def test_credit_starvation_neighbor_p99_bounded_on_the_card(cuda, tmp_path):
+    """tests/test_fanin.py's starvation scenario on a service whose models
+    run on the card, with the reference's parameters and bound: one
+    session floods from 64 conns over its fair share while 15 light
+    sessions keep serving, and every light session's p99 stays within
+    max(25 x the no-flood baseline, 1 s)."""
+    import time
+
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.proxylib.types import FilterResult
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    pol = NetworkPolicy(name="sidecar-pol", policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+            remote_policies=[1, 3], l7_proto="r2d2",
+            l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}])])])
+
+    def open_conn(client, conn_id):
+        mod = client.open_module([])
+        assert client.policy_update(mod, [pol]) == int(FilterResult.OK)
+        res, shim = client.new_connection(mod, "r2d2", conn_id, True, 1, 2, "1.1.1.1:1", "2.2.2.2:80",
+                                          "sidecar-pol")
+        assert res == int(FilterResult.OK)
+        return mod, shim
+
+    inst.reset_module_registry()
+    svc = VerdictService(str(tmp_path / "starve.sock"), DaemonConfig(
+        batch_timeout_ms=2.0, batch_flows=256, dispatch_mode="eager", shed_queue_entries=4096,
+        session_share_min=128, session_flood_strikes=0)).start()
+    hot = SidecarClient(svc.socket_path, timeout=60.0, identity="pod-hot")
+    lights = [SidecarClient(svc.socket_path, timeout=60.0, identity=f"pod-light-{i}") for i in range(15)]
+    stop = threading.Event()
+    try:
+        hot_mod, _ = open_conn(hot, 5500)
+        hot_ids = [5500] + list(range(5501, 5564))
+        for cid in hot_ids[1:]:
+            res, _ = hot.new_connection(hot_mod, "r2d2", cid, True, 1, 2, f"1.1.1.9:{cid}", "2.2.2.2:80",
+                                        "sidecar-pol")
+            assert res == int(FilterResult.OK)
+        light_shims = [open_conn(c, 5600 + i)[1] for i, c in enumerate(lights)]
+        frame = b"HALT\r\n"
+        for c, s in zip(lights, light_shims):
+            assert c._on_data_rpc(s.conn_id, False, False, frame)[0] == int(FilterResult.OK)
+        msg = b"READ /public/flood.txt\r\n"
+        warm_done = set()
+        hot.verdict_callback = lambda vb: warm_done.add(vb.seq)
+        ids = np.array(hot_ids, np.uint64)
+        lens = np.full(len(ids), len(msg), np.uint32)
+        blob = msg * len(ids)
+        for w in range(12):
+            hot.send_batch(90_000 + w, ids, [0] * len(ids), lens, blob)
+        deadline = time.monotonic() + 60
+        while len(warm_done) < 12:
+            assert time.monotonic() < deadline, "flood-shape prewarm"
+            time.sleep(0.02)
+
+        def light_p99(window_s):
+            lats, k = [], 0
+            t_end = time.monotonic() + window_s
+            while time.monotonic() < t_end:
+                c, s = lights[k % 15], light_shims[k % 15]
+                t0 = time.monotonic()
+                res, _ = c._on_data_rpc(s.conn_id, False, False, frame)
+                assert res == int(FilterResult.OK)
+                lats.append(time.monotonic() - t0)
+                k += 1
+                time.sleep(0.005)
+            lats.sort()
+            return lats[min(int(len(lats) * 0.99), len(lats) - 1)]
+
+        baseline = light_p99(1.0)
+        hot.verdict_callback = lambda vb: None
+
+        def flood():
+            seq = 50_000
+            while not stop.is_set():
+                seq += 1
+                try:
+                    hot.send_batch(seq, ids, [0] * len(ids), lens, blob)
+                except Exception:  # noqa: BLE001
+                    break
+
+        ft = threading.Thread(target=flood, daemon=True)
+        ft.start()
+        time.sleep(0.3)
+        flooded = light_p99(2.0)
+        stop.set()
+        ft.join(10)
+        hot_row = {r["identity"]: r for r in svc.status()["sessions"]["live"]}["pod-hot"]
+        assert hot_row["shed"].get("session_quota", 0) > 0, "the flood never hit its quota"
+        bound = max(25.0 * baseline, 1.0)
+        assert flooded <= bound, (
+            f"light-session p99 {flooded * 1e3:.1f}ms exceeds {bound * 1e3:.1f}ms "
+            f"(baseline {baseline * 1e3:.1f}ms)")
+    finally:
+        stop.set()
+        hot.verdict_callback = None
+        hot.close()
+        for c in lights:
+            c.close()
+        svc.stop()
+        inst.reset_module_registry()
+
+
+def test_concurrent_first_binds_capture_on_the_card(cuda, tmp_path):
+    """Sixteen sessions push the same policy and open their first conns of
+    two protocols at one moment on a service that captures CUDA graphs
+    (the pods of a node coming up together): every push and registration
+    answers OK, and every session's frames are judged (a capture racing
+    another session's warm launch on the same pool stream fails both)."""
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.proxylib.types import FilterResult
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    r2d2 = NetworkPolicy(name="r", policy=2, ingress_per_port_policies=[
+        PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+            remote_policies=[1], l7_proto="r2d2",
+            l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}])])])
+    dns = dataclasses.replace(entry.dns_bench_policy().config, name="d")
+    frames = {"r2d2": (b"READ /public/a.txt\r\n", b"READ /private/x\r\n")}
+    inst.reset_module_registry()
+    svc = VerdictService(str(tmp_path / "binds.sock"), DaemonConfig(dispatch_mode="jit")).start()
+    n = 16
+    gate = threading.Barrier(n)
+    results, errs = {}, []
+
+    def pod(k):
+        client = SidecarClient(svc.socket_path, timeout=120.0, identity=f"pod-{k}")
+        try:
+            mod = client.open_module([])
+            gate.wait(60)
+            pushed = client.policy_update(mod, [r2d2, dns])
+            res_r, shim = client.new_connection(mod, "r2d2", 100 + k, True, 1, 2, "1.1.1.1:1", "2.2.2.2:80", "r")
+            res_d, _ = client.new_connection(mod, "dns", 200 + k, True, 1, 2, "1.1.1.1:1", "2.2.2.2:53", "d")
+            outs = [shim.on_io(False, f) for f in frames["r2d2"]]
+            results[k] = (pushed, res_r, res_d, outs)
+        except Exception as exc:  # noqa: BLE001 - asserted below
+            errs.append(exc)
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=pod, args=(k,), daemon=True) for k in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not errs, errs
+        ok = int(FilterResult.OK)
+        want = (ok, ok, ok, [(ok, frames["r2d2"][0]), (ok, b"")])
+        assert {k: r for k, r in results.items() if r != want} == {} and len(results) == n
+        assert svc.status()["device"]["graphs"]["captures"] > 0
+    finally:
+        svc.stop()
+        inst.reset_module_registry()
+
+
+def test_policy_churn_under_traffic_on_the_card(cuda, tmp_path):
+    """Non-stop policy churn on a service that captures CUDA graphs: one
+    session keeps judging r2d2 frames while another pushes new policies
+    (each push rebuilds and recaptures every bound engine) and opens a
+    conn under each; every frame of both is judged as the policy says and
+    no push or registration fails (a capture must not meet another
+    thread's launches)."""
+    import time
+
+    from cilium_tpu_torch.proxylib import instance as inst
+    from cilium_tpu_torch.proxylib.types import FilterResult
+    from cilium_tpu_torch.sidecar import SidecarClient, VerdictService
+    from cilium_tpu_torch.utils.option import DaemonConfig
+
+    def pol(name, extra):
+        return NetworkPolicy(name=name, policy=2, ingress_per_port_policies=[
+            PortNetworkPolicy(port=80, rules=[PortNetworkPolicyRule(
+                remote_policies=[1], l7_proto="r2d2",
+                l7_rules=[{"cmd": "READ", "file": "/public/.*"}, {"cmd": "HALT"}, *extra])])])
+
+    ok = int(FilterResult.OK)
+    good, bad = b"READ /public/a.txt\r\n", b"READ /private/x\r\n"
+    inst.reset_module_registry()
+    svc = VerdictService(str(tmp_path / "churn.sock"), DaemonConfig(dispatch_mode="jit")).start()
+    hot = SidecarClient(svc.socket_path, timeout=120.0, identity="pod-hot")
+    churn = SidecarClient(svc.socket_path, timeout=120.0, identity="pod-churn")
+    stop = threading.Event()
+    got, errs = [], []
+    try:
+        pols = [pol("base", [])]
+        mod = hot.open_module([])
+        assert hot.policy_update(mod, pols) == ok
+        shims = [hot.new_connection(mod, "r2d2", 100 + i, True, 1, 2, "1.1.1.1:1", "2.2.2.2:80", "base")[1]
+                 for i in range(8)]
+
+        def drive():
+            k = 0
+            try:
+                while not stop.is_set():
+                    frame = good if k % 2 == 0 else bad
+                    got.append((shims[k % 8].on_io(False, frame), frame))
+                    k += 1
+            except Exception as exc:  # noqa: BLE001 - asserted below
+                errs.append(exc)
+
+        t = threading.Thread(target=drive, daemon=True)
+        t.start()
+        cmod = churn.open_module([])
+        pushed, opened, judged = [], [], []
+        for j in range(6):
+            time.sleep(0.2)
+            pols = pols + [pol(f"p{j}", [{"cmd": "READ", "file": f"/p{j}/.*"}])]
+            pushed.append(churn.policy_update(cmod, pols))
+            res, shim = churn.new_connection(cmod, "r2d2", 200 + j, True, 1, 2, "1.1.1.1:1", "2.2.2.2:80",
+                                             f"p{j}")
+            opened.append(res)
+            judged.append(shim.on_io(False, b"READ /p%d/x\r\n" % j) if res == ok else None)
+        time.sleep(0.2)
+        stop.set()
+        t.join(60)
+        assert not errs, errs
+        assert pushed == [ok] * 6 and opened == [ok] * 6, (pushed, opened)
+        assert judged == [(ok, b"READ /p%d/x\r\n" % j) for j in range(6)], judged
+        wrong = [(r, f) for r, f in got if r != ((ok, f) if f == good else (ok, b""))]
+        assert len(got) > 100 and not wrong, (len(got), wrong[:3])
+        assert svc.status()["device"]["graphs"]["captures"] > 0
+    finally:
+        stop.set()
+        hot.close()
+        churn.close()
+        svc.stop()
+        inst.reset_module_registry()

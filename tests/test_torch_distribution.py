@@ -203,7 +203,7 @@ def _accesslog_roundtrip(pk, tmp_path):
         rec = pk.accesslog.LogRecord(verdict=pk.accesslog.VERDICT_DENIED,
                                      http=pk.accesslog.HttpLogEntry(code=403, method="GET", url="/private"))
         sent = client.log(rec)
-        wait_for(lambda: got, 2)
+        wait_for(lambda: got, 10)
         return sent, [r.to_dict() for r in got]
     finally:
         if client is not None:

@@ -12,7 +12,12 @@ allocators agree.  Host code only; every wait has its own timeout.
 
 from __future__ import annotations
 
+import os
+import signal
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -304,3 +309,57 @@ def test_port_and_reference_clients_agree_on_one_server():
         for b in backends:
             b.close()
         srv.close()
+
+
+# --- the launcher --------------------------------------------------------------------
+
+_REPO = Path(__file__).resolve().parent.parent
+_LAUNCHERS = {"ref": [str(_REPO / "bin" / "cilium-tpu-kvstore")], "port": ["-m", "cilium_tpu_torch.kvstore"]}
+
+
+def _launch(name, *argv):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(_REPO))
+    proc = subprocess.Popen([sys.executable, *_LAUNCHERS[name], "--port", "0", *argv], cwd=_REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()  # "kvstore <role> serving on host:port"
+    if "serving on" not in line:
+        proc.kill()
+        raise AssertionError(f"{name} launcher: {line!r} {proc.communicate(timeout=30)}")
+    return proc, line.split()[-1]
+
+
+def _launcher_roundtrip(name):
+    procs, b = [], None
+    try:
+        primary, addr = _launch(name)
+        procs.append(primary)
+        follower, faddr = _launch(name, "--follow", addr)
+        procs.append(follower)
+        b = PKGS["port"].kvstore.NetBackend(addr, timeout=5.0)
+        b.set("cluster/k", b"v1")
+        f = PKGS["port"].kvstore.NetBackend(faddr, timeout=5.0)
+        try:
+            assert wait_for(lambda: f.get("cluster/k") == b"v1", timeout=10.0)
+            got = f.get("cluster/k")
+        finally:
+            f.close()
+        for p in reversed(procs):
+            p.send_signal(signal.SIGTERM)
+        rcs = [p.wait(30) for p in reversed(procs)]
+        return got, rcs
+    finally:
+        if b is not None:
+            b.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+
+
+@pytest.mark.parametrize("name", ["ref", "port"])
+def test_launcher_primary_and_follower(name):
+    """``bin/cilium-tpu-kvstore`` and ``python -m cilium_tpu_torch.kvstore``
+    with the same flags: a primary and a ``--follow`` replica as processes,
+    a key written to the primary read back from the follower, and both
+    stopping on SIGTERM with exit code 0."""
+    assert _launcher_roundtrip(name) == (b"v1", [0, 0])
